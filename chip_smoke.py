@@ -9,7 +9,10 @@ Phases, one JSON line each; any failure exits non-zero:
 2. build   — compiles every CUDA source in recboard_tpu_torch/ops/csrc.
 3. kernels — each kernel against its plain PyTorch version on the card
    (float32, TF32 off), with its max |error| against a stated tolerance
-   and CUDA-event times beside the plain version and a library call.
+   and CUDA-event times beside the plain version and a library call:
+   the attention forward (mha_fwd), and the training attention's
+   forward and backward (mha_dropout) with dropout active, its kept
+   share and per-row masks.
 4. slice   — ``recommend`` for SASRec at full width (D 64, 2 blocks,
    1 head, maxlen 50) over a dataset of SynBeautyXL's shape (22,363
    users, 12,101 items) with random weights made from --seed: checks
@@ -18,10 +21,21 @@ Phases, one JSON line each; any failure exits non-zero:
    then the ``--bench`` latency line.
 5. profile — device time by kernel over one ``--bench`` call, from
    torch.profiler, and the device's idle share.
+6. train   — ``run`` at the reference SASRec config on that dataset for
+   two epochs: finite losses, the training kernels launched twice per
+   step each and the forward kernel twice per evaluated batch, the best
+   checkpoint in the flax layout, and the trained run served on the GPU
+   with the CPU's lists.
+7. train_time — ms per step, examples/s, an epoch split into host pipe
+   and device steps; then one epoch under torch.profiler: device time
+   by kernel per step and the device's idle share.
+8. quality — the toy store's SASRec protocol for 5 seeds on the card;
+   the mean best NDCG@10 must lie in the store's band.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
-before printing any result. Scratch files go to build/chip_smoke/.
+Each phase prints its seconds. Then a ``{"kernels": [...]}`` line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
+CUDA device it exits 1 before printing any result. Scratch files go to
+build/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ import io
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -61,6 +76,23 @@ ATTN_EXTRA = [
     ("causal_L_gt_S", 4, 70, 40, 3, 24, True, True, False, False),
 ]
 
+# the training kernels: (name, B, L, S, H, hd, causal, key_pad, bias with
+# dbias, dropout rate); the first is SASRec's training shape
+DROP_SHAPES = [
+    ("sasrec_train", 512, 50, 50, 1, 64, True, False, False, 0.5),
+    ("long_keypad", 256, 200, 200, 2, 32, False, True, False, 0.1),
+    ("bias_dbias", 64, 37, 37, 4, 32, True, True, True, 0.1),
+]
+DROP_EXTRA = [  # correctness only
+    ("large_S", 8, 300, 300, 4, 64, True, True, False, 0.1),
+    ("rate0_vs_mha_reference", 32, 50, 50, 2, 32, True, True, True, 0.0),
+]
+# dq/dk/dv/dbias: max |kernel - plain| over the largest |plain| of that
+# gradient; sums over up to L*S products in other orders (and dbias's
+# atomics in a run-dependent order) round differently at float32
+GRAD_TOL = 1e-4
+KEEP_TOL = 0.005  # |kept share - (1 - rate)| over SASRec's training shape
+
 SASREC = dict(maxlen=50, embedding_dim=64, num_blocks=2, num_heads=1)
 DATASET = dict(  # benchmark/SynBeautyXL_000_LOU/meta.json build_command
     name="SynBeautyXL_000_LOU", num_users=22_363, num_items=12_101,
@@ -69,6 +101,29 @@ DATASET = dict(  # benchmark/SynBeautyXL_000_LOU/meta.json build_command
 )
 TOPK = 10
 BATCH = 512
+
+# training at the reference config (maxlen 50, D 64, 2 blocks, 1 head,
+# dropout 0.5, BCE, batch 512, Adam lr 5e-4, weight decay 1e-6) on the
+# dataset above, cut to two epochs
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "SASRec_Amazon2014Beauty_550_LOU.yaml")
+TRAIN_BATCH = 512
+TRAIN_EPOCHS = 2
+
+# the toy store's SASRec row (benchmark/SynBeauty_000_LOU/SASRec.json: 5
+# seeds, NDCG@10 0.3176 ± 0.0177): its dataset from meta.json's
+# build_command with tools/seed_sweep.py's defaults for the omitted flags,
+# and the sweep's arguments for SASRec (seed_sweep.py:58, :676-684)
+STORE_DATASET = dict(
+    name="SynBeauty_000_LOU", num_users=800, num_items=300, avg_len=14.0, seed=7,
+    markov_strength=0.45, group_strength=0.45, num_groups=6, group_markov=False,
+    splitting="LOU",
+)
+STORE_PROTOCOL = dict(epochs=15, lr=0.005, batch_size=128, eval_freq=3, maxlen=20)
+STORE_NDCG10 = 0.3176
+# a 5-seed mean has ~0.008 of noise at the store's per-seed std; a broken
+# gradient or a mask shared across rows lands far below the band
+STORE_BAND = 0.03
+STORE_SEEDS = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -115,30 +170,44 @@ def attention_inputs(case, rng):
                 key_padding_mask=pad, bias=b)
 
 
-def attention_bound(inp) -> tuple:
-    """(ms, "bytes" or "operations"): the least time for the work these
-    inputs need, the larger of each input read once and the output written
-    once at the HBM rate, and 4*hd FLOP (QK and PV FMAs) per unmasked
-    (query, key) pair at the float32 rate."""
+def visible_pairs(inp) -> int:
+    """The (batch row, head, query, key) entries these inputs leave
+    unmasked: the work an attention kernel has to do for them."""
     import torch
 
     from recboard_tpu_torch.ops.attention import NEG_INF, _merge_masks
 
     q, k = inp["q"], inp["k"]
-    B, L, D = q.shape
+    B, L, _ = q.shape
     S, H = k.shape[1], inp["num_heads"]
-    tensors = [q, k, inp["v"], q, inp["key_padding_mask"], inp["bias"]]
-    nbytes = sum(x.numel() * x.element_size() for x in tensors if x is not None)
     add = _merge_masks(L, S, inp["causal"], inp["key_padding_mask"], q.dtype, q.device)
     scores = torch.zeros((B, H, L, S), device=q.device)
     if add is not None:
         scores = scores + add[:, None]
     if inp["bias"] is not None:
-        scores = scores + inp["bias"]
-    pairs = int((scores > NEG_INF / 2).sum())
-    flops = 4 * (D // H) * pairs
+        scores = scores + inp["bias"].detach()
+    return int((scores > NEG_INF / 2).sum())
+
+
+def bound(nbytes: int, flops: int) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes at the HBM
+    rate and the float32 operations at the float32 rate."""
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+
+def attention_bound(inp) -> tuple:
+    """The least time for the work these inputs need: each input read once
+    and the output written once, and 4*hd FLOP (QK and PV FMAs) per
+    unmasked (query, key) pair."""
+    q = inp["q"]
+    hd = q.shape[-1] // inp["num_heads"]
+    moved = nbytes(q, inp["k"], inp["v"], q, inp["key_padding_mask"], inp["bias"])
+    return bound(moved, 4 * hd * visible_pairs(inp))
 
 
 def library_attention(inp):
@@ -195,6 +264,192 @@ def check_attention(rng):
             raise SystemExit(f"mha_fwd disagrees with mha_reference at {case[0]}: {err}")
         rows.append(row)
     return rows, worst
+
+
+def dropout_inputs(case, rng):
+    """Inputs of one training-attention case, with a seed, an output
+    gradient, and a bias that requires its gradient when the case has one."""
+    import torch
+
+    name, B, L, S, H, hd, causal, key_pad, bias, rate = case
+    inp = attention_inputs((name, B, L, S, H, hd, causal, key_pad, False, False), rng)
+    if bias:
+        inp["bias"] = torch.from_numpy(
+            rng.normal(size=(H, L, S)).astype(np.float32)).cuda().requires_grad_()
+    for key in ("q", "k", "v"):
+        inp[key].requires_grad_()
+    inp.update(dropout_rate=rate, seed=torch.tensor(
+        [int(rng.integers(-(2**31), 2**31 - 1))], dtype=torch.int32).cuda())
+    dout = torch.from_numpy(rng.normal(size=tuple(inp["q"].shape)).astype(np.float32)).cuda()
+    return inp, dout
+
+
+def _grads(fn, inp, dout):
+    """(output, [dq, dk, dv(, dbias)]) of fn(**inp) for the output gradient dout."""
+    import torch
+
+    wrt = [inp[k] for k in ("q", "k", "v", "bias") if inp[k] is not None]
+    out = fn(**inp)
+    return out.detach(), list(torch.autograd.grad(out, wrt, dout))
+
+
+def dropout_bound(inp, with_dbias: bool) -> dict:
+    """Bounds of the training kernels for these inputs: the forward reads
+    q, k, v (and pad, bias) and writes out, 4*hd FLOP per visible (query,
+    key) pair; the backward reads q, k, v, out, dO (and pad, bias) and
+    writes dq, dk, dv (and dbias), 10*hd FLOP per visible pair (QK and
+    dO V^T recomputed, then dV, dK and dQ)."""
+    q = inp["q"]
+    hd = q.shape[-1] // inp["num_heads"]
+    pairs = visible_pairs(inp)
+    masks = nbytes(inp["key_padding_mask"], inp["bias"])
+    qkv = nbytes(q, inp["k"], inp["v"])
+    dbias = nbytes(inp["bias"]) if with_dbias else 0
+    return dict(fwd=bound(qkv + nbytes(q) + masks, 4 * hd * pairs),
+                bwd=bound(2 * qkv + 2 * nbytes(q) + masks + dbias, 10 * hd * pairs))
+
+
+def library_dropout_attention(inp):
+    """(forward call, forward+backward call) of scaled_dot_product_attention
+    with the same dropout rate: a yardstick only (its own random mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, H = inp["q"], inp["k"], inp["v"], inp["num_heads"]
+    B, L, D = q.shape
+    S = k.shape[1]
+    heads = lambda x, n: x.view(B, n, H, D // H).transpose(1, 2)  # noqa: E731
+    mask, causal = None, inp["causal"]
+    if inp["key_padding_mask"] is not None:
+        mask = ~inp["key_padding_mask"][:, None, None, :]
+        if causal:  # SDPA takes is_causal only without a mask
+            tril = torch.ones((L, S), dtype=torch.bool, device=q.device).tril(S - L)
+            mask, causal = mask & tril, False
+    qh, kh, vh = (heads(t.detach(), n).requires_grad_() for t, n in
+                  ((q, L), (k, S), (v, S)))
+    g = torch.ones((B, H, L, D // H), device=q.device)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, is_causal=causal,
+                dropout_p=inp["dropout_rate"])
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal, dropout_p=inp["dropout_rate"])
+        torch.autograd.grad(out, (qh, kh, vh), g)
+
+    return fwd, fwd_bwd
+
+
+def kept_fraction(B: int, L: int, H: int, hd: int, rate: float, seed) -> float:
+    """The share of visible (query, key) pairs the forward kernel keeps,
+    read from its output: with q = 0 every visible key of a causal row l
+    gets probability 1/(l+1), and with v = 1 the output is
+    kept(l) / (l+1) / (1 - rate)."""
+    import torch
+
+    from recboard_tpu_torch.ops import attention as A
+
+    D = H * hd
+    zeros = torch.zeros((B, L, D), device="cuda")
+    ones = torch.ones((B, L, D), device="cuda")
+    out, _ = A.mha_dropout_fwd(zeros, zeros, ones, H, True, None, None, None, rate, seed)
+    visible = torch.arange(1, L + 1, device="cuda", dtype=torch.float32)
+    per_head = out.view(B, L, H, hd)[..., 0] * visible[None, :, None] * (1 - rate)
+    return float(per_head.sum() / (B * H * visible.sum()))
+
+
+def check_dropout_attention(rng):
+    """The training kernels against mha_dropout_reference on the card,
+    forward and backward, dropout active, the same seed; rate 0 against
+    mha_reference; the keep share and per-row masks; times of the timed
+    shapes."""
+    import torch
+
+    from recboard_tpu_torch.ops import attention as A
+
+    rows, worst = [], dict(fwd=0.0, bwd=0.0)
+    for case in DROP_SHAPES + DROP_EXTRA:
+        inp, dout = dropout_inputs(case, rng)
+        plain = A.mha_dropout_reference if case[-1] > 0 else (
+            lambda dropout_rate, seed, **kw: A.mha_reference(**kw))
+        want, want_g = _grads(plain, inp, dout)
+        got, got_g = _grads(A.mha_dropout, inp, dout)
+        torch.cuda.synchronize()
+        out_err = float((got - want).abs().max())
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
+        grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                       for a, b in zip(got_g, want_g))
+        finite = all(bool(torch.isfinite(t).all()) for t in [got] + got_g)
+        worst["fwd"] = max(worst["fwd"], out_err)
+        worst["bwd"] = max(worst["bwd"], grad_err)
+        row = dict(shape=case[0], B=case[1], L=case[2], S=case[3], H=case[4],
+                   hd=case[5], rate=case[-1], dbias=case[8], max_abs_err=out_err,
+                   tol=TOL, grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
+                   grad_rel_tol=GRAD_TOL, finite=finite)
+        if case in DROP_SHAPES:
+            row.update(time_dropout(inp, dout))
+        emit("kernels", kernel="mha_dropout", **row)
+        if not finite or not out_err <= TOL or not grad_rel <= GRAD_TOL:
+            raise SystemExit(f"mha_dropout disagrees with its plain version at "
+                             f"{case[0]}: out {out_err}, grads {grad_rel}")
+        rows.append(row)
+
+    name, B, L, S, H, hd, causal, _, _, rate = DROP_SHAPES[0]
+    seed = torch.tensor([12345], dtype=torch.int32, device="cuda")
+    share = kept_fraction(B, L, H, hd, rate, seed)
+    same = [torch.from_numpy(np.repeat(rng.normal(size=(1, L, H * hd)).astype(np.float32),
+                                       8, axis=0)).cuda() for _ in range(3)]
+    out, _ = A.mha_dropout_fwd(*same, H, True, None, None, None, rate, seed)
+    rows_differ = all(not torch.equal(out[0], out[b]) for b in range(1, 8))
+    emit("kernels", check="dropout_mask", shape=name, kept_fraction=share,
+         expected=1 - rate, tol=KEEP_TOL, identical_rows_differ=rows_differ)
+    if abs(share - (1 - rate)) > KEEP_TOL or not rows_differ:
+        raise SystemExit(f"dropout mask: kept {share} (want {1 - rate}), "
+                         f"identical rows differ: {rows_differ}")
+    return rows, worst
+
+
+def time_dropout(inp, dout) -> dict:
+    """CUDA-event times of the training kernels, their plain version and
+    scaled_dot_product_attention at one shape, with the bounds."""
+    import torch
+
+    from recboard_tpu_torch.ops import attention as A
+
+    args = [inp[k].detach() for k in ("q", "k", "v")]
+    bias = None if inp["bias"] is None else inp["bias"].detach()
+    rest = (inp["num_heads"], inp["causal"], inp["key_padding_mask"], bias, None,
+            inp["dropout_rate"], inp["seed"])
+    need_dbias = bias is not None
+    out, lse = A.mha_dropout_fwd(*args, *rest)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return A.mha_dropout_reference(**inp)
+
+    def plain_fwd_bwd():
+        _grads(A.mha_dropout_reference, inp, dout)
+
+    lib_fwd, lib_fwd_bwd = library_dropout_attention(inp)
+    bounds = dropout_bound(inp, need_dbias)
+    fwd_ms = cuda_ms(lambda: A.mha_dropout_fwd(*args, *rest))
+    plain_ms = cuda_ms(plain_fwd)
+    lib_ms = cuda_ms(lib_fwd)
+    return dict(
+        fwd_ms=fwd_ms,
+        bwd_ms=cuda_ms(lambda: A.mha_dropout_bwd(
+            *args, out, lse, dout, *rest[:2], inp["key_padding_mask"], bias, None,
+            inp["dropout_rate"], inp["seed"], need_dbias)),
+        plain_fwd_ms=plain_ms,
+        plain_bwd_ms=cuda_ms(plain_fwd_bwd, iters=50) - plain_ms,
+        library_fwd_ms=lib_ms,
+        library_bwd_ms=cuda_ms(lib_fwd_bwd) - lib_ms,
+        fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+        bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
+    )
 
 
 def xavier(rng, fan_in, fan_out, shape=None):
@@ -348,21 +603,32 @@ def run_bench(run_dir: str) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
+def profiled_ops(prof, per: int, device: bool) -> list:
+    """(name, self µs per unit, calls per unit) of a torch.profiler run,
+    largest first: the device's kernels, or the host's operators. User
+    annotations (ranges such as ``Optimizer.step`` that enclose other
+    work) are left out, so the times add up without counting twice."""
+    from torch.autograd import DeviceType
+
+    want = DeviceType.CUDA if device else DeviceType.CPU
+    rows = [
+        (e.key, (e.self_device_time_total if device else e.self_cpu_time_total) / per,
+         e.count / per)
+        for e in prof.key_averages()
+        if e.device_type == want and not getattr(e, "is_user_annotation", False)
+    ]
+    return sorted(rows, key=lambda row: -row[1])
+
+
 def profile_bench(run_dir: str, p50_ms: float) -> None:
     """Device time by kernel over one ``--bench`` call under torch.profiler
     (its warm-up and timed passes each serve every staged batch), and the
     device's idle share of the unprofiled p50 batch time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         bench = run_bench(run_dir)
-    calls = 2 * bench["batches"]
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / calls, e.count / calls)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda row: -row[1],
-    )
+    kernels = profiled_ops(prof, 2 * bench["batches"], device=True)
     device_us = sum(us for _, us, _ in kernels)
     emit("profile", device_us_per_batch=device_us,
          launches_per_batch=sum(n for _, _, n in kernels),
@@ -370,6 +636,185 @@ def profile_bench(run_dir: str, p50_ms: float) -> None:
          idle_share=1.0 - device_us / (1e3 * p50_ms),
          kernels=[dict(name=name[:90], us_per_batch=us, per_batch=n)
                   for name, us, n in kernels[:12]])
+
+
+def train_argv(data_root: str, dataset: str, seed: int, **flags) -> list:
+    """``run`` arguments for SASRec on ``dataset`` with these flags, its
+    logs and checkpoints under WORK."""
+    argv = ["--model", "SASRec", "--root", data_root, "--dataset", dataset,
+            "--seed", str(seed), "--log2console", "false",
+            "--log-path", os.path.join(WORK, "logs"),
+            "--checkpoint-path", os.path.join(WORK, "infos", f"{dataset}-s{seed}")]
+    for key, value in flags.items():
+        argv += ["--" + key.replace("_", "-"), str(value)]
+    return argv
+
+
+def latest_run(dataset: str) -> str:
+    root = os.path.join(WORK, "logs", "SASRec", dataset)
+    return os.path.join(root, sorted(os.listdir(root))[-1])
+
+
+def train_slice(seed: int) -> dict:
+    """``run`` at the reference config on the SynBeautyXL-shaped dataset
+    for TRAIN_EPOCHS epochs, validated every epoch: the loss is finite,
+    K2 forward and backward launched twice per step each, K1 twice per
+    evaluated batch, the best checkpoint is in the flax layout, and the
+    run serves on the GPU with the CPU's lists."""
+    import torch
+
+    from recboard_tpu_torch import run, serve
+    from recboard_tpu_torch.ops import attention as A
+
+    data_root = os.path.join(WORK, "data")
+    argv = train_argv(data_root, DATASET["name"], seed, config=TRAIN_CONFIG,
+                      epochs=TRAIN_EPOCHS, eval_freq=1)
+    dataset = run.load_dataset(serve.load_run_config(os.path.join(WORK, "run")))
+    model = run.build_model("SASRec", dataset, dict(SASREC, seed=seed), "cpu")
+    steps = len(list(model.sure_trainpipe(SASREC["maxlen"], TRAIN_BATCH)))
+    n_valid = len(list(model.sure_validpipe(SASREC["maxlen"])))
+    n_test = len(list(model.sure_testpipe(SASREC["maxlen"])))
+
+    A.mha_fwd.launches = A.mha_dropout_fwd.launches = A.mha_dropout_bwd.launches = 0
+    t0 = time.perf_counter()
+    best = run.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(mha_fwd=A.mha_fwd.launches,
+                    mha_dropout_fwd=A.mha_dropout_fwd.launches,
+                    mha_dropout_bwd=A.mha_dropout_bwd.launches)
+
+    run_dir = latest_run(DATASET["name"])
+    with open(os.path.join(run_dir, "monitors.pkl"), "rb") as fh:
+        history = pickle.load(fh)
+    losses = [row["LOSS"] for row in history["train"]]
+    blocks = SASREC["num_blocks"]
+    # valid after every epoch and at the end; test at the end and at the best
+    evaluated = (TRAIN_EPOCHS + 1) * n_valid + 2 * n_test
+    want = dict(mha_fwd=blocks * evaluated, mha_dropout_fwd=blocks * steps * TRAIN_EPOCHS,
+                mha_dropout_bwd=blocks * steps * TRAIN_EPOCHS)
+    emit("train", config=TRAIN_CONFIG, dataset=DATASET["name"], epochs=TRAIN_EPOCHS,
+         steps_per_epoch=steps, losses=losses, best=best, launches=launches,
+         expected_launches=want, run_s=run_s)
+    if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"train: losses {losses}")
+    if launches != want:
+        raise SystemExit(f"train: launches {launches}, expected {want}")
+    if not best or not all(math.isfinite(v) for v in best.values()):
+        raise SystemExit(f"train: best {best}")
+
+    cfg = serve.load_run_config(run_dir)
+    with open(os.path.join(cfg.CHECKPOINT_PATH, cfg.BEST_FILENAME), "rb") as fh:
+        params = pickle.load(fh)["params"]
+    if params["blocks_1"]["q_proj"]["kernel"].shape != (64, 64) or \
+            params["item_embeddings"]["embedding"].shape[0] != dataset.fields["ITEM", "ID"].count + 1:
+        raise SystemExit("train: the best checkpoint is not in the flax layout")
+
+    common = ["--run", run_dir, "--topk", str(TOPK + 1), "--with-scores",
+              "--batch-size", str(BATCH)]
+    gpu_tsv, cpu_tsv = os.path.join(WORK, "train_gpu.tsv"), os.path.join(WORK, "train_cpu.tsv")
+    serve.main(common + ["--output", gpu_tsv])
+    serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
+    bad = compare_topk(read_scored_tsv(gpu_tsv), read_scored_tsv(cpu_tsv))
+    if bad:
+        raise SystemExit("trained run: GPU and CPU lists disagree:\n" + "\n".join(bad[:10]))
+    emit("train_serve", users=len(read_scored_tsv(gpu_tsv)), cpu_agree=True)
+    return dict(launches=launches, run_dir=run_dir, steps=steps)
+
+
+def time_training(run_dir: str) -> None:
+    """Per-step and per-epoch times of the trained run's configuration on
+    the card: the host pipe alone for one epoch, each step of that epoch
+    alone on batches already on the card (synchronised), one whole epoch
+    as the Coach runs it, and one more epoch under torch.profiler for the
+    device time by kernel and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from recboard_tpu_torch import run, serve
+    from recboard_tpu_torch.data.pipes import Size
+    from recboard_tpu_torch.launcher import Coach
+
+    cfg = serve.load_run_config(run_dir)
+    device = torch.device("cuda")
+    dataset = run.load_dataset(cfg)
+    model = run.build_model("SASRec", dataset, cfg, device)
+    trainpipe, validpipe, testpipe = run.build_pipes(model, cfg)
+    coach = Coach(dataset, trainpipe, validpipe, testpipe, model, cfg, device)
+
+    trainpipe.set_seed(int(cfg.seed)).set_epoch(0)
+    t0 = time.perf_counter()
+    batches = list(trainpipe)
+    pipe_s = time.perf_counter() - t0
+    examples = sum(int(b[Size]) for b in batches)
+    staged = [coach.to_device(b) for b in batches]
+    for batch in staged[:3]:
+        coach.train_step(batch)
+    step_ms = []
+    for batch in staged:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coach.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coach.train(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    emit("train_time", steps=len(staged), examples=examples,
+         step_p50_ms=float(np.percentile(step_ms, 50)),
+         step_p95_ms=float(np.percentile(step_ms, 95)),
+         device_step_s=sum(step_ms) / 1e3, host_pipe_s=pipe_s, epoch_s=epoch_s,
+         examples_per_s=examples / epoch_s)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        coach.train(2)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    kernels = profiled_ops(prof, len(staged), device=True)
+    host = profiled_ops(prof, len(staged), device=False)
+    device_us = sum(us for _, us, _ in kernels)
+    emit("train_profile", device_us_per_step=device_us,
+         launches_per_step=sum(n for _, _, n in kernels),
+         profiled_epoch_s=profiled_s, unprofiled_epoch_s=epoch_s,
+         idle_share=1.0 - device_us * len(staged) / (1e6 * profiled_s),
+         kernels=[dict(name=name[:90], us_per_step=us, per_step=n)
+                  for name, us, n in kernels[:15]],
+         host_us_per_step=sum(us for _, us, _ in host),
+         host_ops=[dict(name=name[:60], self_us_per_step=us, per_step=n)
+                   for name, us, n in host[:12]])
+
+
+def quality(seeds: int) -> dict:
+    """The toy store's SASRec protocol on the card: SynBeauty_000_LOU
+    rebuilt from its meta.json build_command (tools/seed_sweep.py's
+    defaults for the flags it omits) and tools/seed_sweep.py's SASRec
+    arguments; the mean best NDCG@10 must lie in the store's band."""
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.data import synthetic
+
+    data_root = os.path.join(WORK, "store_data")
+    spec = dict(STORE_DATASET)
+    name = spec.pop("name")
+    synthetic.make_synthetic_dataset(data_root, name, **spec)
+    values, seconds = [], []
+    for seed in range(seeds):
+        t0 = time.perf_counter()
+        best = run.main(train_argv(data_root, name, seed, **STORE_PROTOCOL))
+        seconds.append(time.perf_counter() - t0)
+        values.append(best["NDCG@10"])
+        emit("quality_seed", seed=seed, ndcg10=values[-1], seconds=seconds[-1])
+    mean = float(np.mean(values))
+    emit("quality", dataset=name, seeds=seeds, ndcg10=values, mean=mean,
+         std=float(np.std(values)), store_mean=STORE_NDCG10, band=STORE_BAND,
+         protocol=STORE_PROTOCOL)
+    if not abs(mean - STORE_NDCG10) <= STORE_BAND:
+        raise SystemExit(f"quality: mean NDCG@10 {mean} outside {STORE_NDCG10} ± {STORE_BAND}")
+    return dict(mean=mean, values=values)
 
 
 def main(argv=None) -> int:
@@ -397,27 +842,62 @@ def main(argv=None) -> int:
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
-    logs = _build.build()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        emit("phase_seconds", name=name, seconds=phase_s[name])
+        return out
+
+    logs = timed("build", _build.build)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", sources=list(_build.SOURCES), seconds=time.perf_counter() - t0,
-         ptxas=ptxas)
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    emit("build", sources=list(_build.SOURCES), seconds=phase_s["build"], ptxas=ptxas)
 
-    rows, worst = check_attention(np.random.default_rng(args.seed))
-    slice_ = serve_slice(args.seed)
-    profile_bench(slice_["run_dir"], slice_["bench"]["p50"])
+    rows, worst = timed("kernels_mha_fwd", check_attention, np.random.default_rng(args.seed))
+    drop_rows, drop_worst = timed("kernels_mha_dropout", check_dropout_attention,
+                                  np.random.default_rng(args.seed + 1))
+    slice_ = timed("slice", serve_slice, args.seed)
+    timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"])
+    trained = timed("train", train_slice, args.seed)
+    timed("train_time", time_training, trained["run_dir"])
+    timed("quality", quality, STORE_SEEDS)
 
-    serving = rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "mha_fwd", "route": "cuda",
-        "source": "recboard_tpu_torch/ops/csrc/mha_fwd.cu",
-        "replaces": "recboard_tpu/ops/attention.py:143",
-        "launches": slice_["launches"], "max_abs_err": worst,
-        "ms": serving["ms"], "plain_ms": serving["plain_ms"],
-        "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
-        "library_ms": serving["library_ms"],
-    }]}))
+    serving, training = rows[0], drop_rows[0]
+    print(json.dumps({"kernels": [
+        {
+            "name": "mha_fwd", "route": "cuda",
+            "source": "recboard_tpu_torch/ops/csrc/mha_fwd.cu",
+            "replaces": "recboard_tpu/ops/attention.py:143",
+            "launches": slice_["launches"], "max_abs_err": worst,
+            "ms": serving["ms"], "plain_ms": serving["plain_ms"],
+            "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
+            "library_ms": serving["library_ms"],
+        },
+        {
+            "name": "mha_dropout_fwd", "route": "cuda",
+            "source": "recboard_tpu_torch/ops/csrc/mha_dropout.cu",
+            "replaces": "recboard_tpu/ops/attention.py:316",
+            "launches": trained["launches"]["mha_dropout_fwd"],
+            "max_abs_err": drop_worst["fwd"],
+            "ms": training["fwd_ms"], "plain_ms": training["plain_fwd_ms"],
+            "bound_ms": training["fwd_bound_ms"], "bound_by": training["fwd_bound_by"],
+            "library_ms": training["library_fwd_ms"],
+        },
+        {
+            "name": "mha_dropout_bwd", "route": "cuda",
+            "source": "recboard_tpu_torch/ops/csrc/mha_dropout.cu",
+            "replaces": "recboard_tpu/ops/attention.py:354",
+            "launches": trained["launches"]["mha_dropout_bwd"],
+            "max_abs_err": drop_worst["bwd"],
+            "ms": training["bwd_ms"], "plain_ms": training["plain_bwd_ms"],
+            "bound_ms": training["bwd_bound_ms"], "bound_by": training["bwd_bound_by"],
+            "library_ms": training["library_bwd_ms"],
+        },
+    ]}))
+    emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,11 +2,13 @@
 
 Commands
 --------
+run         Train a model: config → dataset → model → Coach.fit()
+            (recboard_tpu_torch.run).
 recommend   Batch inference: top-k recommendations from a finished run
             (recboard_tpu_torch.serve).
 
-recboard_tpu's other commands (make, run, benchmark, bench) are not
-ported yet.
+recboard_tpu's other commands (make, benchmark, bench) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -20,14 +22,18 @@ def main(argv=None):
         print(__doc__)
         return
     cmd, rest = argv[0], argv[1:]
-    if cmd == "recommend":
+    if cmd == "run":
+        from . import run
+
+        run.main(rest)
+    elif cmd == "recommend":
         from . import serve
 
         serve.main(rest)
-    elif cmd in ("make", "run", "benchmark", "bench"):
+    elif cmd in ("make", "benchmark", "bench"):
         raise SystemExit(f"command {cmd!r} is not ported to recboard_tpu_torch yet")
     else:
-        raise SystemExit(f"unknown command {cmd!r}; one of: recommend")
+        raise SystemExit(f"unknown command {cmd!r}; one of: run, recommend")
 
 
 if __name__ == "__main__":

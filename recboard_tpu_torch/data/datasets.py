@@ -188,21 +188,24 @@ class DataSetView:
     def fields(self) -> FieldTuple:
         return self.dataset.fields
 
-    def user_seqs(self) -> List[Tuple[int, ...]]:
-        """Per-user item sequences in interaction (file) order, cached."""
+    def user_seqs(self, maxlen: Optional[int] = None) -> List[Tuple[int, ...]]:
+        """Per-user item sequences in interaction (file) order, each cut to
+        its last ``maxlen`` items when given; cached."""
         cache = self.dataset._seqs_cache
-        if self.split not in cache:
+        key = (self.split, maxlen)
+        if key not in cache:
             User, Item = self.fields[USER, ID], self.fields[ITEM, ID]
             cols = self.dataset._splits[self.split]
             # stable grouping preserving file order within each user
             order = np.argsort(cols[User], kind="stable")
             items = cols[Item][order]
             bounds = np.searchsorted(cols[User][order], np.arange(User.count + 1))
-            cache[self.split] = [
-                tuple(items[bounds[u] : bounds[u + 1]].tolist())
-                for u in range(User.count)
+            seqs = (items[bounds[u] : bounds[u + 1]] for u in range(User.count))
+            cache[key] = [
+                tuple((seq if maxlen is None else seq[-maxlen:]).tolist())
+                for seq in seqs
             ]
-        return cache[self.split]
+        return cache[key]
 
     # Datapipe sources are attached by data.pipes (looked up lazily to
     # avoid an import cycle).

@@ -6,20 +6,21 @@ Pipes chain functionally from a dataset view — ``view.<source>()`` then
 ``Size`` field, exactly as in ``recboard_tpu``: the same seed gives the
 same host batches in both packages.
 
-This module holds what the eval and serving pipes use: the ordered user
-source, the valid/test samplers, and the offset/pad/prune/batch/collate
-transforms. The training sources and samplers arrive with the training
-slice.
+This module holds what SASRec's pipes use: the shuffled-sequence
+training source with its shift-by-one positives and per-position
+negatives (drawn by the native sampler, ``native/``), the ordered user
+source and the valid/test samplers, and the offset/pad/prune/batch/
+collate transforms.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from .fields import Field, FieldTuple
-from .tags import ID, ITEM, SEEN, SEQUENCE, SIZE, UNSEEN, USER
+from .tags import ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, SIZE, UNSEEN, USER
 
 __all__ = ["DataPipe", "Size", "functional_datapipe", "VIEW_SOURCES"]
 
@@ -60,6 +61,7 @@ class DataPipe:
     def __init__(self, source: Optional["DataPipe"] = None):
         self.source = source
         self._seed: Optional[int] = None
+        self._epoch = 0
 
     @property
     def dataset(self):
@@ -77,13 +79,24 @@ class DataPipe:
     def Item(self) -> Field:
         return self.fields[ITEM, ID]
 
-    # every stochastic pipe derives its stream from its seed, so runs are
+    # every stochastic pipe derives its stream from (seed, epoch): the Coach
+    # calls set_seed and set_epoch before each pass, so runs are
     # reproducible and match recboard_tpu's streams
     def set_seed(self, seed: int) -> "DataPipe":
         self._seed = seed
         if self.source is not None:
             self.source.set_seed(seed + 1)
         return self
+
+    def set_epoch(self, epoch: int) -> "DataPipe":
+        self._epoch = epoch
+        if self.source is not None:
+            self.source.set_epoch(epoch)
+        return self
+
+    def rng(self) -> np.random.Generator:
+        seed = self._seed if self._seed is not None else 0
+        return np.random.default_rng((seed, self._epoch))
 
     def __iter__(self) -> Iterator[Row]:
         yield from self.source
@@ -112,7 +125,123 @@ class OrderedUserIdsSource(_ViewPipe):
             yield {User: u}
 
 
+@view_source("shuffled_seqs_source")
+class ShuffledSeqsSource(_ViewPipe):
+    """One (user, seq[-maxlen:]) row per user, shuffled each epoch."""
+
+    def __init__(self, view, maxlen: Optional[int] = None):
+        super().__init__(view)
+        self.maxlen = maxlen
+
+    def __iter__(self) -> Iterator[Row]:
+        User, ISeq = self.User, self.Item.fork(SEQUENCE)
+        seqs = self.view.user_seqs(self.maxlen)
+        order = self.rng().permutation(len(seqs))
+        for u in order:
+            yield {User: int(u), ISeq: seqs[u]}
+
+
 # ============================================================= samplers
+class _SeenLookup:
+    """Per-user seen-item sets in CSR form (sorted per user) for the
+    native sampler."""
+
+    def __init__(self, seqs: Sequence[Sequence[int]]):
+        self.sorted = [np.unique(np.asarray(s, dtype=np.int64)) for s in seqs]
+        lengths = np.asarray([a.size for a in self.sorted], dtype=np.int64)
+        self.indptr = np.concatenate(([0], np.cumsum(lengths)))
+        self.items = (
+            np.concatenate(self.sorted) if len(self.sorted) else np.zeros(0, np.int64)
+        )
+
+
+@functional_datapipe("seq_train_yielding_pos_")
+class SeqTrainPositiveYielder(DataPipe):
+    """Targets from the sequence itself: shift-by-one
+    (start_idx_for_target=1, end_idx_for_input=-1) or last-item-only
+    (start=-1, end=-1). Sequences shorter than 2 are skipped."""
+
+    def __init__(
+        self,
+        source: DataPipe,
+        start_idx_for_target: Optional[int] = 1,
+        end_idx_for_input: Optional[int] = -1,
+    ):
+        super().__init__(source)
+        self.start_idx_for_target = start_idx_for_target
+        self.end_idx_for_input = end_idx_for_input
+
+    def __iter__(self) -> Iterator[Row]:
+        ISeq, IPos = self.Item.fork(SEQUENCE), self.Item.fork(POSITIVE)
+        for row in self.source:
+            seq = row[ISeq]
+            if len(seq) < 2:
+                continue
+            row = dict(row)
+            row[IPos] = seq[self.start_idx_for_target :]
+            row[ISeq] = seq[: self.end_idx_for_input]
+            yield row
+
+
+@functional_datapipe("seq_train_sampling_neg_")
+class SeqTrainNegativeSampler(DataPipe):
+    """Per-position negatives for sequence targets: for each target
+    position, ``num_negatives`` items the user has not seen in train.
+    With one negative the field follows IPos (length L), else (L, n).
+    Rows are buffered into chunks of CHUNK and sampled in one native call
+    seeded by hash((seed, epoch, chunk id)), as in ``recboard_tpu``."""
+
+    CHUNK = 2048
+
+    def __init__(self, source: DataPipe, num_negatives: int = 1):
+        super().__init__(source)
+        self.num_negatives = num_negatives
+        self._seen: Optional[_SeenLookup] = None
+
+    def __iter__(self) -> Iterator[Row]:
+        from .. import native
+
+        if self._seen is None:
+            self._seen = _SeenLookup(self.dataset.train().user_seqs())
+        User = self.User
+        IPos, INeg = self.Item.fork(POSITIVE), self.Item.fork(NEGATIVE)
+        count = self.Item.count
+        buffer: List[Row] = []
+        chunk_id = 0
+
+        def flush():
+            nonlocal chunk_id
+            # one draw stream per (user, position)
+            users_flat = np.concatenate(
+                [np.full(len(row[IPos]), row[User], np.int64) for row in buffer]
+            )
+            seed = hash((self._seed or 0, self._epoch, chunk_id)) & (2**63 - 1)
+            chunk_id += 1
+            negs = native.sample_negatives(
+                users_flat, self.num_negatives,
+                self._seen.indptr, self._seen.items, count, seed,
+            )
+            offset = 0
+            for row in buffer:
+                L = len(row[IPos])
+                chunk = negs[offset : offset + L]
+                offset += L
+                row = dict(row)
+                if self.num_negatives == 1:
+                    row[INeg] = tuple(int(v) for v in chunk[:, 0])
+                else:
+                    row[INeg] = tuple(tuple(int(v) for v in r) for r in chunk)
+                yield row
+            buffer.clear()
+
+        for row in self.source:
+            buffer.append(row)
+            if len(buffer) >= self.CHUNK:
+                yield from flush()
+        if buffer:
+            yield from flush()
+
+
 class _EvalSamplerBase(DataPipe):
     """Shared machinery of valid/test samplers: per eval row k of a user,
     ISeq = seen ++ unseen[:k], positive = unseen[k]; `full` ranking →
@@ -281,9 +410,10 @@ class LeftPruner(DataPipe):
 
 @functional_datapipe("batch_")
 class Batcher(DataPipe):
-    def __init__(self, source, batch_size: int):
+    def __init__(self, source, batch_size: int, drop_last: bool = False):
         super().__init__(source)
         self.batch_size = batch_size
+        self.drop_last = drop_last
 
     def __iter__(self) -> Iterator[List[Row]]:
         batch: List[Row] = []
@@ -292,7 +422,7 @@ class Batcher(DataPipe):
             if len(batch) == self.batch_size:
                 yield batch
                 batch = []
-        if batch:
+        if batch and not self.drop_last:
             yield batch
 
 

@@ -19,7 +19,7 @@ from torch import nn
 from ..data.datasets import RecDataSet
 from ..data.fields import Field
 from ..data.pipes import Size
-from ..data.tags import ID, ITEM, SEEN, SEQUENCE, UNSEEN, USER
+from ..data.tags import ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, UNSEEN, USER
 
 __all__ = ["Batch", "RecSysArch", "SeqRecArch"]
 
@@ -49,6 +49,14 @@ class RecSysArch(nn.Module):
     @property
     def ISeq(self) -> Field:
         return self.Item.fork(SEQUENCE)
+
+    @property
+    def IPos(self) -> Field:
+        return self.Item.fork(POSITIVE)
+
+    @property
+    def INeg(self) -> Field:
+        return self.Item.fork(NEGATIVE)
 
     @property
     def IUnseen(self) -> Field:

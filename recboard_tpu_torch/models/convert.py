@@ -12,6 +12,10 @@ despite the suffix). The port's modules keep flax's submodule names, so
 and ``bias`` stays ``bias``. ``blocks_0/q_proj/kernel`` becomes
 ``blocks_0.q_proj.weight``. Later slices add rules for the leaves their
 modules bring (DenseGeneral kernels, BatchNorm stats).
+
+``to_flax`` is the inverse: the port's Coach saves ``{"params":
+to_flax(model)}``, the payload ``recboard_tpu``'s Coach writes, so a run
+trained by either package is served by either.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["from_flax"]
+__all__ = ["from_flax", "to_flax"]
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 
@@ -54,3 +59,29 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, ())
     return out
+
+
+def to_flax(model: nn.Module) -> Dict:
+    """A model's weights as nested flax params of numpy arrays: Linear →
+    ``{kernel (in, out), bias}``, LayerNorm → ``{scale, bias}``, Embedding
+    → ``{embedding}``, nested by submodule name."""
+    tree: Dict = {}
+    for name, module in model.named_modules():
+        if isinstance(module, nn.Linear):
+            leaves = {"kernel": module.weight.T, "bias": module.bias}
+        elif isinstance(module, nn.LayerNorm):
+            leaves = {"scale": module.weight, "bias": module.bias}
+        elif isinstance(module, nn.Embedding):
+            leaves = {"embedding": module.weight}
+        elif next(module.parameters(recurse=False), None) is not None:
+            raise ValueError(f"to_flax: no rule for the parameters of {name} "
+                             f"({type(module).__name__})")
+        else:
+            continue
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        for key, t in leaves.items():
+            if t is not None:
+                node[key] = t.detach().cpu().numpy().copy()
+    return tree

@@ -4,31 +4,51 @@ Submodules keep flax's auto-generated names (``LayerNorm_0``,
 ``PointWiseFFN_0.Dense_0``, ...) so a ``recboard_tpu`` checkpoint maps
 onto them by renaming leaves only (``models/convert.py``).
 
-Dropout arrives with the training slice: these blocks compute the
-deterministic (eval/serving) forward.
+Dropout is active when a block is called with a ``generator``, whose
+draws make every mask, and off without one (evaluation, serving): the
+counterpart of flax's ``deterministic`` flag and ``"dropout"`` rng.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops import attention as attn_ops
 
-__all__ = ["PointWiseFFN", "SASRecBlock"]
+__all__ = ["PointWiseFFN", "SASRecBlock", "dropout"]
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator`` (flax's
+    ``nn.Dropout``: keep with probability 1 - rate, scale by 1/(1 - rate));
+    the identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class PointWiseFFN(nn.Module):
-    """Linear → ReLU → Linear with a residual (the reference's pair of
-    kernel-size-1 convolutions)."""
+    """Linear → dropout → ReLU → Linear → dropout, with a residual (the
+    reference's pair of kernel-size-1 convolutions)."""
 
-    def __init__(self, hidden_size: int):
+    def __init__(self, hidden_size: int, dropout_rate: float = 0.2):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.Dense_0 = nn.Linear(hidden_size, hidden_size)
         self.Dense_1 = nn.Linear(hidden_size, hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_1(torch.relu(self.Dense_0(x))) + x
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        h = dropout(self.Dense_0(x), self.dropout_rate, generator)
+        h = dropout(self.Dense_1(torch.relu(h)), self.dropout_rate, generator)
+        return h + x
 
 
 class SASRecBlock(nn.Module):
@@ -37,24 +57,28 @@ class SASRecBlock(nn.Module):
 
     Mask semantics as in ``recboard_tpu``: only the causal mask. Pad
     *keys* stay attendable (pad positions are zeroed before every block,
-    so their k/v are the projection biases); no key-padding mask here."""
+    so their k/v are the projection biases); no key-padding mask here.
+    Dropout sits on the attention probabilities, not after the output
+    projection."""
 
-    def __init__(self, embedding_dim: int, num_heads: int = 1):
+    def __init__(self, embedding_dim: int, num_heads: int = 1, dropout_rate: float = 0.2):
         super().__init__()
         D = embedding_dim
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.LayerNorm_0 = nn.LayerNorm(D, eps=1e-8)
         self.q_proj = nn.Linear(D, D)
         self.k_proj = nn.Linear(D, D)
         self.v_proj = nn.Linear(D, D)
         self.out_proj = nn.Linear(D, D)
         self.LayerNorm_1 = nn.LayerNorm(D, eps=1e-8)
-        self.PointWiseFFN_0 = PointWiseFFN(D)
+        self.PointWiseFFN_0 = PointWiseFFN(D, dropout_rate)
 
     def forward(
         self,
         seqs: torch.Tensor,
         padding_mask: torch.Tensor,  # (B, L, 1) True at pads
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         # Q from the LayerNorm'd stream, K/V from the raw stream
         q_in = self.LayerNorm_0(seqs)
@@ -64,8 +88,10 @@ class SASRecBlock(nn.Module):
             self.v_proj(seqs),
             num_heads=self.num_heads,
             causal=True,
+            dropout_rate=self.dropout_rate,
+            generator=generator,
         )
         seqs = self.out_proj(attended) + seqs
         seqs = self.LayerNorm_1(seqs)
-        seqs = self.PointWiseFFN_0(seqs)
+        seqs = self.PointWiseFFN_0(seqs, generator)
         return seqs.masked_fill(padding_mask, 0.0)

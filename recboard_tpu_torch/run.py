@@ -1,19 +1,30 @@
-"""Dataset loading and model construction from a run's config
-(counterpart of ``recboard_tpu/run.py``). The training runner arrives
-with the training slice."""
+"""Dataset loading, model construction and the training runner
+(counterpart of ``recboard_tpu/run.py``):
+
+    python -m recboard_tpu_torch run --model SASRec --root <data root> \\
+        --dataset <name> [--config configs/x.yaml] [--device cpu] ...
+
+Trains on ``cuda`` unless ``--device cpu`` is given, with the host
+generator pipes, and leaves a run directory that ``recommend`` serves.
+"""
 
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict
+import sys
+from typing import Any, Dict, Optional
 
 import torch
+import yaml
 
+from . import utils
 from .data.datasets import NextItemRecDataSet, RecDataSet
 from .data.tags import TaskTag
+from .launcher import Coach
 from .models.zoo import REGISTRY
+from .parser import Parser
 
-__all__ = ["build_model", "load_dataset"]
+__all__ = ["build_model", "build_pipes", "load_dataset", "main"]
 
 
 def load_dataset(cfg) -> RecDataSet:
@@ -43,3 +54,68 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
     kwargs = {k: cfg[k] for k in fields if cfg.get(k) is not None}
     generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     return cls(dataset, generator=generator, **kwargs).to(device)
+
+
+def build_pipes(model, cfg):
+    """The generator-pipe branch of ``recboard_tpu``'s build_pipes, for
+    sequential models."""
+    maxlen = int(cfg.maxlen)
+    return (
+        model.sure_trainpipe(maxlen, int(cfg.batch_size)),
+        model.sure_validpipe(maxlen, ranking=cfg.ranking),
+        model.sure_testpipe(maxlen, ranking=cfg.ranking),
+    )
+
+
+# options of recboard_tpu's runner this port refuses until they are ported
+_NOT_PORTED = (
+    ("on_device_sampling", lambda v: bool(v), "--on-device-sampling (DeviceSeqSampler)"),
+    ("resume", lambda v: bool(v), "--resume (save_checkpoint/load_checkpoint)"),
+    ("record_benchmark", lambda v: bool(v), "--record-benchmark (the benchmark store writer)"),
+    ("gradient_accumulation_steps", lambda v: int(v) > 1, "gradient_accumulation_steps > 1"),
+    ("lr_scheduler", lambda v: bool(v), "lr_scheduler"),
+    ("profile", lambda v: bool(v), "--profile"),
+    ("remat", lambda v: bool(v), "remat (torch.utils.checkpoint)"),
+    ("num_model_shards", lambda v: int(v) > 1, "--num-model-shards > 1"),
+    ("compute_dtype", lambda v: str(v) not in ("float32", "f32"), "compute_dtype other than float32"),
+    ("ranking", lambda v: v != "full", "ranking other than full"),
+)
+
+
+def main(argv: Optional[list] = None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = Parser()
+    parser.add_argument("--model", type=str, default="SASRec")
+    parser.add_argument("--maxlen", type=int, default=50)
+    # default None: only explicit values override a model's own defaults
+    parser.add_argument("--embedding-dim", type=int, default=None)
+    parser.add_argument("--num-heads", type=int, default=None)
+    parser.add_argument("--num-blocks", type=int, default=None)
+    parser.add_argument("--dropout-rate", type=float, default=None)
+    parser.add_argument("--loss", type=str, default=None)
+    if not any(a.startswith("--description") for a in argv):
+        # the model's name, known before compile derives LOG_PATH from it
+        known, _ = parser._parser.parse_known_args(argv)
+        model_name = known.model
+        if known.config and not any(a.split("=")[0] == "--model" for a in argv):
+            with open(known.config) as fh:
+                model_name = (yaml.safe_load(fh) or {}).get("model", model_name)
+        argv += ["--description", model_name]
+    cfg = parser.compile(argv)
+    for key, refused, what in _NOT_PORTED:
+        if cfg.get(key) is not None and refused(cfg[key]):
+            raise SystemExit(f"{what} is not ported to recboard_tpu_torch yet")
+    device = utils.resolve_device(cfg.get("device"))
+
+    dataset = load_dataset(cfg)
+    model = build_model(cfg.model, dataset, cfg, device)
+    trainpipe, validpipe, testpipe = build_pipes(model, cfg)
+    coach = Coach(dataset=dataset, trainpipe=trainpipe, validpipe=validpipe,
+                  testpipe=testpipe, model=model, cfg=cfg, device=device)
+    best = coach.fit()
+    utils.infoLogger(f"[run] >>> best: {best}")
+    return best
+
+
+if __name__ == "__main__":
+    main()

@@ -39,39 +39,14 @@ import yaml
 from . import parser, utils
 from . import run as run_mod
 from .data.pipes import Size
+from .launcher.metrics import SEEN_PAD, mask_seen, pad_ragged
 from .models.convert import from_flax
-
-MASKED_SCORE = -1e23  # the score a seen item gets
-SEEN_PAD = 2**30  # pads the ragged seen-id rows; lies outside the catalog
 
 
 def load_run_config(run_dir: str) -> parser.Config:
     """Resolved config.yaml snapshot -> Config (attr-style dict)."""
     with open(os.path.join(run_dir, "config.yaml")) as fh:
         return parser.Config(yaml.safe_load(fh) or {})
-
-
-def _pad_ragged(rows, fill, width=None):
-    width = width or max((len(r) for r in rows), default=1)
-    width = max(width, 1)
-    out = np.full((len(rows), width), fill, dtype=np.int64)
-    for i, r in enumerate(rows):
-        out[i, : len(r)] = list(r)[:width]
-    return out
-
-
-def mask_seen(scores: torch.Tensor, seen_ids: torch.Tensor) -> torch.Tensor:
-    """``scores[row, id] = MASKED_SCORE`` for each seen id, in place.
-
-    ``recboard_tpu`` scatters with ``mode="drop"``, so its out-of-range
-    pad ids (``SEEN_PAD``) write nothing. Torch's scatter has no such
-    mode, so pads are sent to column 0 with a fill of +inf under an
-    ``amin`` reduction, which leaves that score as it was."""
-    in_range = (seen_ids >= 0) & (seen_ids < scores.shape[1])
-    index = torch.where(in_range, seen_ids, 0)
-    fill = torch.full(index.shape, MASKED_SCORE, dtype=scores.dtype, device=scores.device)
-    fill = fill.masked_fill(~in_range, float("inf"))
-    return scores.scatter_reduce_(1, index, fill, reduce="amin")
 
 
 def main(argv: Optional[list] = None):
@@ -161,7 +136,7 @@ def main(argv: Optional[list] = None):
             }
             seen = data.get(model.ISeen)
             seen_ids = (
-                _pad_ragged(seen, fill=SEEN_PAD)
+                pad_ragged(seen, fill=SEEN_PAD)
                 if seen is not None
                 else np.full((len(users), 1), SEEN_PAD)
             )

@@ -1,5 +1,5 @@
-"""Utility layer: logging, pickling, seeding, device selection
-(counterpart of ``recboard_tpu/utils``)."""
+"""Utility layer: logging, pickling, seeding, device selection, running
+means (counterpart of ``recboard_tpu/utils``)."""
 
 from __future__ import annotations
 
@@ -14,12 +14,14 @@ import numpy as np
 import torch
 
 __all__ = [
+    "AverageMeter",
     "export_pickle",
     "import_pickle",
     "infoLogger",
     "mkdirs",
     "resolve_device",
     "set_color",
+    "set_logger",
     "set_seed",
     "warnLogger",
 ]
@@ -39,15 +41,39 @@ def set_color(text: str, color: str = "cyan") -> str:
     return f"{_COLORS.get(color, '')}{text}{_COLORS['reset']}"
 
 
+_FORMAT = logging.Formatter("%(asctime)s %(message)s", "%H:%M:%S")
+
+
 def _get_logger() -> logging.Logger:
     logger = logging.getLogger(LOGGER_NAME)
     if not logger.handlers:
         # stderr: `recommend` writes its TSV to stdout
         handler = logging.StreamHandler(sys.stderr)
-        handler.setFormatter(logging.Formatter("%(asctime)s %(message)s", "%H:%M:%S"))
+        handler.setFormatter(_FORMAT)
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
         logger.propagate = False
+    return logger
+
+
+def set_logger(path: Optional[str] = None, log2file: bool = True,
+               log2console: bool = True) -> logging.Logger:
+    """(Re)configure the logger: to stderr and/or to ``<path>/log.txt``."""
+    logger = logging.getLogger(LOGGER_NAME)
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    if log2console:
+        logger.addHandler(logging.StreamHandler(sys.stderr))
+    if log2file and path is not None:
+        mkdirs(path)
+        logger.addHandler(logging.FileHandler(os.path.join(path, "log.txt")))
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    for handler in logger.handlers:
+        handler.setFormatter(_FORMAT)
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
     return logger
 
 
@@ -104,3 +130,20 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+class AverageMeter:
+    """Weighted running mean used by the Coach's monitor sink."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, value: float, n: int = 1) -> None:
+        self.sum += float(value) * n
+        self.count += n
+
+    @property
+    def avg(self) -> float:
+        return self.sum / max(self.count, 1)

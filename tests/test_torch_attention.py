@@ -107,11 +107,13 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_mha_off_cpu_dropout_raises():
-    """A non-CPU request with active dropout raises before any launch
-    (meta tensors stand in for a GPU here)."""
+    """A non-CPU request with active dropout goes to the training kernel's
+    wrapper, which raises before any launch (meta tensors stand in for a
+    GPU here)."""
     q = torch.empty(2, 4, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="mha_dropout_fwd: q must be a CUDA tensor"):
         A.mha(q, q, q, dropout_rate=0.1, generator=torch.Generator())
+    assert A.mha_dropout_fwd.launches == 0
     # without dropout, the non-CPU request goes to the kernel wrapper,
     # which takes CUDA tensors only
     with pytest.raises(ValueError, match="CUDA tensor"):
