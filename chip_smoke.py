@@ -31,6 +31,20 @@ Phases, one JSON line each; any failure exits non-zero:
    by kernel per step and the device's idle share.
 8. quality — the toy store's SASRec protocol for 5 seeds on the card;
    the mean best NDCG@10 must lie in the store's band.
+9. kernels_vocab_ce — the full-vocabulary CE kernels (vocab_ce_fwd,
+   vocab_ce_bwd) against their plain version at BERT4Rec's training
+   shape and at ragged and large-logit shapes (and dh exactly 0 on rows
+   whose loss gradient is 0), with CUDA-event times
+   beside the plain version, F.cross_entropy over torch.addmm, and the
+   bound. (Phase 3 also checks K1 and K2 at BERT4Rec's attention shape:
+   4 heads of 16, key padding, rows with every key padded.)
+10. bert4rec_slice, bert4rec_profile — phases 4 and 5 for BERT4Rec at
+   full width (D 64, 2 blocks, 4 heads, maxlen 50) with random
+   flax-layout weights, whose packed qkv kernels go through from_flax.
+11. bert4rec_train, bert4rec_train_time — phases 6 and 7 at the reference
+   BERT4Rec config: K2 forward and backward twice per step each, K3
+   forward and backward once per step each, K1 twice per evaluated batch.
+12. bert4rec_quality — the toy store's BERT4Rec protocol for 5 seeds.
 
 Each phase prints its seconds. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
@@ -67,6 +81,7 @@ ATTN_SHAPES = [
     ("sasrec_serving", 512, 50, 50, 1, 64, True, False, False, False),
     ("long_keypad", 256, 200, 200, 2, 32, False, True, False, False),
     ("bias_masked_rows", 64, 6, 50, 4, 16, False, False, True, True),
+    ("bert4rec_serving", 512, 50, 50, 4, 16, False, True, False, False),
 ]
 # correctness-only cases for the paths the timed shapes leave out:
 # causal with L != S, causal with pad and bias, rows with no visible key,
@@ -82,6 +97,7 @@ DROP_SHAPES = [
     ("sasrec_train", 512, 50, 50, 1, 64, True, False, False, 0.5),
     ("long_keypad", 256, 200, 200, 2, 32, False, True, False, 0.1),
     ("bias_dbias", 64, 37, 37, 4, 32, True, True, True, 0.1),
+    ("bert4rec_train", 512, 50, 50, 4, 16, False, True, False, 0.2),
 ]
 DROP_EXTRA = [  # correctness only
     ("large_S", 8, 300, 300, 4, 64, True, True, False, 0.1),
@@ -124,6 +140,34 @@ STORE_NDCG10 = 0.3176
 # gradient or a mask shared across rows lands far below the band
 STORE_BAND = 0.03
 STORE_SEEDS = 5
+
+# BERT4Rec at the reference widths (configs/BERT4Rec_Amazon2014Beauty_550_LOU.yaml:
+# maxlen 50, D 64, 2 blocks, 4 heads, dropout 0.2, mask_ratio 0.2, batch
+# 512, Adam lr 0.005, weight decay 1e-4), trained two epochs for its
+# mechanics: at this lr and vocabulary the loss does not fall
+BERT4REC = dict(maxlen=50, embedding_dim=64, num_blocks=2, num_heads=4)
+B4R_CONFIG = os.path.join(ROOT, "configs", "BERT4Rec_Amazon2014Beauty_550_LOU.yaml")
+# the toy store's BERT4Rec row (benchmark/SynBeauty_000_LOU/BERT4Rec.json,
+# metric best: 5 seeds, NDCG@10 0.3945, std 0.0069) with
+# tools/seed_sweep.py's BERT4Rec arguments (:82, :676-684) and the model's
+# defaults (mask_ratio 0.3: a budget of 12 positions of 20, so K3 runs)
+B4R_STORE_PROTOCOL = dict(epochs=250, lr=0.005, batch_size=128, eval_freq=3, maxlen=20)
+B4R_STORE_NDCG10 = 0.3945
+
+# K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
+# BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
+# positions, D 64, 12,101 items + 2 specials)
+CE_SHAPES = [("bert4rec_train", 10_240, 64, 12_103, False)]
+CE_EXTRA = [  # correctness only
+    ("bert4rec_last_batch", 6_940, 64, 12_103, False),  # 347 users x 20
+    ("jax_test", 70, 16, 300, False),
+    ("widest_D", 333, 128, 1_000, False),
+    ("large_logits", 1_000, 64, 12_103, True),
+]
+# max |loss - plain| for losses of O(10): sums of D products and
+# logsumexps of V terms in other orders, at float32
+CE_TOL = 1e-4
+CE_BIG = 100.0  # bias added to every 97th entry: exp() overflows float32 there
 
 
 def emit(phase: str, **fields) -> None:
@@ -452,6 +496,125 @@ def time_dropout(inp, dout) -> dict:
     )
 
 
+def ce_inputs(case, rng):
+    """(h, weight, b, labels, g) of one CE case on the card: h (M, D),
+    weight (V, D) as fc.weight holds it, b (V,) and h requiring their
+    gradients; labels with the pad id 0 and the last id among them; g the
+    weighted mean's row gradient, 0 on a third of the rows."""
+    import torch
+
+    name, M, D, V, big = case
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    h = t(rng.normal(size=(M, D)).astype(np.float32)).requires_grad_()
+    weight = t((rng.normal(size=(V, D)) / math.sqrt(D)).astype(np.float32)).requires_grad_()
+    bias = (rng.normal(size=V) * 0.1).astype(np.float32)
+    labels = rng.integers(0, V, M)
+    labels[:2] = [0, V - 1]
+    if big:
+        bias[::97] += CE_BIG
+        labels[2::3] = 97 * rng.integers(0, (V - 1) // 97 + 1, len(labels[2::3]))
+    b = t(bias).requires_grad_()
+    w = (rng.random(M) >= 1 / 3).astype(np.float32)
+    g = t(w / max(w.sum(), 1.0))
+    return h, weight, b, t(labels.astype(np.int64)), g
+
+
+def _ce_grads(fn, h, weight, b, labels, g):
+    """(losses, [dh, dweight, db]) of fn(h, weight.T, b, labels) for the
+    row gradient g."""
+    import torch
+
+    rows = fn(h, weight.T, b, labels)
+    return rows.detach(), list(torch.autograd.grad(rows, (h, weight, b), g))
+
+
+def check_vocab_ce(rng):
+    """K3 against its plain version on the card, forward and backward;
+    times at the timed shape."""
+    import torch
+
+    from recboard_tpu_torch.ops import vocab_ce as K
+
+    rows, worst = [], dict(fwd=0.0, bwd=0.0)
+    for case in CE_SHAPES + CE_EXTRA:
+        inp = ce_inputs(case, rng)
+        want, want_g = _ce_grads(K.fullvocab_ce_rows_reference, *inp)
+        got, got_g = _ce_grads(K.fullvocab_ce_rows, *inp)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
+        grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                       for a, b in zip(got_g, want_g))
+        finite = all(bool(torch.isfinite(x).all()) for x in [got] + got_g)
+        # rows whose loss gradient is 0 contribute exactly nothing
+        zero_rows_exact = not bool(got_g[0][inp[-1] == 0].any())
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["bwd"] = max(worst["bwd"], grad_err)
+        row = dict(shape=case[0], M=case[1], D=case[2], V=case[3], max_abs_err=err,
+                   tol=CE_TOL, grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
+                   grad_rel_tol=GRAD_TOL, finite=finite, zero_rows_exact=zero_rows_exact,
+                   max_loss=float(want.abs().max()))
+        if case in CE_SHAPES:
+            row.update(time_vocab_ce(*inp))
+        emit("kernels", kernel="vocab_ce", **row)
+        if (not finite or not zero_rows_exact or not err <= CE_TOL
+                or not grad_rel <= GRAD_TOL):
+            raise SystemExit(f"vocab_ce disagrees with its plain version at {case[0]}: "
+                             f"loss {err}, grads {grad_rel}, zero rows exact "
+                             f"{zero_rows_exact}")
+        rows.append(row)
+        del inp, want, want_g, got, got_g
+    return rows, worst
+
+
+def time_vocab_ce(h, weight, b, labels, g) -> dict:
+    """CUDA-event times of K3's forward and backward, its plain version and
+    F.cross_entropy over torch.addmm (forward, and autograd backward) at
+    one shape, with the bounds: the forward 2*M*D*V FLOP, the backward
+    6*M*D*V (the logits again, dh and dW, the TPU kernel's work), each
+    input read once and each output written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from recboard_tpu_torch.ops import vocab_ce as K
+
+    hd, W, bd = h.detach(), weight.detach().T, b.detach()
+    M, D = hd.shape
+    V = W.shape[1]
+    loss, logz = K.vocab_ce_fwd(hd, W, bd, labels)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return K.fullvocab_ce_rows_reference(hd, W, bd, labels)
+
+    def library(hh, ww, bb):
+        return F.cross_entropy(torch.addmm(bb, hh, ww), labels, reduction="none")
+
+    def library_fwd():
+        with torch.no_grad():
+            return library(hd, W, bd)
+
+    def library_fwd_bwd():
+        torch.autograd.grad(library(h, weight.T, b), (h, weight, b), g)
+
+    fwd_bound = bound(nbytes(hd, W, bd, labels, loss, logz), 2 * M * D * V)
+    bwd_bound = bound(nbytes(hd, W, bd, labels, logz, g) + nbytes(hd, W, bd), 6 * M * D * V)
+    plain_ms = cuda_ms(plain_fwd, iters=20, warmup=3)
+    lib_ms = cuda_ms(library_fwd, iters=20, warmup=3)
+    return dict(
+        fwd_ms=cuda_ms(lambda: K.vocab_ce_fwd(hd, W, bd, labels), iters=50, warmup=5),
+        bwd_ms=cuda_ms(lambda: K.vocab_ce_bwd(hd, W, bd, labels, logz, g), iters=20, warmup=3),
+        plain_fwd_ms=plain_ms,
+        plain_bwd_ms=cuda_ms(lambda: _ce_grads(K.fullvocab_ce_rows_reference,
+                                               h, weight, b, labels, g),
+                             iters=10, warmup=3) - plain_ms,
+        library_fwd_ms=lib_ms,
+        library_bwd_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=3) - lib_ms,
+        fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+    )
+
+
 def xavier(rng, fan_in, fan_out, shape=None):
     std = math.sqrt(2.0 / (fan_in + fan_out))
     return (rng.normal(size=shape or (fan_in, fan_out)) * std).astype(np.float32)
@@ -477,6 +640,50 @@ def sasrec_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_):
             "PointWiseFFN_0": {"Dense_0": dense(), "Dense_1": dense()},
         }
     return params
+
+
+def bert4rec_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_):
+    """BERT4Rec params in recboard_tpu's flax layout, made with numpy: the
+    packed qkv as a DenseGeneral kernel (D, 3, D) with a (3, D) bias, and
+    the fc head over the items and the two specials (pad, MASK)."""
+    D, V = embedding_dim, num_items + 2
+    small = lambda *shape: (rng.normal(size=shape or (D,)) * 0.02).astype(np.float32)  # noqa: E731
+    ln = lambda: {"scale": 1.0 + small(), "bias": small()}  # noqa: E731
+    dense = lambda i, o: {"kernel": xavier(rng, i, o), "bias": small(o)}  # noqa: E731
+    params = {
+        "item_embeddings": {"embedding": xavier(rng, V, D)},
+        "position_embeddings": {"embedding": xavier(rng, maxlen, D)},
+        "layernorm": ln(),
+        "fc": dense(D, V),
+    }
+    for i in range(num_blocks):
+        params[f"encoder_{i}"] = {
+            "qkv": {"kernel": xavier(rng, D, 3 * D).reshape(D, 3, D), "bias": small(3, D)},
+            "out_proj": dense(D, D), "LayerNorm_0": ln(),
+            "Dense_0": dense(D, 4 * D), "Dense_1": dense(4 * D, D), "LayerNorm_1": ln(),
+        }
+    return params
+
+
+def layout(tree, path=()) -> dict:
+    """{leaf path: shape} of nested params."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(layout(value, path + (key,)))
+        else:
+            out["/".join(path + (key,))] = np.shape(value)
+    return out
+
+
+# each model's slice: widths, random weights, training config, toy-store
+# protocol and quality anchor, and the prefix of its phase names
+SLICES = {
+    "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
+                   protocol=STORE_PROTOCOL, store=STORE_NDCG10, tag=""),
+    "BERT4Rec": dict(widths=BERT4REC, params=bert4rec_flax_params, config=B4R_CONFIG,
+                     protocol=B4R_STORE_PROTOCOL, store=B4R_STORE_NDCG10, tag="bert4rec_"),
+}
 
 
 def read_scored_tsv(path):
@@ -513,12 +720,8 @@ def compare_topk(a, b, tol=TIE_TOL):
     return bad
 
 
-def write_run(seed: int) -> tuple:
-    """Dataset of SynBeautyXL's shape + a run directory holding a SASRec
-    config snapshot and a random flax-layout params pickle."""
-    import yaml
-
-    from recboard_tpu_torch import utils
+def make_dataset():
+    """The dataset of SynBeautyXL's shape, under a fresh WORK."""
     from recboard_tpu_torch.data import synthetic
     from recboard_tpu_torch.data.datasets import NextItemRecDataSet
 
@@ -526,34 +729,47 @@ def write_run(seed: int) -> tuple:
     data_root = os.path.join(WORK, "data")
     spec = dict(DATASET)
     synthetic.make_synthetic_dataset(data_root, spec.pop("name"), **spec)
-    dataset = NextItemRecDataSet(data_root, DATASET["name"])
-    num_items = dataset.fields["ITEM", "ID"].count
+    return NextItemRecDataSet(data_root, DATASET["name"])
 
-    run_dir = os.path.join(WORK, "run")
+
+def write_run(seed: int, model: str, num_items: int) -> str:
+    """A run directory for ``model`` over make_dataset's data: a config
+    snapshot and a random flax-layout params pickle."""
+    import yaml
+
+    from recboard_tpu_torch import utils
+
+    widths, params_fn = SLICES[model]["widths"], SLICES[model]["params"]
+    run_dir = os.path.join(WORK, f"run_{model}")
     ckpt_dir = os.path.join(run_dir, "ckpt")
-    cfg = dict(model="SASRec", root=data_root, dataset=DATASET["name"],
+    cfg = dict(model=model, root=os.path.join(WORK, "data"), dataset=DATASET["name"],
                tasktag="NEXTITEM", seed=seed, CHECKPOINT_PATH=ckpt_dir,
-               BEST_FILENAME="best.safetensors", **SASREC)
+               BEST_FILENAME="best.safetensors", **widths)
     utils.mkdirs(ckpt_dir)
     with open(os.path.join(run_dir, "config.yaml"), "w") as fh:
         yaml.safe_dump(cfg, fh, sort_keys=True)
-    params = sasrec_flax_params(np.random.default_rng(seed), num_items, **SASREC)
+    params = params_fn(np.random.default_rng(seed), num_items, **widths)
     utils.export_pickle({"params": params}, os.path.join(ckpt_dir, "best.safetensors"))
-    return dataset, run_dir
+    return run_dir
 
 
-def serve_slice(seed: int) -> dict:
+def serve_slice(seed: int, dataset, model: str) -> dict:
+    """``recommend`` for ``model`` with random weights: every list, the
+    forward kernel once per block per batch, the GPU lists equal to
+    ``--device cpu``'s; then the ``--bench`` line."""
     from recboard_tpu_torch import serve
     from recboard_tpu_torch.ops import attention as A
 
-    t0 = time.perf_counter()
-    dataset, run_dir = write_run(seed)
-    setup_s = time.perf_counter() - t0
+    widths, tag = SLICES[model]["widths"], SLICES[model]["tag"]
     num_items = dataset.fields["ITEM", "ID"].count
+    t0 = time.perf_counter()
+    run_dir = write_run(seed, model, num_items)
+    setup_s = time.perf_counter() - t0
     # K + 1 ids per user: the (K+1)-th score bounds ties at the K-th
     common = ["--run", run_dir, "--topk", str(TOPK + 1), "--with-scores",
               "--batch-size", str(BATCH)]
-    gpu_tsv, cpu_tsv = os.path.join(WORK, "gpu.tsv"), os.path.join(WORK, "cpu.tsv")
+    gpu_tsv = os.path.join(WORK, f"{model}_gpu.tsv")
+    cpu_tsv = os.path.join(WORK, f"{model}_cpu.tsv")
 
     A.mha_fwd.launches = 0
     t0 = time.perf_counter()
@@ -563,10 +779,10 @@ def serve_slice(seed: int) -> dict:
 
     gpu = read_scored_tsv(gpu_tsv)
     batches = math.ceil(len(gpu) / BATCH)
-    if launches != SASREC["num_blocks"] * batches:
+    if launches != widths["num_blocks"] * batches:
         raise SystemExit(
-            f"mha_fwd launched {launches} times for {batches} batches "
-            f"of {SASREC['num_blocks']} blocks"
+            f"{model}: mha_fwd launched {launches} times for {batches} batches "
+            f"of {widths['num_blocks']} blocks"
         )
     train, valid = dataset.train().user_seqs(), dataset.valid().user_seqs()
     for user, (ids, vals) in gpu.items():
@@ -574,21 +790,21 @@ def serve_slice(seed: int) -> dict:
         seen = set(train[user]) | set(valid[user])
         if (len(set(top)) != TOPK or top.min() < 0 or top.max() >= num_items
                 or seen & set(top.tolist()) or not np.isfinite(vals).all()):
-            raise SystemExit(f"user {user}: bad list {top} (seen {sorted(seen)})")
+            raise SystemExit(f"{model}, user {user}: bad list {top} (seen {sorted(seen)})")
 
     t0 = time.perf_counter()
     serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
     cpu_s = time.perf_counter() - t0
     bad = compare_topk(gpu, read_scored_tsv(cpu_tsv))
     if bad:
-        raise SystemExit("GPU and CPU lists disagree:\n" + "\n".join(bad[:10]))
+        raise SystemExit(f"{model}: GPU and CPU lists disagree:\n" + "\n".join(bad[:10]))
 
-    emit("slice", users=len(gpu), items=num_items, batches=batches,
+    emit(f"{tag}slice", model=model, users=len(gpu), items=num_items, batches=batches,
          mha_fwd_launches=launches, topk=TOPK, cpu_agree=True,
-         setup_s=setup_s, serve_gpu_s=gpu_s, serve_cpu_s=cpu_s, **SASREC)
+         setup_s=setup_s, serve_gpu_s=gpu_s, serve_cpu_s=cpu_s, **widths)
 
     bench = run_bench(run_dir)
-    emit("bench", **bench)
+    emit(f"{tag}bench", **bench)
     return dict(launches=launches, run_dir=run_dir, bench=bench)
 
 
@@ -620,7 +836,7 @@ def profiled_ops(prof, per: int, device: bool) -> list:
     return sorted(rows, key=lambda row: -row[1])
 
 
-def profile_bench(run_dir: str, p50_ms: float) -> None:
+def profile_bench(run_dir: str, p50_ms: float, phase: str) -> None:
     """Device time by kernel over one ``--bench`` call under torch.profiler
     (its warm-up and timed passes each serve every staged batch), and the
     device's idle share of the unprofiled p50 batch time."""
@@ -630,7 +846,7 @@ def profile_bench(run_dir: str, p50_ms: float) -> None:
         bench = run_bench(run_dir)
     kernels = profiled_ops(prof, 2 * bench["batches"], device=True)
     device_us = sum(us for _, us, _ in kernels)
-    emit("profile", device_us_per_batch=device_us,
+    emit(phase, device_us_per_batch=device_us,
          launches_per_batch=sum(n for _, _, n in kernels),
          unprofiled_p50_ms=p50_ms,
          idle_share=1.0 - device_us / (1e3 * p50_ms),
@@ -638,10 +854,10 @@ def profile_bench(run_dir: str, p50_ms: float) -> None:
                   for name, us, n in kernels[:12]])
 
 
-def train_argv(data_root: str, dataset: str, seed: int, **flags) -> list:
-    """``run`` arguments for SASRec on ``dataset`` with these flags, its
+def train_argv(model: str, data_root: str, dataset: str, seed: int, **flags) -> list:
+    """``run`` arguments for ``model`` on ``dataset`` with these flags, its
     logs and checkpoints under WORK."""
-    argv = ["--model", "SASRec", "--root", data_root, "--dataset", dataset,
+    argv = ["--model", model, "--root", data_root, "--dataset", dataset,
             "--seed", str(seed), "--log2console", "false",
             "--log-path", os.path.join(WORK, "logs"),
             "--checkpoint-path", os.path.join(WORK, "infos", f"{dataset}-s{seed}")]
@@ -650,79 +866,90 @@ def train_argv(data_root: str, dataset: str, seed: int, **flags) -> list:
     return argv
 
 
-def latest_run(dataset: str) -> str:
-    root = os.path.join(WORK, "logs", "SASRec", dataset)
+def latest_run(model: str, dataset: str) -> str:
+    root = os.path.join(WORK, "logs", model, dataset)
     return os.path.join(root, sorted(os.listdir(root))[-1])
 
 
-def train_slice(seed: int) -> dict:
-    """``run`` at the reference config on the SynBeautyXL-shaped dataset
-    for TRAIN_EPOCHS epochs, validated every epoch: the loss is finite,
-    K2 forward and backward launched twice per step each, K1 twice per
-    evaluated batch, the best checkpoint is in the flax layout, and the
-    run serves on the GPU with the CPU's lists."""
+def counted_kernels() -> tuple:
+    """The kernel wrappers, each counting its launches in ``.launches``."""
+    from recboard_tpu_torch.ops import attention as A
+    from recboard_tpu_torch.ops import vocab_ce as K
+
+    return A.mha_fwd, A.mha_dropout_fwd, A.mha_dropout_bwd, K.vocab_ce_fwd, K.vocab_ce_bwd
+
+
+def train_slice(seed: int, dataset, model: str) -> dict:
+    """``run`` at ``model``'s reference config on the SynBeautyXL-shaped
+    dataset for TRAIN_EPOCHS epochs, validated every epoch: the loss is
+    finite, K2 forward and backward launched twice per step each (and
+    BERT4Rec's K3 once per step each), K1 twice per evaluated batch, the
+    best checkpoint is in the flax layout, and the run serves on the GPU
+    with the CPU's lists."""
     import torch
 
     from recboard_tpu_torch import run, serve
-    from recboard_tpu_torch.ops import attention as A
 
-    data_root = os.path.join(WORK, "data")
-    argv = train_argv(data_root, DATASET["name"], seed, config=TRAIN_CONFIG,
-                      epochs=TRAIN_EPOCHS, eval_freq=1)
-    dataset = run.load_dataset(serve.load_run_config(os.path.join(WORK, "run")))
-    model = run.build_model("SASRec", dataset, dict(SASREC, seed=seed), "cpu")
-    steps = len(list(model.sure_trainpipe(SASREC["maxlen"], TRAIN_BATCH)))
-    n_valid = len(list(model.sure_validpipe(SASREC["maxlen"])))
-    n_test = len(list(model.sure_testpipe(SASREC["maxlen"])))
+    spec = SLICES[model]
+    widths, tag = spec["widths"], spec["tag"]
+    argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
+                      config=spec["config"], epochs=TRAIN_EPOCHS, eval_freq=1)
+    counter = run.build_model(model, dataset, dict(widths, seed=seed), "cpu")
+    steps = len(list(counter.sure_trainpipe(widths["maxlen"], TRAIN_BATCH)))
+    n_valid = len(list(counter.sure_validpipe(widths["maxlen"])))
+    n_test = len(list(counter.sure_testpipe(widths["maxlen"])))
 
-    A.mha_fwd.launches = A.mha_dropout_fwd.launches = A.mha_dropout_bwd.launches = 0
+    for fn in counted_kernels():
+        fn.launches = 0
     t0 = time.perf_counter()
     best = run.main(argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = dict(mha_fwd=A.mha_fwd.launches,
-                    mha_dropout_fwd=A.mha_dropout_fwd.launches,
-                    mha_dropout_bwd=A.mha_dropout_bwd.launches)
+    launches = {fn.__name__: fn.launches for fn in counted_kernels()}
 
-    run_dir = latest_run(DATASET["name"])
+    run_dir = latest_run(model, DATASET["name"])
     with open(os.path.join(run_dir, "monitors.pkl"), "rb") as fh:
         history = pickle.load(fh)
     losses = [row["LOSS"] for row in history["train"]]
-    blocks = SASREC["num_blocks"]
+    blocks, trained = widths["num_blocks"], steps * TRAIN_EPOCHS
     # valid after every epoch and at the end; test at the end and at the best
     evaluated = (TRAIN_EPOCHS + 1) * n_valid + 2 * n_test
-    want = dict(mha_fwd=blocks * evaluated, mha_dropout_fwd=blocks * steps * TRAIN_EPOCHS,
-                mha_dropout_bwd=blocks * steps * TRAIN_EPOCHS)
-    emit("train", config=TRAIN_CONFIG, dataset=DATASET["name"], epochs=TRAIN_EPOCHS,
-         steps_per_epoch=steps, losses=losses, best=best, launches=launches,
-         expected_launches=want, run_s=run_s)
+    ce = trained if model == "BERT4Rec" else 0  # one K3 forward and backward per step
+    want = dict(mha_fwd=blocks * evaluated, mha_dropout_fwd=blocks * trained,
+                mha_dropout_bwd=blocks * trained, vocab_ce_fwd=ce, vocab_ce_bwd=ce)
+    emit(f"{tag}train", model=model, config=spec["config"], dataset=DATASET["name"],
+         epochs=TRAIN_EPOCHS, steps_per_epoch=steps, losses=losses, best=best,
+         launches=launches, expected_launches=want, run_s=run_s)
     if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"train: losses {losses}")
+        raise SystemExit(f"{model} train: losses {losses}")
     if launches != want:
-        raise SystemExit(f"train: launches {launches}, expected {want}")
+        raise SystemExit(f"{model} train: launches {launches}, expected {want}")
     if not best or not all(math.isfinite(v) for v in best.values()):
-        raise SystemExit(f"train: best {best}")
+        raise SystemExit(f"{model} train: best {best}")
 
     cfg = serve.load_run_config(run_dir)
     with open(os.path.join(cfg.CHECKPOINT_PATH, cfg.BEST_FILENAME), "rb") as fh:
         params = pickle.load(fh)["params"]
-    if params["blocks_1"]["q_proj"]["kernel"].shape != (64, 64) or \
-            params["item_embeddings"]["embedding"].shape[0] != dataset.fields["ITEM", "ID"].count + 1:
-        raise SystemExit("train: the best checkpoint is not in the flax layout")
+    flax_layout = layout(spec["params"](np.random.default_rng(0),
+                                        dataset.fields["ITEM", "ID"].count, **widths))
+    if layout(params) != flax_layout:
+        raise SystemExit(f"{model} train: the best checkpoint is not in the flax layout")
 
     common = ["--run", run_dir, "--topk", str(TOPK + 1), "--with-scores",
               "--batch-size", str(BATCH)]
-    gpu_tsv, cpu_tsv = os.path.join(WORK, "train_gpu.tsv"), os.path.join(WORK, "train_cpu.tsv")
+    gpu_tsv = os.path.join(WORK, f"{model}_train_gpu.tsv")
+    cpu_tsv = os.path.join(WORK, f"{model}_train_cpu.tsv")
     serve.main(common + ["--output", gpu_tsv])
     serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
     bad = compare_topk(read_scored_tsv(gpu_tsv), read_scored_tsv(cpu_tsv))
     if bad:
-        raise SystemExit("trained run: GPU and CPU lists disagree:\n" + "\n".join(bad[:10]))
-    emit("train_serve", users=len(read_scored_tsv(gpu_tsv)), cpu_agree=True)
+        raise SystemExit(f"{model} trained run: GPU and CPU lists disagree:\n"
+                         + "\n".join(bad[:10]))
+    emit(f"{tag}train_serve", users=len(read_scored_tsv(gpu_tsv)), cpu_agree=True)
     return dict(launches=launches, run_dir=run_dir, steps=steps)
 
 
-def time_training(run_dir: str) -> None:
+def time_training(run_dir: str, phase: str) -> None:
     """Per-step and per-epoch times of the trained run's configuration on
     the card: the host pipe alone for one epoch, each step of that epoch
     alone on batches already on the card (synchronised), one whole epoch
@@ -738,7 +965,7 @@ def time_training(run_dir: str) -> None:
     cfg = serve.load_run_config(run_dir)
     device = torch.device("cuda")
     dataset = run.load_dataset(cfg)
-    model = run.build_model("SASRec", dataset, cfg, device)
+    model = run.build_model(cfg.model, dataset, cfg, device)
     trainpipe, validpipe, testpipe = run.build_pipes(model, cfg)
     coach = Coach(dataset, trainpipe, validpipe, testpipe, model, cfg, device)
 
@@ -763,7 +990,7 @@ def time_training(run_dir: str) -> None:
     coach.train(1)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    emit("train_time", steps=len(staged), examples=examples,
+    emit(f"{phase}_time", model=cfg.model, steps=len(staged), examples=examples,
          step_p50_ms=float(np.percentile(step_ms, 50)),
          step_p95_ms=float(np.percentile(step_ms, 95)),
          device_step_s=sum(step_ms) / 1e3, host_pipe_s=pipe_s, epoch_s=epoch_s,
@@ -778,7 +1005,7 @@ def time_training(run_dir: str) -> None:
     kernels = profiled_ops(prof, len(staged), device=True)
     host = profiled_ops(prof, len(staged), device=False)
     device_us = sum(us for _, us, _ in kernels)
-    emit("train_profile", device_us_per_step=device_us,
+    emit(f"{phase}_profile", device_us_per_step=device_us,
          launches_per_step=sum(n for _, _, n in kernels),
          profiled_epoch_s=profiled_s, unprofiled_epoch_s=epoch_s,
          idle_share=1.0 - device_us * len(staged) / (1e6 * profiled_s),
@@ -789,32 +1016,48 @@ def time_training(run_dir: str) -> None:
                    for name, us, n in host[:12]])
 
 
-def quality(seeds: int) -> dict:
-    """The toy store's SASRec protocol on the card: SynBeauty_000_LOU
-    rebuilt from its meta.json build_command (tools/seed_sweep.py's
-    defaults for the flags it omits) and tools/seed_sweep.py's SASRec
-    arguments; the mean best NDCG@10 must lie in the store's band."""
+def quality(seeds: int, model: str) -> dict:
+    """The toy store's protocol for ``model`` on the card:
+    SynBeauty_000_LOU rebuilt from its meta.json build_command
+    (tools/seed_sweep.py's defaults for the flags it omits) and
+    tools/seed_sweep.py's arguments for the model; the mean best NDCG@10
+    must lie in the store's band."""
     from recboard_tpu_torch import run
     from recboard_tpu_torch.data import synthetic
 
+    spec = SLICES[model]
+    protocol, store, tag = spec["protocol"], spec["store"], spec["tag"]
     data_root = os.path.join(WORK, "store_data")
-    spec = dict(STORE_DATASET)
-    name = spec.pop("name")
-    synthetic.make_synthetic_dataset(data_root, name, **spec)
+    data = dict(STORE_DATASET)
+    name = data.pop("name")
+    synthetic.make_synthetic_dataset(data_root, name, **data)
     values, seconds = [], []
     for seed in range(seeds):
         t0 = time.perf_counter()
-        best = run.main(train_argv(data_root, name, seed, **STORE_PROTOCOL))
+        best = run.main(train_argv(model, data_root, name, seed, **protocol))
         seconds.append(time.perf_counter() - t0)
         values.append(best["NDCG@10"])
-        emit("quality_seed", seed=seed, ndcg10=values[-1], seconds=seconds[-1])
+        emit(f"{tag}quality_seed", model=model, seed=seed, ndcg10=values[-1],
+             seconds=seconds[-1])
     mean = float(np.mean(values))
-    emit("quality", dataset=name, seeds=seeds, ndcg10=values, mean=mean,
-         std=float(np.std(values)), store_mean=STORE_NDCG10, band=STORE_BAND,
-         protocol=STORE_PROTOCOL)
-    if not abs(mean - STORE_NDCG10) <= STORE_BAND:
-        raise SystemExit(f"quality: mean NDCG@10 {mean} outside {STORE_NDCG10} ± {STORE_BAND}")
+    emit(f"{tag}quality", model=model, dataset=name, seeds=seeds, ndcg10=values, mean=mean,
+         std=float(np.std(values)), store_mean=store, band=STORE_BAND,
+         protocol=protocol, seconds=sum(seconds))
+    if not abs(mean - store) <= STORE_BAND:
+        raise SystemExit(f"{model} quality: mean NDCG@10 {mean} outside {store} ± {STORE_BAND}")
     return dict(mean=mean, values=values)
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float,
+                 row: dict, prefix: str = "") -> dict:
+    """One entry of the ``{"kernels": [...]}`` line from a timed row."""
+    return {
+        "name": name, "route": "cuda", "source": f"recboard_tpu_torch/ops/csrc/{source}",
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": row[f"{prefix}ms"], "plain_ms": row[f"plain_{prefix}ms"],
+        "bound_ms": row[f"{prefix}bound_ms"], "bound_by": row[f"{prefix}bound_by"],
+        "library_ms": row[f"library_{prefix}ms"],
+    }
 
 
 def main(argv=None) -> int:
@@ -859,43 +1102,35 @@ def main(argv=None) -> int:
     rows, worst = timed("kernels_mha_fwd", check_attention, np.random.default_rng(args.seed))
     drop_rows, drop_worst = timed("kernels_mha_dropout", check_dropout_attention,
                                   np.random.default_rng(args.seed + 1))
-    slice_ = timed("slice", serve_slice, args.seed)
-    timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"])
-    trained = timed("train", train_slice, args.seed)
-    timed("train_time", time_training, trained["run_dir"])
-    timed("quality", quality, STORE_SEEDS)
+    ce_rows, ce_worst = timed("kernels_vocab_ce", check_vocab_ce,
+                              np.random.default_rng(args.seed + 2))
+    dataset = timed("dataset", make_dataset)
+    slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
+    timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
+    trained = timed("train", train_slice, args.seed, dataset, "SASRec")
+    timed("train_time", time_training, trained["run_dir"], "train")
+    timed("quality", quality, STORE_SEEDS, "SASRec")
+    b_slice = timed("bert4rec_slice", serve_slice, args.seed, dataset, "BERT4Rec")
+    timed("bert4rec_profile", profile_bench, b_slice["run_dir"], b_slice["bench"]["p50"],
+          "bert4rec_profile")
+    b_trained = timed("bert4rec_train", train_slice, args.seed, dataset, "BERT4Rec")
+    timed("bert4rec_train_time", time_training, b_trained["run_dir"], "bert4rec_train")
+    timed("bert4rec_quality", quality, STORE_SEEDS, "BERT4Rec")
 
-    serving, training = rows[0], drop_rows[0]
+    serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     print(json.dumps({"kernels": [
-        {
-            "name": "mha_fwd", "route": "cuda",
-            "source": "recboard_tpu_torch/ops/csrc/mha_fwd.cu",
-            "replaces": "recboard_tpu/ops/attention.py:143",
-            "launches": slice_["launches"], "max_abs_err": worst,
-            "ms": serving["ms"], "plain_ms": serving["plain_ms"],
-            "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
-            "library_ms": serving["library_ms"],
-        },
-        {
-            "name": "mha_dropout_fwd", "route": "cuda",
-            "source": "recboard_tpu_torch/ops/csrc/mha_dropout.cu",
-            "replaces": "recboard_tpu/ops/attention.py:316",
-            "launches": trained["launches"]["mha_dropout_fwd"],
-            "max_abs_err": drop_worst["fwd"],
-            "ms": training["fwd_ms"], "plain_ms": training["plain_fwd_ms"],
-            "bound_ms": training["fwd_bound_ms"], "bound_by": training["fwd_bound_by"],
-            "library_ms": training["library_fwd_ms"],
-        },
-        {
-            "name": "mha_dropout_bwd", "route": "cuda",
-            "source": "recboard_tpu_torch/ops/csrc/mha_dropout.cu",
-            "replaces": "recboard_tpu/ops/attention.py:354",
-            "launches": trained["launches"]["mha_dropout_bwd"],
-            "max_abs_err": drop_worst["bwd"],
-            "ms": training["bwd_ms"], "plain_ms": training["plain_bwd_ms"],
-            "bound_ms": training["bwd_bound_ms"], "bound_by": training["bwd_bound_by"],
-            "library_ms": training["library_bwd_ms"],
-        },
+        kernel_entry("mha_fwd", "mha_fwd.cu", "recboard_tpu/ops/attention.py:143",
+                     slice_["launches"], worst, serving),
+        kernel_entry("mha_dropout_fwd", "mha_dropout.cu", "recboard_tpu/ops/attention.py:316",
+                     trained["launches"]["mha_dropout_fwd"], drop_worst["fwd"], training,
+                     "fwd_"),
+        kernel_entry("mha_dropout_bwd", "mha_dropout.cu", "recboard_tpu/ops/attention.py:354",
+                     trained["launches"]["mha_dropout_bwd"], drop_worst["bwd"], training,
+                     "bwd_"),
+        kernel_entry("vocab_ce_fwd", "vocab_ce.cu", "recboard_tpu/ops/vocab_ce.py:48",
+                     b_trained["launches"]["vocab_ce_fwd"], ce_worst["fwd"], ce, "fwd_"),
+        kernel_entry("vocab_ce_bwd", "vocab_ce.cu", "recboard_tpu/ops/vocab_ce.py:64",
+                     b_trained["launches"]["vocab_ce_bwd"], ce_worst["bwd"], ce, "bwd_"),
     ]}))
     emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
     print(smi)

@@ -56,7 +56,7 @@ def cross_entropy_with_logits(
     """Softmax cross entropy over the last axis with integer labels;
     ``ignore_index`` masks positions."""
     logz = torch.logsumexp(logits, dim=-1)
-    picked = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    picked = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     loss = logz - picked
     if ignore_index is not None:
         valid = (labels != ignore_index).to(loss.dtype)

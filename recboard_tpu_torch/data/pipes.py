@@ -6,11 +6,11 @@ Pipes chain functionally from a dataset view — ``view.<source>()`` then
 ``Size`` field, exactly as in ``recboard_tpu``: the same seed gives the
 same host batches in both packages.
 
-This module holds what SASRec's pipes use: the shuffled-sequence
-training source with its shift-by-one positives and per-position
-negatives (drawn by the native sampler, ``native/``), the ordered user
-source and the valid/test samplers, and the offset/pad/prune/batch/
-collate transforms.
+This module holds what SASRec's and BERT4Rec's pipes use: the
+shuffled-sequence training source with its shift-by-one positives and
+per-position negatives (drawn by the native sampler, ``native/``), the
+ordered user source and the valid/test samplers, and the offset/left-pad/
+right-pad/prune/batch/collate transforms.
 """
 
 from __future__ import annotations
@@ -377,6 +377,8 @@ def _pad(seq: tuple, maxlen: int, value, left: bool) -> tuple:
 class LeftPadder(DataPipe):
     """Left-pad to maxlen; longer sequences keep their last maxlen entries."""
 
+    left = True
+
     def __init__(self, source, maxlen: int, modified_fields, padding_value=0):
         super().__init__(source)
         self.maxlen = maxlen
@@ -387,8 +389,16 @@ class LeftPadder(DataPipe):
         for row in self.source:
             row = dict(row)
             for f in self.modified_fields:
-                row[f] = _pad(row[f], self.maxlen, self.padding_value, left=True)
+                row[f] = _pad(row[f], self.maxlen, self.padding_value, left=self.left)
             yield row
+
+
+@functional_datapipe("rpad_")
+class RightPadder(LeftPadder):
+    """Right-pad to maxlen; longer sequences keep their first maxlen
+    entries (BERT4Rec's eval pipes append the MASK token with it)."""
+
+    left = False
 
 
 @functional_datapipe("lprune_")

@@ -3,15 +3,18 @@
 A ``recboard_tpu`` run checkpoints its flax params as nested dicts of
 numpy arrays in a pickle (``CHECKPOINT_PATH/best.safetensors``, a pickle
 despite the suffix). The port's modules keep flax's submodule names, so
-``from_flax`` is a path rename plus three leaf rules:
+``from_flax`` is a path rename plus four leaf rules:
 
 * a Dense ``kernel`` (in, out) becomes the transposed ``weight`` (out, in);
+* a DenseGeneral ``kernel`` (in, n, out) beside a bias (n, out), such as
+  BERT4Rec's packed ``qkv`` (D, 3, D), becomes the (n*out, in) weight of
+  its flattened outputs, in the order [q; k; v], and the bias (n*out,);
 * a LayerNorm ``scale`` becomes ``weight``;
 * an Embed ``embedding`` becomes ``weight``;
 
 and ``bias`` stays ``bias``. ``blocks_0/q_proj/kernel`` becomes
 ``blocks_0.q_proj.weight``. Later slices add rules for the leaves their
-modules bring (DenseGeneral kernels, BatchNorm stats).
+modules bring (BatchNorm stats).
 
 ``to_flax`` is the inverse: the port's Coach saves ``{"params":
 to_flax(model)}``, the payload ``recboard_tpu``'s Coach writes, so a run
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .modules import DenseGeneral
+
 __all__ = ["from_flax", "to_flax"]
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
@@ -37,6 +42,9 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, path: Tuple[str, ...]) -> None:
+        kernel = np.asarray(tree["kernel"]) if "kernel" in tree else None
+        general = (kernel is not None and kernel.ndim == 3 and "bias" in tree
+                   and np.shape(tree["bias"]) == kernel.shape[1:])
         for key, value in tree.items():
             if isinstance(value, Mapping):
                 walk(value, path + (key,))
@@ -46,12 +54,15 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"from_flax: no rule for the leaf {where}")
             arr = np.asarray(value)
             if key == "kernel":
-                if arr.ndim != 2:
+                if arr.ndim != 2 and not general:
                     raise ValueError(
                         f"from_flax: {where} has {arr.ndim} dims; only 2-D "
-                        "Dense kernels convert so far"
+                        "Dense kernels and (in, n, out) DenseGeneral kernels "
+                        "with an (n, out) bias convert"
                     )
-                arr = arr.T
+                arr = arr.reshape(arr.shape[0], -1).T
+            elif key == "bias" and general:
+                arr = arr.reshape(-1)
             # a copy: the arrays may be read-only views of another buffer
             out[".".join(path + (_LEAF_NAMES[key],))] = torch.from_numpy(
                 np.array(arr, order="C")
@@ -63,11 +74,17 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def to_flax(model: nn.Module) -> Dict:
     """A model's weights as nested flax params of numpy arrays: Linear →
-    ``{kernel (in, out), bias}``, LayerNorm → ``{scale, bias}``, Embedding
+    ``{kernel (in, out), bias}``, DenseGeneral → ``{kernel (in, *features),
+    bias features}``, LayerNorm → ``{scale, bias}``, Embedding
     → ``{embedding}``, nested by submodule name."""
     tree: Dict = {}
     for name, module in model.named_modules():
-        if isinstance(module, nn.Linear):
+        if isinstance(module, DenseGeneral):
+            leaves = {
+                "kernel": module.weight.T.reshape(module.in_features, *module.features),
+                "bias": module.bias.reshape(module.features),
+            }
+        elif isinstance(module, nn.Linear):
             leaves = {"kernel": module.weight.T, "bias": module.bias}
         elif isinstance(module, nn.LayerNorm):
             leaves = {"scale": module.weight, "bias": module.bias}

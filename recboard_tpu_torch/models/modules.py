@@ -11,14 +11,16 @@ counterpart of flax's ``deterministic`` flag and ``"dropout"`` rng.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
 
-__all__ = ["PointWiseFFN", "SASRecBlock", "dropout"]
+__all__ = ["DenseGeneral", "PointWiseFFN", "SASRecBlock", "TransformerBlock", "dropout"]
 
 
 def dropout(
@@ -95,3 +97,57 @@ class SASRecBlock(nn.Module):
         seqs = self.LayerNorm_1(seqs)
         seqs = self.PointWiseFFN_0(seqs, generator)
         return seqs.masked_fill(padding_mask, 0.0)
+
+
+class DenseGeneral(nn.Linear):
+    """flax's ``DenseGeneral`` over the last axis to the feature shape
+    ``features`` (for example ``(3, D)``): a Linear to prod(features)
+    outputs, the outputs kept flat. Its flax kernel (in, *features) is the
+    transposed weight reshaped (``models/convert.py``)."""
+
+    def __init__(self, in_features: int, features: Sequence[int]):
+        self.features = tuple(int(f) for f in features)
+        super().__init__(in_features, math.prod(self.features))
+
+
+class TransformerBlock(nn.Module):
+    """Post-LN encoder block (``torch.nn.TransformerEncoderLayer`` with
+    batch_first, norm_first=False and activation="gelu", as the reference
+    BERT4Rec uses it): dropout on the attention probabilities and after the
+    attention output, after the FFN activation and after its second
+    Linear; exact (erf) GELU; an FFN 4x as wide as the model; LayerNorm
+    eps 1e-5.
+
+    Unlike ``torch.nn.TransformerEncoder``, a query whose keys are all
+    padded attends to nothing and gets zeros, not NaN (``attn_ops.mha``)."""
+
+    def __init__(self, embedding_dim: int, num_heads: int = 2, dropout_rate: float = 0.1):
+        super().__init__()
+        D = embedding_dim
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.qkv = DenseGeneral(D, (3, D))
+        self.out_proj = nn.Linear(D, D)
+        self.LayerNorm_0 = nn.LayerNorm(D, eps=1e-5)
+        self.Dense_0 = nn.Linear(D, 4 * D)
+        self.Dense_1 = nn.Linear(4 * D, D)
+        self.LayerNorm_1 = nn.LayerNorm(D, eps=1e-5)
+
+    def forward(
+        self,
+        seqs: torch.Tensor,
+        key_padding_mask: Optional[torch.Tensor] = None,  # (B, L) True at pads
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        # the attention kernels take contiguous q, k and v
+        q, k, v = (t.contiguous() for t in self.qkv(seqs).chunk(3, dim=-1))
+        attended = attn_ops.mha(
+            q, k, v, num_heads=self.num_heads, causal=False,
+            key_padding_mask=key_padding_mask,
+            dropout_rate=self.dropout_rate, generator=generator,
+        )
+        attended = dropout(self.out_proj(attended), self.dropout_rate, generator)
+        x = self.LayerNorm_0(seqs + attended)
+        h = dropout(F.gelu(self.Dense_0(x)), self.dropout_rate, generator)
+        h = dropout(self.Dense_1(h), self.dropout_rate, generator)
+        return self.LayerNorm_1(x + h)

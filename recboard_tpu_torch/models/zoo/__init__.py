@@ -1,5 +1,5 @@
 """The model zoo: the registry the generic runner builds models from.
-Only SASRec is ported so far."""
+SASRec and BERT4Rec are ported so far."""
 
 from typing import Dict, Type
 
@@ -17,5 +17,6 @@ def register(name: str):
     return deco
 
 
-from . import sasrec  # noqa: F401,E402
+from . import bert4rec, sasrec  # noqa: F401,E402
+from .bert4rec import BERT4Rec  # noqa: F401,E402
 from .sasrec import SASRec  # noqa: F401,E402

@@ -30,8 +30,8 @@ def test_port_modules_import_without_jax():
         )
         if not m.name.endswith(".__main__")  # runs the CLI when imported
     )
-    assert "recboard_tpu_torch.ops.attention" in modules
-    assert "recboard_tpu_torch.serve" in modules
+    for name in ("ops.attention", "ops.vocab_ce", "models.zoo.bert4rec", "serve"):
+        assert f"recboard_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules + ['recboard_tpu_torch', 'chip_smoke']!r}:\n"
