@@ -45,6 +45,18 @@ Phases, one JSON line each; any failure exits non-zero:
    BERT4Rec config: K2 forward and backward twice per step each, K3
    forward and backward once per step each, K1 twice per evaluated batch.
 12. bert4rec_quality — the toy store's BERT4Rec protocol for 5 seeds.
+13. kernels_sampled_softmax, kernels_rel_bias — K5 (sampled_softmax_shared
+   forward and backward) at HSTU's training shape, its last batch, the
+   JAX test's shape and large logits, with du and dpos exactly 0 on rows
+   of weight 0; K6 (stacked_rel_bias_bwd) at HSTU's shape, all 129
+   buckets, a ragged batch and L 200; each against its plain version,
+   with CUDA-event times beside the plain version, a library call and
+   the bound.
+14. hstu_train, hstu_profile, hstu_train_time, hstu_quality — phases 6, 5,
+   7 and 8 for HSTU at the reference config with shared negatives: K5
+   forward and backward and K6 once per step each, no other kernel; the
+   trained run served with the CPU's lists and its ``--bench`` line; the
+   toy store's 5-seed shared-negative band.
 
 Each phase prints its seconds. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
@@ -154,6 +166,21 @@ B4R_CONFIG = os.path.join(ROOT, "configs", "BERT4Rec_Amazon2014Beauty_550_LOU.ya
 B4R_STORE_PROTOCOL = dict(epochs=250, lr=0.005, batch_size=128, eval_freq=3, maxlen=20)
 B4R_STORE_NDCG10 = 0.3945
 
+# HSTU at the reference widths (configs/HSTU_Amazon2014Beauty_550_LOU.yaml:
+# maxlen 50, D 64, 4 blocks, 2 heads, linear and attention dims 4, 128
+# buckets, 512 negatives, tau 0.1, dropout 0.5 / 0.1, batch 256, AdamW lr
+# 1e-3, weight decay 1e-6) with one shared negative set per step
+HSTU = dict(maxlen=50, embedding_dim=64, num_blocks=4, num_heads=2, linear_hidden_dim=4,
+            attention_dim=4, num_buckets=128)
+HSTU_CONFIG = os.path.join(ROOT, "configs", "HSTU_Amazon2014Beauty_550_LOU.yaml")
+HSTU_BATCH = 256
+# the JAX package's 5-seed shared-negative A/B on the toy store
+# (docs/PERF.md:126, NDCG@10 0.3453 +- 0.0074) with tools/seed_sweep.py's
+# HSTU arguments (:62, :676-684) and the model's defaults otherwise
+HSTU_STORE_PROTOCOL = dict(epochs=15, lr=0.005, batch_size=128, eval_freq=3, maxlen=20,
+                           num_blocks=2, negs_mode="shared")
+HSTU_STORE_NDCG10 = 0.3453
+
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
 # positions, D 64, 12,101 items + 2 specials)
@@ -168,6 +195,36 @@ CE_EXTRA = [  # correctness only
 # logsumexps of V terms in other orders, at float32
 CE_TOL = 1e-4
 CE_BIG = 100.0  # bias added to every 97th entry: exp() overflows float32 there
+
+# K5 (shared-negative sampled softmax): (name, M, K, D, temperature,
+# l2-normalised inputs); the first is HSTU's training shape (256 rows x
+# 50 positions, 512 negatives, D 64, tau 0.1)
+SS_SHAPES = [("hstu_train", 12_800, 512, 64, 0.1, True)]
+SS_EXTRA = [  # correctness only
+    ("hstu_last_batch", 6_600, 512, 64, 0.1, True),  # 21,892 rows mod 256 = 132, x 50
+    ("jax_test", 70, 12, 8, 0.3, False),
+    ("large_logits", 1_000, 512, 64, 0.01, False),  # |logits| past 88: exp() overflows
+]
+# logz and pos_logit: max |kernel - plain| over max(1, max |plain|); sums
+# of D products and logsumexps of K + 1 terms in other orders
+SS_TOL = 1e-5
+# gradients at the large-logits shape: logits of a few hundred carry
+# ~1e-4 of float32 rounding in either version, which exp() turns into a
+# relative error of the same size in every probability
+SS_LARGE_GRAD_TOL = 1e-3
+SS_ZERO_SHARE = 0.4  # rows of weight 0 (HSTU's pad positions)
+
+# K6 (relative-bias backward): (name, NB, B, L, active buckets K, bucket
+# columns); the first is HSTU's training shape: 4 blocks, batch 256,
+# maxlen 50, 128 buckets, and the K the dataset's timestamps reach (the
+# hstu_train phase checks the model derives the same)
+HSTU_ACTIVE_K = 32
+RB_SHAPES = [("hstu_train", 4, 256, 50, HSTU_ACTIVE_K, 129)]
+RB_EXTRA = [  # correctness only
+    ("all_buckets", 4, 256, 50, 129, 129),
+    ("ragged_B", 4, 37, 50, HSTU_ACTIVE_K, 129),
+    ("long_L", 4, 64, 200, HSTU_ACTIVE_K, 129),
+]
 
 
 def emit(phase: str, **fields) -> None:
@@ -242,6 +299,17 @@ def bound(nbytes: int, flops: int) -> tuple:
 
 def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
+
+
+def grad_rel_err(got, want) -> float:
+    """max over tensors of max |got - want| / max |want|."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(got, want))
 
 
 def attention_bound(inp) -> tuple:
@@ -424,8 +492,7 @@ def check_dropout_attention(rng):
         torch.cuda.synchronize()
         out_err = float((got - want).abs().max())
         grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
-        grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                       for a, b in zip(got_g, want_g))
+        grad_rel = grad_rel_err(got_g, want_g)
         finite = all(bool(torch.isfinite(t).all()) for t in [got] + got_g)
         worst["fwd"] = max(worst["fwd"], out_err)
         worst["bwd"] = max(worst["bwd"], grad_err)
@@ -543,8 +610,7 @@ def check_vocab_ce(rng):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
-        grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                       for a, b in zip(got_g, want_g))
+        grad_rel = grad_rel_err(got_g, want_g)
         finite = all(bool(torch.isfinite(x).all()) for x in [got] + got_g)
         # rows whose loss gradient is 0 contribute exactly nothing
         zero_rows_exact = not bool(got_g[0][inp[-1] == 0].any())
@@ -615,6 +681,220 @@ def time_vocab_ce(h, weight, b, labels, g) -> dict:
     )
 
 
+def ss_inputs(case, rng):
+    """(user, pos, neg, weights) of one K5 case on the card, the three
+    embeddings requiring their gradients; a share of rows of weight 0."""
+    import torch
+
+    name, M, K, D, tau, normalised = case
+    scale = 1.0 if normalised else 3.0 / math.sqrt(D)
+    out = []
+    for n in (M, M, K):
+        x = rng.normal(size=(n, D)) * scale
+        if normalised:
+            x /= np.linalg.norm(x, axis=1, keepdims=True)
+        out.append(torch.from_numpy(x.astype(np.float32)).cuda().requires_grad_())
+    w = (rng.random(M) >= SS_ZERO_SHARE).astype(np.float32)
+    return (*out, torch.from_numpy(w).cuda())
+
+
+def check_sampled_softmax(rng):
+    """K5 against its plain version on the card: logz and pos_logit, the
+    loss's gradients in user, pos and neg, du and dpos exactly 0 on rows
+    of weight 0; times at the timed shape."""
+    import torch
+
+    from recboard_tpu_torch.ops import losses as S
+
+    rows, worst = [], dict(fwd=0.0, bwd=0.0)
+    for case in SS_SHAPES + SS_EXTRA:
+        name, M, K, D, tau, _ = case
+        user, pos, neg, w = ss_inputs(case, rng)
+        u, p, n = user.detach(), pos.detach(), neg.detach()
+        logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, tau)
+        want_pl = (u * p).sum(-1) / tau
+        want_logz = torch.logsumexp(torch.cat([want_pl[:, None], u @ n.T / tau], 1), -1)
+        want = S.sampled_softmax_loss_shared_reference(user, pos, neg, w, tau)
+        want_g = torch.autograd.grad(want, (user, pos, neg))
+        got = S.SampledSoftmaxShared.apply(user, pos, neg, w, tau)
+        got_g = torch.autograd.grad(got, (user, pos, neg))
+        torch.cuda.synchronize()
+        err = max(rel_err(logz, want_logz), rel_err(pos_logit, want_pl))
+        abs_err = max(float((logz - want_logz).abs().max()),
+                      float((pos_logit - want_pl).abs().max()))
+        g_rel = grad_rel_err(got_g, want_g)
+        g_abs = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
+        g_tol = SS_LARGE_GRAD_TOL if name == "large_logits" else GRAD_TOL
+        zero = w == 0
+        zero_rows_exact = not bool(got_g[0][zero].any() or got_g[1][zero].any())
+        finite = all(bool(torch.isfinite(x).all()) for x in (logz, pos_logit, got) + got_g)
+        worst["fwd"] = max(worst["fwd"], abs_err)
+        worst["bwd"] = max(worst["bwd"], g_abs)
+        row = dict(shape=name, M=M, K=K, D=D, tau=tau, max_abs_err=abs_err, max_rel_err=err,
+                   tol=SS_TOL, loss_err=abs(float(got.detach()) - float(want.detach())),
+                   grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=g_tol, finite=finite,
+                   zero_rows_exact=zero_rows_exact,
+                   max_logit=float(want_logz.abs().max()))
+        if case in SS_SHAPES:
+            row.update(time_sampled_softmax(user, pos, neg, w, tau))
+        emit("kernels", kernel="sampled_softmax_shared", **row)
+        if not finite or not zero_rows_exact or not err <= SS_TOL or not g_rel <= g_tol:
+            raise SystemExit(f"sampled_softmax_shared disagrees with its plain version at "
+                             f"{name}: fwd {err}, grads {g_rel}, zero rows exact "
+                             f"{zero_rows_exact}")
+        rows.append(row)
+    return rows, worst
+
+
+def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
+    """CUDA-event times of K5's forward and backward, its plain version and
+    F.cross_entropy over the concatenated positive and torch.addmm logits
+    (forward, and autograd backward), with the bounds: the forward
+    2*M*K*D FLOP, the backward 6*M*K*D (the logits again, du and dneg), each
+    input read once and each output written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from recboard_tpu_torch.ops import losses as S
+
+    u, p, n = user.detach(), pos.detach(), neg.detach()
+    M, D = u.shape
+    K = n.shape[0]
+    logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, tau)
+    W = w.sum().clamp_min(1.0)
+    s = (w / W).contiguous()
+    zeros = torch.zeros(M, dtype=torch.long, device=u.device)
+    zero = torch.zeros((), device=u.device)
+
+    def library(uu, pp, nn_):
+        logits = torch.cat([((uu * pp).sum(-1) / tau)[:, None],
+                            torch.addmm(zero, uu, nn_.T, beta=0, alpha=1 / tau)], 1)
+        return (F.cross_entropy(logits, zeros, reduction="none") * w).sum() / W
+
+    def plain(uu, pp, nn_):
+        return S.sampled_softmax_loss_shared_reference(uu, pp, nn_, w, tau)
+
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn(u, p, n)
+        return call
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(user, pos, neg), (user, pos, neg))
+
+    fwd_bound = bound(nbytes(u, p, n, logz, pos_logit), 2 * M * K * D)
+    bwd_bound = bound(nbytes(u, p, n, logz, pos_logit, s) + nbytes(u, p, n), 6 * M * K * D)
+    plain_ms = cuda_ms(no_grad(plain), iters=50, warmup=5)
+    lib_ms = cuda_ms(no_grad(library), iters=50, warmup=5)
+    return dict(
+        fwd_ms=cuda_ms(lambda: S.sampled_softmax_shared_fwd(u, p, n, tau)),
+        bwd_ms=cuda_ms(lambda: S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)),
+        plain_fwd_ms=plain_ms,
+        plain_bwd_ms=cuda_ms(fwd_bwd(plain), iters=50, warmup=5) - plain_ms,
+        library_fwd_ms=lib_ms,
+        library_bwd_ms=cuda_ms(fwd_bwd(library), iters=50, warmup=5) - lib_ms,
+        fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+    )
+
+
+def rb_inputs(case, rng):
+    """(timestamps, ts_w, pos_w, g) of one K6 case on the card: increasing
+    timestamps with left pads of 0, their differences spread over the
+    case's K buckets; weights requiring their gradients; a cotangent."""
+    import torch
+
+    name, NB, B, L, K, columns = case
+    top = math.exp(0.301 * (K - 1)) * 1.5  # the largest difference reaches bucket K - 1
+    steps = np.exp(rng.uniform(0, math.log(top / L), (B, L)))  # log-uniform: every bucket
+    ts = np.cumsum(steps, axis=1).astype(np.int64)
+    lengths = rng.integers(1, L + 1, B)
+    ts[np.arange(L)[None, :] < (L - lengths)[:, None]] = 0
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    ts_w = t(rng.normal(size=(NB, columns)).astype(np.float32)).requires_grad_()
+    pos_w = t(rng.normal(size=(NB, 2 * L - 1)).astype(np.float32)).requires_grad_()
+    g = t(rng.normal(size=(NB, B, L, L)).astype(np.float32))
+    return t(ts), ts_w, pos_w, g
+
+
+def check_rel_bias(rng):
+    """K6 against the plain autograd on the card: dts (zero past K) and
+    dpos; times at the timed shape."""
+    import torch
+
+    from recboard_tpu_torch.ops import rel_bias as R
+
+    rows, worst = [], 0.0
+    for case in RB_SHAPES + RB_EXTRA:
+        name, NB, B, L, K, columns = case
+        ts, ts_w, pos_w, g = rb_inputs(case, rng)
+        want_out = R.stacked_rel_bias_reference(ts, ts_w, pos_w, K)
+        want = torch.autograd.grad(want_out, (ts_w, pos_w), g)
+        got_out = R.stacked_rel_bias(ts, ts_w, pos_w, K)
+        got = torch.autograd.grad(got_out, (ts_w, pos_w), g)
+        torch.cuda.synchronize()
+        g_rel = grad_rel_err(got, want)
+        g_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        out_same = bool(torch.equal(got_out, want_out))
+        beyond_zero = not bool(got[0][:, K:].any())
+        buckets = int(R._bucketize(ts, L, K).unique().numel())
+        worst = max(worst, g_abs)
+        row = dict(shape=name, NB=NB, B=B, L=L, K=K, columns=columns, buckets_hit=buckets,
+                   grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=GRAD_TOL,
+                   forward_equal=out_same,
+                   zero_beyond_K=beyond_zero)
+        if case in RB_SHAPES:
+            row.update(time_rel_bias(ts, ts_w, pos_w, g, K))
+        emit("kernels", kernel="stacked_rel_bias_bwd", **row)
+        if not out_same or not beyond_zero or not g_rel <= GRAD_TOL:
+            raise SystemExit(f"stacked_rel_bias_bwd disagrees with its plain version at "
+                             f"{name}: grads {g_rel}, forward equal {out_same}, zero "
+                             f"beyond K {beyond_zero}")
+        rows.append(row)
+        del ts, ts_w, pos_w, g, want_out, got_out
+    return rows, worst
+
+
+def time_rel_bias(ts, ts_w, pos_w, g, K) -> dict:
+    """CUDA-event times of K6, the plain version's backward (autograd of the
+    gathers) and index_add_ of the cotangent into both histograms, with the
+    bound: the cotangent and the bucket ids read once, the two gradients
+    written once, one add per entry and histogram."""
+    import torch
+
+    from recboard_tpu_torch.ops import rel_bias as R
+
+    NB, B, L, _ = g.shape
+    bucket = R._bucketize(ts, L, K)
+    columns = ts_w.shape[1]
+    dts, dpos = R.stacked_rel_bias_bwd(bucket, g, K, columns)
+    flat_bucket = bucket.reshape(-1).long()
+    flat_rel = R._toeplitz(L, g.device).reshape(1, -1).expand(B, -1).reshape(-1)
+    g2 = g.reshape(NB, -1)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return R.stacked_rel_bias_reference(ts, ts_w, pos_w, K)
+
+    def plain_fwd_bwd():
+        torch.autograd.grad(R.stacked_rel_bias_reference(ts, ts_w, pos_w, K), (ts_w, pos_w), g)
+
+    def library():
+        return (torch.zeros_like(dts).index_add_(1, flat_bucket, g2),
+                torch.zeros_like(dpos).index_add_(1, flat_rel, g2))
+
+    elements = NB * B * L * L
+    bwd_bound = bound(nbytes(g, bucket, dts, dpos), 2 * elements)
+    plain_ms = cuda_ms(plain_fwd, iters=50, warmup=5)
+    return dict(
+        bwd_ms=cuda_ms(lambda: R.stacked_rel_bias_bwd(bucket, g, K, columns)),
+        plain_bwd_ms=cuda_ms(plain_fwd_bwd, iters=50, warmup=5) - plain_ms,
+        library_bwd_ms=cuda_ms(library, iters=50, warmup=5),
+        bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+    )
+
+
 def xavier(rng, fan_in, fan_out, shape=None):
     std = math.sqrt(2.0 / (fan_in + fan_out))
     return (rng.normal(size=shape or (fan_in, fan_out)) * std).astype(np.float32)
@@ -665,6 +945,28 @@ def bert4rec_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_)
     return params
 
 
+def hstu_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, num_heads,
+                     linear_hidden_dim, attention_dim, num_buckets):
+    """HSTU params in recboard_tpu's flax layout, made with numpy: the bare
+    rel_bias weights and the bias-less uvqk_linear kernel."""
+    D, H = embedding_dim, num_heads
+    uvqk, hv = 2 * H * (linear_hidden_dim + attention_dim), H * linear_hidden_dim
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    ln = lambda n: {"scale": 1.0 + small(n), "bias": small(n)}  # noqa: E731
+    params = {
+        "item_embeddings": {"embedding": small(num_items + 1, D)},
+        "pos_embeddings": {"embedding": small(maxlen, D)},
+        "rel_bias": {"timestamp_weights": small(num_blocks, num_buckets + 1),
+                     "position_weights": small(num_blocks, 2 * maxlen - 1)},
+    }
+    for i in range(num_blocks):
+        params[f"hstu_{i}"] = {
+            "LayerNorm_0": ln(D), "uvqk_linear": {"kernel": xavier(rng, D, uvqk)},
+            "attn_ln": ln(hv), "output_linear": {"kernel": xavier(rng, hv, D), "bias": small(D)},
+        }
+    return params
+
+
 def layout(tree, path=()) -> dict:
     """{leaf path: shape} of nested params."""
     out = {}
@@ -680,9 +982,13 @@ def layout(tree, path=()) -> dict:
 # protocol and quality anchor, and the prefix of its phase names
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
-                   protocol=STORE_PROTOCOL, store=STORE_NDCG10, tag=""),
+                   batch=TRAIN_BATCH, protocol=STORE_PROTOCOL, store=STORE_NDCG10, tag=""),
     "BERT4Rec": dict(widths=BERT4REC, params=bert4rec_flax_params, config=B4R_CONFIG,
-                     protocol=B4R_STORE_PROTOCOL, store=B4R_STORE_NDCG10, tag="bert4rec_"),
+                     batch=TRAIN_BATCH, protocol=B4R_STORE_PROTOCOL, store=B4R_STORE_NDCG10,
+                     tag="bert4rec_"),
+    "HSTU": dict(widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG, batch=HSTU_BATCH,
+                 flags=dict(negs_mode="shared"), protocol=HSTU_STORE_PROTOCOL,
+                 store=HSTU_STORE_NDCG10, tag="hstu_"),
 }
 
 
@@ -874,30 +1180,67 @@ def latest_run(model: str, dataset: str) -> str:
 def counted_kernels() -> tuple:
     """The kernel wrappers, each counting its launches in ``.launches``."""
     from recboard_tpu_torch.ops import attention as A
+    from recboard_tpu_torch.ops import losses as S
+    from recboard_tpu_torch.ops import rel_bias as R
     from recboard_tpu_torch.ops import vocab_ce as K
 
-    return A.mha_fwd, A.mha_dropout_fwd, A.mha_dropout_bwd, K.vocab_ce_fwd, K.vocab_ce_bwd
+    return (A.mha_fwd, A.mha_dropout_fwd, A.mha_dropout_bwd, K.vocab_ce_fwd, K.vocab_ce_bwd,
+            S.sampled_softmax_shared_fwd, S.sampled_softmax_shared_bwd, R.stacked_rel_bias_bwd)
+
+
+def expected_launches(model: str, blocks: int, trained: int, evaluated: int) -> dict:
+    """Each counted kernel's launches for ``trained`` steps and ``evaluated``
+    batches of ``model``: SASRec and BERT4Rec run K2 forward and backward
+    once per block and step and K1 once per block and evaluated batch,
+    BERT4Rec K3 forward and backward once per step; HSTU runs K5 forward
+    and backward and K6 once per step, and no kernel in evaluation."""
+    if model == "HSTU":
+        per_step = dict(sampled_softmax_shared_fwd=1, sampled_softmax_shared_bwd=1,
+                        stacked_rel_bias_bwd=1)
+        per_eval = {}
+    else:
+        per_step = dict(mha_dropout_fwd=blocks, mha_dropout_bwd=blocks)
+        if model == "BERT4Rec":
+            per_step.update(vocab_ce_fwd=1, vocab_ce_bwd=1)
+        per_eval = dict(mha_fwd=blocks)
+    return {fn.__name__: per_step.get(fn.__name__, 0) * trained
+            + per_eval.get(fn.__name__, 0) * evaluated for fn in counted_kernels()}
 
 
 def train_slice(seed: int, dataset, model: str) -> dict:
     """``run`` at ``model``'s reference config on the SynBeautyXL-shaped
     dataset for TRAIN_EPOCHS epochs, validated every epoch: the loss is
-    finite, K2 forward and backward launched twice per step each (and
-    BERT4Rec's K3 once per step each), K1 twice per evaluated batch, the
-    best checkpoint is in the flax layout, and the run serves on the GPU
-    with the CPU's lists."""
+    finite, every kernel launched exactly as ``expected_launches`` says,
+    the best checkpoint is in the flax layout, and the run serves on the
+    GPU with the CPU's lists (for HSTU, which has no serving phase of its
+    own, then the ``--bench`` line)."""
     import torch
 
     from recboard_tpu_torch import run, serve
+    from recboard_tpu_torch.data.pipes import Size
 
     spec = SLICES[model]
     widths, tag = spec["widths"], spec["tag"]
     argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
-                      config=spec["config"], epochs=TRAIN_EPOCHS, eval_freq=1)
+                      config=spec["config"], epochs=TRAIN_EPOCHS, eval_freq=1,
+                      **spec.get("flags", {}))
     counter = run.build_model(model, dataset, dict(widths, seed=seed), "cpu")
-    steps = len(list(counter.sure_trainpipe(widths["maxlen"], TRAIN_BATCH)))
+    batches = list(counter.sure_trainpipe(widths["maxlen"], spec["batch"]))
+    sizes = [int(b[Size]) for b in batches]
+    steps = len(sizes)
+    pads = sum(int((b[counter.ISeq] == counter.PADDING_VALUE).sum()) for b in batches)
+    pad_share = pads / sum(b[counter.ISeq].size for b in batches)
     n_valid = len(list(counter.sure_validpipe(widths["maxlen"])))
     n_test = len(list(counter.sure_testpipe(widths["maxlen"])))
+    if model == "HSTU":
+        # the shapes the kernel phases checked: K6's active buckets, K5's
+        # last batch
+        active = counter.rel_bias.active_buckets
+        last_m = sizes[-1] * widths["maxlen"]
+        if active != HSTU_ACTIVE_K or last_m != SS_EXTRA[0][1]:
+            raise SystemExit(f"HSTU: {active} active buckets and a last batch of {last_m} "
+                             f"rows; the kernel phases checked {HSTU_ACTIVE_K} and "
+                             f"{SS_EXTRA[0][1]}")
 
     for fn in counted_kernels():
         fn.launches = 0
@@ -911,15 +1254,14 @@ def train_slice(seed: int, dataset, model: str) -> dict:
     with open(os.path.join(run_dir, "monitors.pkl"), "rb") as fh:
         history = pickle.load(fh)
     losses = [row["LOSS"] for row in history["train"]]
-    blocks, trained = widths["num_blocks"], steps * TRAIN_EPOCHS
+    trained = steps * TRAIN_EPOCHS
     # valid after every epoch and at the end; test at the end and at the best
     evaluated = (TRAIN_EPOCHS + 1) * n_valid + 2 * n_test
-    ce = trained if model == "BERT4Rec" else 0  # one K3 forward and backward per step
-    want = dict(mha_fwd=blocks * evaluated, mha_dropout_fwd=blocks * trained,
-                mha_dropout_bwd=blocks * trained, vocab_ce_fwd=ce, vocab_ce_bwd=ce)
+    want = expected_launches(model, widths["num_blocks"], trained, evaluated)
     emit(f"{tag}train", model=model, config=spec["config"], dataset=DATASET["name"],
-         epochs=TRAIN_EPOCHS, steps_per_epoch=steps, losses=losses, best=best,
-         launches=launches, expected_launches=want, run_s=run_s)
+         epochs=TRAIN_EPOCHS, steps_per_epoch=steps, rows_per_epoch=sum(sizes),
+         last_batch=sizes[-1], pad_share=pad_share, losses=losses, best=best, launches=launches,
+         expected_launches=want, run_s=run_s)
     if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"{model} train: losses {losses}")
     if launches != want:
@@ -946,7 +1288,11 @@ def train_slice(seed: int, dataset, model: str) -> dict:
         raise SystemExit(f"{model} trained run: GPU and CPU lists disagree:\n"
                          + "\n".join(bad[:10]))
     emit(f"{tag}train_serve", users=len(read_scored_tsv(gpu_tsv)), cpu_agree=True)
-    return dict(launches=launches, run_dir=run_dir, steps=steps)
+    out = dict(launches=launches, run_dir=run_dir, steps=steps)
+    if model == "HSTU":
+        out["bench"] = run_bench(run_dir)
+        emit(f"{tag}bench", **out["bench"])
+    return out
 
 
 def time_training(run_dir: str, phase: str) -> None:
@@ -1104,6 +1450,10 @@ def main(argv=None) -> int:
                                   np.random.default_rng(args.seed + 1))
     ce_rows, ce_worst = timed("kernels_vocab_ce", check_vocab_ce,
                               np.random.default_rng(args.seed + 2))
+    ss_rows, ss_worst = timed("kernels_sampled_softmax", check_sampled_softmax,
+                              np.random.default_rng(args.seed + 3))
+    rb_rows, rb_worst = timed("kernels_rel_bias", check_rel_bias,
+                              np.random.default_rng(args.seed + 4))
     dataset = timed("dataset", make_dataset)
     slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
@@ -1116,6 +1466,11 @@ def main(argv=None) -> int:
     b_trained = timed("bert4rec_train", train_slice, args.seed, dataset, "BERT4Rec")
     timed("bert4rec_train_time", time_training, b_trained["run_dir"], "bert4rec_train")
     timed("bert4rec_quality", quality, STORE_SEEDS, "BERT4Rec")
+    h_trained = timed("hstu_train", train_slice, args.seed, dataset, "HSTU")
+    timed("hstu_profile", profile_bench, h_trained["run_dir"], h_trained["bench"]["p50"],
+          "hstu_profile")
+    timed("hstu_train_time", time_training, h_trained["run_dir"], "hstu_train")
+    timed("hstu_quality", quality, STORE_SEEDS, "HSTU")
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     print(json.dumps({"kernels": [
@@ -1131,6 +1486,17 @@ def main(argv=None) -> int:
                      b_trained["launches"]["vocab_ce_fwd"], ce_worst["fwd"], ce, "fwd_"),
         kernel_entry("vocab_ce_bwd", "vocab_ce.cu", "recboard_tpu/ops/vocab_ce.py:64",
                      b_trained["launches"]["vocab_ce_bwd"], ce_worst["bwd"], ce, "bwd_"),
+        kernel_entry("sampled_softmax_shared_fwd", "sampled_softmax.cu",
+                     "recboard_tpu/ops/losses.py:239",
+                     h_trained["launches"]["sampled_softmax_shared_fwd"], ss_worst["fwd"],
+                     ss_rows[0], "fwd_"),
+        kernel_entry("sampled_softmax_shared_bwd", "sampled_softmax.cu",
+                     "recboard_tpu/ops/losses.py:255",
+                     h_trained["launches"]["sampled_softmax_shared_bwd"], ss_worst["bwd"],
+                     ss_rows[0], "bwd_"),
+        kernel_entry("stacked_rel_bias_bwd", "rel_bias.cu", "recboard_tpu/ops/rel_bias.py:69",
+                     h_trained["launches"]["stacked_rel_bias_bwd"], rb_worst, rb_rows[0],
+                     "bwd_"),
     ]}))
     emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
     print(smi)

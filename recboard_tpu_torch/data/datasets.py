@@ -166,6 +166,16 @@ class RecDataSet:
     def fields(self) -> FieldTuple:
         return self._fields
 
+    def column_abs_max(self, field: Field) -> float:
+        """max |value| of a column over all splits: a static dataset
+        statistic (HSTU derives its largest reachable time bucket from
+        the timestamps' range)."""
+        hi = 0.0
+        for split in self._splits.values():
+            if field in split and split[field].size:
+                hi = max(hi, float(np.abs(split[field]).max()))
+        return hi
+
     # -------------------------------------------------------------- views
     def train(self) -> "DataSetView":
         return DataSetView(self, "train")
@@ -191,21 +201,29 @@ class DataSetView:
     def user_seqs(self, maxlen: Optional[int] = None) -> List[Tuple[int, ...]]:
         """Per-user item sequences in interaction (file) order, each cut to
         its last ``maxlen`` items when given; cached."""
+        key = (self.split, "items", maxlen)
         cache = self.dataset._seqs_cache
-        key = (self.split, maxlen)
         if key not in cache:
-            User, Item = self.fields[USER, ID], self.fields[ITEM, ID]
-            cols = self.dataset._splits[self.split]
-            # stable grouping preserving file order within each user
-            order = np.argsort(cols[User], kind="stable")
-            items = cols[Item][order]
-            bounds = np.searchsorted(cols[User][order], np.arange(User.count + 1))
-            seqs = (items[bounds[u] : bounds[u + 1]] for u in range(User.count))
-            cache[key] = [
-                tuple((seq if maxlen is None else seq[-maxlen:]).tolist())
-                for seq in seqs
-            ]
+            cache[key] = self._group(self.fields[ITEM, ID], maxlen)
         return cache[key]
+
+    def user_time_seqs(self, maxlen: Optional[int] = None) -> List[Tuple[int, ...]]:
+        """Per-user timestamp sequences, aligned with ``user_seqs``; cached."""
+        key = (self.split, "times", maxlen)
+        cache = self.dataset._seqs_cache
+        if key not in cache:
+            cache[key] = self._group(self.fields[TIMESTAMP], maxlen)
+        return cache[key]
+
+    def _group(self, col_field: Field, maxlen: Optional[int]) -> List[Tuple]:
+        User = self.fields[USER, ID]
+        cols = self.dataset._splits[self.split]
+        # stable grouping preserving file order within each user
+        order = np.argsort(cols[User], kind="stable")
+        values = cols[col_field][order]
+        bounds = np.searchsorted(cols[User][order], np.arange(User.count + 1))
+        seqs = (values[bounds[u] : bounds[u + 1]] for u in range(User.count))
+        return [tuple((seq if maxlen is None else seq[-maxlen:]).tolist()) for seq in seqs]
 
     # Datapipe sources are attached by data.pipes (looked up lazily to
     # avoid an import cycle).

@@ -6,10 +6,11 @@ Pipes chain functionally from a dataset view — ``view.<source>()`` then
 ``Size`` field, exactly as in ``recboard_tpu``: the same seed gives the
 same host batches in both packages.
 
-This module holds what SASRec's and BERT4Rec's pipes use: the
+This module holds what SASRec's, BERT4Rec's and HSTU's pipes use: the
 shuffled-sequence training source with its shift-by-one positives and
-per-position negatives (drawn by the native sampler, ``native/``), the
-ordered user source and the valid/test samplers, and the offset/left-pad/
+per-position negatives (drawn by the native sampler, ``native/``), its
+timestamped twin for HSTU, the ordered user source and the valid/test
+samplers (with their timestamped variants), and the offset/left-pad/
 right-pad/prune/batch/collate transforms.
 """
 
@@ -20,7 +21,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequ
 import numpy as np
 
 from .fields import Field, FieldTuple
-from .tags import ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, SIZE, UNSEEN, USER
+from .tags import (
+    ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, SIZE, TIMESTAMP, UNSEEN, USER,
+)
 
 __all__ = ["DataPipe", "Size", "functional_datapipe", "VIEW_SOURCES"]
 
@@ -141,6 +144,29 @@ class ShuffledSeqsSource(_ViewPipe):
             yield {User: int(u), ISeq: seqs[u]}
 
 
+@view_source("shuffled_time_seqs_source")
+class ShuffledTimeSeqsSource(_ViewPipe):
+    """(user, item seq, timestamp seq) rows, shuffled each epoch in
+    ``shuffled_seqs_source``'s order: HSTU's time source. Timestamps are
+    rebased to the smallest first timestamp of the view's (cut)
+    sequences, as Python ints; bucketed differences do not see the
+    offset."""
+
+    def __init__(self, view, maxlen: Optional[int] = None):
+        super().__init__(view)
+        self.maxlen = maxlen
+
+    def __iter__(self) -> Iterator[Row]:
+        User, ISeq = self.User, self.Item.fork(SEQUENCE)
+        Time = self.fields[TIMESTAMP].fork(SEQUENCE)
+        seqs = self.view.user_seqs(self.maxlen)
+        times = self.view.user_time_seqs(self.maxlen)
+        t0 = min((t[0] for t in times if t), default=0)
+        order = self.rng().permutation(len(seqs))
+        for u in order:
+            yield {User: int(u), ISeq: seqs[u], Time: tuple(int(t - t0) for t in times[u])}
+
+
 # ============================================================= samplers
 class _SeenLookup:
     """Per-user seen-item sets in CSR form (sorted per user) for the
@@ -242,6 +268,18 @@ class SeqTrainNegativeSampler(DataPipe):
             yield from flush()
 
 
+@functional_datapipe("time_seq_train_yielding_pos_")
+class TimeSeqTrainPositiveYielder(SeqTrainPositiveYielder):
+    """``seq_train_yielding_pos_`` that cuts the timestamp column as it
+    cuts the input sequence."""
+
+    def __iter__(self) -> Iterator[Row]:
+        Time = self.fields[TIMESTAMP].fork(SEQUENCE)
+        for row in super().__iter__():
+            row[Time] = tuple(row[Time][: self.end_idx_for_input])
+            yield row
+
+
 class _EvalSamplerBase(DataPipe):
     """Shared machinery of valid/test samplers: per eval row k of a user,
     ISeq = seen ++ unseen[:k], positive = unseen[k]; `full` ranking →
@@ -337,6 +375,46 @@ class TestSampler(_EvalSamplerBase):
             [tuple(t) + tuple(v) for t, v in zip(train, valid)],
             self.dataset.test().user_seqs(),
         )
+
+
+class _TimeEvalMixin:
+    """Adds the aligned timestamp column to eval rows: Time =
+    times(seen) ++ times(unseen[:k]), rebased to the smallest first
+    train timestamp."""
+
+    def _time_seqs(self):
+        raise NotImplementedError
+
+    def __iter__(self) -> Iterator[Row]:
+        Time = self.fields[TIMESTAMP].fork(SEQUENCE)
+        seen_times, unseen_times, t0 = self._time_seqs()
+        user, k = None, 0
+        for row in super().__iter__():
+            if row[self.User] != user:
+                user, k = row[self.User], 0
+                st = tuple(int(t - t0) for t in seen_times[user])
+                ut = tuple(int(t - t0) for t in unseen_times[user])
+            row[Time] = st + ut[:k]
+            k += 1
+            yield row
+
+
+@functional_datapipe("time_valid_sampling_")
+class TimeValidSampler(_TimeEvalMixin, ValidSampler):
+    def _time_seqs(self):
+        train = self.dataset.train().user_time_seqs()
+        valid = self.dataset.valid().user_time_seqs()
+        return train, valid, min((t[0] for t in train if t), default=0)
+
+
+@functional_datapipe("time_test_sampling_")
+class TimeTestSampler(_TimeEvalMixin, TestSampler):
+    def _time_seqs(self):
+        train = self.dataset.train().user_time_seqs()
+        valid = self.dataset.valid().user_time_seqs()
+        test = self.dataset.test().user_time_seqs()
+        seen = [tuple(a) + tuple(b) for a, b in zip(train, valid)]
+        return seen, test, min((t[0] for t in train if t), default=0)
 
 
 # ============================================================ transforms

@@ -12,9 +12,12 @@ despite the suffix). The port's modules keep flax's submodule names, so
 * a LayerNorm ``scale`` becomes ``weight``;
 * an Embed ``embedding`` becomes ``weight``;
 
-and ``bias`` stays ``bias``. ``blocks_0/q_proj/kernel`` becomes
-``blocks_0.q_proj.weight``. Later slices add rules for the leaves their
-modules bring (BatchNorm stats).
+and ``bias`` stays ``bias``; a bare parameter that a module declares
+itself (``BARE_LEAVES``, HSTU's ``rel_bias/timestamp_weights`` and
+``position_weights``) keeps its name. ``blocks_0/q_proj/kernel`` becomes
+``blocks_0.q_proj.weight``. A Dense layer without a bias (HSTU's
+``uvqk_linear``) has no bias leaf either way. Later slices add rules for
+the leaves their modules bring (BatchNorm stats).
 
 ``to_flax`` is the inverse: the port's Coach saves ``{"params":
 to_flax(model)}``, the payload ``recboard_tpu``'s Coach writes, so a run
@@ -35,6 +38,8 @@ from .modules import DenseGeneral
 __all__ = ["from_flax", "to_flax"]
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+# parameters declared bare by a module (flax's self.param), kept by name
+BARE_LEAVES = frozenset({"timestamp_weights", "position_weights"})
 
 
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -50,7 +55,7 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 walk(value, path + (key,))
                 continue
             where = "/".join(path + (key,))
-            if key not in _LEAF_NAMES:
+            if key not in _LEAF_NAMES and key not in BARE_LEAVES:
                 raise ValueError(f"from_flax: no rule for the leaf {where}")
             arr = np.asarray(value)
             if key == "kernel":
@@ -64,7 +69,7 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             elif key == "bias" and general:
                 arr = arr.reshape(-1)
             # a copy: the arrays may be read-only views of another buffer
-            out[".".join(path + (_LEAF_NAMES[key],))] = torch.from_numpy(
+            out[".".join(path + (_LEAF_NAMES.get(key, key),))] = torch.from_numpy(
                 np.array(arr, order="C")
             )
 
@@ -76,7 +81,8 @@ def to_flax(model: nn.Module) -> Dict:
     """A model's weights as nested flax params of numpy arrays: Linear →
     ``{kernel (in, out), bias}``, DenseGeneral → ``{kernel (in, *features),
     bias features}``, LayerNorm → ``{scale, bias}``, Embedding
-    → ``{embedding}``, nested by submodule name."""
+    → ``{embedding}``, bare parameters in ``BARE_LEAVES`` by their names,
+    nested by submodule name."""
     tree: Dict = {}
     for name, module in model.named_modules():
         if isinstance(module, DenseGeneral):
@@ -90,11 +96,13 @@ def to_flax(model: nn.Module) -> Dict:
             leaves = {"scale": module.weight, "bias": module.bias}
         elif isinstance(module, nn.Embedding):
             leaves = {"embedding": module.weight}
-        elif next(module.parameters(recurse=False), None) is not None:
-            raise ValueError(f"to_flax: no rule for the parameters of {name} "
-                             f"({type(module).__name__})")
         else:
-            continue
+            leaves = dict(module.named_parameters(recurse=False))
+            if not leaves:
+                continue
+            if not leaves.keys() <= BARE_LEAVES:
+                raise ValueError(f"to_flax: no rule for the parameters of {name} "
+                                 f"({type(module).__name__})")
         node = tree
         for part in name.split("."):
             node = node.setdefault(part, {})

@@ -1,5 +1,5 @@
 """The model zoo: the registry the generic runner builds models from.
-SASRec and BERT4Rec are ported so far."""
+SASRec, BERT4Rec and HSTU are ported so far."""
 
 from typing import Dict, Type
 
@@ -17,6 +17,7 @@ def register(name: str):
     return deco
 
 
-from . import bert4rec, sasrec  # noqa: F401,E402
+from . import bert4rec, hstu, sasrec  # noqa: F401,E402
 from .bert4rec import BERT4Rec  # noqa: F401,E402
+from .hstu import HSTU  # noqa: F401,E402
 from .sasrec import SASRec  # noqa: F401,E402

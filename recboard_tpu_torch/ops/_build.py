@@ -3,8 +3,9 @@ into a shared library with a plain C interface, which ``ctypes`` loads.
 
 Sources are compiled for Hopper (``sm_90a``) at first use, into
 ``build/recboard_tpu_torch/`` beside the package (listed in
-``.gitignore``). A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``). A library's file name carries a hash of its source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Without ``nvcc`` a build raises; nothing falls back to another path.
 """
 
@@ -48,7 +49,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

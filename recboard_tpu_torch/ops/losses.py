@@ -1,0 +1,257 @@
+"""Sampled-softmax losses (counterpart of ``recboard_tpu/ops/losses.py``).
+
+HSTU scores each valid position against its positive and a set of
+sampled negatives, over l2-normalised embeddings divided by a
+temperature.
+
+* ``sampled_softmax_loss_reference`` — the per-position form over
+  gathered (M, C) candidate ids, positive in column 0: plain PyTorch.
+* ``sampled_softmax_loss_per_row`` — one negative set per sequence: plain
+  PyTorch on every device (``recboard_tpu`` has no kernel for it).
+* ``sampled_softmax_loss_shared`` — one negative set per step. CPU
+  tensors take the plain version (concatenate, logsumexp, autograd); CUDA
+  tensors take the kernels for every shape (the TPU's VMEM gate is not
+  copied).
+* ``sampled_softmax_shared_fwd`` and ``sampled_softmax_shared_bwd`` — the
+  wrappers of the hand-written CUDA kernels (``csrc/sampled_softmax.cu``)
+  that replace the TPU kernels ``_shared_fwd_kernel`` and
+  ``_shared_bwd_kernel``; CUDA tensors only.
+* ``SampledSoftmaxShared`` — the autograd function over them (the custom
+  VJP ``sampled_softmax_shared_fused``).
+
+The positive and negative gathers stay PyTorch lookups outside the
+kernels, as in ``recboard_tpu``; the table's gradient flows back through
+them. They are ``F.embedding`` lookups rather than ``table[ids]``: the
+backward of advanced indexing (an accumulating ``index_put_``) adds the
+rows of one id one after another, and HSTU's positive ids are mostly the
+pad id 0, which made it 5.2 ms of a training step on an NVIDIA H100 80GB
+HBM3 at 700 W (``PERF.md``). Weights carry no gradient: they come from
+integer masks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .attention import _launch
+from .vocab_ce import TILE, _sm_count, splits
+
+__all__ = [
+    "MAX_D",
+    "SampledSoftmaxShared",
+    "sampled_softmax_loss_per_row",
+    "sampled_softmax_loss_reference",
+    "sampled_softmax_loss_shared",
+    "sampled_softmax_loss_shared_reference",
+    "sampled_softmax_shared_bwd",
+    "sampled_softmax_shared_fwd",
+]
+
+MAX_D = 128  # the widest embedding the kernels take
+
+
+def _weighted_mean(loss: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    return (loss * weights).sum() / weights.sum().clamp_min(1.0)
+
+
+def sampled_softmax_loss_per_row(
+    user: torch.Tensor,  # (B, L, D)
+    pos_ids: torch.Tensor,  # (B, L)
+    neg_ids: torch.Tensor,  # (B, K): one negative set per sequence
+    table: torch.Tensor,  # (N, D)
+    weights: torch.Tensor,  # (B, L)
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """Sampled softmax with one negative set per sequence: positions of a
+    sequence share its set. Accidental positive hits stay in."""
+    neg = F.embedding(neg_ids.long(), table)  # (B, K, D)
+    pos = F.embedding(pos_ids.long(), table)  # (B, L, D)
+    pos_logit = (user * pos).sum(-1) / temperature  # (B, L)
+    neg_logits = torch.einsum("bld,bkd->blk", user, neg) / temperature
+    logz = torch.logsumexp(torch.cat([pos_logit[..., None], neg_logits], dim=-1), dim=-1)
+    return _weighted_mean(logz - pos_logit, weights)
+
+
+def sampled_softmax_loss_shared_reference(
+    user: torch.Tensor,  # (M, D)
+    pos: torch.Tensor,  # (M, D) gathered positive embeddings
+    neg: torch.Tensor,  # (K, D) gathered shared negatives
+    weights: torch.Tensor,  # (M,)
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """The plain version of the kernels' function: the weighted mean of
+    logsumexp([u.p, u.neg^T] / tau) - u.p / tau over rows."""
+    pos_logit = (user * pos).sum(-1) / temperature  # (M,)
+    neg_logits = (user @ neg.T) / temperature  # (M, K)
+    logz = torch.logsumexp(torch.cat([pos_logit[:, None], neg_logits], dim=1), dim=-1)
+    return _weighted_mean(logz - pos_logit, weights)
+
+
+def sampled_softmax_loss_shared(
+    user: torch.Tensor,  # (M, D)
+    pos_ids: torch.Tensor,  # (M,)
+    neg_ids: torch.Tensor,  # (K,) shared across all positions
+    table: torch.Tensor,  # (N, D)
+    weights: torch.Tensor,  # (M,)
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """Sampled softmax with one negative set shared by every position of
+    the step: one K-row gather and an (M, D) @ (D, K) product instead of
+    M x C gathered rows. Accidental positive hits stay in."""
+    neg = F.embedding(neg_ids.long(), table)
+    pos = F.embedding(pos_ids.long(), table)
+    if user.device.type == "cpu":
+        return sampled_softmax_loss_shared_reference(user, pos, neg, weights, temperature)
+    return SampledSoftmaxShared.apply(user.contiguous(), pos, neg, weights, float(temperature))
+
+
+def sampled_softmax_loss_reference(
+    user: torch.Tensor,  # (M, D)
+    cand_ids: torch.Tensor,  # (M, C); positive at column 0
+    table: torch.Tensor,  # (N, D)
+    weights: torch.Tensor,  # (M,)
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """Per-position sampled softmax over gathered candidates (the (M, C, D)
+    gather is the cost the other two forms avoid)."""
+    cand = table[cand_ids.long()]
+    logits = torch.einsum("md,mcd->mc", user, cand) / temperature
+    return _weighted_mean(torch.logsumexp(logits, dim=-1) - logits[:, 0], weights)
+
+
+# ---------------------------------------------------------------- kernels
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    lib = _build.load("sampled_softmax")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd = lib.sampled_softmax_shared_fwd_f32
+    fwd.argtypes = [
+        ptr, ptr, ptr,  # user, pos, neg
+        ptr, ptr,  # logz, pos_logit
+        i32, i32, i32, f32,  # M, D, K, 1 / temperature
+        ptr,  # stream
+    ]
+    bwd = lib.sampled_softmax_shared_bwd_f32
+    bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # user, pos, neg, logz, pos_logit, s
+        ptr, ptr, ptr, ptr,  # du, dpos, dneg, dneg_part
+        i32, i32, i32, f32, i32,  # M, D, K, 1 / temperature, dneg splits
+        ptr,  # stream
+    ]
+    fwd.restype = bwd.restype = i32
+    return fwd, bwd
+
+
+def _check(fn: str, user, pos, neg) -> Tuple[int, int, int]:
+    """Raises unless the operands are what the kernels take; returns
+    (M, D, K)."""
+    for name, t in (("user", user), ("pos", pos), ("neg", neg)):
+        if t.device.type != "cuda" or t.device != user.device:
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor on user's device, "
+                             f"got {t.device}")
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous 2-D float32 tensor")
+    M, D = user.shape
+    K = neg.shape[0]
+    if pos.shape != (M, D) or neg.shape[1] != D or K < 1:
+        raise ValueError(f"{fn}: shapes user {tuple(user.shape)}, pos {tuple(pos.shape)}, "
+                         f"neg {tuple(neg.shape)} do not match")
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"{fn}: D={D}; the kernels take 1 <= D <= {MAX_D}")
+    return M, D, K
+
+
+def _check_rows(fn: str, M: int, user, **rows) -> None:
+    for name, t in rows.items():
+        if (t.shape != (M,) or t.dtype != torch.float32 or t.device != user.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be a contiguous float32 ({M},) tensor "
+                             "on user's device")
+
+
+def sampled_softmax_shared_fwd(
+    user: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, temperature: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: (logz, pos_logit), both (M,) float32, with
+    pos_logit = u.p / tau and logz = logsumexp([pos_logit, u.neg^T / tau])
+    per row. ``sampled_softmax_shared_fwd.launches`` counts its calls."""
+    M, D, K = _check("sampled_softmax_shared_fwd", user, pos, neg)
+    logz = torch.empty(M, dtype=torch.float32, device=user.device)
+    pos_logit = torch.empty_like(logz)
+    if M == 0:
+        return logz, pos_logit
+    _launch(
+        "sampled_softmax_shared_fwd", _kernels()[0], user.device,
+        user.data_ptr(), pos.data_ptr(), neg.data_ptr(), logz.data_ptr(),
+        pos_logit.data_ptr(), M, D, K, 1.0 / temperature,
+    )
+    sampled_softmax_shared_fwd.launches += 1
+    return logz, pos_logit
+
+
+sampled_softmax_shared_fwd.launches = 0
+
+
+def sampled_softmax_shared_bwd(
+    user: torch.Tensor,
+    pos: torch.Tensor,
+    neg: torch.Tensor,
+    logz: torch.Tensor,
+    pos_logit: torch.Tensor,
+    s: torch.Tensor,
+    temperature: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels for row gradients ``s`` (M,) of the loss
+    logz - pos_logit, given the forward's outputs: (du (M, D), dpos (M, D),
+    dneg (K, D)). Rows with s = 0 get du and dpos exactly 0. dneg's sum
+    over rows is split across blocks whose partials are added in a fixed
+    order, so reruns give the same bits.
+    ``sampled_softmax_shared_bwd.launches`` counts its calls."""
+    fn = "sampled_softmax_shared_bwd"
+    M, D, K = _check(fn, user, pos, neg)
+    _check_rows(fn, M, user, logz=logz, pos_logit=pos_logit, s=s)
+    runs = splits(-(-M // TILE), -(-K // TILE), _sm_count(user.device.index or 0))
+    new = functools.partial(torch.empty, dtype=torch.float32, device=user.device)
+    du, dpos, dneg = new((M, D)), new((M, D)), new((K, D))
+    part = new((runs, K, D)) if runs > 1 else None
+    _launch(
+        fn, _kernels()[1], user.device,
+        user.data_ptr(), pos.data_ptr(), neg.data_ptr(), logz.data_ptr(),
+        pos_logit.data_ptr(), s.data_ptr(), du.data_ptr(), dpos.data_ptr(),
+        dneg.data_ptr(), None if part is None else part.data_ptr(),
+        M, D, K, 1.0 / temperature, runs,
+    )
+    sampled_softmax_shared_bwd.launches += 1
+    return du, dpos, dneg
+
+
+sampled_softmax_shared_bwd.launches = 0
+
+
+class SampledSoftmaxShared(torch.autograd.Function):
+    """The shared-negative sampled softmax on the card: the forward kernel
+    gives each row's logsumexp and positive logit, the weighted mean is
+    taken here, and the backward kernels recompute the logits from the
+    saved logsumexp."""
+
+    @staticmethod
+    def forward(ctx, user, pos, neg, weights, temperature):
+        logz, pos_logit = sampled_softmax_shared_fwd(user, pos, neg, temperature)
+        W = weights.sum().clamp_min(1.0)
+        ctx.save_for_backward(user, pos, neg, weights, logz, pos_logit, W)
+        ctx.temperature = temperature
+        return ((logz - pos_logit) * weights).sum() / W
+
+    @staticmethod
+    def backward(ctx, g):
+        user, pos, neg, weights, logz, pos_logit, W = ctx.saved_tensors
+        s = (g * weights / W).to(torch.float32).contiguous()
+        du, dpos, dneg = sampled_softmax_shared_bwd(user, pos, neg, logz, pos_logit, s,
+                                                    ctx.temperature)
+        return du, dpos, dneg, None, None

@@ -69,13 +69,13 @@ def build_pipes(model, cfg):
 
 # options of recboard_tpu's runner this port refuses until they are ported
 _NOT_PORTED = (
-    ("on_device_sampling", lambda v: bool(v), "--on-device-sampling (DeviceSeqSampler)"),
+    ("on_device_sampling", lambda v: bool(v),
+     "--on-device-sampling (DeviceSeqSampler, DeviceFullSeqSampler, DeviceTimeSeqSampler)"),
     ("resume", lambda v: bool(v), "--resume (save_checkpoint/load_checkpoint)"),
     ("record_benchmark", lambda v: bool(v), "--record-benchmark (the benchmark store writer)"),
     ("gradient_accumulation_steps", lambda v: int(v) > 1, "gradient_accumulation_steps > 1"),
     ("lr_scheduler", lambda v: bool(v), "lr_scheduler"),
     ("profile", lambda v: bool(v), "--profile"),
-    ("remat", lambda v: bool(v), "remat (torch.utils.checkpoint)"),
     ("num_model_shards", lambda v: int(v) > 1, "--num-model-shards > 1"),
     ("compute_dtype", lambda v: str(v) not in ("float32", "f32"), "compute_dtype other than float32"),
     ("ranking", lambda v: v != "full", "ranking other than full"),
@@ -105,10 +105,16 @@ def main(argv: Optional[list] = None):
     for key, refused, what in _NOT_PORTED:
         if cfg.get(key) is not None and refused(cfg[key]):
             raise SystemExit(f"{what} is not ported to recboard_tpu_torch yet")
+    takes = inspect.signature(REGISTRY[cfg.model].__init__).parameters if (
+        cfg.model in REGISTRY) else ()
+    if cfg.get("remat") and "remat" not in takes:
+        raise SystemExit(f"remat for {cfg.model} is not ported to recboard_tpu_torch yet")
     device = utils.resolve_device(cfg.get("device"))
 
     dataset = load_dataset(cfg)
     model = build_model(cfg.model, dataset, cfg, device)
+    if getattr(model, "not_ported", None):
+        raise SystemExit(model.not_ported)
     trainpipe, validpipe, testpipe = build_pipes(model, cfg)
     coach = Coach(dataset=dataset, trainpipe=trainpipe, validpipe=validpipe,
                   testpipe=testpipe, model=model, cfg=cfg, device=device)

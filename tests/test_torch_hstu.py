@@ -1,0 +1,285 @@
+"""recboard_tpu_torch's HSTU slice against recboard_tpu's.
+
+* Pipes: the train, valid and test batches, Time column included, are
+  byte-identical for one seed.
+* ``encode`` with flax params carried across by ``from_flax``: atol 1e-5
+  (two float32 implementations of the same blocks; LayerNorm reductions
+  in other orders), and the derived active bucket count equals JAX's.
+* ``fit`` at dropout 0 with one set of negative ids handed to both, in
+  ``shared`` and ``per_row``: loss rtol 1e-5, every parameter gradient
+  within atol 1e-5 plus rtol 1e-4. The gradients reach O(10): the
+  temperature divides by 0.1, and the l2 normalisation of a table drawn
+  at std 0.02 divides by its rows' norms (about 0.08), so float32
+  rounding in other orders shows relative to their size. JAX's side is
+  ``jax.grad`` of its loss over ``model.apply(..., method="encode")``.
+* Block remat on and off give the same loss and gradients with dropout
+  active and one generator seed (the masks are drawn outside the
+  recomputed blocks).
+* ``from_flax``/``to_flax`` round trip with the bare rel_bias leaves and
+  the bias-less ``uvqk_linear``; flax's truncated-normal init.
+* Runs trained by either package are served by both, tie-tolerantly
+  (chip_smoke.compare_topk); ``per_position`` is refused.
+"""
+
+import pickle
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import compare_topk, read_scored_tsv
+from recboard_tpu.data import pipes as pipes_jax
+from recboard_tpu.models.zoo import HSTU as HSTUJax
+from recboard_tpu.ops import losses as L_jax
+from recboard_tpu_torch.data import pipes
+from recboard_tpu_torch.data.datasets import NextItemRecDataSet
+from recboard_tpu_torch.models.convert import from_flax, to_flax
+from recboard_tpu_torch.models.zoo import HSTU
+from recboard_tpu_torch.models.zoo.hstu import _TRUNC_STD
+
+ATOL, RTOL = 1e-5, 1e-5
+GRAD_RTOL = 1e-4
+KW = dict(maxlen=10, num_blocks=2, num_heads=2, embedding_dim=16, linear_hidden_dim=8,
+          attention_dim=4, num_buckets=128, num_negs=8, temperature=0.1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one intra-op thread keeps them from contending
+    for the cores with parallel test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _port_dataset(tiny_dataset):
+    return NextItemRecDataSet(tiny_dataset.root, tiny_dataset.dataset)
+
+
+def _arrays(batch):
+    return {f: v for f, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def _tensors(batch):
+    return {f: torch.from_numpy(v) for f, v in _arrays(batch).items()}
+
+
+def _pair(tiny_dataset, **overrides):
+    """A flax HSTU initialised on a train batch, the port's model holding
+    the same params, and that batch from each package's pipe (the fields
+    are each package's own keys)."""
+    kw = dict(KW, **overrides)
+    mj = HSTUJax(tiny_dataset, **kw)
+    batch = _arrays(next(iter(mj.sure_trainpipe(10, 16).set_seed(0))))
+    params = mj.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
+                      "sampling": jax.random.PRNGKey(2)}, batch, method="fit")["params"]
+    mt = HSTU(_port_dataset(tiny_dataset), **kw)
+    mt.load_state_dict(from_flax(jax.tree.map(np.asarray, params)))
+    batch_t = _tensors(next(iter(mt.sure_trainpipe(10, 16).set_seed(0))))
+    return mj, params, mt, batch, batch_t
+
+
+# ------------------------------------------------------------ pipes
+@pytest.mark.parametrize("split", ["train", "valid", "test"])
+def test_hstu_batches_match_jax(tiny_dataset, split):
+    mj, mt = HSTUJax(tiny_dataset, **KW), HSTU(_port_dataset(tiny_dataset), **KW)
+    if split == "train":
+        pj, pt = mj.sure_trainpipe(10, 16), mt.sure_trainpipe(10, 16)
+        fields = ((mj.User, mt.User), (mj.ISeq, mt.ISeq), (mj.IPos, mt.IPos),
+                  (mj.Time, mt.Time))
+    else:
+        pj = getattr(mj, f"sure_{split}pipe")(10, "pool", 16)
+        pt = getattr(mt, f"sure_{split}pipe")(10, "pool", 16)
+        fields = ((mj.User, mt.User), (mj.ISeq, mt.ISeq), (mj.IUnseen, mt.IUnseen),
+                  (mj.Time, mt.Time))
+    for epoch in (0, 1):
+        for pipe in (pj, pt):
+            pipe.set_seed(5)
+            pipe.set_epoch(epoch)
+        bj, bt = list(pj), list(pt)
+        assert len(bj) == len(bt) > 1
+        for a, b in zip(bj, bt):
+            assert a[pipes_jax.Size] == b[pipes.Size]
+            for fj, ft in fields:
+                np.testing.assert_array_equal(b[ft], a[fj])
+                assert b[ft].dtype == a[fj].dtype
+    times = np.concatenate([b[mt.Time] for b in bt])
+    seqs = np.concatenate([b[mt.ISeq] for b in bt])
+    assert (times[seqs == 0] == 0).all() and (times > 0).any()  # pads carry time 0
+
+
+# ------------------------------------------------------------- encode
+def test_encode_and_scores_match_flax(tiny_dataset):
+    mj, params, mt, _, _ = _pair(tiny_dataset)
+    bound = mj.bind({"params": params})
+    assert mt.rel_bias.active_buckets == bound.rel_bias.active_buckets > 1
+    n = 0
+    for bj, bt in zip(mj.sure_testpipe(10, "pool", 8), mt.sure_testpipe(10, "pool", 8)):
+        aj, at = _arrays(bj), _tensors(bt)
+        uj, ij = mj.apply({"params": params}, aj, method="encode")
+        fj = mj.apply({"params": params}, aj, None, method="recommend_from_full")
+        sj = mj.apply({"params": params}, aj, None, method="recommend_from_pool")
+        with torch.no_grad():
+            ut, it = mt.encode(at)
+            ft, st = mt.recommend_from_full(at), mt.recommend_from_pool(at)
+        for got, want in ((ut, uj), (it, ij), (ft, fj), (st, sj)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+        n += 1
+    assert n > 1
+
+
+# ---------------------------------------------------------------- fit
+@pytest.mark.parametrize("mode", ["shared", "per_row"])
+def test_fit_loss_and_grads_match_jax(tiny_dataset, monkeypatch, mode):
+    mj, params, mt, batch, batch_t = _pair(tiny_dataset, negs_mode=mode)
+    B, L = batch[mj.ISeq].shape
+    shape = (KW["num_negs"],) if mode == "shared" else (B, KW["num_negs"])
+    neg_ids = np.random.default_rng(3).integers(0, mt.Item.count, shape)
+    monkeypatch.setattr(HSTU, "sample_negatives",
+                        lambda self, shape, generator: torch.from_numpy(neg_ids))
+    weights = (batch[mj.ISeq] != 0).astype(np.float32)
+    pos_ids = batch[mj.IPos]
+
+    def loss_j(p):
+        user, items = mj.apply({"params": p}, batch, method="encode")
+        if mode == "shared":
+            return L_jax.sampled_softmax_loss_shared(
+                user.reshape(B * L, -1), pos_ids.reshape(-1), neg_ids, items,
+                weights.reshape(-1), temperature=KW["temperature"])
+        return L_jax.sampled_softmax_loss_per_row(user, pos_ids, neg_ids, items, weights,
+                                                  temperature=KW["temperature"])
+
+    value_j, grads_j = jax.value_and_grad(loss_j)(params)
+    loss_t, logs = mt.fit(batch_t, torch.Generator())
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t.detach()), float(value_j), rtol=RTOL)
+    assert float(logs["rec_loss"].detach()) == float(loss_t.detach())
+    want = from_flax(jax.tree.map(np.asarray, grads_j))
+    assert set(want) == {name for name, _ in mt.named_parameters()}
+    for name, p in mt.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), atol=ATOL,
+                                   rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_remat_on_and_off_give_equal_grads_with_dropout(tiny_dataset):
+    """One generator seed, dropout active in the embeddings and the blocks:
+    the recomputed blocks must apply the forward's masks."""
+    ds = _port_dataset(tiny_dataset)
+    kw = dict(KW, negs_mode="shared", emb_dropout_rate=0.3, hidden_dropout_rate=0.4)
+    models = [HSTU(ds, remat=remat, generator=torch.Generator().manual_seed(0), **kw)
+              for remat in (True, False)]
+    batch = _tensors(next(iter(models[0].sure_trainpipe(10, 16).set_seed(0))))
+    losses, grads = [], []
+    for model in models:
+        loss, _ = model.fit(batch, torch.Generator().manual_seed(7))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    assert losses[0] == losses[1]
+    for name, g in grads[0].items():
+        torch.testing.assert_close(g, grads[1][name], rtol=0, atol=0, msg=name)
+    # dropout is active: another seed gives another loss
+    other, _ = models[0].fit(batch, torch.Generator().manual_seed(8))
+    assert float(other.detach()) != losses[0]
+
+
+# ------------------------------------------------------------ convert
+def test_from_flax_to_flax_round_trip(tiny_dataset):
+    _, params, mt, _, _ = _pair(tiny_dataset)
+    flat = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, params))[0])
+    assert "bias" not in params["hstu_0"]["uvqk_linear"]
+    np.testing.assert_array_equal(mt.rel_bias.timestamp_weights.detach().numpy(),
+                                  np.asarray(params["rel_bias"]["timestamp_weights"]))
+    got = dict(jax.tree_util.tree_flatten_with_path(to_flax(mt))[0])
+    assert set(got) == set(flat)
+    for path, value in flat.items():
+        assert got[path].shape == value.shape and got[path].dtype == value.dtype, path
+        np.testing.assert_array_equal(got[path], value)
+    with pytest.raises(ValueError, match="no rule"):  # a bare leaf no module declares
+        to_flax(torch.nn.ParameterDict({"mystery": torch.nn.Parameter(torch.zeros(2))}))
+
+
+def test_init_follows_flax_truncated_normal(tiny_dataset):
+    mt = HSTU(_port_dataset(tiny_dataset), generator=torch.Generator().manual_seed(0),
+              **dict(KW, embedding_dim=64))
+    for w, std in ((mt.item_embeddings.weight, 0.02),
+                   (mt.pos_embeddings.weight, (1 / 64) ** 0.5),
+                   (mt.rel_bias.timestamp_weights, 0.02)):
+        w = w.detach()
+        assert float(w.abs().max()) <= 2 * std / _TRUNC_STD + 1e-7
+        assert abs(float(w.std()) / std - 1) < 0.15
+    block = mt.hstu_0
+    assert block.uvqk_linear.bias is None and not block.output_linear.bias.any()
+    limit = (6 / sum(block.uvqk_linear.weight.shape)) ** 0.5  # xavier-uniform
+    assert float(block.uvqk_linear.weight.detach().abs().max()) <= limit
+
+
+# ------------------------------------------------------- run and serve
+def test_per_position_is_refused(tiny_dataset, tmp_path):
+    from recboard_tpu_torch import run
+
+    mt = HSTU(_port_dataset(tiny_dataset), **KW)  # negs_mode "" and shared_negs off
+    batch = _tensors(next(iter(mt.sure_trainpipe(10, 16).set_seed(0))))
+    with pytest.raises(NotImplementedError, match=r"per_position .*not ported.*\(K4\)"):
+        mt.fit(batch, torch.Generator())
+    common = ["--model", "HSTU", "--root", tiny_dataset.root, "--dataset",
+              tiny_dataset.dataset, "--device", "cpu", "--maxlen", "10",
+              "--log2console", "false", "--log-path", str(tmp_path)]
+    with pytest.raises(SystemExit, match=r"not ported.*\(K4\)"):
+        run.main(common)
+    with pytest.raises(SystemExit, match="not ported"):
+        run.main(common + ["--negs_mode", "shared", "--on-device-sampling"])
+    assert HSTU(_port_dataset(tiny_dataset), shared_negs=True, **KW).not_ported is None
+
+
+@pytest.fixture(scope="module")
+def runs(tiny_dataset, tmp_path_factory):
+    """An HSTU run trained by the port on the CPU (shared negatives, remat
+    on) and one trained by recboard_tpu (per-row negatives), at tiny
+    widths for 2 epochs."""
+    from recboard_tpu import run as run_jax
+    from recboard_tpu_torch import cli
+
+    tmp = tmp_path_factory.mktemp("torch_hstu")
+    common = ["--model", "HSTU", "--root", tiny_dataset.root,
+              "--dataset", tiny_dataset.dataset, "--epochs", "2", "--eval-freq", "1",
+              "--lr", "0.005", "--maxlen", "10", "--batch-size", "16", "--num-blocks", "2",
+              "--num-heads", "2", "--embedding-dim", "16", "--num_negs", "16",
+              "--log2console", "false"]
+    out = {}
+    for name, main, extra in (
+        ("port", lambda a: cli.main(["run"] + a),
+         ["--device", "cpu", "--negs_mode", "shared", "--hidden_dropout_rate", "0.1"]),
+        ("jax", run_jax.main, ["--negs_mode", "per_row"]),
+    ):
+        main(common + extra + ["--log-path", str(tmp / name / "logs"),
+                               "--checkpoint-path", str(tmp / name / "infos")])
+        root = tmp / name / "logs" / "HSTU" / tiny_dataset.dataset
+        out[name] = sorted(root.iterdir())[-1]
+    return out, tmp
+
+
+def test_port_run_records_finite_losses(runs):
+    run_dirs, _ = runs
+    history = pickle.loads((run_dirs["port"] / "monitors.pkl").read_bytes())
+    losses = [row["LOSS"] for row in history["train"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert all(np.isfinite(row["NDCG@10"]) for row in history["valid"])
+
+
+@pytest.mark.parametrize("trained_by", ["port", "jax"])
+def test_run_served_by_both_packages(runs, trained_by):
+    from recboard_tpu import serve as serve_jax
+    from recboard_tpu_torch import serve
+
+    run_dirs, tmp = runs
+    common = ["--run", str(run_dirs[trained_by]), "--topk", "8", "--with-scores",
+              "--batch-size", "16"]
+    jax_tsv, torch_tsv = tmp / f"{trained_by}_jax.tsv", tmp / f"{trained_by}_torch.tsv"
+    serve_jax.main(common + ["--output", str(jax_tsv)])
+    serve.main(common + ["--output", str(torch_tsv), "--device", "cpu"])
+    rows = read_scored_tsv(torch_tsv)
+    assert len(rows) > 1
+    assert compare_topk(read_scored_tsv(jax_tsv), rows) == []

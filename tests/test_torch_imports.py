@@ -30,7 +30,8 @@ def test_port_modules_import_without_jax():
         )
         if not m.name.endswith(".__main__")  # runs the CLI when imported
     )
-    for name in ("ops.attention", "ops.vocab_ce", "models.zoo.bert4rec", "serve"):
+    for name in ("ops.attention", "ops.vocab_ce", "ops.losses", "ops.rel_bias",
+                 "models.zoo.bert4rec", "models.zoo.hstu", "serve"):
         assert f"recboard_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
