@@ -2,6 +2,12 @@
 """Drive recboard_tpu_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --store-seeds 20 [--seed 0] [--plain] [--device cpu]
+
+The second form runs only the toy store's per-position HSTU protocol for
+that many seeds and prints each seed's best NDCG@10 and their mean, through
+the kernels or (--plain) through K4's and K6's plain versions: a study of
+the quality band on the card, or on the CPU (--device cpu).
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -53,10 +59,30 @@ Phases, one JSON line each; any failure exits non-zero:
    with CUDA-event times beside the plain version, a library call and
    the bound.
 14. hstu_train, hstu_profile, hstu_train_time, hstu_quality — phases 6, 5,
-   7 and 8 for HSTU at the reference config with shared negatives: K5
-   forward and backward and K6 once per step each, no other kernel; the
+   7 and 8 for HSTU at the reference config with shared negatives, its
+   training cut to one epoch: K5 forward and backward and K6 once per
+   step each, no other kernel; the
    trained run served with the CPU's lists and its ``--bench`` line; the
    toy store's 5-seed shared-negative band.
+15. kernels_sampled_softmax_cand, kernels_dropout — K4
+   (sampled_softmax_cand forward and backward) at HSTU's training shape,
+   its last batch, the JAX test's shape (ids repeated in rows and out of
+   range), D 128, large logits at tau 0.01 and the toy store's protocol
+   (300 items, tau 0.05): against its plain versions
+   and the loss's autograd, du exactly 0 on rows of weight 0 and dtable on
+   table rows no weighted row drew, the same bits on a rerun; K7
+   (dropout_mask) at (1024, 50, 64) and a ragged length, bit-equal to its
+   plain version, its kept share and values, seeds; each with CUDA-event
+   times beside the plain version, a library call and the bound. Then
+   K7's own path (no model calls it): ``ops.dropout.dropout`` forward and
+   backward a few times, its launches counted from 0.
+16. hstu_pp_train, hstu_pp_profile, hstu_pp_train_time, hstu_pp_grads,
+   hstu_pp_quality — phases 6, 5, 7 and 8 for HSTU at the reference config
+   as written (per-position negatives, no ``negs_mode``): K4 forward and
+   backward and K6 once per step each, no other kernel; one step of the
+   toy store's protocol through the kernels against the same step through
+   their plain versions, every parameter's gradient; the toy store's
+   5-seed per-position band.
 
 Each phase prints its seconds. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
@@ -169,7 +195,10 @@ B4R_STORE_NDCG10 = 0.3945
 # HSTU at the reference widths (configs/HSTU_Amazon2014Beauty_550_LOU.yaml:
 # maxlen 50, D 64, 4 blocks, 2 heads, linear and attention dims 4, 128
 # buckets, 512 negatives, tau 0.1, dropout 0.5 / 0.1, batch 256, AdamW lr
-# 1e-3, weight decay 1e-6) with one shared negative set per step
+# 1e-3, weight decay 1e-6) with one shared negative set per step; its
+# training phase is cut to one epoch to keep the whole run within its
+# minutes (the per-position phases below keep TRAIN_EPOCHS)
+HSTU_SHARED_EPOCHS = 1
 HSTU = dict(maxlen=50, embedding_dim=64, num_blocks=4, num_heads=2, linear_hidden_dim=4,
             attention_dim=4, num_buckets=128)
 HSTU_CONFIG = os.path.join(ROOT, "configs", "HSTU_Amazon2014Beauty_550_LOU.yaml")
@@ -180,6 +209,12 @@ HSTU_BATCH = 256
 HSTU_STORE_PROTOCOL = dict(epochs=15, lr=0.005, batch_size=128, eval_freq=3, maxlen=20,
                            num_blocks=2, negs_mode="shared")
 HSTU_STORE_NDCG10 = 0.3453
+# the reference config as written (per-position negatives, no negs_mode)
+# and the toy store's HSTU row, which is per-position
+# (benchmark/SynBeauty_000_LOU/HSTU.json: 5 seeds, NDCG@10 0.3575 +- 0.0070)
+HSTU_PP_STORE_PROTOCOL = dict(epochs=15, lr=0.005, batch_size=128, eval_freq=3, maxlen=20,
+                              num_blocks=2)
+HSTU_PP_STORE_NDCG10 = 0.3575
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -227,6 +262,37 @@ RB_EXTRA = [  # correctness only
 ]
 
 
+# K4 (per-position sampled softmax): (name, M, C, D, N, temperature, inputs,
+# share of rows of weight 0); inputs "l2" are l2-normalised rows with
+# HSTU's ids (pad rows' positive is item 0), "normal" standard normal rows,
+# "large" unnormalised rows whose logits at tau 0.01 reach a few hundred,
+# where exp() overflows float32. The first is HSTU's training shape (256
+# rows x 50 positions, 1 + 512 candidates, D 64, 12,101 items, tau 0.1)
+# with the pad share of its batches (87.9 %, as the hstu_train phase reports)
+HSTU_PAD_SHARE = 0.879
+SSC_SHAPES = [("hstu_train", 12_800, 513, 64, 12_101, 0.1, "l2", HSTU_PAD_SHARE)]
+SSC_EXTRA = [  # correctness only
+    ("hstu_last_batch", 6_600, 513, 64, 12_101, 0.1, "l2", HSTU_PAD_SHARE),
+    ("jax_test", 64, 5, 8, 16, 1.0, "normal", 0.3),  # tests/test_ops.py:80: ids repeat in rows
+    ("widest_D", 2_000, 513, 128, 12_101, 0.1, "l2", 0.5),
+    ("large_logits", 1_000, 513, 64, 12_101, 0.01, "large", 0.3),
+    # the toy store's per-position protocol: 128 rows x 20 positions, 300
+    # items, tau 0.05, its pad share; about 2,600 entries per table row,
+    # each id about 1.7 times in every row
+    ("toy_store", 2_560, 513, 64, 300, 0.05, "l2", 0.449),
+]
+# logz and pos_logit: max |kernel - plain| over max(1, max |plain|) (SS_TOL);
+# du and dtable: over each gradient's largest |plain| (GRAD_TOL): sums of D
+# products and of C candidates' terms in other orders, at float32
+
+# K7 (dropout mask): (name, shape, rate); the first is the JAX kernel's
+# test shape (tests/test_ops.py:234), the second a ragged length
+DROP_MASK_SHAPES = [("jax_test", (1024, 50, 64), 0.2)]
+DROP_MASK_EXTRA = [("ragged", (1_000_003,), 0.5)]
+# forward and backward passes of ops.dropout.dropout, K7's own path
+DROP_PATH_STEPS = 4
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -245,6 +311,24 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 50) -> float:
+    """Device time of one call with the host's launch cost out of the way:
+    ``calls`` calls captured in one CUDA graph, whose replays are timed by
+    CUDA events. For kernels shorter than their wrapper's host time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, iters=20, warmup=2) / calls
 
 
 def attention_inputs(case, rng):
@@ -799,6 +883,245 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
     )
 
 
+def ssc_inputs(case, rng):
+    """(user, ids, table, weights) of one K4 case on the card: user and table
+    requiring their gradients, int32 ids (M, C) with the positive in column
+    0, a share of rows of weight 0. Outside HSTU's shapes the weighted rows
+    draw from the first three quarters of the table only, so that some
+    table rows are drawn by rows of weight 0 alone, and the JAX test's
+    shape has two ids out of the table's range."""
+    import torch
+
+    name, M, C, D, N, tau, kind, zero_share = case
+
+    def rows(n):
+        x = rng.normal(size=(n, D))
+        if kind == "l2":
+            x /= np.linalg.norm(x, axis=1, keepdims=True)
+        elif kind == "large":
+            x *= 3.0 / math.sqrt(D)
+        return torch.from_numpy(x.astype(np.float32)).cuda().requires_grad_()
+
+    w = (rng.random(M) >= zero_share).astype(np.float32)
+    ids = rng.integers(0, N, size=(M, C))
+    if kind == "l2":
+        ids[w == 0, 0] = 0  # HSTU's pad positions: item 0, weight 0
+    else:
+        ids[w > 0] = rng.integers(0, 3 * N // 4, size=(int((w > 0).sum()), C))
+    if name == "jax_test":
+        ids[0, 1], ids[1, 2] = -1, N + 7  # taken as JAX's gather takes them
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return rows(M), t(ids.astype(np.int32)), rows(N), t(w)
+
+
+def check_sampled_softmax_cand(rng):
+    """K4 against its plain versions on the card: logz and pos_logit; du and
+    dtable against the backward's formula; the loss and its gradients
+    through SampledSoftmaxCandidates against autograd of the plain loss; du
+    exactly 0 on rows of weight 0 and dtable on the table rows no weighted
+    row drew; the same bits on a rerun; times at the timed shape."""
+    import torch
+
+    from recboard_tpu_torch.ops import losses as S
+
+    rows, worst = [], dict(fwd=0.0, bwd=0.0)
+    for case in SSC_SHAPES + SSC_EXTRA:
+        name, M, C, D, N, tau, kind, _ = case
+        user, ids, table, w = ssc_inputs(case, rng)
+        u, e = user.detach(), table.detach()
+        s = (w / w.sum().clamp_min(1.0)).contiguous()
+        out = S.sampled_softmax_cand_fwd(u, ids, e, tau)
+        out += S.sampled_softmax_cand_bwd(u, ids, e, out[0], s, tau)
+        again = S.sampled_softmax_cand_fwd(u, ids, e, tau)
+        again += S.sampled_softmax_cand_bwd(u, ids, e, again[0], s, tau)
+        want = S.sampled_softmax_cand_rows_reference(u, ids, e, tau)
+        want += S.sampled_softmax_cand_bwd_reference(u, ids, e, want[0], s, tau)
+        loss = S.SampledSoftmaxCandidates.apply(user, ids, table, w, tau)
+        loss_g = torch.autograd.grad(loss, (user, table))
+        want_loss = S.sampled_softmax_loss_reference(user, ids, table, w, tau)
+        want_loss_g = torch.autograd.grad(want_loss, (user, table))
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(out, again))
+        err = max(rel_err(out[0], want[0]), rel_err(out[1], want[1]))
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(out[:2], want[:2]))
+        g_rel = max(grad_rel_err(out[2:], want[2:]), grad_rel_err(loss_g, want_loss_g))
+        g_abs = max(float((a - b).abs().max())
+                    for a, b in zip(out[2:] + loss_g, want[2:] + want_loss_g))
+        zero = w == 0
+        drawn = torch.zeros(N, dtype=torch.bool, device=ids.device)
+        drawn[S._take_ids(ids[~zero], N).reshape(-1)] = True
+        zeros_exact = not bool(out[2][zero].any() or out[3][~drawn].any()
+                               or loss_g[0][zero].any() or loss_g[1][~drawn].any())
+        finite = all(bool(torch.isfinite(x).all()) for x in out + loss_g + (loss,))
+        worst["fwd"] = max(worst["fwd"], abs_err)
+        worst["bwd"] = max(worst["bwd"], g_abs)
+        row = dict(shape=name, M=M, C=C, D=D, N=N, tau=tau, inputs=kind,
+                   weighted_rows=int((~zero).sum()), undrawn_table_rows=int((~drawn).sum()),
+                   max_abs_err=abs_err, max_rel_err=err, tol=SS_TOL,
+                   loss_err=abs(float(loss.detach()) - float(want_loss.detach())),
+                   grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=GRAD_TOL,
+                   finite=finite, zeros_exact=zeros_exact, same_bits=same_bits,
+                   max_logit=float(want[0].abs().max()))
+        if case in SSC_SHAPES:
+            row.update(time_sampled_softmax_cand(user, ids, table, w, tau, out[0], s))
+        emit("kernels", kernel="sampled_softmax_cand", **row)
+        if (not finite or not zeros_exact or not same_bits or not err <= SS_TOL
+                or not g_rel <= GRAD_TOL):
+            raise SystemExit(f"sampled_softmax_cand disagrees with its plain version at "
+                             f"{name}: fwd {err}, grads {g_rel}, zeros exact {zeros_exact}, "
+                             f"same bits {same_bits}")
+        rows.append(row)
+        del user, ids, table, w, out, again, want, loss_g, want_loss_g
+    return rows, worst
+
+
+def time_sampled_softmax_cand(user, ids, table, w, tau, logz, s) -> dict:
+    """CUDA-event times of K4's forward and backward (its stable sort
+    included, and alone), their plain versions, and torch.logsumexp over
+    torch.bmm of the F.embedding gather (forward, and autograd backward),
+    with the bounds: each input the function needs read once and each
+    output written once; the forward 2*M*C*D FLOP over every row; the
+    backward 6*C*D FLOP per row of nonzero gradient (the logits again, du
+    and dtable), the only rows whose user row, ids and logz it reads (a row
+    of s = 0 gives du = 0 and adds nothing to dtable)."""
+    import torch
+    import torch.nn.functional as F
+
+    from recboard_tpu_torch.ops import losses as S
+
+    u, e = user.detach(), table.detach()
+    M, D = u.shape
+    C = ids.shape[1]
+    ids_long = S._take_ids(ids, e.shape[0])
+    W = w.sum().clamp_min(1.0)
+    weighted = int((s != 0).sum())
+
+    def library(uu, ee):
+        logits = torch.bmm(F.embedding(ids_long, ee), uu[:, :, None])[..., 0] / tau
+        return torch.logsumexp(logits, -1), logits[:, 0]
+
+    def library_fwd():
+        with torch.no_grad():
+            return library(u, e)
+
+    def library_fwd_bwd():
+        lz, pl = library(user, table)
+        torch.autograd.grad(((lz - pl) * w).sum() / W, (user, table))
+
+    def plain_fwd():
+        with torch.no_grad():
+            return S.sampled_softmax_cand_rows_reference(u, ids, e, tau)
+
+    flat = ids.reshape(-1)
+    fwd_bound = bound(nbytes(u, ids, e, logz, logz), 2 * M * C * D)
+    weighted_bytes = weighted * (u[0].nbytes + ids[0].nbytes + logz[0].nbytes)
+    # s and the table in, du and dtable out, and the weighted rows' inputs
+    bwd_bound = bound(nbytes(s, e) + nbytes(u, e) + weighted_bytes, 6 * weighted * C * D)
+    lib_ms = cuda_ms(library_fwd, iters=20, warmup=3)
+    return dict(
+        fwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_fwd(u, ids, e, tau), iters=50, warmup=5),
+        bwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_bwd(u, ids, e, logz, s, tau),
+                       iters=50, warmup=5),
+        sort_ms=cuda_ms(lambda: torch.sort(flat, stable=True), iters=50, warmup=5),
+        plain_fwd_ms=cuda_ms(plain_fwd, iters=20, warmup=3),
+        plain_bwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_bwd_reference(u, ids, e, logz, s, tau),
+                             iters=10, warmup=2),
+        library_fwd_ms=lib_ms,
+        library_bwd_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=2) - lib_ms,
+        fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+        gathered_gb_per_pass=M * C * D * 4 / 1e9,
+    )
+
+
+def check_dropout_mask(rng):
+    """K7 against its plain version on the card: the masks bit-equal, the
+    kept share within KEEP_TOL of 1 - rate, the values exactly {0, 1 / (1 -
+    rate)}, the same seed the same mask and another seed another; times at
+    the timed shape. Then K7's own path, ``ops.dropout.dropout`` as a caller
+    uses it (no model calls it): DROP_PATH_STEPS forward and backward passes
+    at the timed shape, counted from 0. Returns the rows and that path's
+    launches."""
+    import torch
+
+    from recboard_tpu_torch.ops import dropout as Dr
+
+    rows = []
+    for case in DROP_MASK_SHAPES + DROP_MASK_EXTRA:
+        name, shape, rate = case
+        seed = torch.tensor([int(rng.integers(-(2**31), 2**31 - 1))], dtype=torch.int32,
+                            device="cuda")
+        got = Dr.dropout_mask(seed, shape, rate)
+        want = Dr.dropout_mask_reference(seed, shape, rate)
+        same_seed = torch.equal(got, Dr.dropout_mask(seed, shape, rate))
+        other_seed = not torch.equal(got, Dr.dropout_mask(seed ^ 1, shape, rate))
+        torch.cuda.synchronize()
+        kept = float((got != 0).float().mean())
+        values = sorted(torch.unique(got).tolist())
+        scale = float(np.float32(1.0 / (1.0 - rate)))
+        row = dict(shape=name, dims=list(shape), rate=rate, bit_equal=torch.equal(got, want),
+                   max_abs_err=float((got - want).abs().max()), same_seed_equal=same_seed,
+                   other_seed_differs=other_seed, kept_fraction=kept, expected=1 - rate,
+                   tol=KEEP_TOL, values=values)
+        if case in DROP_MASK_SHAPES:
+            row.update(time_dropout_mask(seed, shape, rate))
+        emit("kernels", kernel="dropout_mask", **row)
+        if (not row["bit_equal"] or not same_seed or not other_seed
+                or abs(kept - (1 - rate)) > KEEP_TOL or values != [0.0, scale]):
+            raise SystemExit(f"dropout_mask at {name}: {row}")
+        rows.append(row)
+        del got, want
+
+    _, shape, rate = DROP_MASK_SHAPES[0]
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().requires_grad_()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(2**31)))
+    scale = float(np.float32(1.0 / (1.0 - rate)))
+    Dr.dropout_mask.launches = 0
+    kept, exact = [], True
+    for _ in range(DROP_PATH_STEPS):
+        x.grad = None
+        y = Dr.dropout(x, rate, gen)
+        y.backward(torch.ones_like(y))
+        # y = x * mask and dy/dx = mask, mask in {0, 1 / (1 - rate)}
+        exact &= bool(torch.equal(y.detach(), x.detach() * x.grad)) and bool(
+            ((x.grad == 0) | (x.grad == scale)).all())
+        kept.append(float((x.grad != 0).float().mean()))
+    torch.cuda.synchronize()
+    launches = Dr.dropout_mask.launches
+    emit("kernels", kernel="dropout_mask", path="ops.dropout.dropout", dims=list(shape),
+         rate=rate, steps=DROP_PATH_STEPS, launches=launches, kept_fraction=kept,
+         exact=exact)
+    if (launches != DROP_PATH_STEPS or not exact
+            or max(abs(k - (1 - rate)) for k in kept) > KEEP_TOL):
+        raise SystemExit(f"dropout path: {launches} launches for {DROP_PATH_STEPS} steps, "
+                         f"exact {exact}, kept {kept}")
+    return rows, launches
+
+
+def time_dropout_mask(seed, shape, rate) -> dict:
+    """Device times of K7, its plain version and F.dropout of a tensor of
+    ones, each from a CUDA graph of many calls (one call of the kernel is
+    shorter than its wrapper's host time), beside K7's time per eager call
+    and the bound: the mask written once (a dozen integer operations per
+    element take less)."""
+    import torch
+    import torch.nn.functional as F
+
+    from recboard_tpu_torch.ops import dropout as Dr
+
+    ones = torch.ones(shape, device="cuda")
+    mask_bound = bound(nbytes(seed, ones), 0)
+    kernel = lambda: Dr.dropout_mask(seed, shape, rate)  # noqa: E731
+    return dict(
+        ms=graph_ms(kernel),
+        eager_ms=cuda_ms(kernel),
+        plain_ms=graph_ms(lambda: Dr.dropout_mask_reference(seed, shape, rate), calls=10),
+        library_ms=graph_ms(lambda: F.dropout(ones, rate)),
+        bound_ms=mask_bound[0], bound_by=mask_bound[1],
+    )
+
+
 def rb_inputs(case, rng):
     """(timestamps, ts_w, pos_w, g) of one K6 case on the card: increasing
     timestamps with left pads of 0, their differences spread over the
@@ -978,7 +1301,8 @@ def layout(tree, path=()) -> dict:
     return out
 
 
-# each model's slice: widths, random weights, training config, toy-store
+# each slice: its model (the key where not given), widths, random weights,
+# training config, flags and epochs (TRAIN_EPOCHS where not given), toy-store
 # protocol and quality anchor, and the prefix of its phase names
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
@@ -987,8 +1311,12 @@ SLICES = {
                      batch=TRAIN_BATCH, protocol=B4R_STORE_PROTOCOL, store=B4R_STORE_NDCG10,
                      tag="bert4rec_"),
     "HSTU": dict(widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG, batch=HSTU_BATCH,
-                 flags=dict(negs_mode="shared"), protocol=HSTU_STORE_PROTOCOL,
+                 flags=dict(negs_mode="shared"), epochs=HSTU_SHARED_EPOCHS,
+                 protocol=HSTU_STORE_PROTOCOL,
                  store=HSTU_STORE_NDCG10, tag="hstu_"),
+    "HSTU_pp": dict(model="HSTU", widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG,
+                    batch=HSTU_BATCH, protocol=HSTU_PP_STORE_PROTOCOL,
+                    store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_"),
 }
 
 
@@ -1024,6 +1352,46 @@ def compare_topk(a, b, tol=TIE_TOL):
                 bad.append(f"user {user}: top-{i} {ids_a[:i]} vs {ids_b[:i]}")
                 break
     return bad
+
+
+def serve_float64(argv: list) -> None:
+    """``recommend`` with the model held in float64 on the CPU: the scores
+    that float32 rounding on either device is judged against."""
+    from recboard_tpu_torch import run, serve
+
+    build = run.build_model
+    run.build_model = lambda *a, **k: build(*a, **k).double()
+    try:
+        serve.main(argv + ["--device", "cpu"])
+    finally:
+        run.build_model = build
+
+
+def agree_or_float64(gpu: dict, cpu: dict, argv: list, f64_tsv: str) -> tuple:
+    """(disagreements, arbitrated users) of GPU lists against CPU lists.
+    Users whose lists differ beyond TIE_TOL are scored again in float64:
+    where float32 itself cannot resolve a user's scores to TIE_TOL (a
+    trained model can amplify rounding), the GPU's list must agree with
+    the float64 list within twice the CPU float32's own distance from it
+    (at least TIE_TOL). More than 0.1 % of users (at least 10) differing
+    fails outright; a GPU path that computed something else lands far
+    outside either way."""
+    bad = compare_topk(gpu, cpu)
+    if not bad or gpu.keys() != cpu.keys():
+        return bad, []
+    users = [u for u in gpu if compare_topk({u: gpu[u]}, {u: cpu[u]})]
+    if len(users) > max(10, len(gpu) // 1000):  # more than rounding would touch
+        return bad, []
+    serve_float64(argv + ["--output", f64_tsv])
+    f64 = read_scored_tsv(f64_tsv)
+    bad, arbitrated = [], []
+    for u in users:
+        tol = max(TIE_TOL, 2 * float(np.abs(cpu[u][1] - f64[u][1]).max()))
+        bad += compare_topk({u: gpu[u]}, {u: f64[u]}, tol)
+        arbitrated.append(dict(user=u, tol=tol,
+                               gpu_cpu=float(np.abs(gpu[u][1] - cpu[u][1]).max()),
+                               gpu_f64=float(np.abs(gpu[u][1] - f64[u][1]).max())))
+    return bad, arbitrated
 
 
 def make_dataset():
@@ -1180,23 +1548,30 @@ def latest_run(model: str, dataset: str) -> str:
 def counted_kernels() -> tuple:
     """The kernel wrappers, each counting its launches in ``.launches``."""
     from recboard_tpu_torch.ops import attention as A
+    from recboard_tpu_torch.ops import dropout as Dr
     from recboard_tpu_torch.ops import losses as S
     from recboard_tpu_torch.ops import rel_bias as R
     from recboard_tpu_torch.ops import vocab_ce as K
 
     return (A.mha_fwd, A.mha_dropout_fwd, A.mha_dropout_bwd, K.vocab_ce_fwd, K.vocab_ce_bwd,
-            S.sampled_softmax_shared_fwd, S.sampled_softmax_shared_bwd, R.stacked_rel_bias_bwd)
+            S.sampled_softmax_cand_fwd, S.sampled_softmax_cand_bwd,
+            S.sampled_softmax_shared_fwd, S.sampled_softmax_shared_bwd, R.stacked_rel_bias_bwd,
+            Dr.dropout_mask)
 
 
-def expected_launches(model: str, blocks: int, trained: int, evaluated: int) -> dict:
+def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
+                      negs_mode: str = "") -> dict:
     """Each counted kernel's launches for ``trained`` steps and ``evaluated``
     batches of ``model``: SASRec and BERT4Rec run K2 forward and backward
     once per block and step and K1 once per block and evaluated batch,
-    BERT4Rec K3 forward and backward once per step; HSTU runs K5 forward
-    and backward and K6 once per step, and no kernel in evaluation."""
+    BERT4Rec K3 forward and backward once per step; HSTU runs K6 once per
+    step and the forward and backward of its loss's kernel, K5 with shared
+    negatives and K4 with per-position ones (no ``negs_mode``), and no
+    kernel in evaluation. No model calls K7."""
     if model == "HSTU":
-        per_step = dict(sampled_softmax_shared_fwd=1, sampled_softmax_shared_bwd=1,
-                        stacked_rel_bias_bwd=1)
+        loss = "shared" if negs_mode == "shared" else "cand"
+        per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
+                    "stacked_rel_bias_bwd": 1}
         per_eval = {}
     else:
         per_step = dict(mha_dropout_fwd=blocks, mha_dropout_bwd=blocks)
@@ -1207,9 +1582,9 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int) -> 
             + per_eval.get(fn.__name__, 0) * evaluated for fn in counted_kernels()}
 
 
-def train_slice(seed: int, dataset, model: str) -> dict:
-    """``run`` at ``model``'s reference config on the SynBeautyXL-shaped
-    dataset for TRAIN_EPOCHS epochs, validated every epoch: the loss is
+def train_slice(seed: int, dataset, name: str) -> dict:
+    """``run`` at the slice ``name``'s reference config on the SynBeautyXL-shaped
+    dataset for its epochs, validated every epoch: the loss is
     finite, every kernel launched exactly as ``expected_launches`` says,
     the best checkpoint is in the flax layout, and the run serves on the
     GPU with the CPU's lists (for HSTU, which has no serving phase of its
@@ -1219,11 +1594,12 @@ def train_slice(seed: int, dataset, model: str) -> dict:
     from recboard_tpu_torch import run, serve
     from recboard_tpu_torch.data.pipes import Size
 
-    spec = SLICES[model]
-    widths, tag = spec["widths"], spec["tag"]
+    spec = SLICES[name]
+    model, widths, tag = spec.get("model", name), spec["widths"], spec["tag"]
+    flags, epochs = spec.get("flags", {}), spec.get("epochs", TRAIN_EPOCHS)
     argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
-                      config=spec["config"], epochs=TRAIN_EPOCHS, eval_freq=1,
-                      **spec.get("flags", {}))
+                      config=spec["config"], epochs=epochs, eval_freq=1,
+                      **flags)
     counter = run.build_model(model, dataset, dict(widths, seed=seed), "cpu")
     batches = list(counter.sure_trainpipe(widths["maxlen"], spec["batch"]))
     sizes = [int(b[Size]) for b in batches]
@@ -1233,14 +1609,14 @@ def train_slice(seed: int, dataset, model: str) -> dict:
     n_valid = len(list(counter.sure_validpipe(widths["maxlen"])))
     n_test = len(list(counter.sure_testpipe(widths["maxlen"])))
     if model == "HSTU":
-        # the shapes the kernel phases checked: K6's active buckets, K5's
-        # last batch
+        # the shapes the kernel phases checked: K6's active buckets, the
+        # loss kernel's last batch (K5's and K4's)
         active = counter.rel_bias.active_buckets
         last_m = sizes[-1] * widths["maxlen"]
-        if active != HSTU_ACTIVE_K or last_m != SS_EXTRA[0][1]:
+        if active != HSTU_ACTIVE_K or not last_m == SS_EXTRA[0][1] == SSC_EXTRA[0][1]:
             raise SystemExit(f"HSTU: {active} active buckets and a last batch of {last_m} "
                              f"rows; the kernel phases checked {HSTU_ACTIVE_K} and "
-                             f"{SS_EXTRA[0][1]}")
+                             f"{SS_EXTRA[0][1]}, {SSC_EXTRA[0][1]}")
 
     for fn in counted_kernels():
         fn.launches = 0
@@ -1254,15 +1630,16 @@ def train_slice(seed: int, dataset, model: str) -> dict:
     with open(os.path.join(run_dir, "monitors.pkl"), "rb") as fh:
         history = pickle.load(fh)
     losses = [row["LOSS"] for row in history["train"]]
-    trained = steps * TRAIN_EPOCHS
+    trained = steps * epochs
     # valid after every epoch and at the end; test at the end and at the best
-    evaluated = (TRAIN_EPOCHS + 1) * n_valid + 2 * n_test
-    want = expected_launches(model, widths["num_blocks"], trained, evaluated)
-    emit(f"{tag}train", model=model, config=spec["config"], dataset=DATASET["name"],
-         epochs=TRAIN_EPOCHS, steps_per_epoch=steps, rows_per_epoch=sum(sizes),
-         last_batch=sizes[-1], pad_share=pad_share, losses=losses, best=best, launches=launches,
-         expected_launches=want, run_s=run_s)
-    if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
+    evaluated = (epochs + 1) * n_valid + 2 * n_test
+    want = expected_launches(model, widths["num_blocks"], trained, evaluated,
+                             flags.get("negs_mode", ""))
+    emit(f"{tag}train", model=model, config=spec["config"], flags=flags,
+         dataset=DATASET["name"], epochs=epochs, steps_per_epoch=steps,
+         rows_per_epoch=sum(sizes), last_batch=sizes[-1], pad_share=pad_share, losses=losses,
+         best=best, launches=launches, expected_launches=want, run_s=run_s)
+    if len(losses) != epochs or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"{model} train: losses {losses}")
     if launches != want:
         raise SystemExit(f"{model} train: launches {launches}, expected {want}")
@@ -1279,15 +1656,18 @@ def train_slice(seed: int, dataset, model: str) -> dict:
 
     common = ["--run", run_dir, "--topk", str(TOPK + 1), "--with-scores",
               "--batch-size", str(BATCH)]
-    gpu_tsv = os.path.join(WORK, f"{model}_train_gpu.tsv")
-    cpu_tsv = os.path.join(WORK, f"{model}_train_cpu.tsv")
+    gpu_tsv = os.path.join(WORK, f"{name}_train_gpu.tsv")
+    cpu_tsv = os.path.join(WORK, f"{name}_train_cpu.tsv")
     serve.main(common + ["--output", gpu_tsv])
     serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
-    bad = compare_topk(read_scored_tsv(gpu_tsv), read_scored_tsv(cpu_tsv))
+    gpu = read_scored_tsv(gpu_tsv)
+    bad, arbitrated = agree_or_float64(gpu, read_scored_tsv(cpu_tsv), common,
+                                       os.path.join(WORK, f"{name}_train_f64.tsv"))
     if bad:
         raise SystemExit(f"{model} trained run: GPU and CPU lists disagree:\n"
                          + "\n".join(bad[:10]))
-    emit(f"{tag}train_serve", users=len(read_scored_tsv(gpu_tsv)), cpu_agree=True)
+    emit(f"{tag}train_serve", users=len(gpu), cpu_agree=True, tie_tol=TIE_TOL,
+         float64_arbitrated=arbitrated)
     out = dict(launches=launches, run_dir=run_dir, steps=steps)
     if model == "HSTU":
         out["bench"] = run_bench(run_dir)
@@ -1362,36 +1742,133 @@ def time_training(run_dir: str, phase: str) -> None:
                    for name, us, n in host[:12]])
 
 
-def quality(seeds: int, model: str) -> dict:
-    """The toy store's protocol for ``model`` on the card:
-    SynBeauty_000_LOU rebuilt from its meta.json build_command
-    (tools/seed_sweep.py's defaults for the flags it omits) and
-    tools/seed_sweep.py's arguments for the model; the mean best NDCG@10
-    must lie in the store's band."""
-    from recboard_tpu_torch import run
+def store_dataset() -> tuple:
+    """The toy store's dataset, SynBeauty_000_LOU, rebuilt under WORK from
+    its meta.json build_command (tools/seed_sweep.py's defaults for the
+    flags it omits): (root, name)."""
     from recboard_tpu_torch.data import synthetic
 
-    spec = SLICES[model]
-    protocol, store, tag = spec["protocol"], spec["store"], spec["tag"]
     data_root = os.path.join(WORK, "store_data")
     data = dict(STORE_DATASET)
     name = data.pop("name")
     synthetic.make_synthetic_dataset(data_root, name, **data)
+    return data_root, name
+
+
+@contextlib.contextmanager
+def plain_hstu_ops():
+    """HSTU's per-position loss and relative bias through the plain versions
+    of K4 and K6 on whatever device their tensors lie: the yardstick that
+    training through the kernels is held against."""
+    from recboard_tpu_torch.models.zoo import hstu as H
+    from recboard_tpu_torch.ops import losses as S
+    from recboard_tpu_torch.ops import rel_bias as R
+
+    saved = S.sampled_softmax_loss, H.stacked_rel_bias
+    S.sampled_softmax_loss = S.sampled_softmax_loss_reference
+    H.stacked_rel_bias = R.stacked_rel_bias_reference
+    try:
+        yield
+    finally:
+        S.sampled_softmax_loss, H.stacked_rel_bias = saved
+
+
+def store_runs(name: str, seeds, **flags) -> tuple:
+    """The toy store's protocol for the slice ``name`` (tools/seed_sweep.py's
+    arguments for the model, and ``flags``) for each of ``seeds``: (best
+    NDCG@10s, seconds)."""
+    from recboard_tpu_torch import run
+
+    spec = SLICES[name]
+    model, tag = spec.get("model", name), spec["tag"]
+    data_root, store_name = store_dataset()
     values, seconds = [], []
-    for seed in range(seeds):
+    for seed in seeds:
         t0 = time.perf_counter()
-        best = run.main(train_argv(model, data_root, name, seed, **protocol))
+        best = run.main(train_argv(model, data_root, store_name, seed, **spec["protocol"],
+                                   **flags))
         seconds.append(time.perf_counter() - t0)
         values.append(best["NDCG@10"])
         emit(f"{tag}quality_seed", model=model, seed=seed, ndcg10=values[-1],
-             seconds=seconds[-1])
+             seconds=seconds[-1], **flags)
+    return values, seconds
+
+
+def quality(seeds: int, name: str) -> dict:
+    """The toy store's protocol for the slice ``name`` on the card for
+    ``seeds`` seeds; the mean best NDCG@10 must lie in the store's band."""
+    spec = SLICES[name]
+    values, seconds = store_runs(name, range(seeds))
     mean = float(np.mean(values))
-    emit(f"{tag}quality", model=model, dataset=name, seeds=seeds, ndcg10=values, mean=mean,
-         std=float(np.std(values)), store_mean=store, band=STORE_BAND,
-         protocol=protocol, seconds=sum(seconds))
-    if not abs(mean - store) <= STORE_BAND:
-        raise SystemExit(f"{model} quality: mean NDCG@10 {mean} outside {store} ± {STORE_BAND}")
+    emit(f"{spec['tag']}quality", model=spec.get("model", name), dataset=STORE_DATASET["name"],
+         seeds=seeds, ndcg10=values, mean=mean, std=float(np.std(values)),
+         store_mean=spec["store"], band=STORE_BAND, protocol=spec["protocol"],
+         seconds=sum(seconds))
+    if not abs(mean - spec["store"]) <= STORE_BAND:
+        raise SystemExit(f"{name} quality: mean NDCG@10 {mean} outside {spec['store']} "
+                         f"± {STORE_BAND}")
     return dict(mean=mean, values=values)
+
+
+def store_study(first: int, seeds: int, device: str, plain: bool) -> None:
+    """The toy store's per-position HSTU protocol for seeds first ..
+    first + seeds - 1 on ``device``, through the kernels or (``plain``)
+    through K4's and K6's plain versions: each seed's best NDCG@10, then
+    their mean, standard deviation and the mean's standard error."""
+    with plain_hstu_ops() if plain else contextlib.nullcontext():
+        values, seconds = store_runs("HSTU_pp", range(first, first + seeds), device=device)
+    std = float(np.std(values, ddof=1)) if len(values) > 1 else 0.0
+    emit("hstu_pp_quality_study", device=device, plain=plain, seeds=[first, first + seeds - 1],
+         ndcg10=values, mean=float(np.mean(values)), std=std,
+         sem=std / math.sqrt(len(values)), store_mean=HSTU_PP_STORE_NDCG10,
+         seconds=sum(seconds))
+
+
+def check_hstu_pp_grads(seed: int, device: str = "cuda") -> dict:
+    """One per-position HSTU step on the first batch of the toy store's
+    protocol (maxlen 20, 2 blocks, batch 128 and the model's defaults: 300
+    items, 1 + 512 candidates per position, so ids repeat many times in
+    every row, tau 0.05), through the kernels and through their plain
+    versions (plain_hstu_ops), on the same weights, batch and negatives:
+    the losses within SS_TOL relative, every parameter's gradient within
+    GRAD_TOL of its largest |plain| value."""
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.data.datasets import NextItemRecDataSet
+    from recboard_tpu_torch.data.pipes import Size
+
+    protocol = SLICES["HSTU_pp"]["protocol"]
+    data_root, store_name = store_dataset()
+    dataset = NextItemRecDataSet(data_root, store_name)
+    model = run.build_model("HSTU", dataset, dict(protocol, seed=seed), torch.device(device))
+    pipe = model.sure_trainpipe(protocol["maxlen"], protocol["batch_size"])
+    data = next(iter(pipe.set_seed(seed).set_epoch(0)))
+    batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
+             if isinstance(v, np.ndarray) and f != Size}
+    names, params = zip(*model.named_parameters())
+
+    def step():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        loss, _ = model.fit(batch, gen)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss, grads = step()
+    with plain_hstu_ops():
+        want_loss, want = step()
+    errs = {n: grad_rel_err([a], [b]) for n, a, b in zip(names, grads, want)}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(loss) - float(want_loss)) / max(1.0, abs(float(want_loss)))
+    weights = batch[model.ISeq] != model.PADDING_VALUE
+    row = dict(M=int(weights.numel()), weighted_rows=int(weights.sum()), C=1 + model.num_negs,
+               N=model.Item.count, tau=model.temperature, loss=float(loss),
+               loss_rel_err=loss_err, tol=SS_TOL, worst_param=worst, grad_rel_err=errs[worst],
+               grad_rel_tol=GRAD_TOL)
+    emit("hstu_pp_grads", **row)
+    if not loss_err <= SS_TOL or not errs[worst] <= GRAD_TOL:
+        raise SystemExit(f"HSTU per-position step: kernels against plain versions {row}")
+    return row
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float,
@@ -1410,10 +1887,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and kernel inputs")
+    ap.add_argument("--store-seeds", type=int, default=0,
+                    help="run only the toy store's per-position HSTU protocol for this "
+                         "many seeds from --seed, and print each seed's best NDCG@10")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="with --store-seeds: the device to train on")
+    ap.add_argument("--plain", action="store_true",
+                    help="with --store-seeds: K4's loss and K6's backward through their "
+                         "plain versions")
     args = ap.parse_args(argv)
 
     import torch
 
+    if args.store_seeds and args.device == "cpu":
+        store_study(args.seed, args.store_seeds, "cpu", args.plain)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1430,6 +1918,9 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
+    if args.store_seeds:
+        store_study(args.seed, args.store_seeds, "cuda", args.plain)
+        return 0
 
     phase_s = {}
 
@@ -1454,6 +1945,10 @@ def main(argv=None) -> int:
                               np.random.default_rng(args.seed + 3))
     rb_rows, rb_worst = timed("kernels_rel_bias", check_rel_bias,
                               np.random.default_rng(args.seed + 4))
+    ssc_rows, ssc_worst = timed("kernels_sampled_softmax_cand", check_sampled_softmax_cand,
+                                np.random.default_rng(args.seed + 5))
+    mask_rows, mask_launches = timed("kernels_dropout", check_dropout_mask,
+                                     np.random.default_rng(args.seed + 6))
     dataset = timed("dataset", make_dataset)
     slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
@@ -1471,6 +1966,12 @@ def main(argv=None) -> int:
           "hstu_profile")
     timed("hstu_train_time", time_training, h_trained["run_dir"], "hstu_train")
     timed("hstu_quality", quality, STORE_SEEDS, "HSTU")
+    p_trained = timed("hstu_pp_train", train_slice, args.seed, dataset, "HSTU_pp")
+    timed("hstu_pp_profile", profile_bench, p_trained["run_dir"], p_trained["bench"]["p50"],
+          "hstu_pp_profile")
+    timed("hstu_pp_train_time", time_training, p_trained["run_dir"], "hstu_pp_train")
+    timed("hstu_pp_grads", check_hstu_pp_grads, args.seed)
+    timed("hstu_pp_quality", quality, STORE_SEEDS, "HSTU_pp")
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     print(json.dumps({"kernels": [
@@ -1497,6 +1998,21 @@ def main(argv=None) -> int:
         kernel_entry("stacked_rel_bias_bwd", "rel_bias.cu", "recboard_tpu/ops/rel_bias.py:69",
                      h_trained["launches"]["stacked_rel_bias_bwd"], rb_worst, rb_rows[0],
                      "bwd_"),
+        kernel_entry("sampled_softmax_cand_fwd", "sampled_softmax_cand.cu",
+                     "recboard_tpu/ops/losses.py:170",
+                     p_trained["launches"]["sampled_softmax_cand_fwd"], ssc_worst["fwd"],
+                     ssc_rows[0], "fwd_"),
+        kernel_entry("sampled_softmax_cand_bwd", "sampled_softmax_cand.cu",
+                     "recboard_tpu/ops/losses.py:186",
+                     p_trained["launches"]["sampled_softmax_cand_bwd"], ssc_worst["bwd"],
+                     ssc_rows[0], "bwd_"),
+        # launches from K7's own path, ops.dropout.dropout; the model paths,
+        # each checked against expected_launches, launched it no time
+        dict(kernel_entry("dropout_mask", "dropout.cu", "recboard_tpu/ops/dropout.py:37",
+                          mask_launches, mask_rows[0]["max_abs_err"], mask_rows[0]),
+             path="ops.dropout.dropout", model_path_launches=sum(
+                 t["launches"]["dropout_mask"] for t in (trained, b_trained, h_trained,
+                                                          p_trained))),
     ]}))
     emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
     print(smi)

@@ -12,10 +12,11 @@ position bias, trained by a sampled softmax over uniform negatives
   whose backward is the kernel K6 on the card);
 * output: l2-normalised encodings, scored against the l2-normalised item
   table; the loss is a sampled softmax over the positive and
-  ``num_negs`` uniform negatives divided by ``temperature``:
-  ``negs_mode="shared"`` (one set per step, ``ops/losses.py``, the
-  kernel K5 on the card) or ``"per_row"`` (one set per sequence, plain
-  PyTorch). The per-position mode waits for K4 and is refused.
+  ``num_negs`` uniform negatives divided by ``temperature``. By default
+  (the reference configuration) every position draws its own negatives
+  (``ops/losses.sampled_softmax_loss``, the kernel K4 on the card);
+  ``negs_mode="shared"`` draws one set per step (the kernel K5 on the
+  card) and ``"per_row"`` one set per sequence (plain PyTorch).
 
 ``IPos`` is not offset by NUM_PADS (only ``ISeq`` is): its pads are item
 0 with weight 0. Blocks are recomputed in the backward
@@ -139,7 +140,7 @@ class HSTU(SeqRecArch):
         num_buckets: int = 100,
         temperature: float = 0.05,
         shared_negs: bool = False,
-        negs_mode: str = "",  # per_row | shared; "" derives from shared_negs
+        negs_mode: str = "",  # per_row | shared; "" derives from shared_negs; else per_position
         remat: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
@@ -186,14 +187,6 @@ class HSTU(SeqRecArch):
     @property
     def Time(self):
         return self.fields[TIMESTAMP].fork(SEQUENCE)
-
-    @property
-    def not_ported(self) -> Optional[str]:
-        """Why this configuration cannot train in the port yet, or None."""
-        if self.negs_route not in ("shared", "per_row"):
-            return ("negs_mode per_position is not ported to recboard_tpu_torch yet (K4): "
-                    "train with --negs_mode shared or --negs_mode per_row")
-        return None
 
     # ------------------------------------------------------------- pipes
     def sure_trainpipe(self, maxlen: int, batch_size: int):
@@ -263,17 +256,16 @@ class HSTU(SeqRecArch):
         return user, _l2norm(self.item_embeddings.weight[self.NUM_PADS:])
 
     def sample_negatives(self, shape, generator: torch.Generator) -> torch.Tensor:
-        """Uniform item ids in [0, Item.count), on the generator's device."""
+        """Uniform int32 item ids in [0, Item.count), on the generator's
+        device."""
         return torch.randint(0, self.Item.count, shape, generator=generator,
-                             device=generator.device)
+                             device=generator.device, dtype=torch.int32)
 
     def fit(
         self, data: Batch, generator: torch.Generator
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The sampled-softmax loss of one batch; dropout and negatives are
         drawn from ``generator``."""
-        if self.not_ported:
-            raise NotImplementedError(self.not_ported)
         seqs = data[self.ISeq]
         B, L = seqs.shape
         weights = (seqs != self.PADDING_VALUE).to(torch.float32)
@@ -283,10 +275,17 @@ class HSTU(SeqRecArch):
             neg_ids = self.sample_negatives((B, self.num_negs), generator)
             rec_loss = loss_ops.sampled_softmax_loss_per_row(
                 user, pos_ids, neg_ids, items, weights, temperature=self.temperature)
-        else:
+        elif self.negs_route == "shared":
             neg_ids = self.sample_negatives((self.num_negs,), generator)
             rec_loss = loss_ops.sampled_softmax_loss_shared(
                 user.reshape(B * L, -1), pos_ids.reshape(-1), neg_ids, items,
+                weights.reshape(-1), temperature=self.temperature)
+        else:  # per position: [positive; num_negs negatives] for every position
+            neg_ids = self.sample_negatives((B, L, self.num_negs), generator)
+            cand = torch.cat([pos_ids[..., None].to(torch.int32), neg_ids.to(torch.int32)],
+                             dim=-1)
+            rec_loss = loss_ops.sampled_softmax_loss(
+                user.reshape(B * L, -1), cand.reshape(B * L, -1), items,
                 weights.reshape(-1), temperature=self.temperature)
         return rec_loss, {"rec_loss": rec_loss}
 

@@ -4,8 +4,20 @@ HSTU scores each valid position against its positive and a set of
 sampled negatives, over l2-normalised embeddings divided by a
 temperature.
 
-* ``sampled_softmax_loss_reference`` — the per-position form over
-  gathered (M, C) candidate ids, positive in column 0: plain PyTorch.
+* ``sampled_softmax_loss`` — the per-position form over gathered (M, C)
+  candidate ids, positive in column 0 (HSTU's reference mode). CPU
+  tensors take the plain version in the chunks of ``recboard_tpu``'s
+  scan, one after another, each recomputed in the backward, so the whole
+  (M, C, D) gather is never held; CUDA tensors take the kernels for every
+  shape.
+* ``sampled_softmax_cand_fwd`` and ``sampled_softmax_cand_bwd`` — the
+  wrappers of the hand-written CUDA kernels
+  (``csrc/sampled_softmax_cand.cu``) that replace the TPU kernel
+  ``_fwd_kernel`` of ``sampled_softmax_loss_pallas`` and add its
+  backward; CUDA tensors only. ``SampledSoftmaxCandidates`` is the
+  autograd function over them; ``sampled_softmax_loss_reference``,
+  ``sampled_softmax_cand_rows_reference`` and
+  ``sampled_softmax_cand_bwd_reference`` are their plain versions.
 * ``sampled_softmax_loss_per_row`` — one negative set per sequence: plain
   PyTorch on every device (``recboard_tpu`` has no kernel for it).
 * ``sampled_softmax_loss_shared`` — one negative set per step. CPU
@@ -19,14 +31,16 @@ temperature.
 * ``SampledSoftmaxShared`` — the autograd function over them (the custom
   VJP ``sampled_softmax_shared_fused``).
 
-The positive and negative gathers stay PyTorch lookups outside the
-kernels, as in ``recboard_tpu``; the table's gradient flows back through
-them. They are ``F.embedding`` lookups rather than ``table[ids]``: the
-backward of advanced indexing (an accumulating ``index_put_``) adds the
-rows of one id one after another, and HSTU's positive ids are mostly the
-pad id 0, which made it 5.2 ms of a training step on an NVIDIA H100 80GB
-HBM3 at 700 W (``PERF.md``). Weights carry no gradient: they come from
-integer masks.
+Outside the per-position kernels, the gathers are PyTorch lookups, as
+in ``recboard_tpu``; the table's gradient flows back through them. They
+are ``F.embedding`` lookups rather than ``table[ids]``: the backward of
+advanced indexing (an accumulating ``index_put_``) adds the rows of one
+id one after another, and HSTU's positive ids are mostly the pad id 0,
+which made it 5.2 ms of a training step on an NVIDIA H100 80GB HBM3 at
+700 W (``PERF.md``). Per-position ids are taken as JAX's gather takes
+them: a negative id counts from the end of the table, and every id is
+clamped into it. Weights carry no gradient: they come from integer
+masks.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import _build
 from .attention import _launch
@@ -44,7 +59,13 @@ from .vocab_ce import TILE, _sm_count, splits
 
 __all__ = [
     "MAX_D",
+    "SampledSoftmaxCandidates",
     "SampledSoftmaxShared",
+    "sampled_softmax_cand_bwd",
+    "sampled_softmax_cand_bwd_reference",
+    "sampled_softmax_cand_fwd",
+    "sampled_softmax_cand_rows_reference",
+    "sampled_softmax_loss",
     "sampled_softmax_loss_per_row",
     "sampled_softmax_loss_reference",
     "sampled_softmax_loss_shared",
@@ -111,6 +132,60 @@ def sampled_softmax_loss_shared(
     return SampledSoftmaxShared.apply(user.contiguous(), pos, neg, weights, float(temperature))
 
 
+def _take_ids(cand_ids: torch.Tensor, N: int) -> torch.Tensor:
+    """int64 row ids as JAX's gather takes them: negative ids count from
+    the end, then every id is clamped into [0, N)."""
+    ids = cand_ids.long()
+    return torch.where(ids < 0, ids + N, ids).clamp(0, N - 1)
+
+
+def _cand_logits(user, cand_ids, table, temperature):
+    """(logits (M, C), gathered candidates (M, C, D), int64 ids (M, C))."""
+    ids = _take_ids(cand_ids, table.shape[0])
+    cand = F.embedding(ids, table)
+    return torch.einsum("md,mcd->mc", user, cand) / temperature, cand, ids
+
+
+def sampled_softmax_cand_rows_reference(
+    user: torch.Tensor,  # (M, D)
+    cand_ids: torch.Tensor,  # (M, C); positive at column 0
+    table: torch.Tensor,  # (N, D)
+    temperature: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the per-position forward kernel: (logz,
+    pos_logit), each (M,), the logsumexp of a row's C logits and its
+    column-0 logit."""
+    logits, _, _ = _cand_logits(user, cand_ids, table, temperature)
+    return torch.logsumexp(logits, dim=-1), logits[:, 0]
+
+
+def sampled_softmax_cand_bwd_reference(
+    user: torch.Tensor,
+    cand_ids: torch.Tensor,
+    table: torch.Tensor,
+    logz: torch.Tensor,  # (M,) from the forward
+    s: torch.Tensor,  # (M,) row gradients of logz - pos_logit
+    temperature: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the per-position backward kernels, from the
+    formula: with coef = s (exp(logit - logz) - [c = 0]), du = coef . e / tau
+    over a row's candidates and dtable[n] = the sum of coef u / tau over
+    the entries with id n. Returns (du (M, D), dtable (N, D))."""
+    logits, cand, ids = _cand_logits(user, cand_ids, table, temperature)
+    onehot = torch.zeros_like(logits)
+    onehot[:, 0] = 1.0
+    coef = s[:, None] * (torch.exp(logits - logz[:, None]) - onehot)
+    du = torch.einsum("mc,mcd->md", coef, cand) / temperature
+    contrib = (coef[:, :, None] * user[:, None, :]).reshape(-1, user.shape[1])
+    dtable = torch.zeros_like(table).index_add_(0, ids.reshape(-1), contrib) / temperature
+    return du, dtable
+
+
+def _row_losses(user, cand_ids, table, temperature):
+    logz, pos_logit = sampled_softmax_cand_rows_reference(user, cand_ids, table, temperature)
+    return logz - pos_logit
+
+
 def sampled_softmax_loss_reference(
     user: torch.Tensor,  # (M, D)
     cand_ids: torch.Tensor,  # (M, C); positive at column 0
@@ -118,11 +193,39 @@ def sampled_softmax_loss_reference(
     weights: torch.Tensor,  # (M,)
     temperature: float = 1.0,
 ) -> torch.Tensor:
-    """Per-position sampled softmax over gathered candidates (the (M, C, D)
-    gather is the cost the other two forms avoid)."""
-    cand = table[cand_ids.long()]
-    logits = torch.einsum("md,mcd->mc", user, cand) / temperature
-    return _weighted_mean(torch.logsumexp(logits, dim=-1) - logits[:, 0], weights)
+    """Per-position sampled softmax over gathered candidates in one piece
+    (the (M, C, D) gather is the cost the other two forms avoid)."""
+    return _weighted_mean(_row_losses(user, cand_ids, table, temperature), weights)
+
+
+def _chunk_total(user, cand_ids, table, weights, temperature):
+    return (_row_losses(user, cand_ids, table, temperature) * weights).sum()
+
+
+def sampled_softmax_loss(
+    user: torch.Tensor,  # (M, D)
+    cand_ids: torch.Tensor,  # (M, C) int; positive at column 0
+    table: torch.Tensor,  # (N, D)
+    weights: torch.Tensor,  # (M,)
+    temperature: float = 1.0,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """The weighted mean over rows of logsumexp(u . e_c / tau) - u . e_0 / tau
+    over each row's C candidates. CUDA tensors take the kernels
+    (``SampledSoftmaxCandidates``), whatever the shape. CPU tensors take the
+    plain version, ``chunk`` rows at a time (``recboard_tpu``'s scan), each
+    chunk recomputed in the backward."""
+    if user.device.type != "cpu":
+        return SampledSoftmaxCandidates.apply(
+            user.contiguous(), cand_ids.to(torch.int32).contiguous(), table.contiguous(),
+            weights, float(temperature))
+    total = user.new_zeros(())
+    for start in range(0, user.shape[0], chunk):
+        rows = slice(start, start + chunk)
+        total = total + checkpoint(_chunk_total, user[rows], cand_ids[rows], table,
+                                   weights[rows], temperature, use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / weights.sum().clamp_min(1.0)
 
 
 # ---------------------------------------------------------------- kernels
@@ -255,3 +358,138 @@ class SampledSoftmaxShared(torch.autograd.Function):
         du, dpos, dneg = sampled_softmax_shared_bwd(user, pos, neg, logz, pos_logit, s,
                                                     ctx.temperature)
         return du, dpos, dneg, None, None
+
+
+# ------------------------------------------------- per-position kernels
+@functools.lru_cache(maxsize=None)
+def _cand_kernels():
+    lib = _build.load("sampled_softmax_cand")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd = lib.sampled_softmax_cand_fwd_f32
+    fwd.argtypes = [
+        ptr, ptr, ptr,  # user, ids, table
+        ptr, ptr,  # logz, pos_logit
+        i32, i32, i32, i32, f32,  # M, C, D, N, 1 / temperature
+        ptr,  # stream
+    ]
+    rows = lib.sampled_softmax_cand_rows_f32
+    rows.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # user, ids, table, logz, s
+        ptr, ptr, ptr,  # du, coef, keys
+        i32, i32, i32, i32, f32,  # M, C, D, N, 1 / temperature
+        ptr,  # stream
+    ]
+    table = lib.sampled_softmax_cand_dtable_f32
+    table.argtypes = [
+        ptr, ptr, ptr, ptr,  # user, coef, sorted keys, their flat indices
+        ptr,  # dtable
+        i32, i32, i32, i32, f32,  # M, C, D, N, 1 / temperature
+        ptr,  # stream
+    ]
+    fwd.restype = rows.restype = table.restype = i32
+    return fwd, rows, table
+
+
+def _check_cand(fn: str, user, cand_ids, table) -> Tuple[int, int, int, int]:
+    """Raises unless the operands are what the per-position kernels take;
+    returns (M, C, D, N)."""
+    for name, t, dtype in (("user", user, torch.float32), ("cand_ids", cand_ids, torch.int32),
+                           ("table", table, torch.float32)):
+        if t.device.type != "cuda" or t.device != user.device:
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor on user's device, "
+                             f"got {t.device}")
+        if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous 2-D {dtype} tensor")
+    M, D = user.shape
+    C, N = cand_ids.shape[1], table.shape[0]
+    if cand_ids.shape[0] != M or table.shape[1] != D or C < 1 or N < 1:
+        raise ValueError(f"{fn}: shapes user {tuple(user.shape)}, cand_ids "
+                         f"{tuple(cand_ids.shape)}, table {tuple(table.shape)} do not match")
+    if not 1 <= D <= MAX_D or D % 4:
+        raise ValueError(f"{fn}: D={D}; the kernels take a multiple of 4 up to {MAX_D}")
+    if (user.data_ptr() | table.data_ptr()) % 16:
+        raise ValueError(f"{fn}: user and table must start on 16-byte boundaries "
+                         "(the kernels read rows as float4s)")
+    return M, C, D, N
+
+
+def sampled_softmax_cand_fwd(
+    user: torch.Tensor, cand_ids: torch.Tensor, table: torch.Tensor, temperature: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-position forward kernel: (logz, pos_logit), both (M,)
+    float32, the logsumexp of each row's C logits u . table[id] / tau and
+    its column-0 logit; ids (M, C) int32. Every row is computed.
+    ``sampled_softmax_cand_fwd.launches`` counts its calls."""
+    M, C, D, N = _check_cand("sampled_softmax_cand_fwd", user, cand_ids, table)
+    logz = torch.empty(M, dtype=torch.float32, device=user.device)
+    pos_logit = torch.empty_like(logz)
+    if M == 0:
+        return logz, pos_logit
+    _launch(
+        "sampled_softmax_cand_fwd", _cand_kernels()[0], user.device,
+        user.data_ptr(), cand_ids.data_ptr(), table.data_ptr(), logz.data_ptr(),
+        pos_logit.data_ptr(), M, C, D, N, 1.0 / temperature,
+    )
+    sampled_softmax_cand_fwd.launches += 1
+    return logz, pos_logit
+
+
+sampled_softmax_cand_fwd.launches = 0
+
+
+def sampled_softmax_cand_bwd(
+    user: torch.Tensor,
+    cand_ids: torch.Tensor,
+    table: torch.Tensor,
+    logz: torch.Tensor,
+    s: torch.Tensor,
+    temperature: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-position backward kernels for row gradients ``s`` (M,) of
+    logz - pos_logit, given the forward's logz: (du (M, D), dtable (N, D)).
+    A row kernel writes du and each entry's coefficient and id (the key N
+    on rows with s = 0, whose du is exactly 0); a stable sort of the ids
+    orders each table row's entries, and a segment kernel sums them in
+    that order. No atomics: reruns give the same bits.
+    ``sampled_softmax_cand_bwd.launches`` counts its calls."""
+    fn = "sampled_softmax_cand_bwd"
+    M, C, D, N = _check_cand(fn, user, cand_ids, table)
+    _check_rows(fn, M, user, logz=logz, s=s)
+    new = functools.partial(torch.empty, device=user.device)
+    du, dtable = new((M, D), dtype=torch.float32), new((N, D), dtype=torch.float32)
+    coef, keys = new((M, C), dtype=torch.float32), new((M, C), dtype=torch.int32)
+    _, rows, segments = _cand_kernels()
+    inv_tau = 1.0 / temperature
+    _launch(fn, rows, user.device, user.data_ptr(), cand_ids.data_ptr(), table.data_ptr(),
+            logz.data_ptr(), s.data_ptr(), du.data_ptr(), coef.data_ptr(), keys.data_ptr(),
+            M, C, D, N, inv_tau)
+    sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
+    _launch(fn, segments, user.device, user.data_ptr(), coef.data_ptr(), sorted_keys.data_ptr(),
+            order.data_ptr(), dtable.data_ptr(), M, C, D, N, inv_tau)
+    sampled_softmax_cand_bwd.launches += 1
+    return du, dtable
+
+
+sampled_softmax_cand_bwd.launches = 0
+
+
+class SampledSoftmaxCandidates(torch.autograd.Function):
+    """The per-position sampled softmax on the card: the forward kernel
+    gives each row's logsumexp and positive logit, the weighted mean is
+    taken here, and the backward kernels recompute the logits from the
+    saved logsumexp. Gradients flow to user and table."""
+
+    @staticmethod
+    def forward(ctx, user, cand_ids, table, weights, temperature):
+        logz, pos_logit = sampled_softmax_cand_fwd(user, cand_ids, table, temperature)
+        W = weights.sum().clamp_min(1.0)
+        ctx.save_for_backward(user, cand_ids, table, weights, logz, W)
+        ctx.temperature = temperature
+        return ((logz - pos_logit) * weights).sum() / W
+
+    @staticmethod
+    def backward(ctx, g):
+        user, cand_ids, table, weights, logz, W = ctx.saved_tensors
+        s = (g * weights / W).to(torch.float32).contiguous()
+        du, dtable = sampled_softmax_cand_bwd(user, cand_ids, table, logz, s, ctx.temperature)
+        return du, None, dtable, None, None

@@ -113,8 +113,6 @@ def main(argv: Optional[list] = None):
 
     dataset = load_dataset(cfg)
     model = build_model(cfg.model, dataset, cfg, device)
-    if getattr(model, "not_ported", None):
-        raise SystemExit(model.not_ported)
     trainpipe, validpipe, testpipe = build_pipes(model, cfg)
     coach = Coach(dataset=dataset, trainpipe=trainpipe, validpipe=validpipe,
                   testpipe=testpipe, model=model, cfg=cfg, device=device)

@@ -6,8 +6,8 @@
   (two float32 implementations of the same blocks; LayerNorm reductions
   in other orders), and the derived active bucket count equals JAX's.
 * ``fit`` at dropout 0 with one set of negative ids handed to both, in
-  ``shared`` and ``per_row``: loss rtol 1e-5, every parameter gradient
-  within atol 1e-5 plus rtol 1e-4. The gradients reach O(10): the
+  ``shared``, ``per_row`` and ``per_position``: loss rtol 1e-5, every
+  parameter gradient within atol 1e-5 plus rtol 1e-4. The gradients reach O(10): the
   temperature divides by 0.1, and the l2 normalisation of a table drawn
   at std 0.02 divides by its rows' norms (about 0.08), so float32
   rounding in other orders shows relative to their size. JAX's side is
@@ -18,7 +18,8 @@
 * ``from_flax``/``to_flax`` round trip with the bare rel_bias leaves and
   the bias-less ``uvqk_linear``; flax's truncated-normal init.
 * Runs trained by either package are served by both, tie-tolerantly
-  (chip_smoke.compare_topk); ``per_position`` is refused.
+  (chip_smoke.compare_topk); the reference mode, per-position negatives,
+  trains through ``run``, and ``--on-device-sampling`` is refused.
 """
 
 import pickle
@@ -131,11 +132,12 @@ def test_encode_and_scores_match_flax(tiny_dataset):
 
 
 # ---------------------------------------------------------------- fit
-@pytest.mark.parametrize("mode", ["shared", "per_row"])
+@pytest.mark.parametrize("mode", ["shared", "per_row", "per_position"])
 def test_fit_loss_and_grads_match_jax(tiny_dataset, monkeypatch, mode):
     mj, params, mt, batch, batch_t = _pair(tiny_dataset, negs_mode=mode)
     B, L = batch[mj.ISeq].shape
-    shape = (KW["num_negs"],) if mode == "shared" else (B, KW["num_negs"])
+    shape = {"shared": (KW["num_negs"],), "per_row": (B, KW["num_negs"]),
+             "per_position": (B, L, KW["num_negs"])}[mode]
     neg_ids = np.random.default_rng(3).integers(0, mt.Item.count, shape)
     monkeypatch.setattr(HSTU, "sample_negatives",
                         lambda self, shape, generator: torch.from_numpy(neg_ids))
@@ -147,6 +149,11 @@ def test_fit_loss_and_grads_match_jax(tiny_dataset, monkeypatch, mode):
         if mode == "shared":
             return L_jax.sampled_softmax_loss_shared(
                 user.reshape(B * L, -1), pos_ids.reshape(-1), neg_ids, items,
+                weights.reshape(-1), temperature=KW["temperature"])
+        if mode == "per_position":
+            cand = np.concatenate([pos_ids[..., None], neg_ids], axis=-1)
+            return L_jax.sampled_softmax_loss(
+                user.reshape(B * L, -1), cand.reshape(B * L, -1), items,
                 weights.reshape(-1), temperature=KW["temperature"])
         return L_jax.sampled_softmax_loss_per_row(user, pos_ids, neg_ids, items, weights,
                                                   temperature=KW["temperature"])
@@ -217,21 +224,46 @@ def test_init_follows_flax_truncated_normal(tiny_dataset):
 
 
 # ------------------------------------------------------- run and serve
+def _run_argv(tiny_dataset, tmp_path):
+    return ["--model", "HSTU", "--root", tiny_dataset.root, "--dataset",
+            tiny_dataset.dataset, "--device", "cpu", "--maxlen", "10",
+            "--log2console", "false", "--log-path", str(tmp_path / "logs"),
+            "--checkpoint-path", str(tmp_path / "infos")]
+
+
 def test_per_position_is_refused(tiny_dataset, tmp_path):
+    """Per-position negatives train (the test below); what ``run`` still
+    refuses for HSTU is ``--on-device-sampling`` (its device sampler is not
+    ported), per-position as in the other modes."""
     from recboard_tpu_torch import run
 
-    mt = HSTU(_port_dataset(tiny_dataset), **KW)  # negs_mode "" and shared_negs off
+    common = _run_argv(tiny_dataset, tmp_path)
+    for mode in ([], ["--negs_mode", "shared"]):
+        with pytest.raises(SystemExit, match="not ported"):
+            run.main(common + mode + ["--on-device-sampling"])
+
+
+def test_reference_mode_trains_per_position(tiny_dataset, tmp_path):
+    """No ``negs_mode`` and ``shared_negs`` off (the reference config) is
+    per-position: ``fit`` is finite with a gradient in every parameter, and
+    ``run`` trains two epochs on the CPU."""
+    from recboard_tpu_torch import run
+
+    mt = HSTU(_port_dataset(tiny_dataset), **KW)
+    assert mt.negs_route == "per_position"
     batch = _tensors(next(iter(mt.sure_trainpipe(10, 16).set_seed(0))))
-    with pytest.raises(NotImplementedError, match=r"per_position .*not ported.*\(K4\)"):
-        mt.fit(batch, torch.Generator())
-    common = ["--model", "HSTU", "--root", tiny_dataset.root, "--dataset",
-              tiny_dataset.dataset, "--device", "cpu", "--maxlen", "10",
-              "--log2console", "false", "--log-path", str(tmp_path)]
-    with pytest.raises(SystemExit, match=r"not ported.*\(K4\)"):
-        run.main(common)
-    with pytest.raises(SystemExit, match="not ported"):
-        run.main(common + ["--negs_mode", "shared", "--on-device-sampling"])
-    assert HSTU(_port_dataset(tiny_dataset), shared_negs=True, **KW).not_ported is None
+    loss, _ = mt.fit(batch, torch.Generator().manual_seed(0))
+    loss.backward()
+    assert np.isfinite(float(loss.detach()))
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for _, p in mt.named_parameters())
+    best = run.main(_run_argv(tiny_dataset, tmp_path) + [
+        "--epochs", "2", "--eval-freq", "1", "--batch-size", "16", "--num-blocks", "1",
+        "--num-heads", "2", "--embedding-dim", "16", "--num_negs", "8"])
+    assert best and all(np.isfinite(v) for v in best.values())
+    history = pickle.loads(next((tmp_path / "logs").rglob("monitors.pkl")).read_bytes())
+    assert len(history["train"]) == 2
+    assert all(np.isfinite(row["LOSS"]) for row in history["train"])
 
 
 @pytest.fixture(scope="module")
