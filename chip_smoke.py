@@ -2,9 +2,14 @@
 """Drive recboard_tpu_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --kernels vocab_ce[,sampled_softmax,...] [--seed 0]
     python3 chip_smoke.py --store-seeds 20 [--seed 0] [--plain] [--device cpu]
 
-The second form runs only the toy store's per-position HSTU protocol for
+The second form runs only the device line, the build and the named
+kernels_* phases (mha_fwd, mha_dropout, vocab_ce, sampled_softmax,
+rel_bias, sampled_softmax_cand, dropout), with their checks, and exits 0
+without the kernels and ok lines: a kernel's check and times in a minute.
+The third form runs only the toy store's per-position HSTU protocol for
 that many seeds and prints each seed's best NDCG@10 and their mean, through
 the kernels or (--plain) through K4's and K6's plain versions: a study of
 the quality band on the card, or on the CPU (--device cpu).
@@ -38,12 +43,16 @@ Phases, one JSON line each; any failure exits non-zero:
 8. quality — the toy store's SASRec protocol for 5 seeds on the card;
    the mean best NDCG@10 must lie in the store's band.
 9. kernels_vocab_ce — the full-vocabulary CE kernels (vocab_ce_fwd,
-   vocab_ce_bwd) against their plain version at BERT4Rec's training
-   shape and at ragged and large-logit shapes (and dh exactly 0 on rows
-   whose loss gradient is 0), with CUDA-event times
-   beside the plain version, F.cross_entropy over torch.addmm, and the
-   bound. (Phase 3 also checks K1 and K2 at BERT4Rec's attention shape:
-   4 heads of 16, key padding, rows with every key padded.)
+   vocab_ce_bwd, the latter on the tensor cores in split-precision TF32)
+   against their plain version at BERT4Rec's training shape and at
+   ragged, widest-D and large-logit shapes (and dh exactly 0 on rows
+   whose loss gradient is 0), the gradients within 1e-5 relative of a
+   float64 run of the plain version; at the training shape a rerun with
+   the same bits, the library call's float64 error beside, and CUDA-event
+   times beside the plain version, F.cross_entropy over torch.addmm, and
+   the bounds (the backward's at the float32 and the TF32 rate). (Phase
+   3 also checks K1 and K2 at BERT4Rec's attention shape: 4 heads of 16,
+   key padding, rows with every key padded.)
 10. bert4rec_slice, bert4rec_profile — phases 4 and 5 for BERT4Rec at
    full width (D 64, 2 blocks, 4 heads, maxlen 50) with random
    flax-layout weights, whose packed qkv kernels go through from_flax.
@@ -113,6 +122,7 @@ TOL = 1e-5  # max |kernel - plain| for float32 attention outputs of O(1)
 TIE_TOL = 1e-4  # scores closer than this may rank in either order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense (NVIDIA's data sheet)
 
 # (name, B, L, S, H, hd, causal, key_pad, bias, fully-masked rows)
 ATTN_SHAPES = [
@@ -229,6 +239,10 @@ CE_EXTRA = [  # correctness only
 # max |loss - plain| for losses of O(10): sums of D products and
 # logsumexps of V terms in other orders, at float32
 CE_TOL = 1e-4
+# max relative gradient error against a float64 run of the plain version:
+# what float32 products keep (the backward's tensor cores work in
+# split-precision TF32 to keep it)
+CE_F64_TOL = 1e-5
 CE_BIG = 100.0  # bias added to every 97th entry: exp() overflows float32 there
 
 # K5 (shared-negative sampled softmax): (name, M, K, D, temperature,
@@ -374,10 +388,10 @@ def visible_pairs(inp) -> int:
     return int((scores > NEG_INF / 2).sum())
 
 
-def bound(nbytes: int, flops: int) -> tuple:
+def bound(nbytes: int, flops: int, flop_rate: float = F32_FLOP_PER_S) -> tuple:
     """(ms, "bytes" or "operations"): the larger of the bytes at the HBM
-    rate and the float32 operations at the float32 rate."""
-    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    rate and the operations at ``flop_rate`` (float32's by default)."""
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations"
 
 
@@ -679,9 +693,28 @@ def _ce_grads(fn, h, weight, b, labels, g):
     return rows.detach(), list(torch.autograd.grad(rows, (h, weight, b), g))
 
 
+def _ce_float64_grads(h, weight, b, labels, g):
+    """[dh, dweight, db] of the plain version run in float64 on the card."""
+    from recboard_tpu_torch.ops import vocab_ce as K
+
+    up = lambda x: x.detach().double().requires_grad_()  # noqa: E731
+    return _ce_grads(K.fullvocab_ce_rows_reference, up(h), up(weight), up(b), labels,
+                     g.double())[1]
+
+
+def _ce_library(h, weight, b, labels):
+    """F.cross_entropy over torch.addmm: one PyTorch call for K3's function."""
+    import torch
+    import torch.nn.functional as F
+
+    return F.cross_entropy(torch.addmm(b, h, weight), labels, reduction="none")
+
+
 def check_vocab_ce(rng):
-    """K3 against its plain version on the card, forward and backward;
-    times at the timed shape."""
+    """K3 against its plain version on the card, forward and backward, and
+    its gradients against a float64 run of the plain version; at the timed
+    shape, a rerun with the same bits, the library call's float64 error
+    beside the kernel's, and times."""
     import torch
 
     from recboard_tpu_torch.ops import vocab_ce as K
@@ -691,10 +724,12 @@ def check_vocab_ce(rng):
         inp = ce_inputs(case, rng)
         want, want_g = _ce_grads(K.fullvocab_ce_rows_reference, *inp)
         got, got_g = _ce_grads(K.fullvocab_ce_rows, *inp)
+        f64_g = _ce_float64_grads(*inp)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
         grad_rel = grad_rel_err(got_g, want_g)
+        grad_f64 = grad_rel_err(got_g, f64_g)
         finite = all(bool(torch.isfinite(x).all()) for x in [got] + got_g)
         # rows whose loss gradient is 0 contribute exactly nothing
         zero_rows_exact = not bool(got_g[0][inp[-1] == 0].any())
@@ -702,29 +737,42 @@ def check_vocab_ce(rng):
         worst["bwd"] = max(worst["bwd"], grad_err)
         row = dict(shape=case[0], M=case[1], D=case[2], V=case[3], max_abs_err=err,
                    tol=CE_TOL, grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
-                   grad_rel_tol=GRAD_TOL, finite=finite, zero_rows_exact=zero_rows_exact,
+                   grad_rel_tol=GRAD_TOL, grad_f64_rel_err=grad_f64,
+                   grad_f64_rel_tol=CE_F64_TOL, plain_grad_f64_rel_err=grad_rel_err(
+                       want_g, f64_g),
+                   finite=finite, zero_rows_exact=zero_rows_exact,
                    max_loss=float(want.abs().max()))
+        same_bits = True
         if case in CE_SHAPES:
+            again = _ce_grads(K.fullvocab_ce_rows, *inp)[1]
+            same_bits = all(torch.equal(a, b) for a, b in zip(got_g, again))
+            h, weight, b, labels, g = inp
+            lib_g = list(torch.autograd.grad(_ce_library(h, weight.T, b, labels),
+                                             (h, weight, b), g))
+            row.update(rerun_same_bits=same_bits,
+                       library_grad_f64_rel_err=grad_rel_err(lib_g, f64_g))
             row.update(time_vocab_ce(*inp))
+            del again, lib_g
         emit("kernels", kernel="vocab_ce", **row)
         if (not finite or not zero_rows_exact or not err <= CE_TOL
-                or not grad_rel <= GRAD_TOL):
+                or not grad_rel <= GRAD_TOL or not grad_f64 <= CE_F64_TOL or not same_bits):
             raise SystemExit(f"vocab_ce disagrees with its plain version at {case[0]}: "
-                             f"loss {err}, grads {grad_rel}, zero rows exact "
-                             f"{zero_rows_exact}")
+                             f"loss {err}, grads {grad_rel} (float64 {grad_f64}), zero rows "
+                             f"exact {zero_rows_exact}, rerun same bits {same_bits}")
         rows.append(row)
-        del inp, want, want_g, got, got_g
+        del inp, want, want_g, got, got_g, f64_g
     return rows, worst
 
 
 def time_vocab_ce(h, weight, b, labels, g) -> dict:
     """CUDA-event times of K3's forward and backward, its plain version and
     F.cross_entropy over torch.addmm (forward, and autograd backward) at
-    one shape, with the bounds: the forward 2*M*D*V FLOP, the backward
-    6*M*D*V (the logits again, dh and dW, the TPU kernel's work), each
+    one shape, with the bounds: the forward 2*M*D*V FLOP at the float32
+    rate; the backward 6*M*D*V (the logits again, dh and dW, the TPU
+    kernel's work) at the float32 rate and, as the least time, three times
+    that at the TF32 rate (split precision keeps float32's accuracy); each
     input read once and each output written once."""
     import torch
-    import torch.nn.functional as F
 
     from recboard_tpu_torch.ops import vocab_ce as K
 
@@ -737,18 +785,17 @@ def time_vocab_ce(h, weight, b, labels, g) -> dict:
         with torch.no_grad():
             return K.fullvocab_ce_rows_reference(hd, W, bd, labels)
 
-    def library(hh, ww, bb):
-        return F.cross_entropy(torch.addmm(bb, hh, ww), labels, reduction="none")
-
     def library_fwd():
         with torch.no_grad():
-            return library(hd, W, bd)
+            return _ce_library(hd, W, bd, labels)
 
     def library_fwd_bwd():
-        torch.autograd.grad(library(h, weight.T, b), (h, weight, b), g)
+        torch.autograd.grad(_ce_library(h, weight.T, b, labels), (h, weight, b), g)
 
     fwd_bound = bound(nbytes(hd, W, bd, labels, loss, logz), 2 * M * D * V)
-    bwd_bound = bound(nbytes(hd, W, bd, labels, logz, g) + nbytes(hd, W, bd), 6 * M * D * V)
+    bwd_bytes = nbytes(hd, W, bd, labels, logz, g) + nbytes(hd, W, bd)
+    bwd_f32 = bound(bwd_bytes, 6 * M * D * V)
+    bwd_tf32 = bound(bwd_bytes, 3 * 6 * M * D * V, TF32_FLOP_PER_S)
     plain_ms = cuda_ms(plain_fwd, iters=20, warmup=3)
     lib_ms = cuda_ms(library_fwd, iters=20, warmup=3)
     return dict(
@@ -761,7 +808,8 @@ def time_vocab_ce(h, weight, b, labels, g) -> dict:
         library_fwd_ms=lib_ms,
         library_bwd_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=3) - lib_ms,
         fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
-        bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+        bwd_bound_ms=bwd_tf32[0], bwd_bound_by=bwd_tf32[1],
+        bwd_f32_bound_ms=bwd_f32[0], bwd_f32_bound_by=bwd_f32[1],
     )
 
 
@@ -1883,6 +1931,18 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, err: floa
     }
 
 
+# the kernels_* phases: name -> (check, offset of its seed from --seed)
+KERNEL_PHASES = {
+    "mha_fwd": (check_attention, 0),
+    "mha_dropout": (check_dropout_attention, 1),
+    "vocab_ce": (check_vocab_ce, 2),
+    "sampled_softmax": (check_sampled_softmax, 3),
+    "rel_bias": (check_rel_bias, 4),
+    "sampled_softmax_cand": (check_sampled_softmax_cand, 5),
+    "dropout": (check_dropout_mask, 6),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1895,7 +1955,13 @@ def main(argv=None) -> int:
     ap.add_argument("--plain", action="store_true",
                     help="with --store-seeds: K4's loss and K6's backward through their "
                          "plain versions")
+    ap.add_argument("--kernels", default="",
+                    help="run only the build and these kernels_* phases, comma-separated "
+                         f"from {','.join(KERNEL_PHASES)}; no kernels or ok line")
     args = ap.parse_args(argv)
+    only = [k for k in args.kernels.split(",") if k]
+    if any(k not in KERNEL_PHASES for k in only):
+        ap.error(f"--kernels takes names from {','.join(KERNEL_PHASES)}, got {args.kernels}")
 
     import torch
 
@@ -1936,19 +2002,19 @@ def main(argv=None) -> int:
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", sources=list(_build.SOURCES), seconds=phase_s["build"], ptxas=ptxas)
 
-    rows, worst = timed("kernels_mha_fwd", check_attention, np.random.default_rng(args.seed))
-    drop_rows, drop_worst = timed("kernels_mha_dropout", check_dropout_attention,
-                                  np.random.default_rng(args.seed + 1))
-    ce_rows, ce_worst = timed("kernels_vocab_ce", check_vocab_ce,
-                              np.random.default_rng(args.seed + 2))
-    ss_rows, ss_worst = timed("kernels_sampled_softmax", check_sampled_softmax,
-                              np.random.default_rng(args.seed + 3))
-    rb_rows, rb_worst = timed("kernels_rel_bias", check_rel_bias,
-                              np.random.default_rng(args.seed + 4))
-    ssc_rows, ssc_worst = timed("kernels_sampled_softmax_cand", check_sampled_softmax_cand,
-                                np.random.default_rng(args.seed + 5))
-    mask_rows, mask_launches = timed("kernels_dropout", check_dropout_mask,
-                                     np.random.default_rng(args.seed + 6))
+    checked = {name: timed(f"kernels_{name}", check, np.random.default_rng(args.seed + k))
+               for name, (check, k) in KERNEL_PHASES.items() if not only or name in only}
+    if only:
+        emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
+        print(smi)
+        return 0
+    rows, worst = checked["mha_fwd"]
+    drop_rows, drop_worst = checked["mha_dropout"]
+    ce_rows, ce_worst = checked["vocab_ce"]
+    ss_rows, ss_worst = checked["sampled_softmax"]
+    rb_rows, rb_worst = checked["rel_bias"]
+    ssc_rows, ssc_worst = checked["sampled_softmax_cand"]
+    mask_rows, mask_launches = checked["dropout"]
     dataset = timed("dataset", make_dataset)
     slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")

@@ -1,0 +1,150 @@
+// Float32-accurate tile products on Hopper's tensor cores (sm_90a) through
+// mma.sync m16n8k8 TF32, for the backward kernels of vocab_ce.cu.
+//
+// Split precision ("3xTF32"): each float32 operand x is cut into
+// hi = tf32(x) and lo = tf32(x - hi), both rounded as cvt.rna rounds (done
+// with integer operations, which give the same bits faster), and a product
+// is lo*hi + hi*lo + hi*hi accumulated in float32 (the two small terms
+// first, as CUTLASS's 3xTF32 does). A TF32 product of two such operands is
+// exact in float32, so the result keeps float32 accuracy at three
+// tensor-core products where one alone keeps about three digits. The split
+// is done in registers as fragments are loaded, so shared memory holds the
+// float32 tiles only.
+//
+// Shared tiles are row-major with `ld` floats a row (a multiple of 32), the
+// 16-byte chunks of each row permuted by an XOR of the row's low three bits:
+// element (r, c) lies at r * ld + (c ^ swz(r)). Both fragment patterns of
+// m16n8k8 then hit 32 distinct banks: 8 rows x 4 columns (an A fragment, or
+// a B fragment read along the tile's rows) and 4 rows x 8 columns (a B
+// fragment read down its columns). One copy of a tile thus serves as the
+// B operand of C = A B^T (n = tile row) and of C = A B (k = tile row).
+//
+// Fragments (g = lane / 4, t = lane % 4): A a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g), b1 (k t + 4, n g);
+// C c0, c1 (g, 2t and 2t + 1), c2, c3 (g + 8, 2t and 2t + 1).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+
+__device__ __forceinline__ int at(int r, int c, int ld) { return r * ld + (c ^ swz(r)); }
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// the bits of x rounded to TF32 (10 mantissa bits), to nearest with ties
+// away from zero: for finite x what cvt.rna.tf32.f32 gives, in two integer
+// operations where the conversion runs at a quarter of the float32 rate
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, each a TF32 value rounded as cvt.rna rounds
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));  // x - hi is exact in float32
+}
+
+// c += a b for one 16 x 8 x 8 tile: TF32 operands, float32 accumulator
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at float32 accuracy: the small products first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float c[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// ldmatrix reads 8 x 4 blocks of 32-bit words (8 x 8 of 16 bits), lane l
+// giving the address of row l % 8 of block l / 8; word (g, t) of each block
+// lands in lane 4g + t, which is the A fragment's and the B fragment's
+// layout. (Its .trans form moves 16-bit halves, so a B fragment read down a
+// tile's columns is loaded word by word.)
+
+// the A fragment of rows m0.. and columns k0.. of a tile (ld floats a row)
+__device__ __forceinline__ void load_a(FragA& a, const float* s, int m0, int k0, int ld) {
+  const int l = threadIdx.x % 32, blk = l / 8;
+  uint32_t r[4];
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(
+      s + at(m0 + l % 8 + 8 * (blk & 1), k0 + 4 * (blk >> 1), ld));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(r[q]), a.hi[q], a.lo[q]);
+}
+
+// the B fragments (k0.., n0..) and (k0.., n0 + 8..) of B = tile^T: tile
+// rows are n, columns k
+__device__ __forceinline__ void load_b_rows2(FragB b[2], const float* s, int n0, int k0,
+                                             int ld) {
+  const int l = threadIdx.x % 32, blk = l / 8;
+  uint32_t r[4];
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(
+      s + at(n0 + l % 8 + 8 * (blk >> 1), k0 + 4 * (blk & 1), ld));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    split_tf32(__uint_as_float(r[2 * j]), b[j].hi[0], b[j].lo[0]);
+    split_tf32(__uint_as_float(r[2 * j + 1]), b[j].hi[1], b[j].lo[1]);
+  }
+}
+
+// the B fragment (k0.., n0..) of B = tile: tile rows are k, columns n
+__device__ __forceinline__ void load_b_cols(FragB& b, const float* s, int k0, int n0, int ld,
+                                            int g, int t) {
+  split_tf32(s[at(k0 + t, n0 + g, ld)], b.hi[0], b.lo[0]);
+  split_tf32(s[at(k0 + t + 4, n0 + g, ld)], b.hi[1], b.lo[1]);
+}
+
+// cp.async of `bytes` (4, 8 or 16) from global to shared memory; zeros when
+// !valid (source size 0: nothing is read). 16-byte copies bypass L1.
+template <int bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = valid ? bytes : 0;
+  if constexpr (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(s), "l"(src),
+                 "n"(bytes), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// rows [r0, r0 + ROWS) of a row-major (n, D) float32 array into a swizzled
+// tile of DP floats a row; rows past n and columns past D are zeros. D is a
+// multiple of 4 and the array 16-byte aligned, so each 16-byte chunk is
+// wholly inside or outside it.
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int64_t n,
+                                           int64_t r0, int D) {
+  constexpr int kChunks = DP / 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks, c = 4 * (i % kChunks);
+    const bool ok = r0 + r < n && c < D;
+    cp_async<16>(dst + at(r, c, DP), ok ? src + (r0 + r) * D + c : src, ok);
+  }
+}
+
+}  // namespace

@@ -3,39 +3,62 @@
 // Replaces the TPU kernels of recboard_tpu/ops/vocab_ce.py:
 //   * forward  _fwd_kernel (:48): loss[r] = logsumexp_v(h[r].W[:, v] + b[v])
 //     - (h[r].W[:, y[r]] + b[y[r]]), with logz[r] kept for the backward;
-//   * backward _bwd_kernel (:64): with dlog[r, v] = (softmax[r, v]
-//     - [v == y[r]]) * g[r], dh = dlog W^T, dW = h^T dlog, db = sum_r dlog.
-// Neither writes the (M, V) logits: they are recomputed tile by tile.
+//   * backward _bwd_kernel (:64, pallas_call :140, reached through
+//     fullvocab_ce_rows :190): with dlog[r, v] = (exp(h[r].W[:, v] + b[v]
+//     - logz[r]) - [v == y[r]]) * g[r], dh = dlog W^T, dW = h^T dlog,
+//     db = sum_r dlog.
+// Neither writes the (M, V) logits: they are recomputed tile by tile. W
+// arrives in its (V, D) row-major storage (what fc.weight is), and dW is
+// written in that layout too.
 //
-// W arrives in its (V, D) row-major storage (what fc.weight is), so a logit
-// is the dot product of two contiguous D-vectors, and dW is written in that
-// (V, D) layout too.
+// The forward (scalar FMAs on tiles.cuh's 64 x 64 tiles, an online
+// logsumexp per row, vocabulary loops split across blocks and merged in a
+// fixed order) is 2*M*D*V = 15.9 GFLOP at BERT4Rec's training shape (M =
+// 10,240 selected rows, D = 64, V = 12,103), 237 us at the 67 TFLOP/s
+// float32 rate.
 //
-// What bounds it on an H100: operations. At BERT4Rec's training shape
-// (M = 10,240 selected rows, D = 64, V = 12,103) the forward is 2*M*D*V =
-// 15.9 GFLOP, 237 us at the 67 TFLOP/s float32 rate, against 5.7 MB of
-// inputs (1.7 us at 3.35 TB/s); the backward counted as the TPU kernel's
-// work (logits again, dh and dW) is 47.6 GFLOP, 710 us. So the design
-// keeps the logits out of device memory and spends its effort on the
-// products:
-//   * one tile is 64 rows x 64 vocabulary entries; 256 threads each hold a
-//     4 x 4 block of it in registers, fed by float4 loads from d-major
-//     copies of the two operand tiles in shared memory (one broadcast and
-//     one 256-byte read per 16 FMAs);
-//   * the forward keeps an online logsumexp per row (running max, and a
-//     sum rescaled when the max grows) and the label's logit, per thread,
-//     merged across the 16 threads of a row at the end;
-//   * the TPU's sequential grid carries the dW sum from one step to the
-//     next; Hopper blocks run in no order, so the backward is two kernels
-//     without atomics: a row-tile kernel (dh) and a vocabulary-tile kernel
-//     (dW and db), each recomputing its logits from logz;
-//   * to fill 132 SMs, each kernel splits its loop (over vocabulary tiles,
-//     or row tiles) across blocks that write partial results; a second
-//     pass adds the partials in a fixed order, so results do not depend on
-//     the order blocks run in.
-// The products are scalar FMAs: a first kernel that is right and simple.
-// mma.sync or wgmma with split-precision float32, and TMA, are later work.
+// The backward. What bounds it on an H100: operations. The TPU kernel's
+// work (the logits again, dh and dW) is 6*M*D*V = 47.6 GFLOP: 0.710 ms at
+// the float32 rate without tensor cores, 0.288 ms as three TF32 products
+// each at the 495 TFLOP/s tensor-core rate; its inputs are 5.7 MB (1.7 us
+// at 3.35 TB/s). So the design puts the products on the tensor cores and
+// keeps float32 accuracy (mma_tf32.cuh):
+//   * every product is mma.sync m16n8k8 TF32 in split precision (3xTF32),
+//     the float32 operands split in registers as fragments are loaded
+//     (ldmatrix where a fragment lies along a tile's rows);
+//   * two kernels, no atomics: dh by row tiles (64 rows, a loop over
+//     128-entry vocabulary tiles) and dW and db by vocabulary tiles (128
+//     entries, a loop over 64-row tiles), each recomputing its logits from
+//     logz (8*M*D*V in all, 3x that issued to the tensor cores); loops are
+//     split across blocks that write partials, added in a fixed order, so
+//     every run gives the same bits;
+//   * 8 warps a block, one block an SM; the logits of a 64 x 128 tile are
+//     2 x 4 warps of 32 x 32; dlog is made from their accumulator fragments
+//     in registers (bias, logz, exp2, the label's one-hot, g) and written
+//     once to shared memory as the second product's A operand (row-major
+//     for dh, transposed for dW);
+//   * each tile's second product is summed in fresh registers and added to
+//     the running dh or dW in float32: the tensor cores truncate as they
+//     accumulate, and over a whole loop (up to 1,536 entries a split) that
+//     drifted to 8.5e-6 relative where float32 products give 2.7e-6;
+//   * one swizzled float32 copy of each operand tile in shared memory
+//     serves both products; the streamed tile (W's in the dh kernel, h's
+//     in the dW kernel) is double-buffered, the next one staged with
+//     cp.async (zero-filled past V, M and D) while the current one is
+//     multiplied;
+//   * D is padded with zeros to 32, 64 or 128, one build of each kernel per
+//     width.
+// What holds it back: the splits. Each operand element is split again by
+// every warp that loads it (2 to 4), four integer operations each, about as
+// many instructions as the products issue (cvt.rna, a quarter-rate
+// conversion, was slower still); and two blocks an SM spill at 128
+// registers, so one block of 8 warps has to hide every latency. Left for the next step: wgmma
+// from shared memory (the only way to the full tensor-core rate; mma.sync
+// issues from registers, one warp at a time) with operands split once per
+// tile, TMA loads into an mbarrier-paced ring, and a persistent grid in
+// place of the split loops and their partials.
 
+#include "mma_tf32.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -138,193 +161,385 @@ __global__ void vocab_ce_combine_kernel(const float* __restrict__ part,
   loss[r] = z - picked;
 }
 
-// dlog[i][j] for rows 4 ty + i of the row tile at r0 and vocabulary entries
-// 4 tx + j of the tile at v0, from the logits' 4 x 4 block (bias not yet
-// added); entries past M or V are 0
-__device__ __forceinline__ void dlogits(float acc[4][4], const float* b_tile, int64_t r0,
-                                        int64_t v0, int ty, int tx, int M, int V,
-                                        const int64_t y[4], const float z[4],
-                                        const float g[4]) {
+// ---- backward on the tensor cores (mma_tf32.cuh) ----
+
+constexpr int kRows = 64;          // rows of h per tile
+constexpr int kVocab = 128;        // vocabulary entries per tile
+constexpr int kBwdThreads = 256;   // 8 warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+// acc[i][j] = the logits (no bias) of tile rows rw + 16 i + (g, g + 8) and
+// entries vw + 8 j + (2t, 2t + 1): rows of h_s times rows of w_s, over DP
+template <int DP>
+__device__ __forceinline__ void tile_logits(const float* h_s, const float* w_s, int rw, int vw,
+                                            float acc[2][4][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool row_ok = r0 + 4 * ty + i < M;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t v = v0 + 4 * tx + j;
-      float d = 0.f;
-      if (row_ok && v < V) {
-        const float p = expf(acc[i][j] + b_tile[4 * tx + j] - z[i]);
-        d = (p - (v == y[i] ? 1.f : 0.f)) * g[i];
-      }
-      acc[i][j] = d;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DP; k0 += 8) {
+    FragA a[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) load_a(a[i], h_s, rw + 16 * i, k0, DP);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      FragB b[2];
+      load_b_rows2(b, w_s, vw + 8 * j, k0, DP);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_3xtf32(acc[i][j + jj], a[i], b[jj]);
     }
   }
 }
 
-// Backward, dh: block (row tile, vocabulary split); dh, or its split's
-// partial, goes to dh_part[split][M][D].
-__global__ void __launch_bounds__(kThreads)
+// out[i][j] += (A B) of A rows m0 + 16 i.. (a_s, LDA floats a row) and B
+// columns n0 + 8 j.. (b_s: rows k, LDB floats a row), over K. The tensor
+// cores truncate as they accumulate, which over a long sum drifts: so the
+// tile's product is summed apart and added to out in float32 (rounded to
+// nearest), once per tile.
+template <int MT, int NT, int K, int LDA, int LDB>
+__device__ __forceinline__ void mma_accumulate(const float* a_s, int m0, const float* b_s, int n0,
+                                               int g, int t, float out[MT][NT][4]) {
+  float part[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA a[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) load_a(a[i], a_s, m0 + 16 * i, k0, LDA);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      FragB b;
+      load_b_cols(b, b_s, k0, n0 + 8 * j, LDB, g, t);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_3xtf32(part[i][j], a[i], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[i][j][q] += part[i][j][q];
+}
+
+// logits -> dlog in place: rows [i][h] (h = 0, 1: g and g + 8) with label
+// y (-1 when out of range), zl = logz * log2(e) (+inf past M) and g;
+// entries vb + 8 j + e with bias bias_c[j][e] (-inf past V). Both sentinels
+// make exp2 exactly 0, so dlog is 0 past M and V, and on rows with g = 0.
+__device__ __forceinline__ void to_dlog(float acc[2][4][4], const int y[2][2],
+                                        const float zl[2][2], const float gr[2][2], int vb,
+                                        const float bias_c[4][2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int hh = q >> 1, e = q & 1;
+        const float p = exp2f(fmaf(acc[i][j][q] + bias_c[j][e], kLog2e, -zl[i][hh]));
+        acc[i][j][q] = (p - (vb + 8 * j + e == y[i][hh] ? 1.f : 0.f)) * gr[i][hh];
+      }
+}
+
+__device__ __forceinline__ int label_in(int64_t y, int V) {
+  return y >= 0 && y < V ? (int)y : -1;
+}
+
+// Backward, dh: block (64-row tile, vocabulary split), looping over the
+// split's 128-entry tiles; dh, or its split's partial, goes to
+// dh_part[split][M][D].
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 vocab_ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ wt,
                    const float* __restrict__ bias, const int64_t* __restrict__ labels,
                    const float* __restrict__ logz, const float* __restrict__ grad,
                    float* __restrict__ dh_part, int M, int D, int V, int tiles_per_split) {
   extern __shared__ __align__(16) float smem[];
-  const int D4 = round4(D);
-  float* h_t = smem;                // D x kLd
-  float* w_t = h_t + D * kLd;       // D x kLd
-  float* w_r = w_t + D * kLd;       // kTile x D4
-  float* dl_t = w_r + kTile * D4;   // kTile (vocabulary) x kLd (rows)
-  float* b_s = dl_t + kTile * kLd;  // kTile
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t r0 = (int64_t)blockIdx.x * kTile;
+  float* h_s = smem;                    // kRows x DP
+  float* w_s = h_s + kRows * DP;        // 2 x kVocab x DP
+  float* dl_s = w_s + 2 * kVocab * DP;  // kRows x kVocab
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int64_t r0 = (int64_t)blockIdx.x * kRows;
   const int split = blockIdx.y;
-  const int n_tiles = (V + kTile - 1) / kTile;
+  const int n_tiles = (V + kVocab - 1) / kVocab;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  load_dmajor(h_t, h, M, r0, D);
-  int64_t y[4];
-  float z[4], g[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = r0 + 4 * ty + i;
-    const bool ok = r < M;
-    y[i] = ok ? labels[r] : -1;
-    z[i] = ok ? logz[r] : 0.f;
-    g[i] = ok ? grad[r] : 0.f;
-  }
-  float out[4][kChunks][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][k][j] = 0.f;
+  stage_rows<kRows, DP, kBwdThreads>(h_s, h, M, r0, D);
+  stage_rows<kVocab, DP, kBwdThreads>(w_s, wt, V, (int64_t)t_begin * kVocab, D);
+  cp_async_commit();
 
-  float acc[4][4];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int64_t v0 = (int64_t)t * kTile;
-    __syncthreads();  // the previous tile is consumed
-    load_dmajor(w_t, wt, V, v0, D);
-    load_rowmajor(w_r, wt, V, v0, D, D4);
-    if (threadIdx.x < kTile) {
-      const int64_t v = v0 + threadIdx.x;
-      b_s[threadIdx.x] = v < V ? bias[v] : 0.f;
+  // logits: warps 2 (rows) x 4 (entries) of 32 x 32; dh: 4 (rows) x 2 (D)
+  const int rw = 32 * (warp / 4), vw = 32 * (warp % 4);
+  const int rd = 16 * (warp / 2), dd = (DP / 2) * (warp % 2);
+  constexpr int NT = DP / 16;
+  int y[2][2];
+  float zl[2][2], gr[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t r = r0 + rw + 16 * i + 8 * hh + g;
+      const bool ok = r < M;
+      y[i][hh] = ok ? label_in(labels[r], V) : -1;
+      zl[i][hh] = ok ? logz[r] * kLog2e : INFINITY;
+      gr[i][hh] = ok ? grad[r] : 0.f;
     }
-    __syncthreads();
-    tile_dot(h_t, w_t, D, ty, tx, acc);
-    dlogits(acc, b_s, r0, v0, ty, tx, M, V, y, z, g);
+  float out[1][NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)  // dl_t[v][r]: the rows of one entry contiguous
-      *reinterpret_cast<float4*>(dl_t + (4 * tx + j) * kLd + 4 * ty) =
-          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[0][j][q] = 0.f;
+
+  float acc[2][4][4];
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int buf = (tile - t_begin) & 1;
+    const float* w_cur = w_s + buf * kVocab * DP;
+    cp_async_wait_all();
+    __syncthreads();  // this tile is staged; the previous one's products are done
+    if (tile + 1 < t_end)
+      stage_rows<kVocab, DP, kBwdThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, V,
+                                          (int64_t)(tile + 1) * kVocab, D);
+    cp_async_commit();
+    const int vb = tile * kVocab + vw + 2 * t;
+    float bias_c[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = vb + 8 * j + e;
+        bias_c[j][e] = v < V ? __ldg(bias + v) : -INFINITY;
+      }
+    tile_logits<DP>(h_s, w_cur, rw, vw, acc);
+    to_dlog(acc, y, zl, gr, vb, bias_c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)  // dl_s[r][v]
+          *reinterpret_cast<float2*>(dl_s + at(rw + 16 * i + 8 * hh + g, vw + 8 * j + 2 * t,
+                                               kVocab)) =
+              make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
     __syncthreads();
-    tile_accumulate(dl_t, w_r, D4, ty, tx, out);  // dh += dlog W
+    mma_accumulate<1, NT, kVocab, kVocab, DP>(dl_s, rd, w_cur, dd, g, t, out);  // dh += dlog W
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = r0 + 4 * ty + i;
-    if (r >= M) continue;
-    float* dst = dh_part + ((int64_t)split * M + r) * D;
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int k = 0; k < kChunks; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kTile * k + 4 * tx + j;
-        if (c < D) dst[c] = out[i][k][j];
-      }
-  }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t r = r0 + rd + 8 * hh + g;
+      const int d = dd + 8 * j + 2 * t;  // D is a multiple of 4: d < D means d + 1 < D
+      if (r < M && d < D)
+        *reinterpret_cast<float2*>(dh_part + ((int64_t)split * M + r) * D + d) =
+            make_float2(out[0][j][2 * hh], out[0][j][2 * hh + 1]);
+    }
 }
 
-// Backward, dW and db: block (vocabulary tile, row split); dW (V, D) and db,
-// or the split's partials, go to dw_part[split][V][D] and db_part[split][V].
-__global__ void __launch_bounds__(kThreads)
+// Backward, dW and db: block (128-entry vocabulary tile, row split),
+// looping over the split's 64-row tiles; dW (V, D) and db, or the split's
+// partials, go to dw_part[split][V][D] and db_part[split][V].
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 vocab_ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ wt,
                    const float* __restrict__ bias, const int64_t* __restrict__ labels,
                    const float* __restrict__ logz, const float* __restrict__ grad,
                    float* __restrict__ dw_part, float* __restrict__ db_part, int M, int D,
                    int V, int tiles_per_split) {
   extern __shared__ __align__(16) float smem[];
-  const int D4 = round4(D);
-  float* w_t = smem;                // D x kLd
-  float* h_t = w_t + D * kLd;       // D x kLd
-  float* h_r = h_t + D * kLd;       // kTile x D4
-  float* dl = h_r + kTile * D4;     // kTile (rows) x kLd (vocabulary)
-  float* b_s = dl + kTile * kLd;    // kTile
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t v0 = (int64_t)blockIdx.x * kTile;
+  float* w_s = smem;                      // kVocab x DP
+  float* h_s = w_s + kVocab * DP;         // 2 x kRows x DP
+  float* dl_s = h_s + 2 * kRows * DP;     // kVocab x kRows: dlog transposed
+  int64_t* y_s = reinterpret_cast<int64_t*>(dl_s + kVocab * kRows);  // 2 x kRows
+  float* z_s = reinterpret_cast<float*>(y_s + 2 * kRows);            // 2 x kRows
+  float* g_s = z_s + 2 * kRows;                                       // 2 x kRows
+  float* b_s = g_s + 2 * kRows;                                       // kVocab
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int64_t v0 = (int64_t)blockIdx.x * kVocab;
   const int split = blockIdx.y;
-  const int n_tiles = (M + kTile - 1) / kTile;
+  const int n_tiles = (M + kRows - 1) / kRows;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  load_dmajor(w_t, wt, V, v0, D);
-  if (threadIdx.x < kTile) {
-    const int64_t v = v0 + threadIdx.x;
-    b_s[threadIdx.x] = v < V ? bias[v] : 0.f;
-  }
-  float out[4][kChunks][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][k][j] = 0.f;
-  float db_acc = 0.f;
-
-  float acc[4][4];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int64_t r0 = (int64_t)t * kTile;
-    __syncthreads();  // the previous tile is consumed; on the first pass, W is staged
-    load_dmajor(h_t, h, M, r0, D);
-    load_rowmajor(h_r, h, M, r0, D, D4);
-    int64_t y[4];
-    float z[4], g[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t r = r0 + 4 * ty + i;
+  // a row tile of h, and its rows' labels, logz and g, into buffer buf
+  auto stage_tile = [&](int buf, int tile) {
+    const int64_t r0 = (int64_t)tile * kRows;
+    stage_rows<kRows, DP, kBwdThreads>(h_s + buf * kRows * DP, h, M, r0, D);
+    if (threadIdx.x < kRows) {
+      const int64_t r = r0 + threadIdx.x;
       const bool ok = r < M;
-      y[i] = ok ? labels[r] : -1;
-      z[i] = ok ? logz[r] : 0.f;
-      g[i] = ok ? grad[r] : 0.f;
+      const int k = buf * kRows + threadIdx.x;
+      cp_async<8>(y_s + k, ok ? labels + r : labels, ok);
+      cp_async<4>(z_s + k, ok ? logz + r : logz, ok);
+      cp_async<4>(g_s + k, ok ? grad + r : grad, ok);
     }
-    __syncthreads();
-    tile_dot(h_t, w_t, D, ty, tx, acc);  // rows 4 ty + i, entries 4 tx + j
-    dlogits(acc, b_s, r0, v0, ty, tx, M, V, y, z, g);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)  // dl[r][v]: the entries of one row contiguous
-      *reinterpret_cast<float4*>(dl + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    __syncthreads();
-    tile_accumulate(dl, h_r, D4, ty, tx, out);  // dW[v] += sum_r dlog[r][v] h[r]
-    if (threadIdx.x < kTile)
-      for (int r = 0; r < kTile; ++r) db_acc += dl[r * kLd + threadIdx.x];
+  };
+  stage_rows<kVocab, DP, kBwdThreads>(w_s, wt, V, v0, D);
+  if (threadIdx.x < kVocab) {
+    const bool ok = v0 + threadIdx.x < V;
+    cp_async<4>(b_s + threadIdx.x, ok ? bias + v0 + threadIdx.x : bias, ok);
   }
+  if (t_begin < t_end) stage_tile(0, t_begin);
+  cp_async_commit();
+
+  // logits: warps 2 (rows) x 4 (entries) of 32 x 32; dW: 4 (entries) x 2 (D)
+  const int rw = 32 * (warp / 4), vw = 32 * (warp % 4);
+  const int vd = 32 * (warp / 2), dd = (DP / 2) * (warp % 2);
+  constexpr int NT = DP / 16;
+  float out[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[i][j][q] = 0.f;
+  float db_c[4][2];  // this thread's entries, summed over its rows in order
+#pragma unroll
+  for (int j = 0; j < 4; ++j) db_c[j][0] = db_c[j][1] = 0.f;
+  const int vb = (int)v0 + vw + 2 * t;
+
+  float acc[2][4][4];
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int buf = (tile - t_begin) & 1;
+    const float* h_cur = h_s + buf * kRows * DP;
+    cp_async_wait_all();
+    __syncthreads();  // this tile is staged; the previous one's products are done
+    if (tile + 1 < t_end) stage_tile(buf ^ 1, tile + 1);
+    cp_async_commit();
+    tile_logits<DP>(h_cur, w_s, rw, vw, acc);
+    int y[2][2];
+    float zl[2][2], gr[2][2], bias_c[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = rw + 16 * i + 8 * hh + g;
+        const bool ok = (int64_t)tile * kRows + k < M;
+        y[i][hh] = ok ? label_in(y_s[buf * kRows + k], V) : -1;
+        zl[i][hh] = ok ? z_s[buf * kRows + k] * kLog2e : INFINITY;
+        gr[i][hh] = g_s[buf * kRows + k];  // 0 past M
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bias_c[j][e] = vb + 8 * j + e < V ? b_s[vw + 8 * j + 2 * t + e] : -INFINITY;
+    to_dlog(acc, y, zl, gr, vb, bias_c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // dl_s[v][r]
+          const int hh = q >> 1, e = q & 1;
+          dl_s[at(vw + 8 * j + 2 * t + e, rw + 16 * i + 8 * hh + g, kRows)] = acc[i][j][q];
+          db_c[j][e] += acc[i][j][q];
+        }
+    __syncthreads();
+    mma_accumulate<2, NT, kRows, kRows, DP>(dl_s, vd, h_cur, dd, g, t, out);  // dW += dlog^T h
+  }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t v = v0 + 4 * ty + i;
-    if (v >= V) continue;
-    float* dst = dw_part + ((int64_t)split * V + v) * D;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int k = 0; k < kChunks; ++k)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kTile * k + 4 * tx + j;
-        if (c < D) dst[c] = out[i][k][j];
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t v = v0 + vd + 16 * i + 8 * hh + g;
+        const int d = dd + 8 * j + 2 * t;  // D is a multiple of 4
+        if (v < V && d < D)
+          *reinterpret_cast<float2*>(dw_part + ((int64_t)split * V + v) * D + d) =
+              make_float2(out[i][j][2 * hh], out[i][j][2 * hh + 1]);
       }
+
+  // db: over the 8 row groups of a warp (lanes g), then the two warps of
+  // each 32-entry column (rows 0-31, 32-63), in a fixed order
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) db_c[j][e] += __shfl_xor_sync(kFull, db_c[j][e], o);
+  __syncthreads();  // dl_s is free
+  float* red = dl_s;  // 2 x kVocab
+  if (g == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red[(warp / 4) * kVocab + vw + 8 * j + 2 * t + e] = db_c[j][e];
+  __syncthreads();
+  if (threadIdx.x < kVocab && v0 + threadIdx.x < V)
+    db_part[(int64_t)split * V + v0 + threadIdx.x] = red[threadIdx.x] + red[kVocab + threadIdx.x];
+}
+
+template <int DP>
+size_t dh_smem() {
+  return sizeof(float) * ((size_t)kRows * DP + 2 * kVocab * DP + kRows * kVocab);
+}
+
+template <int DP>
+size_t dw_smem() {  // + labels (int64), logz and g of two row tiles, and the bias
+  return sizeof(float) * ((size_t)kVocab * DP + 2 * kRows * DP + kVocab * kRows + 8 * kRows +
+                          kVocab);
+}
+
+// the width the backward pads D to: one build of its kernels per width
+int padded_width(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : 128; }
+
+template <int DP>
+cudaError_t bwd_run(const float* h, const float* wt, const float* bias, const int64_t* labels,
+                    const float* logz, const float* g, float* dh_part, float* dw_part,
+                    float* db_part, float* dh, float* dw, float* db, int M, int D, int V,
+                    int dh_splits, int dw_splits, cudaStream_t st) {
+  const int v_tiles = (V + kVocab - 1) / kVocab;
+  const int m_tiles = (M + kRows - 1) / kRows;
+  const int dh_per = (v_tiles + dh_splits - 1) / dh_splits;
+  const int dw_per = m_tiles > 0 ? (m_tiles + dw_splits - 1) / dw_splits : 1;
+  if ((dh_splits - 1) * dh_per >= v_tiles || (M > 0 && (dw_splits - 1) * dw_per >= m_tiles))
+    return cudaErrorInvalidValue;  // an empty split
+  cudaError_t err;
+  if ((err = allow_smem(vocab_ce_dh_kernel<DP>, dh_smem<DP>())) != cudaSuccess) return err;
+  if ((err = allow_smem(vocab_ce_dw_kernel<DP>, dw_smem<DP>())) != cudaSuccess) return err;
+
+  if (M > 0) {
+    float* dh_out = dh_splits > 1 ? dh_part : dh;
+    const dim3 grid((unsigned)m_tiles, (unsigned)dh_splits);
+    vocab_ce_dh_kernel<DP><<<grid, kBwdThreads, dh_smem<DP>(), st>>>(
+        h, wt, bias, labels, logz, g, dh_out, M, D, V, dh_per);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (dh_splits > 1 &&
+        (err = sum_splits(dh_part, dh, (int64_t)M * D, dh_splits, st)) != cudaSuccess)
+      return err;
   }
-  if (threadIdx.x < kTile && v0 + threadIdx.x < V)
-    db_part[(int64_t)split * V + v0 + threadIdx.x] = db_acc;
+
+  float* dw_out = dw_splits > 1 ? dw_part : dw;
+  float* db_out = dw_splits > 1 ? db_part : db;
+  const dim3 grid((unsigned)v_tiles, (unsigned)dw_splits);
+  vocab_ce_dw_kernel<DP><<<grid, kBwdThreads, dw_smem<DP>(), st>>>(
+      h, wt, bias, labels, logz, g, dw_out, db_out, M, D, V, dw_per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (dw_splits > 1) {
+    if ((err = sum_splits(dw_part, dw, (int64_t)V * D, dw_splits, st)) != cudaSuccess)
+      return err;
+    if ((err = sum_splits(db_part, db, (int64_t)V, dw_splits, st)) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 size_t fwd_smem(int D) { return sizeof(float) * ((size_t)2 * D * kLd + kTile); }
-
-size_t bwd_smem(int D) {
-  return sizeof(float) *
-         ((size_t)2 * D * kLd + (size_t)kTile * round4(D) + (size_t)kTile * kLd + kTile);
-}
 
 bool bad_shape(int M, int D, int V, int split_a, int split_b) {
   return M < 0 || D < 1 || D > kMaxD || V < 1 || split_a < 1 || split_b < 1;
@@ -361,50 +576,28 @@ extern "C" int vocab_ce_fwd_f32(const float* h, const float* wt, const float* bi
 }
 
 // The backward for the loss gradient g (M,): dh (M, D), dw (V, D) (the
-// gradient of wt) and db (V,). dh_splits runs of vocabulary tiles for dh and
-// dw_splits runs of row tiles for dw/db; with more than one, dh_part holds
-// dh_splits * M * D floats, dw_part dw_splits * V * D and db_part
+// gradient of wt) and db (V,); D a multiple of 4 and h and wt 16-byte
+// aligned. dh_splits runs of 128-entry vocabulary tiles for dh and
+// dw_splits runs of 64-row tiles for dw/db; with more than one, dh_part
+// holds dh_splits * M * D floats, dw_part dw_splits * V * D and db_part
 // dw_splits * V, else they are unused (may be null).
 extern "C" int vocab_ce_bwd_f32(const float* h, const float* wt, const float* bias,
                                 const int64_t* labels, const float* logz, const float* g,
                                 float* dh_part, float* dw_part, float* db_part, float* dh,
                                 float* dw, float* db, int M, int D, int V, int dh_splits,
                                 int dw_splits, void* stream) {
-  if (bad_shape(M, D, V, dh_splits, dw_splits)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int v_tiles = (V + kTile - 1) / kTile;
-  const int m_tiles = (M + kTile - 1) / kTile;
-  const int dh_per = tiles_per(v_tiles, dh_splits);
-  const int dw_per = tiles_per(m_tiles > 0 ? m_tiles : 1, dw_splits);
-  if ((dh_splits - 1) * dh_per >= v_tiles || (M > 0 && (dw_splits - 1) * dw_per >= m_tiles))
+  if (bad_shape(M, D, V, dh_splits, dw_splits) || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem(D);
-  cudaError_t err;
-  if ((err = allow_smem(vocab_ce_dh_kernel, smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(vocab_ce_dw_kernel, smem)) != cudaSuccess) return (int)err;
-
-  if (M > 0) {
-    float* dh_out = dh_splits > 1 ? dh_part : dh;
-    const dim3 grid_dh((unsigned)m_tiles, (unsigned)dh_splits);
-    vocab_ce_dh_kernel<<<grid_dh, kThreads, smem, st>>>(h, wt, bias, labels, logz, g, dh_out,
-                                                        M, D, V, dh_per);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (dh_splits > 1 &&
-        (err = sum_splits(dh_part, dh, (int64_t)M * D, dh_splits, st)) != cudaSuccess)
-      return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (padded_width(D)) {
+    case 32:
+      return (int)bwd_run<32>(h, wt, bias, labels, logz, g, dh_part, dw_part, db_part, dh, dw,
+                              db, M, D, V, dh_splits, dw_splits, st);
+    case 64:
+      return (int)bwd_run<64>(h, wt, bias, labels, logz, g, dh_part, dw_part, db_part, dh, dw,
+                              db, M, D, V, dh_splits, dw_splits, st);
+    default:
+      return (int)bwd_run<128>(h, wt, bias, labels, logz, g, dh_part, dw_part, db_part, dh, dw,
+                               db, M, D, V, dh_splits, dw_splits, st);
   }
-
-  float* dw_out = dw_splits > 1 ? dw_part : dw;
-  float* db_out = dw_splits > 1 ? db_part : db;
-  const dim3 grid_dw((unsigned)v_tiles, (unsigned)dw_splits);
-  vocab_ce_dw_kernel<<<grid_dw, kThreads, smem, st>>>(h, wt, bias, labels, logz, g, dw_out,
-                                                      db_out, M, D, V, dw_per);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (dw_splits > 1) {
-    if ((err = sum_splits(dw_part, dw, (int64_t)V * D, dw_splits, st)) != cudaSuccess)
-      return (int)err;
-    if ((err = sum_splits(db_part, db, (int64_t)V, dw_splits, st)) != cudaSuccess)
-      return (int)err;
-  }
-  return 0;
 }

@@ -11,7 +11,9 @@ logits to memory; the kernel never does.
   kernel against.
 * ``vocab_ce_fwd`` and ``vocab_ce_bwd`` — the wrappers of the hand-written
   CUDA kernels (``csrc/vocab_ce.cu``) that replace the TPU kernels
-  ``_fwd_kernel`` and ``_bwd_kernel``. CUDA tensors only.
+  ``_fwd_kernel`` and ``_bwd_kernel``. CUDA tensors only. The backward's
+  products run on the tensor cores in split-precision TF32
+  (``csrc/mma_tf32.cuh``), which keeps float32 accuracy.
 * ``VocabCE`` — the autograd function over them (the custom VJP of
   ``recboard_tpu``'s ``_rows_fused``).
 * ``fullvocab_ce_rows`` — dispatch by device: the plain version on the
@@ -40,6 +42,8 @@ from .attention import _launch
 __all__ = [
     "MAX_D",
     "VocabCE",
+    "bwd_splits",
+    "check_bwd_width",
     "fullvocab_ce_rows",
     "fullvocab_ce_rows_reference",
     "vocab_ce_bwd",
@@ -47,8 +51,9 @@ __all__ = [
 ]
 
 MAX_D = 128  # the widest hidden size the kernels take
-TILE = 64  # rows and vocabulary entries per tile (csrc/vocab_ce.cu kTile)
-BLOCKS_PER_SM = 4  # the grid each kernel aims for, in blocks per SM
+TILE = 64  # the forward's rows and vocabulary entries per tile (csrc/tiles.cuh kTile)
+BLOCKS_PER_SM = 4  # the grid the forward aims for, in blocks per SM
+ROW_TILE, VOCAB_TILE = 64, 128  # the backward's tiles (csrc/vocab_ce.cu kRows, kVocab)
 
 
 def fullvocab_ce_rows_reference(
@@ -68,6 +73,36 @@ def splits(tiles: int, other_tiles: int, sms: int) -> int:
     tiles = max(tiles, 1)
     want = max(1, min(tiles, math.ceil(BLOCKS_PER_SM * sms / max(other_tiles, 1))))
     return math.ceil(tiles / math.ceil(tiles / want))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_splits(tiles: int, other_tiles: int, sms: int) -> int:
+    """How many blocks share a backward kernel's loop of ``tiles`` tiles,
+    beside ``other_tiles`` blocks of the other axis, on ``sms`` SMs that
+    hold one block each (the kernels' registers allow no more). Blocks are
+    of equal length and run in waves, so this takes the runs that make the
+    fewest tile steps in all, waves x (run length + 1 for a block's
+    staging and write-out); a tie goes to fewer runs, which write fewer
+    partials. The kernels give each ceil(tiles / runs) tiles; no run is
+    empty."""
+    tiles, other = max(tiles, 1), max(other_tiles, 1)
+    best = None
+    for per in range(tiles, 0, -1):
+        runs = math.ceil(tiles / per)
+        cost = math.ceil(other * runs / max(sms, 1)) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, runs)
+    return best[1]
+
+
+def check_bwd_width(D: int) -> None:
+    """Raises ValueError unless D is a multiple of 4 in [4, MAX_D]: the
+    backward kernels stage rows in 16-byte copies, so a row may not end
+    inside one (they pad D with zeros to 32, 64 or 128). No model of the
+    port has such a D."""
+    if not (0 < D <= MAX_D and D % 4 == 0):
+        raise ValueError(f"vocab_ce_bwd: D={D}; the backward takes D a multiple of 4 "
+                         f"in [4, {MAX_D}]")
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,8 +201,13 @@ def vocab_ce_bwd(
     """The backward kernels for the loss gradient ``g`` (M,), given the
     forward's ``logz``: (dh (M, D), dW (D, V), db (V,)). dW is the
     transpose of a contiguous (V, D) tensor, the layout of W itself.
-    ``vocab_ce_bwd.launches`` counts its calls."""
+    Raises ValueError unless D is a multiple of 4 (``check_bwd_width``)
+    and h and W start on 16 bytes. ``vocab_ce_bwd.launches`` counts its
+    calls."""
     M, D, V = _check("vocab_ce_bwd", h, W, b, labels)
+    check_bwd_width(D)
+    if h.data_ptr() % 16 or W.data_ptr() % 16:
+        raise ValueError("vocab_ce_bwd: h and W must start on a 16-byte boundary")
     for name, t in (("logz", logz), ("g", g)):
         if (t.shape != (M,) or t.dtype != torch.float32 or t.device != h.device
                 or not t.is_contiguous()):
@@ -175,8 +215,8 @@ def vocab_ce_bwd(
                 f"vocab_ce_bwd: {name} must be a contiguous float32 ({M},) tensor on h's device"
             )
     sms = _sm_count(h.device.index or 0)
-    v_tiles, m_tiles = -(-V // TILE), -(-M // TILE)
-    dh_runs, dw_runs = splits(v_tiles, m_tiles, sms), splits(m_tiles, v_tiles, sms)
+    v_tiles, m_tiles = -(-V // VOCAB_TILE), -(-M // ROW_TILE)
+    dh_runs, dw_runs = bwd_splits(v_tiles, m_tiles, sms), bwd_splits(m_tiles, v_tiles, sms)
     new = functools.partial(torch.empty, dtype=torch.float32, device=h.device)
     dh, dwt, db = new((M, D)), new((V, D)), new(V)
     dh_part = new((dh_runs, M, D)) if dh_runs > 1 else None
@@ -219,7 +259,8 @@ def fullvocab_ce_rows(
 ) -> torch.Tensor:
     """Per-row CE of ``h @ W + b`` against integer ``labels``: (M,) losses,
     differentiable in h, W and b. CPU tensors take the plain version; CUDA
-    tensors the kernels, whatever M and V."""
+    tensors the kernels, whatever M and V (the backward's D a multiple of
+    4: ``check_bwd_width``)."""
     labels = labels.to(torch.int64)
     if h.device.type == "cpu":
         return fullvocab_ce_rows_reference(h, W, b, labels)
