@@ -23,7 +23,14 @@ Phases, one JSON line each; any failure exits non-zero:
    and CUDA-event times beside the plain version and a library call:
    the attention forward (mha_fwd), and the training attention's
    forward and backward (mha_dropout) with dropout active, its kept
-   share and per-row masks.
+   share and per-row masks. Both forwards run on the tensor cores
+   (``ops/csrc/attn_fwd_tc.cuh``): each case also reruns for the same
+   bits (out, and lse), covers head dims that are not a multiple of 8 or
+   of 4, and the first prints ptxas' registers and spills of the kernel's
+   instances and SDPA's kernel names. Their times are also taken on the
+   device clock alone (CUDA graphs, ``graph_ms``), which the kernels line
+   reports; SDPA's backward, the yardstick of K2's, is timed that way
+   too, beside the old host-paced figure.
 4. slice   — ``recommend`` for SASRec at full width (D 64, 2 blocks,
    1 head, maxlen 50) over a dataset of SynBeautyXL's shape (22,363
    users, 12,101 items) with random weights made from --seed: checks
@@ -137,6 +144,10 @@ ATTN_SHAPES = [
 ATTN_EXTRA = [
     ("causal_pad_bias_hd128", 8, 37, 70, 2, 128, True, True, True, False),
     ("causal_L_gt_S", 4, 70, 40, 3, 24, True, True, False, False),
+    # head dims the tensor-core tiles pad with zeros: not a multiple of 8
+    # (16-byte copies), and not a multiple of 4 (4-byte copies)
+    ("hd20_causal_pad", 16, 45, 45, 3, 20, True, True, False, False),
+    ("hd13_bias_masked_rows", 8, 70, 70, 2, 13, False, True, True, True),
 ]
 
 # the training kernels: (name, B, L, S, H, hd, causal, key_pad, bias with
@@ -150,6 +161,8 @@ DROP_SHAPES = [
 DROP_EXTRA = [  # correctness only
     ("large_S", 8, 300, 300, 4, 64, True, True, False, 0.1),
     ("rate0_vs_mha_reference", 32, 50, 50, 2, 32, True, True, True, 0.0),
+    ("hd20_causal_bias", 16, 45, 45, 3, 20, True, True, True, 0.2),
+    ("hd10_keypad", 8, 70, 70, 2, 10, False, True, False, 0.3),
 ]
 # dq/dk/dv/dbias: max |kernel - plain| over the largest |plain| of that
 # gradient; sums over up to L*S products in other orders (and dbias's
@@ -345,6 +358,36 @@ def graph_ms(fn, calls: int = 50) -> float:
     return cuda_ms(graph.replay, iters=20, warmup=2) / calls
 
 
+def ptxas_lines(source: str, kernel: str) -> list:
+    """``source``'s build log cut to ``kernel``'s instances: for each, its
+    mangled name, then ptxas' spill and register lines."""
+    from recboard_tpu_torch.ops import _build
+
+    log = _build.library_path(source).with_suffix(".log")
+    out, current = [], None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if kernel in line else None
+            if current:
+                out.append(current)
+        elif current and ("spill" in line or "registers" in line):
+            out.append(line.strip())
+    return out
+
+
+def library_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn`` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({name[:120] for name, _, _ in profiled_ops(prof, 1, device=True)})
+
+
 def attention_inputs(case, rng):
     """Inputs of one attention case, made with numpy and moved to the card."""
     import torch
@@ -455,23 +498,32 @@ def check_attention(rng):
         inp = attention_inputs(case, rng)
         want = A.mha_reference(**inp)
         got = A.mha_fwd(**inp)
+        same_bits = torch.equal(got, A.mha_fwd(**inp))  # no atomics: a rerun is exact
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         finite = bool(torch.isfinite(got).all())
         worst = max(worst, err)
         row = dict(shape=case[0], B=case[1], L=case[2], S=case[3], H=case[4],
-                   hd=case[5], max_abs_err=err, tol=TOL, finite=finite)
+                   hd=case[5], max_abs_err=err, tol=TOL, finite=finite,
+                   rerun_same_bits=same_bits)
+        if case is ATTN_SHAPES[0]:
+            row.update(ptxas=ptxas_lines("mha_fwd", "attn_fwd_tc_kernel"),
+                       library_kernels=library_kernels(library_attention(inp)))
         if case in ATTN_SHAPES:
             bound_ms, bound_by = attention_bound(inp)
             row.update(
                 ms=cuda_ms(lambda: A.mha_fwd(**inp)),
                 plain_ms=cuda_ms(lambda: A.mha_reference(**inp)),
                 library_ms=cuda_ms(library_attention(inp)),
+                # the device clock alone, the wrappers' host time out of the way
+                graph_ms=graph_ms(lambda: A.mha_fwd(**inp)),
+                library_graph_ms=graph_ms(library_attention(inp)),
                 bound_ms=bound_ms, bound_by=bound_by,
             )
         emit("kernels", kernel="mha_fwd", **row)
-        if not finite or not err <= TOL:
-            raise SystemExit(f"mha_fwd disagrees with mha_reference at {case[0]}: {err}")
+        if not finite or not err <= TOL or not same_bits:
+            raise SystemExit(f"mha_fwd disagrees with mha_reference at {case[0]}: {err}, "
+                             f"rerun same bits {same_bits}")
         rows.append(row)
     return rows, worst
 
@@ -587,6 +639,12 @@ def check_dropout_attention(rng):
             lambda dropout_rate, seed, **kw: A.mha_reference(**kw))
         want, want_g = _grads(plain, inp, dout)
         got, got_g = _grads(A.mha_dropout, inp, dout)
+        fwd_args = ([inp[k].detach() for k in ("q", "k", "v")]
+                    + [inp["num_heads"], inp["causal"], inp["key_padding_mask"],
+                       None if inp["bias"] is None else inp["bias"].detach(), None,
+                       inp["dropout_rate"], inp["seed"]])
+        first, again = A.mha_dropout_fwd(*fwd_args), A.mha_dropout_fwd(*fwd_args)
+        same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
         torch.cuda.synchronize()
         out_err = float((got - want).abs().max())
         grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
@@ -597,13 +655,16 @@ def check_dropout_attention(rng):
         row = dict(shape=case[0], B=case[1], L=case[2], S=case[3], H=case[4],
                    hd=case[5], rate=case[-1], dbias=case[8], max_abs_err=out_err,
                    tol=TOL, grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
-                   grad_rel_tol=GRAD_TOL, finite=finite)
+                   grad_rel_tol=GRAD_TOL, finite=finite, rerun_same_bits=same_bits)
+        if case is DROP_SHAPES[0]:
+            row.update(ptxas=ptxas_lines("mha_dropout", "attn_fwd_tc_kernel"))
         if case in DROP_SHAPES:
             row.update(time_dropout(inp, dout))
         emit("kernels", kernel="mha_dropout", **row)
-        if not finite or not out_err <= TOL or not grad_rel <= GRAD_TOL:
+        if not finite or not out_err <= TOL or not grad_rel <= GRAD_TOL or not same_bits:
             raise SystemExit(f"mha_dropout disagrees with its plain version at "
-                             f"{case[0]}: out {out_err}, grads {grad_rel}")
+                             f"{case[0]}: out {out_err}, grads {grad_rel}, rerun same "
+                             f"bits {same_bits}")
         rows.append(row)
 
     name, B, L, S, H, hd, causal, _, _, rate = DROP_SHAPES[0]
@@ -623,7 +684,11 @@ def check_dropout_attention(rng):
 
 def time_dropout(inp, dout) -> dict:
     """CUDA-event times of the training kernels, their plain version and
-    scaled_dot_product_attention at one shape, with the bounds."""
+    scaled_dot_product_attention at one shape, with the bounds. SDPA's
+    backward is timed on the device clock: its forward+backward and its
+    forward alone, each captured in a CUDA graph (``graph_ms``); the
+    difference of the two eager loops, which the host paces, stands beside
+    it as ``library_bwd_host_ms``."""
     import torch
 
     from recboard_tpu_torch.ops import attention as A
@@ -645,17 +710,22 @@ def time_dropout(inp, dout) -> dict:
     lib_fwd, lib_fwd_bwd = library_dropout_attention(inp)
     bounds = dropout_bound(inp, need_dbias)
     fwd_ms = cuda_ms(lambda: A.mha_dropout_fwd(*args, *rest))
+    fwd_graph_ms = graph_ms(lambda: A.mha_dropout_fwd(*args, *rest))
+    lib_graph_ms = graph_ms(lib_fwd)
     plain_ms = cuda_ms(plain_fwd)
     lib_ms = cuda_ms(lib_fwd)
     return dict(
         fwd_ms=fwd_ms,
+        fwd_graph_ms=fwd_graph_ms,
         bwd_ms=cuda_ms(lambda: A.mha_dropout_bwd(
             *args, out, lse, dout, *rest[:2], inp["key_padding_mask"], bias, None,
             inp["dropout_rate"], inp["seed"], need_dbias)),
         plain_fwd_ms=plain_ms,
         plain_bwd_ms=cuda_ms(plain_fwd_bwd, iters=50) - plain_ms,
         library_fwd_ms=lib_ms,
-        library_bwd_ms=cuda_ms(lib_fwd_bwd) - lib_ms,
+        library_fwd_graph_ms=lib_graph_ms,
+        library_bwd_ms=graph_ms(lib_fwd_bwd) - lib_graph_ms,
+        library_bwd_host_ms=cuda_ms(lib_fwd_bwd) - lib_ms,
         fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
         bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
     )
@@ -2040,6 +2110,11 @@ def main(argv=None) -> int:
     timed("hstu_pp_quality", quality, STORE_SEEDS, "HSTU_pp")
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
+    # K1 and K2's forward run shorter than their wrappers' host time: their
+    # entries, and SDPA's beside them, take the device clock (CUDA graphs)
+    serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
+    training = dict(training, fwd_ms=training["fwd_graph_ms"],
+                    library_fwd_ms=training["library_fwd_graph_ms"])
     print(json.dumps({"kernels": [
         kernel_entry("mha_fwd", "mha_fwd.cu", "recboard_tpu/ops/attention.py:143",
                      slice_["launches"], worst, serving),

@@ -18,9 +18,9 @@
 // 3.35 TB/s) and the backward q, k, v, out, dO, dq, dk, dv (52 MB, 15.6 us);
 // their products are 0.17 and 0.42 GFLOP, 2.5 and 6.3 us at the 67 TFLOP/s
 // float32 rate. So neither pass writes a (B*H, L, S) tensor:
-//   * the forward is the loop of mha_fwd.cu (one block per batch*head and 32
-//     query rows, 32-key tiles in shared memory, an online softmax in
-//     registers) with the keep mask applied to the PV sum, and it writes one
+//   * the forward is attn_fwd_tc.cuh's kernel with dropout: both products on
+//     the tensor cores in split-precision TF32, an online softmax in
+//     registers, the keep mask applied to P before the PV product, and one
 //     float per row beside the output: lse = max + log(sum), +inf for a row
 //     with no visible key;
 //   * the backward runs one block per batch*head. It reads lse and computes
@@ -34,12 +34,14 @@
 //     batch, takes atomicAdd.
 //   * with causal masking and no bias both passes skip the (query, key) tiles
 //     that the mask hides.
-// The products are scalar FMAs: a first kernel that is right and simple.
-// wgmma tiles fed by TMA are later work.
+// The backward's products are scalar FMAs: a first kernel that is right and
+// simple.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attn_fwd_tc.cuh"
 
 namespace {
 
@@ -49,17 +51,8 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kTileQ = kWarps * kRowsPerWarp;  // query rows per block / chunk
 constexpr int kTileS = 32;                     // keys per tile: one per lane
 constexpr int kMaxHd = 128;
-constexpr int kAccPerLane = kMaxHd / 32;                  // forward output columns
 constexpr int kAccPerThread = kTileS * kMaxHd / kThreads;  // backward dk/dv entries
-constexpr float kNegInf = -1e30f;                          // NEG_INF of the reference
-constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // the most a block may ask for on an H100
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -67,165 +60,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The per-(batch row, head) part of the hash: 0x9E3779B9 * (seed + pid * 747796405).
-__device__ __forceinline__ uint32_t hash_base(const int* seed, int pid) {
-  return 0x9E3779B9u * ((uint32_t)seed[0] + (uint32_t)pid * 747796405u);
-}
-
-__device__ __forceinline__ bool kept(uint32_t base, int l, int S, int s, uint32_t threshold) {
-  uint32_t x = (uint32_t)l * (uint32_t)S + (uint32_t)s + base;
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  x ^= x >> 16;
-  return x >= threshold;
-}
-
-// Where the additive mask and the bias live, and how to read them.
-struct Scores {
-  const uint8_t* key_pad;  // (B, S), nonzero = masked, or null
-  const float* bias;       // read at h*sh + l*sl + s*ss, or null
-  int64_t sh, sl, ss;
-  float scale;
-  int causal, offset;      // causal: key s visible to row l iff s <= l + offset
-
-  // the reference's score: scaled product + (causal + pad) + bias
-  __device__ __forceinline__ float operator()(float dot, int h, int l, int s,
-                                              bool pad_masked) const {
-    float add = 0.f;
-    if (causal && s > l + offset) add = kNegInf;
-    if (pad_masked) add += kNegInf;
-    float x = dot * scale + add;
-    if (bias != nullptr) x += bias[h * sh + l * sl + s * ss];
-    return x;
-  }
-};
-
-size_t fwd_smem_bytes(int hd) {
-  // q tile, K tile (one pad column per key row), V tile
-  return sizeof(float) *
-         ((size_t)kTileQ * hd + (size_t)kTileS * (hd + 1) + (size_t)kTileS * hd);
-}
-
 size_t bwd_smem_bytes(int hd, int L) {
   // K and V tiles (padded), q and dO chunks, dS and dropped-P tiles, lse and delta
   return sizeof(float) * (2 * (size_t)kTileS * (hd + 1) + 2 * (size_t)kTileQ * hd +
                           2 * (size_t)kTileQ * kTileS + 2 * (size_t)L);
-}
-
-__global__ void __launch_bounds__(kThreads)
-mha_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, Scores sc, const int* __restrict__ seed,
-                    float* __restrict__ out, float* __restrict__ lse, int L, int S,
-                    int H, int hd, uint32_t threshold, float inv_keep) {
-  extern __shared__ float smem[];
-  float* q_sh = smem;                      // kTileQ x hd
-  float* k_sh = q_sh + kTileQ * hd;        // kTileS x (hd + 1)
-  float* v_sh = k_sh + kTileS * (hd + 1);  // kTileS x hd
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int q0 = blockIdx.y * kTileQ;
-  const int64_t D = (int64_t)H * hd;
-  const int64_t head = (int64_t)h * hd;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const bool skip_hidden = sc.causal && sc.bias == nullptr;
-  const uint32_t base = hash_base(seed, blockIdx.x);
-
-  for (int i = threadIdx.x; i < kTileQ * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd, l = q0 + r;
-    q_sh[i] = l < L ? q[((int64_t)b * L + l) * D + head + d] : 0.f;
-  }
-
-  float row_max[kRowsPerWarp], row_sum[kRowsPerWarp];
-  float acc[kRowsPerWarp][kAccPerLane];
-  bool seen[kRowsPerWarp];  // whether the row has met an unmasked entry yet
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    row_max[i] = 0.f;
-    row_sum[i] = 0.f;
-    seen[i] = false;
-#pragma unroll
-    for (int j = 0; j < kAccPerLane; ++j) acc[i][j] = 0.f;
-  }
-
-  int s_end = S;
-  if (skip_hidden) {
-    const int last_row = min(q0 + kTileQ, L) - 1;
-    s_end = max(0, min(S, last_row + sc.offset + 1));
-  }
-  for (int s0 = 0; s0 < s_end; s0 += kTileS) {
-    __syncthreads();  // the previous tile is consumed; on the first pass, q is staged
-    for (int i = threadIdx.x; i < kTileS * hd; i += blockDim.x) {
-      const int j = i / hd, d = i - j * hd, s = s0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (s < S) {
-        const int64_t g = ((int64_t)b * S + s) * D + head + d;
-        kv = k[g];
-        vv = v[g];
-      }
-      k_sh[j * (hd + 1) + d] = kv;
-      v_sh[j * hd + d] = vv;
-    }
-    __syncthreads();
-
-    const int s = s0 + lane;  // this lane's key
-    const bool in_range = s < S;
-    const bool pad_masked =
-        in_range && sc.key_pad != nullptr && sc.key_pad[(int64_t)b * S + s] != 0;
-    const int n_keys = min(kTileS, S - s0);
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp + kWarps * i;  // rows interleave across warps
-      const int l = q0 + r;
-      if (l >= L) continue;                             // uniform over the warp
-      if (skip_hidden && s0 > l + sc.offset) continue;  // tile hidden from row l
-      float x = 0.f;
-      bool ok = false;
-      if (in_range) {
-        const float* qr = q_sh + r * hd;
-        const float* kr = k_sh + lane * (hd + 1);
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-        x = sc(dot, h, l, s, pad_masked);
-        ok = x > 0.5f * kNegInf;
-      }
-      if (!__any_sync(kFull, ok)) continue;
-      const float tile_max = warp_max(ok ? x : -INFINITY);
-      const float new_max = seen[i] ? fmaxf(row_max[i], tile_max) : tile_max;
-      const float corr = seen[i] ? expf(row_max[i] - new_max) : 0.f;
-      const float p = ok ? expf(x - new_max) : 0.f;
-      row_sum[i] = row_sum[i] * corr + warp_sum(p);  // the softmax sums every key
-      row_max[i] = new_max;
-      seen[i] = true;
-      const float pv = (ok && kept(base, l, S, s, threshold)) ? p : 0.f;
-#pragma unroll
-      for (int j = 0; j < kAccPerLane; ++j) acc[i][j] *= corr;
-      for (int t = 0; t < n_keys; ++t) {
-        const float pt = __shfl_sync(kFull, pv, t);
-#pragma unroll
-        for (int j = 0; j < kAccPerLane; ++j) {
-          const int d = lane + 32 * j;
-          if (d < hd) acc[i][j] = fmaf(pt, v_sh[t * hd + d], acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int l = q0 + warp + kWarps * i;
-    if (l >= L) continue;
-    float* o = out + ((int64_t)b * L + l) * D + head;
-    const float norm = seen[i] ? inv_keep / row_sum[i] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kAccPerLane; ++j) {
-      const int d = lane + 32 * j;
-      if (d < hd) o[d] = acc[i][j] * norm;
-    }
-    if (lane == 0)
-      lse[(int64_t)blockIdx.x * L + l] = seen[i] ? row_max[i] + logf(row_sum[i]) : INFINITY;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -400,16 +238,9 @@ extern "C" int mha_dropout_fwd_f32(const float* q, const float* k, const float* 
                                    float* lse, int B, int L, int S, int H, int hd,
                                    float scale, int causal, unsigned threshold,
                                    float inv_keep, void* stream) {
-  if (bad_shape(B, L, S, H, hd)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || L == 0) return 0;
-  const size_t smem = fwd_smem_bytes(hd);
-  const cudaError_t err = allow_smem((const void*)mha_drop_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   const Scores sc{key_pad, bias, bias_sh, bias_sl, bias_ss, scale, causal, S - L};
-  const dim3 grid((unsigned)B * (unsigned)H, (unsigned)((L + kTileQ - 1) / kTileQ));
-  mha_drop_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q, k, v, sc, seed, out, lse, L, S, H, hd, threshold, inv_keep);
-  return (int)cudaGetLastError();
+  return (int)attn_fwd_tc<true>(q, k, v, sc, seed, out, lse, B, L, S, H, hd, threshold,
+                                inv_keep, (cudaStream_t)stream);
 }
 
 // The backward of mha_dropout_fwd_f32 for the same inputs, its out and lse,

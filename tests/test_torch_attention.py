@@ -118,3 +118,151 @@ def test_mha_off_cpu_dropout_raises():
     # which takes CUDA tensors only
     with pytest.raises(ValueError, match="CUDA tensor"):
         A.mha(q, q, q)
+
+
+# ---- the arithmetic of the tensor-core forward (ops/csrc/attn_fwd_tc.cuh),
+# emulated on the CPU: the kernel itself runs only on the card
+
+KEY_TILE = 64  # keys per tile of the kernel's online softmax
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits'
+    weight to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def _mm_tf32(a, b):
+    """a @ b from one TF32 product: each operand rounded to about three
+    digits."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _mm_split(a, b):
+    """a @ b as the tensor cores compute it in split precision: lo*hi +
+    hi*lo + hi*hi with hi = tf32(x) and lo = tf32(x - hi), each product
+    exact, summed in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def emulated_fwd(q, k, v, H, causal, key_pad=None, bias=None, mm=_mm_split,
+                 rate=0.0, seed=None):
+    """(out (B, L, D), lse (B, H, L)) as the kernel computes them: scores
+    and P V by ``mm``, an online softmax over tiles of 64 keys (a running
+    max and sum per row, each tile's P V added to the rescaled output), the
+    keep mask on P before P V while the sum counts every visible key, and
+    zeros (lse +inf) for a row with no visible key."""
+    B, L, D = q.shape
+    S, hd = k.shape[1], D // H
+    heads = lambda x, n: x.reshape(B, n, H, hd).transpose(1, 2)  # noqa: E731
+    qh, kh, vh = heads(q, L), heads(k, S), heads(v, S)
+    add = A._merge_masks(L, S, causal, key_pad, torch.float32, q.device)
+    keep = A.dropout_keep_mask(B, H, L, S, seed, rate) if rate > 0 else None
+    row_max = torch.zeros(B, H, L)
+    row_sum = torch.zeros(B, H, L)
+    seen = torch.zeros(B, H, L, dtype=torch.bool)
+    out = torch.zeros(B, H, L, hd)
+    for s0 in range(0, S, KEY_TILE):
+        s1 = min(S, s0 + KEY_TILE)
+        x = mm(qh, kh[:, :, s0:s1].transpose(-1, -2)) * (1.0 / hd**0.5)
+        if add is not None:
+            x = x + add[:, None, :, s0:s1]
+        if bias is not None:
+            x = x + torch.broadcast_to(bias, (B, H, L, S))[..., s0:s1]
+        x = torch.where(x > A.NEG_INF / 2, x, -torch.inf)
+        tile_max = x.max(-1).values
+        has = tile_max > -torch.inf  # the row sees a key of this tile
+        new_max = torch.where(has, torch.where(seen, torch.maximum(row_max, tile_max),
+                                               tile_max), row_max)
+        corr = torch.where(has & seen, torch.exp(row_max - new_max),
+                           torch.where(has, 0.0, 1.0))
+        p = torch.exp(x - new_max[..., None])
+        row_sum = torch.where(has, row_sum * corr + p.sum(-1), row_sum)
+        row_max, seen = new_max, seen | has
+        if keep is not None:
+            p = torch.where(keep[..., s0:s1], p, 0.0)
+        out = out * corr[..., None] + mm(p, vh[:, :, s0:s1])
+    inv_keep = 1.0 / (1.0 - rate)
+    out = out * torch.where(seen, inv_keep / row_sum, 0.0)[..., None]
+    lse = torch.where(seen, row_max + torch.log(row_sum), torch.inf)
+    return out.transpose(1, 2).reshape(B, L, D), lse
+
+
+# (B, L, S, H, hd, causal, key pad, bias): SASRec's and BERT4Rec's heads,
+# the widest head with a bias and L != S, and long rows over four key tiles
+TC_SHAPES = {
+    "sasrec_1x64": (3, 50, 50, 1, 64, True, False, False),
+    "bert4rec_4x16_pad": (3, 50, 50, 4, 16, False, True, False),
+    "hd128_causal_pad_bias": (2, 37, 70, 2, 128, True, True, True),
+    "L200_pad": (2, 200, 200, 2, 32, False, True, False),
+}
+
+
+def _tc_inputs(seed, B, L, S, H, hd, pad, bias):
+    q, k, v, key_pad, b = _inputs(seed, B, L, S, H * hd, H, pad, bias)
+    if pad:
+        key_pad[0] = True  # one batch row with every key padded
+    return q, k, v, key_pad, b
+
+
+@pytest.mark.parametrize("name", list(TC_SHAPES))
+def test_tensor_core_forward_matches_jax(name):
+    """The kernel's arithmetic (3xTF32 products, the online softmax over
+    64-key tiles) agrees with JAX's ``mha_reference`` within 1e-5."""
+    B, L, S, H, hd, causal, pad, bias = TC_SHAPES[name]
+    q, k, v, key_pad, b = _tc_inputs(5, B, L, S, H, hd, pad, bias)
+    th = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    jx = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    got, lse = emulated_fwd(th(q), th(k), th(v), H, causal, th(key_pad), th(b))
+    want = A_jax.mha_reference(jx(q), jx(k), jx(v), H, causal,
+                               key_padding_mask=jx(key_pad), bias=jx(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+    if pad:  # batch row 0 sees no key: zeros, and lse +inf
+        np.testing.assert_array_equal(got[0].numpy(), 0.0)
+        assert torch.isinf(lse[0]).all()
+    assert torch.isfinite(got).all()
+
+
+def test_one_tf32_product_misses_the_tolerance():
+    """Why the kernel computes each product three times: with one TF32
+    product (operands rounded to about three digits) the output misses
+    1e-5 of JAX's reference, where split precision holds it."""
+    B, L, S, H, hd, causal, pad, bias = TC_SHAPES["sasrec_1x64"]
+    q, k, v, key_pad, b = _tc_inputs(6, B, L, S, H, hd, pad, bias)
+    want = np.asarray(A_jax.mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          H, causal))
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), H, causal)
+    three = emulated_fwd(*args, mm=_mm_split)[0].numpy()
+    one = emulated_fwd(*args, mm=_mm_tf32)[0].numpy()
+    assert np.abs(three - want).max() <= ATOL
+    assert np.abs(one - want).max() > ATOL
+
+
+def test_online_softmax_lse_is_the_rows_logsumexp():
+    """The emulated lse (the training kernel's second output) is the
+    logsumexp of each row's visible scores across key tiles, and +inf for
+    a row that sees no key."""
+    B, L, S, H, hd = 2, 9, 150, 2, 8
+    q, k, v, key_pad, b = _tc_inputs(7, B, L, S, H, hd, pad=True, bias=True)
+    q, k, v, b = (torch.from_numpy(a) for a in (q, k, v, b))
+    _, lse = emulated_fwd(q, k, v, H, False, torch.from_numpy(key_pad), b,
+                          mm=torch.matmul)
+    heads = lambda x, n: x.reshape(B, n, H, hd).transpose(1, 2)  # noqa: E731
+    scores = heads(q, L) @ heads(k, S).transpose(-1, -2) / hd**0.5 + b
+    scores = scores.masked_fill(torch.from_numpy(key_pad)[:, None, None, :], -torch.inf)
+    want = torch.logsumexp(scores, -1)
+    want = torch.where(want == -torch.inf, torch.inf, want)  # no visible key: +inf
+    assert torch.isinf(want[0]).all()  # batch row 0: every key padded
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+
+
+def test_tf32_rounds_as_cvt_rna():
+    """The emulation's rounding: 10 mantissa bits, ties away from zero."""
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10, -(1.0 + 2.0**-11),
+                      1.0 + 2.0**-11 - 2.0**-23, 3.0])
+    want = [1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0, 3.0]
+    assert _tf32(x).tolist() == want

@@ -20,6 +20,7 @@ import torch
 
 from recboard_tpu.ops import attention as A_jax
 from recboard_tpu_torch.ops import attention as A
+from test_torch_attention import TC_SHAPES, _tc_inputs, emulated_fwd
 
 OUT_TOL, GRAD_TOL = 1e-5, 1e-4
 
@@ -170,3 +171,59 @@ def test_mha_sends_gradients_to_the_training_kernel():
         A.mha(q, q, q)
     with torch.no_grad(), pytest.raises(ValueError, match="mha_fwd: q must be a CUDA"):
         A.mha(q, q, q)
+
+
+# ---- the tensor-core forward's arithmetic with dropout, emulated on the CPU
+# (tests/test_torch_attention.py: 3xTF32 products, an online softmax over
+# 64-key tiles); the kernel itself runs only on the card
+
+# (L = S, H, hd, causal, key pad, rate): SASRec's and BERT4Rec's training
+# heads and rates, and rows over two key tiles
+TC_DROP_SHAPES = {
+    "sasrec_1x64": (50, 1, 64, True, False, 0.5),
+    "bert4rec_4x16_pad": (50, 4, 16, False, True, 0.2),
+    "L80_causal_pad": (80, 2, 32, True, True, 0.3),
+}
+
+
+@pytest.mark.parametrize("name", list(TC_DROP_SHAPES))
+def test_tensor_core_forward_matches_jax_kernel_at_batch_one(name):
+    """Dropout on at B = 1: the emulated kernel forward (keep mask on P
+    before P V, the sum over every visible key) equals the JAX kernel in
+    interpret mode within 1e-5."""
+    L, H, hd, causal, pad, rate = TC_DROP_SHAPES[name]
+    seed = 987654321
+    q, k, v, _, _, key_pad = _inputs(8, 1, L, L, H, hd, pad)
+    kp = None if key_pad is None else torch.from_numpy(key_pad)
+    got, lse = emulated_fwd(*(torch.from_numpy(a) for a in (q, k, v)), H, causal, kp,
+                            rate=rate, seed=torch.tensor([seed], dtype=torch.int32))
+    want = A_jax._mha_dropout_fused(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.int32(seed),
+        jnp.zeros((H, L, L), jnp.float32), H, causal, rate, None, True,
+        None if key_pad is None else jnp.asarray(key_pad))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OUT_TOL, rtol=0)
+    assert torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("name", list(TC_SHAPES))
+def test_tensor_core_forward_matches_plain_version(name):
+    """At B > 1 (each batch row its own mask) the emulated kernel forward
+    equals ``mha_dropout_reference`` within 1e-5, and its lse is the
+    logsumexp of the visible scores (+inf where a row sees none)."""
+    B, L, S, H, hd, causal, pad, bias = TC_SHAPES[name]
+    q, k, v, key_pad, b = _tc_inputs(9, B, L, S, H, hd, pad, bias)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    kp = None if key_pad is None else torch.from_numpy(key_pad)
+    b = None if b is None else torch.from_numpy(b)
+    seed, rate = torch.tensor([-42], dtype=torch.int32), 0.1
+    got, lse = emulated_fwd(*args, H, causal, kp, b, rate=rate, seed=seed)
+    want = A.mha_dropout_reference(*args, H, causal, kp, b, None, rate, seed)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=OUT_TOL, rtol=0)
+    heads = lambda x, n: x.reshape(B, n, H, hd).transpose(1, 2)  # noqa: E731
+    scores = heads(args[0], L) @ heads(args[1], S).transpose(-1, -2) / hd**0.5
+    add = A._merge_masks(L, S, causal, kp, torch.float32, scores.device)
+    scores = scores + (0.0 if add is None else add[:, None]) + (0.0 if b is None else b)
+    scores = torch.where(scores > A.NEG_INF / 2, scores, -torch.inf)
+    want_lse = torch.logsumexp(scores, -1)
+    want_lse = torch.where(want_lse == -torch.inf, torch.inf, want_lse)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
