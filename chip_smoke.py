@@ -24,9 +24,12 @@ Phases, one JSON line each; any failure exits non-zero:
    the attention forward (mha_fwd), and the training attention's
    forward and backward (mha_dropout) with dropout active, its kept
    share and per-row masks. Both forwards run on the tensor cores
-   (``ops/csrc/attn_fwd_tc.cuh``): each case also reruns for the same
-   bits (out, and lse), covers head dims that are not a multiple of 8 or
-   of 4, and the first prints ptxas' registers and spills of the kernel's
+   (``ops/csrc/attn_fwd_tc.cuh``), and so does K2's backward
+   (``attn_bwd_tc_kernel`` in ``ops/csrc/mha_dropout.cu``): each case
+   also reruns for the same bits (out and lse; the backward's dq, dk and
+   dv, not dbias, which takes atomics), covers head dims that are not a
+   multiple of 8 or of 4, causal with L > S and rows masked by the bias,
+   and the first prints ptxas' registers and spills of the kernels'
    instances and SDPA's kernel names. Their times are also taken on the
    device clock alone (CUDA graphs, ``graph_ms``), which the kernels line
    reports; SDPA's backward, the yardstick of K2's, is timed that way
@@ -163,6 +166,12 @@ DROP_EXTRA = [  # correctness only
     ("rate0_vs_mha_reference", 32, 50, 50, 2, 32, True, True, True, 0.0),
     ("hd20_causal_bias", 16, 45, 45, 3, 20, True, True, True, 0.2),
     ("hd10_keypad", 8, 70, 70, 2, 10, False, True, False, 0.3),
+    # the backward's cases: causal with L > S (rows that see no key, dq
+    # rows no key tile visits), query rows masked by the bias, and the
+    # widest head over two query tiles, causal
+    ("causal_L_gt_S", 16, 70, 40, 3, 24, True, True, False, 0.2),
+    ("hd13_bias_masked_rows", 8, 70, 70, 2, 13, False, True, True, 0.3),
+    ("hd128_causal_L96", 8, 96, 96, 2, 128, True, False, False, 0.1),
 ]
 # dq/dk/dv/dbias: max |kernel - plain| over the largest |plain| of that
 # gradient; sums over up to L*S products in other orders (and dbias's
@@ -536,8 +545,11 @@ def dropout_inputs(case, rng):
     name, B, L, S, H, hd, causal, key_pad, bias, rate = case
     inp = attention_inputs((name, B, L, S, H, hd, causal, key_pad, False, False), rng)
     if bias:
-        inp["bias"] = torch.from_numpy(
-            rng.normal(size=(H, L, S)).astype(np.float32)).cuda().requires_grad_()
+        b = rng.normal(size=(H, L, S)).astype(np.float32)
+        if name.endswith("masked_rows"):
+            b[:, 0, :] = -1e30  # query row 0 masked in every head
+            b[1 % H, 2, :] = -1e30
+        inp["bias"] = torch.from_numpy(b).cuda().requires_grad_()
     for key in ("q", "k", "v"):
         inp[key].requires_grad_()
     inp.update(dropout_rate=rate, seed=torch.tensor(
@@ -645,6 +657,10 @@ def check_dropout_attention(rng):
                        inp["dropout_rate"], inp["seed"]])
         first, again = A.mha_dropout_fwd(*fwd_args), A.mha_dropout_fwd(*fwd_args)
         same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
+        # the backward adds no atomics into dq, dk and dv: a rerun is exact
+        bwd_args = (*fwd_args[:3], *first, dout, *fwd_args[3:], case[8])
+        bwd_first, bwd_again = A.mha_dropout_bwd(*bwd_args), A.mha_dropout_bwd(*bwd_args)
+        bwd_same_bits = all(torch.equal(a, b) for a, b in zip(bwd_first[:3], bwd_again[:3]))
         torch.cuda.synchronize()
         out_err = float((got - want).abs().max())
         grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
@@ -655,16 +671,21 @@ def check_dropout_attention(rng):
         row = dict(shape=case[0], B=case[1], L=case[2], S=case[3], H=case[4],
                    hd=case[5], rate=case[-1], dbias=case[8], max_abs_err=out_err,
                    tol=TOL, grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
-                   grad_rel_tol=GRAD_TOL, finite=finite, rerun_same_bits=same_bits)
+                   grad_rel_tol=GRAD_TOL, finite=finite, rerun_same_bits=same_bits,
+                   bwd_rerun_same_bits=bwd_same_bits)
+        if case[8]:
+            row.update(dbias_rerun="not compared: dbias takes atomicAdd")
         if case is DROP_SHAPES[0]:
-            row.update(ptxas=ptxas_lines("mha_dropout", "attn_fwd_tc_kernel"))
+            row.update(ptxas=ptxas_lines("mha_dropout", "attn_fwd_tc_kernel"),
+                       bwd_ptxas=ptxas_lines("mha_dropout", "attn_bwd_tc_kernel"))
         if case in DROP_SHAPES:
             row.update(time_dropout(inp, dout))
         emit("kernels", kernel="mha_dropout", **row)
-        if not finite or not out_err <= TOL or not grad_rel <= GRAD_TOL or not same_bits:
+        if (not finite or not out_err <= TOL or not grad_rel <= GRAD_TOL or not same_bits
+                or not bwd_same_bits):
             raise SystemExit(f"mha_dropout disagrees with its plain version at "
                              f"{case[0]}: out {out_err}, grads {grad_rel}, rerun same "
-                             f"bits {same_bits}")
+                             f"bits {same_bits}, backward rerun same bits {bwd_same_bits}")
         rows.append(row)
 
     name, B, L, S, H, hd, causal, _, _, rate = DROP_SHAPES[0]
@@ -700,6 +721,10 @@ def time_dropout(inp, dout) -> dict:
     need_dbias = bias is not None
     out, lse = A.mha_dropout_fwd(*args, *rest)
 
+    def bwd():
+        return A.mha_dropout_bwd(*args, out, lse, dout, *rest[:2], inp["key_padding_mask"],
+                                 bias, None, inp["dropout_rate"], inp["seed"], need_dbias)
+
     def plain_fwd():
         with torch.no_grad():
             return A.mha_dropout_reference(**inp)
@@ -717,9 +742,8 @@ def time_dropout(inp, dout) -> dict:
     return dict(
         fwd_ms=fwd_ms,
         fwd_graph_ms=fwd_graph_ms,
-        bwd_ms=cuda_ms(lambda: A.mha_dropout_bwd(
-            *args, out, lse, dout, *rest[:2], inp["key_padding_mask"], bias, None,
-            inp["dropout_rate"], inp["seed"], need_dbias)),
+        bwd_ms=cuda_ms(bwd),
+        bwd_graph_ms=graph_ms(bwd),
         plain_fwd_ms=plain_ms,
         plain_bwd_ms=cuda_ms(plain_fwd_bwd, iters=50) - plain_ms,
         library_fwd_ms=lib_ms,
@@ -2110,11 +2134,12 @@ def main(argv=None) -> int:
     timed("hstu_pp_quality", quality, STORE_SEEDS, "HSTU_pp")
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
-    # K1 and K2's forward run shorter than their wrappers' host time: their
-    # entries, and SDPA's beside them, take the device clock (CUDA graphs)
+    # K1 and K2 run near or below their wrappers' host time: their entries,
+    # and SDPA's beside them, take the device clock (CUDA graphs)
     serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
     training = dict(training, fwd_ms=training["fwd_graph_ms"],
-                    library_fwd_ms=training["library_fwd_graph_ms"])
+                    library_fwd_ms=training["library_fwd_graph_ms"],
+                    bwd_ms=training["bwd_graph_ms"])
     print(json.dumps({"kernels": [
         kernel_entry("mha_fwd", "mha_fwd.cu", "recboard_tpu/ops/attention.py:143",
                      slice_["launches"], worst, serving),

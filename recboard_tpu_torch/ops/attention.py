@@ -422,13 +422,12 @@ def mha_dropout_bwd(
                 f"mha_dropout_bwd: {name} must be a contiguous float32 "
                 f"{tuple(shape)} tensor on q's device"
             )
-    dq = torch.zeros_like(q)  # the kernel adds each key tile's share
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = None
     if need_dbias:
         dbias = torch.zeros((H, L, S), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
-        return dq, dk.zero_(), dv.zero_(), dbias
+        return dq.zero_(), dk.zero_(), dv.zero_(), dbias
     _launch(
         "mha_dropout_bwd", _dropout_kernels()[1], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),

@@ -1,5 +1,6 @@
 // Float32-accurate tile products on Hopper's tensor cores (sm_90a) through
-// mma.sync m16n8k8 TF32, for the backward kernels of vocab_ce.cu.
+// mma.sync m16n8k8 TF32, for the backward kernels of vocab_ce.cu and the
+// attention kernels (attn_fwd_tc.cuh, mha_dropout.cu's backward).
 //
 // Split precision ("3xTF32"): each float32 operand x is cut into
 // hi = tf32(x) and lo = tf32(x - hi), both rounded as cvt.rna rounds (done

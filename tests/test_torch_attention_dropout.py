@@ -20,7 +20,7 @@ import torch
 
 from recboard_tpu.ops import attention as A_jax
 from recboard_tpu_torch.ops import attention as A
-from test_torch_attention import TC_SHAPES, _tc_inputs, emulated_fwd
+from test_torch_attention import TC_SHAPES, _mm_split, _mm_tf32, _tc_inputs, emulated_fwd
 
 OUT_TOL, GRAD_TOL = 1e-5, 1e-4
 
@@ -227,3 +227,167 @@ def test_tensor_core_forward_matches_plain_version(name):
     want_lse = torch.logsumexp(scores, -1)
     want_lse = torch.where(want_lse == -torch.inf, torch.inf, want_lse)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+
+
+# ---- the tensor-core backward's arithmetic (ops/csrc/mha_dropout.cu,
+# attn_bwd_tc_kernel), emulated on the CPU; the kernel itself runs only on
+# the card
+
+BWD_KEY_TILE = 64  # keys per tile of the backward
+
+
+def bwd_row_tile(hd):
+    """Query rows per tile of the backward: 32 at hd <= 32, else 16."""
+    return 32 if hd <= 32 else 16
+
+
+def emulated_bwd(q, k, v, out, lse, dout, H, causal, key_pad=None, bias=None, rate=0.0,
+                 seed=None, mm=_mm_split):
+    """(dq, dk, dv, dbias) as the kernel computes them from the forward's
+    ``out`` and ``lse``: key tiles of 64 by query tiles of ``bwd_row_tile``
+    rows; S^T = K Q^T and dP^T = V dO^T by ``mm``; P = exp(x - lse) on
+    visible entries (0 where lse is +inf); delta = rowsum(dO * out); the
+    keep mask by (l, s); dV += Pd^T dO and dK += dS^T Q per 8 queries,
+    dQ += dS K per key tile, each share a product of its own; dK and dQ
+    scaled once."""
+    B, L, D = q.shape
+    S, hd = k.shape[1], D // H
+    scale = 1.0 / hd**0.5
+    heads = lambda x, n: x.reshape(B, n, H, hd).transpose(1, 2)  # noqa: E731
+    qh, kh, vh, oh, gh = heads(q, L), heads(k, S), heads(v, S), heads(out, L), heads(dout, L)
+    add = A._merge_masks(L, S, causal, key_pad, torch.float32, q.device)
+    add = None if add is None else torch.broadcast_to(add, (B, L, S))
+    bias = None if bias is None else torch.broadcast_to(bias, (B, H, L, S))
+    keep = A.dropout_keep_mask(B, H, L, S, seed, rate) if rate > 0 else None
+    inv_keep = 1.0 / (1.0 - rate)
+    delta = (gh * oh).sum(-1)
+    dq, dk, dv = torch.zeros(B, H, L, hd), torch.zeros(B, H, S, hd), torch.zeros(B, H, S, hd)
+    dbias = torch.zeros(H, L, S)
+    for s0 in range(0, S, BWD_KEY_TILE):
+        ks = slice(s0, min(S, s0 + BWD_KEY_TILE))
+        dk_t, dv_t = torch.zeros_like(dk[:, :, ks]), torch.zeros_like(dv[:, :, ks])
+        for q0 in range(0, L, bwd_row_tile(hd)):
+            rs = slice(q0, min(L, q0 + bwd_row_tile(hd)))
+            # transposed tiles: keys by rows, queries by columns
+            x = mm(kh[:, :, ks], qh[:, :, rs].transpose(-1, -2)) * scale
+            if add is not None:
+                x = x + add[:, None, rs, ks].transpose(-1, -2)
+            if bias is not None:
+                x = x + bias[:, :, rs, ks].transpose(-1, -2)
+            dp = mm(vh[:, :, ks], gh[:, :, rs].transpose(-1, -2))
+            p = torch.where(x > A.NEG_INF / 2, torch.exp(x - lse[:, :, None, rs]), 0.0)
+            kept = torch.tensor(True) if keep is None else keep[:, :, rs, ks].transpose(-1, -2)
+            pd = torch.where(kept, p * inv_keep, 0.0)
+            ds = p * (torch.where(kept, dp * inv_keep, 0.0) - delta[:, :, None, rs])
+            dbias[:, rs, ks] += ds.sum(0).transpose(-1, -2)
+            for j in range(0, rs.stop - q0, 8):
+                js, gs = slice(j, j + 8), slice(q0 + j, min(rs.stop, q0 + j + 8))
+                dv_t = dv_t + mm(pd[..., js], gh[:, :, gs])
+                dk_t = dk_t + mm(ds[..., js], qh[:, :, gs])
+            dq[:, :, rs] += mm(ds.transpose(-1, -2), kh[:, :, ks]) * scale
+        dk[:, :, ks], dv[:, :, ks] = dk_t * scale, dv_t
+    merge = lambda x, n: x.transpose(1, 2).reshape(B, n, D)  # noqa: E731
+    return merge(dq, L), merge(dk, S), merge(dv, S), dbias
+
+
+# (L, S, H, hd, causal, key pad, bias, rate): SASRec's and BERT4Rec's training
+# heads, the widest head, rows over several key and query tiles, causal with
+# L > S (rows that see no key), and heads padded to 8 (hd 20, hd 13)
+TC_BWD_SHAPES = {
+    "sasrec_1x64": (50, 50, 1, 64, True, False, False, 0.5),
+    "bert4rec_4x16_pad": (50, 50, 4, 16, False, True, False, 0.2),
+    "hd128_causal_pad_bias": (37, 70, 2, 128, True, True, True, 0.3),
+    "L200_pad": (200, 200, 2, 32, False, True, False, 0.1),
+    "causal_L_gt_S": (70, 40, 3, 24, True, True, False, 0.2),
+    "hd20_causal_bias": (45, 45, 3, 20, True, True, True, 0.2),
+    "hd13_pad_bias": (70, 70, 2, 13, False, True, True, 0.3),
+}
+BWD_REL_TOL = 1e-5  # of each gradient's largest magnitude
+
+
+def _assert_grads_within(got, want, tol=BWD_REL_TOL):
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        b = np.asarray(b)
+        err = np.abs(np.asarray(a) - b).max()
+        assert err <= tol * np.abs(b).max(), (name, err, np.abs(b).max())
+
+
+def _emulated_grads_at_batch_one(name, mm=_mm_split):
+    """(emulated grads, JAX kernel's grads) at B = 1 with dropout active."""
+    L, S, H, hd, causal, pad, with_bias, rate = TC_BWD_SHAPES[name]
+    seed = 135792468
+    q, k, v, g, bias, key_pad = _inputs(10, 1, L, S, H, hd, pad)
+    if not with_bias:
+        bias = np.zeros_like(bias)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    kp = None if key_pad is None else torch.from_numpy(key_pad)
+    tb = torch.from_numpy(bias) if with_bias else None
+    tseed = torch.tensor([seed], dtype=torch.int32)
+    out, lse = emulated_fwd(tq, tk, tv, H, causal, kp, tb, rate=rate, seed=tseed)
+    got = emulated_bwd(tq, tk, tv, out, lse, tg, H, causal, kp, tb, rate, tseed, mm=mm)
+    jpad = None if key_pad is None else jnp.asarray(key_pad)
+
+    def jax_fn(q_, k_, v_, b_):
+        return A_jax._mha_dropout_fused(
+            q_, k_, v_, jnp.int32(seed), b_, H, causal, rate, None, True, jpad)
+
+    _, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v, bias)))
+    return got, vjp(jnp.asarray(g))
+
+
+@pytest.mark.parametrize("name", list(TC_BWD_SHAPES))
+def test_tensor_core_backward_matches_jax_kernel_at_batch_one(name):
+    """Dropout on at B = 1: the emulated kernel backward (3xTF32 products
+    over 64-key by 32-row tiles, P rebuilt from lse, delta from dO * out,
+    the keep mask by (l, s)) gives the JAX kernel's dq, dk, dv and dbias in
+    interpret mode within 1e-5 of each gradient's largest magnitude."""
+    got, want = _emulated_grads_at_batch_one(name)
+    assert all(torch.isfinite(x).all() for x in got)
+    _assert_grads_within(got, want)
+
+
+@pytest.mark.parametrize("name", list(TC_BWD_SHAPES))
+def test_tensor_core_backward_matches_jax_reference_at_rate_zero(name):
+    """Rate 0 at B = 3 (a batch row whose keys are all padded where the case
+    pads, a query row masked by the bias where it has one): the emulated
+    backward gives the gradients of JAX's ``mha_reference`` within 1e-5 of
+    each gradient's largest magnitude, and exact zeros on rows that see no
+    key."""
+    L, S, H, hd, causal, pad, with_bias, _ = TC_BWD_SHAPES[name]
+    q, k, v, g, bias, key_pad = _inputs(11, 3, L, S, H, hd, pad)
+    if pad:
+        key_pad[0] = True  # batch row 0 sees no key
+    if with_bias:
+        bias[:, 0, :] = A.NEG_INF  # query row 0 sees no key in any batch row
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    kp = None if key_pad is None else torch.from_numpy(key_pad)
+    tb = torch.from_numpy(bias) if with_bias else None
+    out, lse = emulated_fwd(tq, tk, tv, H, causal, kp, tb)
+    got = emulated_bwd(tq, tk, tv, out, lse, tg, H, causal, kp, tb)
+    jx = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+
+    def jax_fn(q_, k_, v_, *b_):
+        return A_jax.mha_reference(q_, k_, v_, H, causal, key_padding_mask=jx(key_pad),
+                                   bias=b_[0] if b_ else None)
+
+    wrt = (q, k, v, bias) if with_bias else (q, k, v)
+    _, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in wrt))
+    assert all(torch.isfinite(x).all() for x in got)
+    _assert_grads_within(got[:len(wrt)], vjp(jnp.asarray(g)))
+    if pad:
+        assert (got[0][0] == 0).all() and (got[1][0] == 0).all() and (got[2][0] == 0).all()
+    if causal and L > S:  # rows l < L - S see no key
+        assert (got[0][:, : L - S] == 0).all()
+    if with_bias:
+        assert (got[0][:, 0] == 0).all() and (got[3][:, 0] == 0).all()
+
+
+def test_one_tf32_product_misses_the_backward_tolerance():
+    """Why the backward computes each product three times: with one TF32
+    product the gradients miss 1e-5 of their largest magnitude, where split
+    precision holds it."""
+    got, want = _emulated_grads_at_batch_one("sasrec_1x64", mm=_mm_tf32)
+    worst = max(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max()
+                for a, b in zip(got, want))
+    assert worst > BWD_REL_TOL
+    _assert_grads_within(*_emulated_grads_at_batch_one("sasrec_1x64"))
