@@ -89,7 +89,10 @@ Phases, one JSON line each; any failure exits non-zero:
    range), D 128, large logits at tau 0.01 and the toy store's protocol
    (300 items, tau 0.05): against its plain versions
    and the loss's autograd, du exactly 0 on rows of weight 0 and dtable on
-   table rows no weighted row drew, the same bits on a rerun; K7
+   table rows no weighted row drew, the same bits on a rerun, the
+   backward's transpose equal to a stable sort of the live ids; at the
+   training shape the backward also by part (rows, transpose, segments),
+   on the device clock and with its launches per call; K7
    (dropout_mask) at (1024, 50, 64) and a ragged length, bit-equal to its
    plain version, its kept share and values, seeds; each with CUDA-event
    times beside the plain version, a library call and the bound. Then
@@ -386,15 +389,40 @@ def ptxas_lines(source: str, kernel: str) -> list:
 
 def library_kernels(fn) -> list:
     """The names of the device kernels one call of ``fn`` launches."""
+    return sorted({name[:120] for name, _, _ in device_kernels(fn, calls=1)})
+
+
+def device_kernels(fn, calls: int) -> list:
+    """(name, device ms per call, launches per call) of each device kernel
+    that ``calls`` calls of ``fn`` run, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return sorted({name[:120] for name, _, _ in profiled_ops(prof, 1, device=True)})
+    return [(name, us / 1e3, n) for name, us, n in profiled_ops(prof, calls, device=True)]
+
+
+# K4 backward's kernels by part
+SSC_BWD_PARTS = {"cand_live_kernel": "live", "cand_rows_kernel": "rows",
+                 "cand_chunk_kernel": "transpose", "cand_segment_kernel": "segments"}
+
+
+def bwd_parts(bwd, calls: int) -> tuple:
+    """({part: device ms per call}, launches per call) of K4's backward;
+    raises if it ran a kernel that is not its own."""
+    parts, launches = {}, 0.0
+    for name, ms, n in device_kernels(bwd, calls):
+        part = next((p for k, p in SSC_BWD_PARTS.items() if k in name), None)
+        if part is None:
+            raise SystemExit(f"sampled_softmax_cand_bwd ran a kernel not its own: {name}")
+        parts[part] = parts.get(part, 0.0) + ms
+        launches += n
+    return parts, launches
 
 
 def attention_inputs(case, rng):
@@ -1056,12 +1084,44 @@ def ssc_inputs(case, rng):
     return rows(M), t(ids.astype(np.int32)), rows(N), t(w)
 
 
+def transpose_is_stable_sort(scratch, C: int, N: int) -> bool:
+    """Whether K4 backward's transpose, as its segment kernel walks it (each
+    table row's runs in chunk order), visits the compact entries exactly
+    in the order of ``torch.sort(stable=True)`` of their ids, and each
+    chunk's run table holds exactly its ids' counts. A check: torch.sort
+    runs here only."""
+    import torch
+
+    from recboard_tpu_torch.ops.losses import CAND_CHUNK
+
+    entries = int(scratch["n_live"]) * C
+    keys = scratch["keys"][:entries].long()
+    order = scratch["order"][:entries].long()
+    chunks = -(-entries // CAND_CHUNK)
+    runs = scratch["runs"][:chunks].long()
+    start, count = runs & 0xFFFF, runs >> 16
+    slot = torch.arange(entries, device=keys.device)
+    k, local = slot // CAND_CHUNK, slot % CAND_CHUNK
+    key = keys[order]  # the id at each sorted slot of each chunk
+    st = start[k, key]
+    inside = bool(((local >= st) & (local < st + count[k, key])).all())
+    hist = torch.zeros_like(count).index_put_((k, key), torch.ones_like(k), accumulate=True)
+    # each (table row, chunk) group's first position in the walk
+    per_row = count.T.reshape(-1)
+    first = (torch.cumsum(per_row, 0) - per_row).reshape(N, chunks)
+    walk = torch.empty_like(order)
+    walk[first[key, k] + local - st] = order
+    return inside and torch.equal(hist, count) and torch.equal(
+        walk, torch.sort(keys, stable=True).indices)
+
+
 def check_sampled_softmax_cand(rng):
     """K4 against its plain versions on the card: logz and pos_logit; du and
     dtable against the backward's formula; the loss and its gradients
     through SampledSoftmaxCandidates against autograd of the plain loss; du
     exactly 0 on rows of weight 0 and dtable on the table rows no weighted
-    row drew; the same bits on a rerun; times at the timed shape."""
+    row drew; the same bits on a rerun; the backward's transpose against a
+    stable sort, exactly; times at the timed shape."""
     import torch
 
     from recboard_tpu_torch.ops import losses as S
@@ -1073,7 +1133,8 @@ def check_sampled_softmax_cand(rng):
         u, e = user.detach(), table.detach()
         s = (w / w.sum().clamp_min(1.0)).contiguous()
         out = S.sampled_softmax_cand_fwd(u, ids, e, tau)
-        out += S.sampled_softmax_cand_bwd(u, ids, e, out[0], s, tau)
+        du, dtable, scratch = S._cand_bwd(u, ids, e, out[0], s, tau)
+        out += (du, dtable)
         again = S.sampled_softmax_cand_fwd(u, ids, e, tau)
         again += S.sampled_softmax_cand_bwd(u, ids, e, again[0], s, tau)
         want = S.sampled_softmax_cand_rows_reference(u, ids, e, tau)
@@ -1095,6 +1156,7 @@ def check_sampled_softmax_cand(rng):
         zeros_exact = not bool(out[2][zero].any() or out[3][~drawn].any()
                                or loss_g[0][zero].any() or loss_g[1][~drawn].any())
         finite = all(bool(torch.isfinite(x).all()) for x in out + loss_g + (loss,))
+        transpose_exact = transpose_is_stable_sort(scratch, C, N)
         worst["fwd"] = max(worst["fwd"], abs_err)
         worst["bwd"] = max(worst["bwd"], g_abs)
         row = dict(shape=name, M=M, C=C, D=D, N=N, tau=tau, inputs=kind,
@@ -1103,23 +1165,31 @@ def check_sampled_softmax_cand(rng):
                    loss_err=abs(float(loss.detach()) - float(want_loss.detach())),
                    grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=GRAD_TOL,
                    finite=finite, zeros_exact=zeros_exact, same_bits=same_bits,
+                   transpose_exact=transpose_exact, live_entries=int(scratch["n_live"]) * C,
                    max_logit=float(want[0].abs().max()))
         if case in SSC_SHAPES:
             row.update(time_sampled_softmax_cand(user, ids, table, w, tau, out[0], s))
         emit("kernels", kernel="sampled_softmax_cand", **row)
-        if (not finite or not zeros_exact or not same_bits or not err <= SS_TOL
-                or not g_rel <= GRAD_TOL):
+        if (not finite or not zeros_exact or not same_bits or not transpose_exact
+                or not err <= SS_TOL or not g_rel <= GRAD_TOL):
             raise SystemExit(f"sampled_softmax_cand disagrees with its plain version at "
                              f"{name}: fwd {err}, grads {g_rel}, zeros exact {zeros_exact}, "
-                             f"same bits {same_bits}")
+                             f"same bits {same_bits}, transpose exact {transpose_exact}")
         rows.append(row)
-        del user, ids, table, w, out, again, want, loss_g, want_loss_g
+        del user, ids, table, w, out, again, want, loss_g, want_loss_g, scratch
     return rows, worst
 
 
 def time_sampled_softmax_cand(user, ids, table, w, tau, logz, s) -> dict:
-    """CUDA-event times of K4's forward and backward (its stable sort
-    included, and alone), their plain versions, and torch.logsumexp over
+    """CUDA-event times of K4's forward and backward, the backward also on
+    the device clock (CUDA-graph replays, which also show it never waits
+    on the host) and by part from torch.profiler (live: the list of rows
+    of nonzero gradient; rows; transpose: the chunk sorts; segments), its
+    launches per call against those of the backward it replaced (row
+    kernel, the stable
+    torch.sort of all M * C ids, segment kernel; the sort timed alone as
+    ``sort_ms``), its live entries and the L2 bytes its two gathers of
+    D-wide rows need; the plain versions, and torch.logsumexp over
     torch.bmm of the F.embedding gather (forward, and autograd backward),
     with the bounds: each input the function needs read once and each
     output written once; the forward 2*M*C*D FLOP over every row; the
@@ -1160,10 +1230,26 @@ def time_sampled_softmax_cand(user, ids, table, w, tau, logz, s) -> dict:
     # s and the table in, du and dtable out, and the weighted rows' inputs
     bwd_bound = bound(nbytes(s, e) + nbytes(u, e) + weighted_bytes, 6 * weighted * C * D)
     lib_ms = cuda_ms(library_fwd, iters=20, warmup=3)
+
+    def bwd():
+        return S.sampled_softmax_cand_bwd(u, ids, e, logz, s, tau)
+
+    parts, bwd_launches = bwd_parts(bwd, calls=20)
+    sort_launches = sum(n for _, _, n in device_kernels(
+        lambda: torch.sort(flat, stable=True), calls=1))
+    live_entries = weighted * C
+    gather_gb = 2 * live_entries * D * 4 / 1e9
+    bwd_graph = graph_ms(bwd, calls=20)
     return dict(
         fwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_fwd(u, ids, e, tau), iters=50, warmup=5),
-        bwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_bwd(u, ids, e, logz, s, tau),
-                       iters=50, warmup=5),
+        bwd_ms=cuda_ms(bwd, iters=50, warmup=5),
+        bwd_graph_ms=bwd_graph,
+        bwd_parts_ms=parts,
+        bwd_launches_per_call=bwd_launches,
+        replaced_bwd_launches_per_call=2 + sort_launches,
+        live_entries=live_entries,
+        bwd_gather_gb=gather_gb,
+        bwd_gather_tb_per_s=gather_gb / bwd_graph,
         sort_ms=cuda_ms(lambda: torch.sort(flat, stable=True), iters=50, warmup=5),
         plain_fwd_ms=cuda_ms(plain_fwd, iters=20, warmup=3),
         plain_bwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_bwd_reference(u, ids, e, logz, s, tau),
@@ -2135,8 +2221,10 @@ def main(argv=None) -> int:
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
-    # and SDPA's beside them, take the device clock (CUDA graphs)
+    # and SDPA's beside them, take the device clock (CUDA graphs), as does
+    # K4's backward (four kernels behind one wrapper call)
     serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
+    cand = dict(ssc_rows[0], bwd_ms=ssc_rows[0]["bwd_graph_ms"])
     training = dict(training, fwd_ms=training["fwd_graph_ms"],
                     library_fwd_ms=training["library_fwd_graph_ms"],
                     bwd_ms=training["bwd_graph_ms"])
@@ -2171,7 +2259,7 @@ def main(argv=None) -> int:
         kernel_entry("sampled_softmax_cand_bwd", "sampled_softmax_cand.cu",
                      "recboard_tpu/ops/losses.py:186",
                      p_trained["launches"]["sampled_softmax_cand_bwd"], ssc_worst["bwd"],
-                     ssc_rows[0], "bwd_"),
+                     cand, "bwd_"),
         # launches from K7's own path, ops.dropout.dropout; the model paths,
         # each checked against expected_launches, launched it no time
         dict(kernel_entry("dropout_mask", "dropout.cu", "recboard_tpu/ops/dropout.py:37",

@@ -32,21 +32,49 @@
 //     their dots are taken;
 //   * the forward keeps an online logsumexp per group and merges the groups
 //     at the end; it writes logz and pos_logit, never the (M, C) logits;
-//   * the backward recomputes the logits. A row kernel writes du, coef (M, C)
-//     and each entry's id as a sort key (the sentinel N on rows with s = 0,
-//     which it skips: du is exactly 0 there). The TPU grid would add
-//     dtable across its sequential steps; Hopper blocks run in no order. So
-//     the wrapper sorts the keys (stable, so entries of one id keep their
-//     flat order), and a segment kernel sums each table row's entries in that
-//     order, one warp per row. No atomics: reruns give the same bits.
+//   * the backward recomputes the logits, in four kernels and no library
+//     call. At the training shape 87.9 % of rows are pads with s = 0, so
+//     only 1,553 rows (797 K (m, c) entries) carry gradient:
+//     1. cand_live_kernel (one block) lists the rows with s != 0 in order,
+//        and their count, in device memory: the host never waits on it;
+//     2. cand_rows_kernel: a block of 8 warps per listed row, each warp a
+//        slice of its C candidates, so enough table rows are in flight;
+//        du is merged across the slices in warp order through shared
+//        memory, and each live entry's coef and clamped id go to compact
+//        arrays at (list position) * C + c, which is flat (m, c) order.
+//        Rows with s = 0 get du exactly 0;
+//     3. cand_chunk_kernel: the TPU grid would add dtable across its
+//        sequential steps; Hopper blocks run in no order. So the compact
+//        entries are cut into chunks of kChunk, and a block sorts its
+//        chunk by id with CUB's block radix sort (stable, so the entries
+//        of one id keep their flat order) and writes the sorted entry
+//        indices and, for every table row, the (start, count) of its run
+//        in the chunk (0 where the id is absent);
+//     4. cand_segment_kernel: the entries of table row n are its runs in
+//        chunk order, which is flat order: the order a stable sort of all
+//        ids gives. S warps walk them (S from the mean entries per table
+//        row, so a heavy row is split), each over a range of chunks, and
+//        the S partial sums are added in warp order.
+//     No float atomics and no order taken from atomics: reruns give the
+//     same bits.
 // The products are scalar FMAs: a first kernel that is right and simple.
+
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 
 #include "tiles.cuh"  // kThreads, kMaxD, kFull, lse_merge
 
 namespace {
 
-constexpr int kWarps = kThreads / 32;  // one row (or table row) per warp
+constexpr int kWarps = kThreads / 32;  // forward: one row per warp
+constexpr int kListThreads = 1024;     // cand_live_kernel's one block
+constexpr int kSortThreads = 512;      // cand_chunk_kernel: a chunk of
+constexpr int kSortItems = 16;         //   512 x 16 entries a block
+constexpr int kChunk = kSortThreads * kSortItems;
+// compact entries are indexed in int32: M * C at most this
+constexpr int64_t kMaxEntries = 2147483647LL - kChunk;
 constexpr int kUnroll = 4;             // steps whose table rows load together
+constexpr int kRunBatches = 4;         // segment kernel: runs of 4 x 32 chunks a warp holds
 
 // JAX's gather: a negative id counts from the end, then clamp into [0, N)
 __device__ __forceinline__ int clamp_id(int id, int N) {
@@ -134,95 +162,258 @@ cand_fwd_kernel(const float* __restrict__ user, const int* __restrict__ ids,
   }
 }
 
-// Backward, rows: du (M, D), coef (M, C) and the sort keys (M, C).
+// Backward, 1: the rows with s != 0 in increasing order (live) and their
+// count (n_live). Each thread takes a contiguous run of rows, whose
+// flags it loads 32 at a time.
+__global__ void __launch_bounds__(kListThreads)
+cand_live_kernel(const float* __restrict__ s, int* __restrict__ live, int* __restrict__ n_live,
+                 int M) {
+  using Scan = cub::BlockScan<int, kListThreads>;
+  __shared__ typename Scan::TempStorage scan;
+  const int per = (M + kListThreads - 1) / kListThreads;
+  const int lo = (int)min((int64_t)M, (int64_t)threadIdx.x * per);
+  const int hi = min(M, lo + per);
+  auto flags = [&](int g0) {  // bit j: row g0 + j has s != 0
+    unsigned bits = 0u;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (g0 + j < hi && s[g0 + j] != 0.f) bits |= 1u << j;
+    return bits;
+  };
+  const unsigned first = lo < hi ? flags(lo) : 0u;  // the usual run: 32 rows or fewer
+  int count = __popc(first);
+  for (int g0 = lo + 32; g0 < hi; g0 += 32) count += __popc(flags(g0));
+  int at, total;
+  Scan(scan).ExclusiveSum(count, at, total);
+  for (int g0 = lo; g0 < hi; g0 += 32)
+    for (unsigned bits = g0 == lo ? first : flags(g0); bits; bits &= bits - 1)
+      live[at++] = g0 + __ffs(bits) - 1;
+  if (threadIdx.x == 0) *n_live = total;
+}
+
+// Backward, 2: the blocks zero du of the rows with s = 0, and block b
+// takes the listed rows b, b + gridDim.x, ...: for m = live[b], du[m] and
+// the coef and clamped id of its C entries at b * C + c. Warp w walks
+// candidates [w * slice, (w + 1) * slice); the warps' du are added in warp
+// order.
 __global__ void __launch_bounds__(kThreads)
 cand_rows_kernel(const float* __restrict__ user, const int* __restrict__ ids,
                  const float* __restrict__ table, const float* __restrict__ logz,
-                 const float* __restrict__ grad, float* __restrict__ du,
+                 const float* __restrict__ grad, const int* __restrict__ live,
+                 const int* __restrict__ n_live, float* __restrict__ du,
                  float* __restrict__ coef, int* __restrict__ keys, int M, int C, int D, int N,
                  float inv_tau, int G) {
-  const int64_t m = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (m >= M) return;
-  const int lane = threadIdx.x % 32;
-  const float s = grad[m];
-  if (s == 0.f) {  // nothing flows back from this row
-    for (int d = lane; d < D; d += 32) du[m * D + d] = 0.f;
-    for (int c = lane; c < C; c += 32) keys[m * C + c] = N;
-    return;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < (int64_t)M * D;
+       i += (int64_t)gridDim.x * kThreads)
+    if (grad[i / D] == 0.f) du[i] = 0.f;  // nothing flows back from this row
+  const int rows = *n_live;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, q = lane % G;
+  const int slice = (C + kWarps - 1) / kWarps;
+  const int c_lo = min(C, warp * slice), n_c = min(C, c_lo + slice) - c_lo;
+  __shared__ float4 part[kWarps][kMaxD / 4];
+  for (int64_t b = blockIdx.x; b < rows; b += gridDim.x) {
+    const int64_t m = live[b];
+    const float s = grad[m], z = logz[m];
+    float* __restrict__ coef_row = coef + b * C + c_lo;
+    int* __restrict__ key_row = keys + b * C + c_lo;
+    const float4 uv = load4(user + m * D, q, D);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n_c > 0)
+      for_candidates(
+          uv, ids + m * C + c_lo, table, n_c, D, N, inv_tau, G,
+          [&](int c, int id, float4 e, float x) {
+            const float cf = s * (expf(x - z) - (c_lo + c == 0 ? 1.f : 0.f));
+            acc.x = fmaf(cf, e.x, acc.x);
+            acc.y = fmaf(cf, e.y, acc.y);
+            acc.z = fmaf(cf, e.z, acc.z);
+            acc.w = fmaf(cf, e.w, acc.w);
+            if (q == 0) {
+              coef_row[c] = cf;
+              key_row[c] = id;
+            }
+          });
+    for (int o = G; o < 32; o <<= 1) {
+      acc.x += __shfl_xor_sync(kFull, acc.x, o);
+      acc.y += __shfl_xor_sync(kFull, acc.y, o);
+      acc.z += __shfl_xor_sync(kFull, acc.z, o);
+      acc.w += __shfl_xor_sync(kFull, acc.w, o);
+    }
+    if (lane < G) part[warp][lane] = acc;
+    __syncthreads();
+    const float* parts = reinterpret_cast<const float*>(part);
+    for (int d = threadIdx.x; d < D; d += kThreads) {
+      float t = 0.f;
+      for (int w = 0; w < kWarps; ++w) t += parts[w * kMaxD + d];
+      du[m * D + d] = t * inv_tau;
+    }
+    __syncthreads();  // part is taken again by the next row
   }
-  const int q = lane % G;
-  const float4 uv = load4(user + m * D, q, D);
-  const float z = logz[m];
+}
+
+// the first position in [lo, hi) of the ascending `sorted` whose key is > key
+__device__ __forceinline__ int upper_bound(const unsigned* sorted, int lo, int hi,
+                                           unsigned key) {
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (sorted[mid] <= key) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Backward, 3: block k sorts the compact entries [k * kChunk, ...) by id,
+// stably, and writes order[k * kChunk + i], the compact index of its i-th
+// entry in that order, and runs[k * N + n] = start | count << 16 of id n's
+// run in it (0 where n is absent). Ids lie in [0, N); the pad key N of a
+// short last chunk sorts after them and is never written.
+__global__ void __launch_bounds__(kSortThreads)
+cand_chunk_kernel(const unsigned* __restrict__ keys, const int* __restrict__ n_live,
+                  int* __restrict__ order, unsigned* __restrict__ runs, int C, int N,
+                  int end_bit) {
+  using Sort = cub::BlockRadixSort<unsigned, kSortThreads, kSortItems, int>;
+  __shared__ union {
+    typename Sort::TempStorage sort;
+    unsigned sorted[kChunk];
+  } smem;
+  const int64_t entries = (int64_t)*n_live * C, base = (int64_t)blockIdx.x * kChunk;
+  if (base >= entries) return;  // the whole block
+  const int len = (int)min((int64_t)kChunk, entries - base);
+  unsigned* __restrict__ col = runs + (int64_t)blockIdx.x * N;
+  for (int n = threadIdx.x; n < N; n += kSortThreads) col[n] = 0u;
+  unsigned key[kSortItems];
+  int idx[kSortItems];
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {  // blocked: thread t holds 16 t + j
+    idx[j] = threadIdx.x * kSortItems + j;
+    key[j] = idx[j] < len ? keys[base + idx[j]] : (unsigned)N;
+  }
+  Sort(smem.sort).SortBlockedToStriped(key, idx, 0, end_bit);
+  __syncthreads();  // the sort's storage becomes the sorted keys
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {  // striped: thread t holds 512 j + t
+    const int i = j * kSortThreads + threadIdx.x;
+    smem.sorted[i] = key[j];
+    if (i < len) order[base + i] = (int)(base + idx[j]);
+  }
+  __syncthreads();  // also orders the zeroes of col before the runs
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int i = j * kSortThreads + threadIdx.x;
+    if (i < len && (i == 0 || smem.sorted[i - 1] != key[j])) {
+      const int end = upper_bound(smem.sorted, i + 1, len, key[j]);
+      col[key[j]] = (unsigned)i | (unsigned)(end - i) << 16;
+    }
+  }
+}
+
+// Backward, 4: dtable[n] = the sum of coef u[row] / tau over table row n's
+// entries. A block takes kWarps / S table rows with S warps each; warp
+// `sub` of a row walks chunks [chunks * sub / S, chunks * (sub + 1) / S),
+// 128 at a time: each lane reads the runs of four chunks, warp scans
+// place the runs' entries in slots, and 32 slots at a time are gathered
+// (their user rows by groups of G lanes, kUnroll steps loaded ahead). The
+// S partials are added in warp order.
+__global__ void __launch_bounds__(kThreads)
+cand_segment_kernel(const float* __restrict__ user, const float* __restrict__ coef,
+                    const int* __restrict__ live, const int* __restrict__ order,
+                    const unsigned* __restrict__ runs, const int* __restrict__ n_live,
+                    float* __restrict__ dtable, int C, int D, int N, float inv_tau, int G) {
+  const int64_t entries = (int64_t)*n_live * C;
+  const int chunks = (int)((entries + kChunk - 1) / kChunk);
+  // warps per table row: one per 256 entries of a mean row, at most kWarps
+  const int64_t mean = entries / N;
+  const int S = mean < 512 ? 1 : mean < 1024 ? 2 : mean < 2048 ? 4 : kWarps;
+  const int per_block = kWarps / S;
+  const int64_t n0 = (int64_t)blockIdx.x * per_block;
+  if (n0 >= N) return;  // the whole block
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / G, q = lane % G, P = 32 / G, sub = warp % S;
+  const int64_t n = n0 + warp / S;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for_candidates(uv, ids + m * C, table, C, D, N, inv_tau, G,
-                       [&](int c, int id, float4 e, float x) {
-                         const float cf = s * (expf(x - z) - (c == 0 ? 1.f : 0.f));
-                         acc.x = fmaf(cf, e.x, acc.x);
-                         acc.y = fmaf(cf, e.y, acc.y);
-                         acc.z = fmaf(cf, e.z, acc.z);
-                         acc.w = fmaf(cf, e.w, acc.w);
-                         if (q == 0) {
-                           coef[m * C + c] = cf;
-                           keys[m * C + c] = id;
-                         }
-                       });
+  const int k_lo = (int)((int64_t)chunks * sub / S);
+  const int k_hi = n < N ? (int)((int64_t)chunks * (sub + 1) / S) : k_lo;
+  for (int kb = k_lo; kb < k_hi; kb += 32 * kRunBatches) {
+    // lane l of batch r holds chunk kb + 32 r + l's run: its start in the
+    // chunk and its slots [first, last) in this pass
+    unsigned run[kRunBatches];
+#pragma unroll
+    for (int r = 0; r < kRunBatches; ++r) {
+      const int k = kb + 32 * r + lane;
+      run[r] = k < k_hi ? runs[(int64_t)k * N + n] : 0u;
+    }
+    int start[kRunBatches], first[kRunBatches], last[kRunBatches], total = 0;
+#pragma unroll
+    for (int r = 0; r < kRunBatches; ++r) {
+      const int count = run[r] >> 16;
+      int incl = count;  // inclusive scan of the counts over lanes
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += v;
+      }
+      start[r] = run[r] & 0xffffu;
+      last[r] = total + incl;
+      first[r] = last[r] - count;
+      total = __shfl_sync(kFull, last[r], 31);
+    }
+    for (int j0 = 0; j0 < total; j0 += 32) {
+      const int j = j0 + lane;
+      int64_t at = -1;  // slot j's place in order
+#pragma unroll
+      for (int r = 0; r < kRunBatches; ++r) {
+        int src = 0;  // the lanes of batch r whose runs end at or before slot j
+        for (int step = 16; step > 0; step >>= 1)
+          if (__shfl_sync(kFull, last[r], src + step - 1) <= j) src += step;
+        const int f = __shfl_sync(kFull, first[r], src & 31);
+        const int l = __shfl_sync(kFull, last[r], src & 31);
+        const int st = __shfl_sync(kFull, start[r], src & 31);
+        if (f <= j && j < l) at = (int64_t)(kb + 32 * r + src) * kChunk + st + (j - f);
+      }
+      int row = 0;
+      float cf = 0.f;
+      if (at >= 0) {
+        const int e = order[at];
+        cf = coef[e];
+        row = live[e / C];
+      }
+      const int here = min(32, total - j0);
+      for (int t0 = 0; t0 < here; t0 += kUnroll * P) {
+        float4 e4[kUnroll];
+        float c4[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int t = t0 + u * P + g;
+          const int r = __shfl_sync(kFull, row, t & 31);
+          c4[u] = __shfl_sync(kFull, cf, t & 31);
+          e4[u] = t < here ? load4(user + (int64_t)r * D, q, D)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (t0 + u * P + g >= here) continue;
+          acc.x = fmaf(c4[u], e4[u].x, acc.x);
+          acc.y = fmaf(c4[u], e4[u].y, acc.y);
+          acc.z = fmaf(c4[u], e4[u].z, acc.z);
+          acc.w = fmaf(c4[u], e4[u].w, acc.w);
+        }
+      }
+    }
+  }
   for (int o = G; o < 32; o <<= 1) {
     acc.x += __shfl_xor_sync(kFull, acc.x, o);
     acc.y += __shfl_xor_sync(kFull, acc.y, o);
     acc.z += __shfl_xor_sync(kFull, acc.z, o);
     acc.w += __shfl_xor_sync(kFull, acc.w, o);
   }
-  if (lane < G) {
-    const float out[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (4 * q + j < D) du[m * D + 4 * q + j] = out[j] * inv_tau;
-  }
-}
-
-// the first position of `sorted` (T keys, ascending) whose key is >= n
-__device__ __forceinline__ int64_t lower_bound(const int* __restrict__ sorted, int64_t T, int n) {
-  int64_t lo = 0, hi = T;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) / 2;
-    if (sorted[mid] < n) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-// Backward, table: dtable[n] from the entries with key n, in sorted order.
-// `perm` holds each sorted entry's flat index m * C + c.
-__global__ void __launch_bounds__(kThreads)
-cand_dtable_kernel(const float* __restrict__ user, const float* __restrict__ coef,
-                   const int* __restrict__ sorted, const int64_t* __restrict__ perm,
-                   float* __restrict__ dtable, int C, int D, int N, int64_t T, float inv_tau) {
-  const int n = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (n >= N) return;
-  const int lane = threadIdx.x % 32;
-  const int64_t bound = lane < 2 ? lower_bound(sorted, T, n + lane) : 0;
-  const int64_t lo = __shfl_sync(kFull, bound, 0), hi = __shfl_sync(kFull, bound, 1);
-  float acc[kMaxD / 32] = {0.f, 0.f, 0.f, 0.f};
-  for (int64_t j0 = lo; j0 < hi; j0 += 32) {
-    const int64_t j = j0 + lane;
-    const int64_t idx = j < hi ? perm[j] : 0;
-    const int row = (int)(idx / C);
-    const float cf = j < hi ? coef[idx] : 0.f;
-    const int count = hi - j0 < 32 ? (int)(hi - j0) : 32;
-    for (int t = 0; t < count; ++t) {
-      const int64_t r = __shfl_sync(kFull, row, t);
-      const float c = __shfl_sync(kFull, cf, t);
-#pragma unroll
-      for (int k = 0; k < kMaxD / 32; ++k) {
-        const int d = lane + 32 * k;
-        if (d < D) acc[k] = fmaf(c, user[r * D + d], acc[k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxD / 32; ++k) {
-    const int d = lane + 32 * k;
-    if (d < D) dtable[(int64_t)n * D + d] = acc[k] * inv_tau;
+  __shared__ float4 part[kWarps][kMaxD / 4];
+  if (lane < G) part[warp][lane] = acc;
+  __syncthreads();
+  const float* parts = reinterpret_cast<const float*>(part);
+  for (int i = threadIdx.x; i < per_block * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    if (n0 + r >= N) break;
+    float t = 0.f;
+    for (int w = r * S; w < (r + 1) * S; ++w) t += parts[w * kMaxD + d];
+    dtable[(n0 + r) * D + d] = t * inv_tau;
   }
 }
 
@@ -259,32 +450,37 @@ extern "C" int sampled_softmax_cand_fwd_f32(const float* user, const int* ids,
   return (int)cudaGetLastError();
 }
 
-// The backward's row kernel for row gradients g (M,) of logz - pos_logit:
-// du (M, D), and coef and keys (M, C): each entry's coefficient and its
-// clamped id, or the key N on rows with g = 0 (whose coef is left unwritten).
-extern "C" int sampled_softmax_cand_rows_f32(const float* user, const int* ids,
-                                             const float* table, const float* logz,
-                                             const float* g, float* du, float* coef, int* keys,
-                                             int M, int C, int D, int N, float inv_tau,
-                                             void* stream) {
-  if (bad_shape(M, C, D, N)) return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
+// The backward for row gradients g (M,) of logz - pos_logit: du (M, D)
+// and dtable (N, D), through the scratch the caller allocates: live (M,)
+// and n_live (1,) int32; coef (M * C) float32, keys and order (M * C)
+// int32; runs (ceil(M * C / kChunk) * N) uint32. M * C must stay below
+// 2^31. Launches its four kernels on `stream`; the count of rows with
+// g != 0 stays in device memory.
+extern "C" int sampled_softmax_cand_bwd_f32(const float* user, const int* ids, const float* table,
+                                            const float* logz, const float* g, float* du,
+                                            float* dtable, int* live, int* n_live, float* coef,
+                                            int* keys, int* order, unsigned* runs, int M, int C,
+                                            int D, int N, float inv_tau, void* stream) {
+  if (bad_shape(M, C, D, N) || (int64_t)M * C > kMaxEntries)
+    return (int)cudaErrorInvalidValue;
   const int G = group_lanes(D);
   const cudaStream_t st = (cudaStream_t)stream;
-  cand_rows_kernel<<<row_blocks(M), kThreads, 0, st>>>(user, ids, table, logz, g, du, coef,
-                                                       keys, M, C, D, N, inv_tau, G);
-  return (int)cudaGetLastError();
-}
-
-// The backward's table kernel: dtable (N, D) from coef (M, C), the keys
-// sorted ascending (sorted, M * C) and each sorted entry's flat index
-// (perm). Keys equal to N are never read.
-extern "C" int sampled_softmax_cand_dtable_f32(const float* user, const float* coef,
-                                               const int* sorted, const int64_t* perm,
-                                               float* dtable, int M, int C, int D, int N,
-                                               float inv_tau, void* stream) {
-  if (bad_shape(M, C, D, N)) return (int)cudaErrorInvalidValue;
-  cand_dtable_kernel<<<row_blocks(N), kThreads, 0, (cudaStream_t)stream>>>(
-      user, coef, sorted, perm, dtable, C, D, N, (int64_t)M * C, inv_tau);
+  int end_bit = 1;  // the bits of the pad key N
+  while (end_bit < 31 && (N >> end_bit) != 0) ++end_bit;
+  cand_live_kernel<<<1, kListThreads, 0, st>>>(g, live, n_live, M);
+  if (M > 0) {
+    // as many blocks as a few waves of the SMs: enough for the listed rows
+    // at HSTU's pad share, and no block that only zeroes a row of du
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cand_rows_kernel<<<(unsigned)min((int64_t)M, (int64_t)16 * sms), kThreads, 0, st>>>(
+        user, ids, table, logz, g, live, n_live, du, coef, keys, M, C, D, N, inv_tau, G);
+    const int64_t chunks = ((int64_t)M * C + kChunk - 1) / kChunk;
+    cand_chunk_kernel<<<(unsigned)chunks, kSortThreads, 0, st>>>(
+        reinterpret_cast<const unsigned*>(keys), n_live, order, runs, C, N, end_bit);
+  }
+  cand_segment_kernel<<<N, kThreads, 0, st>>>(user, coef, live, order, runs, n_live, dtable, C,
+                                              D, N, inv_tau, G);
   return (int)cudaGetLastError();
 }

@@ -58,6 +58,10 @@ from .attention import _launch
 from .vocab_ce import TILE, _sm_count, splits
 
 __all__ = [
+    "CAND_CHUNK",
+    "CAND_MAX_ENTRIES",
+    "CAND_RADIX_BITS",
+    "CAND_WARPS",
     "MAX_D",
     "SampledSoftmaxCandidates",
     "SampledSoftmaxShared",
@@ -75,6 +79,14 @@ __all__ = [
 ]
 
 MAX_D = 128  # the widest embedding the kernels take
+# K4's backward (csrc/sampled_softmax_cand.cu): warps of a row block (each
+# a slice of the row's candidates, and the most warps on one table row);
+# compact entries per chunk of the transpose, sorted 4 bits a pass (CUB's
+# block radix sort); the most compact entries (int32 indices)
+CAND_WARPS = 8
+CAND_CHUNK = 512 * 16
+CAND_RADIX_BITS = 4
+CAND_MAX_ENTRIES = 2**31 - 1 - CAND_CHUNK
 
 
 def _weighted_mean(loss: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -372,22 +384,16 @@ def _cand_kernels():
         i32, i32, i32, i32, f32,  # M, C, D, N, 1 / temperature
         ptr,  # stream
     ]
-    rows = lib.sampled_softmax_cand_rows_f32
-    rows.argtypes = [
+    bwd = lib.sampled_softmax_cand_bwd_f32
+    bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # user, ids, table, logz, s
-        ptr, ptr, ptr,  # du, coef, keys
+        ptr, ptr,  # du, dtable
+        ptr, ptr, ptr, ptr, ptr, ptr,  # scratch: live, n_live, coef, keys, order, runs
         i32, i32, i32, i32, f32,  # M, C, D, N, 1 / temperature
         ptr,  # stream
     ]
-    table = lib.sampled_softmax_cand_dtable_f32
-    table.argtypes = [
-        ptr, ptr, ptr, ptr,  # user, coef, sorted keys, their flat indices
-        ptr,  # dtable
-        i32, i32, i32, i32, f32,  # M, C, D, N, 1 / temperature
-        ptr,  # stream
-    ]
-    fwd.restype = rows.restype = table.restype = i32
-    return fwd, rows, table
+    fwd.restype = bwd.restype = i32
+    return fwd, bwd
 
 
 def _check_cand(fn: str, user, cand_ids, table) -> Tuple[int, int, int, int]:
@@ -437,6 +443,28 @@ def sampled_softmax_cand_fwd(
 sampled_softmax_cand_fwd.launches = 0
 
 
+def _cand_bwd(user, cand_ids, table, logz, s, temperature):
+    """Launches K4's backward; returns (du, dtable, scratch), scratch the
+    dict of its intermediate tensors (live, n_live, coef, keys, order,
+    runs), sized for every row live."""
+    fn = "sampled_softmax_cand_bwd"
+    M, C, D, N = _check_cand(fn, user, cand_ids, table)
+    _check_rows(fn, M, user, logz=logz, s=s)
+    if M * C > CAND_MAX_ENTRIES:
+        raise ValueError(f"{fn}: M * C = {M * C}; the kernels take at most "
+                         f"{CAND_MAX_ENTRIES} entries")
+    new = functools.partial(torch.empty, device=user.device)
+    du, dtable = new((M, D), dtype=torch.float32), new((N, D), dtype=torch.float32)
+    scratch = dict(live=new(M, dtype=torch.int32), n_live=new(1, dtype=torch.int32),
+                   coef=new(M * C, dtype=torch.float32), keys=new(M * C, dtype=torch.int32),
+                   order=new(M * C, dtype=torch.int32),
+                   runs=new((-(-M * C // CAND_CHUNK), N), dtype=torch.int32))
+    _launch(fn, _cand_kernels()[1], user.device, user.data_ptr(), cand_ids.data_ptr(),
+            table.data_ptr(), logz.data_ptr(), s.data_ptr(), du.data_ptr(), dtable.data_ptr(),
+            *(t.data_ptr() for t in scratch.values()), M, C, D, N, 1.0 / temperature)
+    return du, dtable, scratch
+
+
 def sampled_softmax_cand_bwd(
     user: torch.Tensor,
     cand_ids: torch.Tensor,
@@ -447,25 +475,14 @@ def sampled_softmax_cand_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-position backward kernels for row gradients ``s`` (M,) of
     logz - pos_logit, given the forward's logz: (du (M, D), dtable (N, D)).
-    A row kernel writes du and each entry's coefficient and id (the key N
-    on rows with s = 0, whose du is exactly 0); a stable sort of the ids
-    orders each table row's entries, and a segment kernel sums them in
-    that order. No atomics: reruns give the same bits.
+    The rows with s != 0 are listed on the card; a row kernel writes their
+    du and their entries' coefficients and ids (du is exactly 0 on the
+    other rows); a chunked stable counting transpose of the ids orders each
+    table row's entries as a stable sort would, and a segment kernel sums
+    them in that order. No float atomics and no host synchronisation:
+    reruns give the same bits, and a CUDA graph captures it.
     ``sampled_softmax_cand_bwd.launches`` counts its calls."""
-    fn = "sampled_softmax_cand_bwd"
-    M, C, D, N = _check_cand(fn, user, cand_ids, table)
-    _check_rows(fn, M, user, logz=logz, s=s)
-    new = functools.partial(torch.empty, device=user.device)
-    du, dtable = new((M, D), dtype=torch.float32), new((N, D), dtype=torch.float32)
-    coef, keys = new((M, C), dtype=torch.float32), new((M, C), dtype=torch.int32)
-    _, rows, segments = _cand_kernels()
-    inv_tau = 1.0 / temperature
-    _launch(fn, rows, user.device, user.data_ptr(), cand_ids.data_ptr(), table.data_ptr(),
-            logz.data_ptr(), s.data_ptr(), du.data_ptr(), coef.data_ptr(), keys.data_ptr(),
-            M, C, D, N, inv_tau)
-    sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
-    _launch(fn, segments, user.device, user.data_ptr(), coef.data_ptr(), sorted_keys.data_ptr(),
-            order.data_ptr(), dtable.data_ptr(), M, C, D, N, inv_tau)
+    du, dtable, _ = _cand_bwd(user, cand_ids, table, logz, s, temperature)
     sampled_softmax_cand_bwd.launches += 1
     return du, dtable
 

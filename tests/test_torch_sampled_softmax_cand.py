@@ -144,3 +144,179 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         L.sampled_softmax_cand_bwd(user, ids, table, rows, rows, 0.1)
     assert L.sampled_softmax_cand_fwd.launches == 0
     assert L.sampled_softmax_cand_bwd.launches == 0
+
+
+# ------------------------------------------- K4's backward, as the kernels run it
+def _radix_pass(keys, idx, shift):
+    """One pass of a stable LSD radix sort: ``idx`` reordered by the
+    CAND_RADIX_BITS digit of its keys at ``shift``, ties kept in order
+    (digit by digit, as a counting pass places them)."""
+    digit = (keys[idx] >> shift) & ((1 << L.CAND_RADIX_BITS) - 1)
+    return np.concatenate([idx[digit == d] for d in range(1 << L.CAND_RADIX_BITS)])
+
+
+def emulated_bwd(user, ids, table, logz, s, tau, chunk=L.CAND_CHUNK):
+    """(du, dtable, keys, perm, S) as K4's backward kernels compute them:
+    the rows with s != 0 listed in order (cand_live_kernel); per listed
+    row, du as the sum over CAND_WARPS slices of its candidates added in
+    slice order, and its entries' coef and clamped id at (list position)
+    * C + c (cand_rows_kernel); chunks of ``chunk`` compact entries, each
+    sorted by id in radix passes, with each id's (start, count) run in it
+    (cand_chunk_kernel); table row n's entries as its runs in chunk order,
+    walked by S warps over ranges of chunks whose partial sums are added in
+    warp order (cand_segment_kernel). ``keys`` are the compact ids and
+    ``perm`` the order in which the segments visit the compact entries."""
+    M, D = user.shape
+    C, N = ids.shape[1], table.shape[0]
+    inv_tau = 1.0 / tau
+    taken = L._take_ids(ids, N)
+    live = torch.nonzero(s != 0).flatten()
+    cand = table[taken[live]]  # (live, C, D)
+    logits = torch.einsum("md,mcd->mc", user[live], cand) / tau
+    onehot = torch.zeros_like(logits)
+    onehot[:, 0] = 1.0
+    coef = s[live, None] * (torch.exp(logits - logz[live, None]) - onehot)
+    du = torch.zeros(M, D)
+    slice_ = -(-C // L.CAND_WARPS)
+    part = torch.zeros(len(live), D)
+    for lo in range(0, C, slice_):
+        part = part + (coef[:, lo:lo + slice_, None] * cand[:, lo:lo + slice_]).sum(1)
+    du[live] = part * inv_tau
+    keys = taken[live].reshape(-1).numpy()
+    coef = coef.reshape(-1)
+    entries = len(keys)
+    chunks = -(-entries // chunk)
+    end_bit = N.bit_length()
+    order = np.empty(entries, dtype=np.int64)
+    runs = np.zeros((chunks, N, 2), dtype=np.int64)  # (start, count)
+    for k in range(chunks):
+        base = k * chunk
+        idx = np.arange(min(chunk, entries - base))
+        for shift in range(0, end_bit, L.CAND_RADIX_BITS):
+            idx = _radix_pass(keys[base:], idx, shift)
+        order[base:base + len(idx)] = base + idx
+        ids_k, starts, counts = np.unique(keys[base + idx], return_index=True,
+                                          return_counts=True)
+        runs[k, ids_k] = np.stack([starts, counts], axis=1)
+    mean = entries // N
+    S = 1 if mean < 512 else 2 if mean < 1024 else 4 if mean < 2048 else L.CAND_WARPS
+    dtable, perm = torch.zeros(N, D), []
+    for n in range(N):
+        total = torch.zeros(D)
+        for sub in range(S):
+            ks = range(chunks * sub // S, chunks * (sub + 1) // S)
+            e = np.concatenate([order[k * chunk + runs[k, n, 0]:][:runs[k, n, 1]] for k in ks]
+                               or [np.zeros(0, dtype=np.int64)])
+            perm.append(e)
+            rows = live[torch.from_numpy(e // C)]
+            total = total + (coef[torch.from_numpy(e)][:, None] * user[rows]).sum(0)
+        dtable[n] = total * inv_tau
+    return du, dtable, keys, np.concatenate(perm), S
+
+
+def _bwd_inputs(M, C, D, N, seed, zero_share, bad_ids):
+    user, ids, table, w = _inputs(M, C, D, N, seed=seed, zero_share=zero_share)
+    if zero_share >= 1.0:
+        w[:] = 0.0
+    if bad_ids:  # taken as JAX's gather takes them
+        ids[0, 1], ids[3, 2], ids[5, 0], ids[6, C - 1] = -1, -N, N, N + 1000
+    return user, ids, table, w
+
+
+# (M, C, D, N, tau, zero share, out-of-range ids, chunk): the JAX test's
+# shape; ids repeated within and across rows; heavy table rows split over
+# 2, 4 and 8 warps (N 16-40); the toy store's 300 items; no weighted row;
+# and the kernel's own chunk
+BWD_CASES = {
+    "jax_test_bad_ids": (64, 5, 8, 16, 1.0, 0.3, True, 64),
+    "many_repeats": (300, 9, 8, 12, 0.3, 0.3, True, 128),
+    "heavy_S2": (256, 129, 8, 40, 0.2, 0.3, False, 1000),
+    "heavy_S4": (400, 65, 8, 16, 0.5, 0.3, True, 2048),
+    "heavy_S8": (1024, 65, 8, 16, 0.1, 0.3, False, 4096),
+    "toy_store_N300": (256, 65, 16, 300, 0.05, 0.449, True, 512),
+    "all_zero_rows": (48, 7, 8, 16, 0.3, 1.0, False, 64),
+    "kernel_chunk": (300, 33, 12, 50, 0.1, 0.5, True, L.CAND_CHUNK),
+}
+
+
+def _out_of_range_share(user, ids, table, logz, s, tau):
+    """(N, D): what the entries whose ids lie outside [-N, N) add to the
+    rows they are clamped to. JAX's forward clamps such an id, but its
+    gradient (a scatter that drops out-of-range indices) leaves it out of
+    the table's gradient; the port, plain version and kernels alike, adds
+    it to the clamped row."""
+    N = table.shape[0]
+    taken = L._take_ids(ids, N)
+    logits = torch.einsum("md,mcd->mc", user, table[taken]) / tau
+    onehot = torch.zeros_like(logits)
+    onehot[:, 0] = 1.0
+    coef = s[:, None] * (torch.exp(logits - logz[:, None]) - onehot)
+    outside = (ids < -N) | (ids >= N)
+    contrib = (coef * outside)[:, :, None] * user[:, None, :]
+    return torch.zeros_like(table).index_add_(0, taken.reshape(-1),
+                                              contrib.reshape(-1, user.shape[1])) / tau
+
+
+def test_out_of_range_ids_differ_from_jax_only_in_the_table_gradient():
+    """The one difference from JAX's gradient: the plain backward's dtable
+    is JAX's plus what the out-of-range entries add to their clamped rows
+    (nonzero here); du and the loss agree."""
+    M, C, D, N, tau = 64, 5, 8, 16, 0.5
+    user, ids, table, w = _bwd_inputs(M, C, D, N, 3, 0.3, True)
+    w[5] = w[6] = 1.0  # the rows holding ids N and N + 1000
+    ut, it, tt = _t(user), _t(ids), _t(table)
+    logz, _ = L.sampled_softmax_cand_rows_reference(ut, it, tt, tau)
+    s = _t(w / max(w.sum(), 1.0))
+    du, dtable = L.sampled_softmax_cand_bwd_reference(ut, it, tt, logz, s, tau)
+    share = _out_of_range_share(ut, it, tt, logz, s, tau)
+    assert float(share.abs().max()) > 1e-3
+    gu, gt = jax.grad(lambda u, t: L_jax.sampled_softmax_loss_reference(
+        u, jnp.asarray(ids), t, w, tau), argnums=(0, 1))(user, table)
+    np.testing.assert_allclose(du.numpy(), np.asarray(gu), rtol=0, atol=ATOL)
+    np.testing.assert_allclose((dtable - share).numpy(), np.asarray(gt), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=list(BWD_CASES))
+def test_emulated_backward_matches_jax_grads(case):
+    """The kernels' algorithm (emulated) against ``jax.grad`` of the JAX
+    reference and of its chunked scan, within atol 1e-5 (float32 sums of
+    C and of each table row's entries in other orders), dtable less what
+    out-of-range ids add to their clamped rows (JAX drops it; see
+    ``_out_of_range_share``); du exactly 0 on rows of weight 0 and dtable
+    on table rows that no weighted row drew."""
+    M, C, D, N, tau, zero_share, bad_ids, chunk = BWD_CASES[case]
+    user, ids, table, w = _bwd_inputs(M, C, D, N, M + C, zero_share, bad_ids)
+    ut, it, tt = _t(user), _t(ids), _t(table)
+    logz, _ = L.sampled_softmax_cand_rows_reference(ut, it, tt, tau)
+    s = _t(w / max(w.sum(), 1.0))
+    du, dtable, _, _, S = emulated_bwd(ut, it, tt, logz, s, tau, chunk=chunk)
+    share = _out_of_range_share(ut, it, tt, logz, s, tau)
+    for loss in (L_jax.sampled_softmax_loss_reference,
+                 lambda u, i, t, w_, tau_: L_jax.sampled_softmax_loss(u, i, t, w_, tau_,
+                                                                      chunk=128)):
+        gu, gt = jax.grad(lambda u, t: loss(u, jnp.asarray(ids), t, w, tau),
+                          argnums=(0, 1))(user, table)
+        np.testing.assert_allclose(du.numpy(), np.asarray(gu), rtol=0, atol=ATOL)
+        np.testing.assert_allclose((dtable - share).numpy(), np.asarray(gt), rtol=0,
+                                   atol=ATOL)
+    assert not du[_t(w) == 0].any()
+    drawn = np.zeros(N, dtype=bool)
+    drawn[L._take_ids(it[_t(w) > 0], N).reshape(-1).numpy()] = True
+    assert not dtable[torch.from_numpy(~drawn)].any()
+    if case.startswith("heavy_S"):
+        assert S == int(case[-1])
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=list(BWD_CASES))
+def test_transpose_order_is_the_stable_sort(case):
+    """The order in which the segments visit the compact entries (runs of
+    chunks sorted in radix passes, in chunk order) is exactly the stable
+    sort of the compacted ids."""
+    M, C, D, N, tau, zero_share, bad_ids, chunk = BWD_CASES[case]
+    user, ids, table, w = _bwd_inputs(M, C, D, N, M + C, zero_share, bad_ids)
+    ut, it, tt = _t(user), _t(ids), _t(table)
+    logz, _ = L.sampled_softmax_cand_rows_reference(ut, it, tt, tau)
+    s = _t(w / max(w.sum(), 1.0))
+    _, _, keys, perm, _ = emulated_bwd(ut, it, tt, logz, s, tau, chunk=chunk)
+    assert len(keys) == int((w != 0).sum()) * C
+    np.testing.assert_array_equal(perm, np.argsort(keys, kind="stable"))
