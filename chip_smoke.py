@@ -53,14 +53,18 @@ Phases, one JSON line each; any failure exits non-zero:
 8. quality — the toy store's SASRec protocol for 5 seeds on the card;
    the mean best NDCG@10 must lie in the store's band.
 9. kernels_vocab_ce — the full-vocabulary CE kernels (vocab_ce_fwd,
-   vocab_ce_bwd, the latter on the tensor cores in split-precision TF32)
+   vocab_ce_bwd, both on the tensor cores in split-precision TF32)
    against their plain version at BERT4Rec's training shape and at
-   ragged, widest-D and large-logit shapes (and dh exactly 0 on rows
-   whose loss gradient is 0), the gradients within 1e-5 relative of a
-   float64 run of the plain version; at the training shape a rerun with
-   the same bits, the library call's float64 error beside, and CUDA-event
-   times beside the plain version, F.cross_entropy over torch.addmm, and
-   the bounds (the backward's at the float32 and the TF32 rate). (Phase
+   ragged, widest-D and large-logit shapes (loss and logz; dh exactly 0
+   on rows whose loss gradient is 0), the gradients within 1e-5 relative
+   of a float64 run of the plain version, the forward rerun for the same
+   bits; at the training shape a rerun of the gradients with the same
+   bits, the library call's float64 error beside, the forward's ptxas
+   lines, and times by CUDA events and on the device clock (CUDA graphs)
+   beside the plain version, F.cross_entropy over torch.addmm and the
+   bounds (each at the TF32 and the float32 rate); labels outside
+   [0, V), in the band JAX's kernel pads to 128 columns too, pick no
+   logit (loss = logz, gradients those of the logsumexp). (Phase
    3 also checks K1 and K2 at BERT4Rec's attention shape: 4 heads of 16,
    key padding, rows with every key padded.)
 10. bert4rec_slice, bert4rec_profile — phases 4 and 5 for BERT4Rec at
@@ -833,10 +837,12 @@ def _ce_library(h, weight, b, labels):
 
 
 def check_vocab_ce(rng):
-    """K3 against its plain version on the card, forward and backward, and
-    its gradients against a float64 run of the plain version; at the timed
-    shape, a rerun with the same bits, the library call's float64 error
-    beside the kernel's, and times."""
+    """K3 against its plain version on the card, forward (loss, and logz
+    against the logits' logsumexp) and backward, and its gradients against
+    a float64 run of the plain version; every case reruns the forward for
+    the same bits; at the timed shape, a rerun of the gradients with the
+    same bits, the library call's float64 error beside the kernel's, and
+    times."""
     import torch
 
     from recboard_tpu_torch.ops import vocab_ce as K
@@ -844,21 +850,29 @@ def check_vocab_ce(rng):
     rows, worst = [], dict(fwd=0.0, bwd=0.0)
     for case in CE_SHAPES + CE_EXTRA:
         inp = ce_inputs(case, rng)
+        h, weight, b, labels, g = inp
         want, want_g = _ce_grads(K.fullvocab_ce_rows_reference, *inp)
         got, got_g = _ce_grads(K.fullvocab_ce_rows, *inp)
         f64_g = _ce_float64_grads(*inp)
+        loss, logz = K.vocab_ce_fwd(h.detach(), weight.detach().T, b.detach(), labels)
+        again = K.vocab_ce_fwd(h.detach(), weight.detach().T, b.detach(), labels)
+        with torch.no_grad():
+            want_logz = torch.logsumexp(torch.addmm(b, h, weight.T), -1)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        logz_err = float((logz - want_logz).abs().max())
+        fwd_same_bits = torch.equal(loss, again[0]) and torch.equal(logz, again[1])
         grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
         grad_rel = grad_rel_err(got_g, want_g)
         grad_f64 = grad_rel_err(got_g, f64_g)
-        finite = all(bool(torch.isfinite(x).all()) for x in [got] + got_g)
+        finite = all(bool(torch.isfinite(x).all()) for x in [got, logz] + got_g)
         # rows whose loss gradient is 0 contribute exactly nothing
-        zero_rows_exact = not bool(got_g[0][inp[-1] == 0].any())
-        worst["fwd"] = max(worst["fwd"], err)
+        zero_rows_exact = not bool(got_g[0][g == 0].any())
+        worst["fwd"] = max(worst["fwd"], err, logz_err)
         worst["bwd"] = max(worst["bwd"], grad_err)
         row = dict(shape=case[0], M=case[1], D=case[2], V=case[3], max_abs_err=err,
-                   tol=CE_TOL, grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
+                   logz_max_abs_err=logz_err, tol=CE_TOL, fwd_rerun_same_bits=fwd_same_bits,
+                   grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
                    grad_rel_tol=GRAD_TOL, grad_f64_rel_err=grad_f64,
                    grad_f64_rel_tol=CE_F64_TOL, plain_grad_f64_rel_err=grad_rel_err(
                        want_g, f64_g),
@@ -866,34 +880,71 @@ def check_vocab_ce(rng):
                    max_loss=float(want.abs().max()))
         same_bits = True
         if case in CE_SHAPES:
-            again = _ce_grads(K.fullvocab_ce_rows, *inp)[1]
-            same_bits = all(torch.equal(a, b) for a, b in zip(got_g, again))
-            h, weight, b, labels, g = inp
+            again_g = _ce_grads(K.fullvocab_ce_rows, *inp)[1]
+            same_bits = all(torch.equal(a, b) for a, b in zip(got_g, again_g))
             lib_g = list(torch.autograd.grad(_ce_library(h, weight.T, b, labels),
                                              (h, weight, b), g))
             row.update(rerun_same_bits=same_bits,
-                       library_grad_f64_rel_err=grad_rel_err(lib_g, f64_g))
+                       library_grad_f64_rel_err=grad_rel_err(lib_g, f64_g),
+                       fwd_ptxas=ptxas_lines("vocab_ce", "vocab_ce_fwd_kernel"))
             row.update(time_vocab_ce(*inp))
-            del again, lib_g
+            del again_g, lib_g
         emit("kernels", kernel="vocab_ce", **row)
-        if (not finite or not zero_rows_exact or not err <= CE_TOL
-                or not grad_rel <= GRAD_TOL or not grad_f64 <= CE_F64_TOL or not same_bits):
+        if (not finite or not zero_rows_exact or not err <= CE_TOL or not logz_err <= CE_TOL
+                or not grad_rel <= GRAD_TOL or not grad_f64 <= CE_F64_TOL or not same_bits
+                or not fwd_same_bits):
             raise SystemExit(f"vocab_ce disagrees with its plain version at {case[0]}: "
-                             f"loss {err}, grads {grad_rel} (float64 {grad_f64}), zero rows "
-                             f"exact {zero_rows_exact}, rerun same bits {same_bits}")
+                             f"loss {err}, logz {logz_err}, grads {grad_rel} (float64 "
+                             f"{grad_f64}), zero rows exact {zero_rows_exact}, rerun same "
+                             f"bits {same_bits} (forward {fwd_same_bits})")
         rows.append(row)
-        del inp, want, want_g, got, got_g, f64_g
+        del inp, want, want_g, got, got_g, f64_g, loss, logz, again
+    check_vocab_ce_labels_outside(rng)
     return rows, worst
 
 
+def check_vocab_ce_labels_outside(rng) -> None:
+    """K3 with every label outside [0, V): in [V, round_up(V, 128)),
+    where JAX's kernel picks a padded column of bias -1e30 (not
+    reproduced), past that band, and negative. Each picks no logit: the
+    forward's loss is exactly its logz, which holds the logits'
+    logsumexp within CE_TOL, and the gradients are the logsumexp's
+    within GRAD_TOL."""
+    import torch
+
+    from recboard_tpu_torch.ops import vocab_ce as K
+
+    case = ("labels_outside", 70, 16, 300, False)
+    h, weight, b, _, g = ce_inputs(case, rng)
+    V = case[3]
+    Vp = -(-V // K.VOCAB_TILE) * K.VOCAB_TILE
+    outside = np.resize([V, V + 1, Vp - 1, Vp, 10 * V, -1, -V, -10 * V], case[1])
+    labels = torch.from_numpy(outside.astype(np.int64)).cuda()
+    loss, logz = K.vocab_ce_fwd(h.detach(), weight.detach().T, b.detach(), labels)
+    got_g = _ce_grads(K.fullvocab_ce_rows, h, weight, b, labels, g)[1]
+    want, want_g = _ce_grads(lambda h, W, b, y: torch.logsumexp(torch.addmm(b, h, W), -1),
+                             h, weight, b, labels, g)
+    torch.cuda.synchronize()
+    row = dict(shape=case[0], M=case[1], D=case[2], V=V, padded_V=Vp,
+               loss_is_logz=torch.equal(loss, logz),
+               logz_max_abs_err=float((logz - want).abs().max()), tol=CE_TOL,
+               grad_rel_err=grad_rel_err(got_g, want_g), grad_rel_tol=GRAD_TOL)
+    emit("kernels", kernel="vocab_ce", **row)
+    if (not row["loss_is_logz"] or not row["logz_max_abs_err"] <= CE_TOL
+            or not row["grad_rel_err"] <= GRAD_TOL):
+        raise SystemExit(f"vocab_ce: a label outside [0, V) must pick no logit: {row}")
+
+
 def time_vocab_ce(h, weight, b, labels, g) -> dict:
-    """CUDA-event times of K3's forward and backward, its plain version and
-    F.cross_entropy over torch.addmm (forward, and autograd backward) at
-    one shape, with the bounds: the forward 2*M*D*V FLOP at the float32
-    rate; the backward 6*M*D*V (the logits again, dh and dW, the TPU
-    kernel's work) at the float32 rate and, as the least time, three times
-    that at the TF32 rate (split precision keeps float32's accuracy); each
-    input read once and each output written once."""
+    """Times of K3's forward and backward, by CUDA events and on the device
+    clock (CUDA-graph replays, which also show that neither wrapper waits
+    on the host), of its plain version and of F.cross_entropy over
+    torch.addmm (forward, also from a graph, and autograd backward). The
+    bounds: each input read
+    once and each output written once; the forward 2*M*D*V FLOP and the
+    backward 6*M*D*V (the logits again, dh and dW, the TPU kernel's work),
+    as the least time three times that at the TF32 rate (split precision
+    keeps float32's accuracy) and beside it at the float32 rate."""
     import torch
 
     from recboard_tpu_torch.ops import vocab_ce as K
@@ -902,6 +953,13 @@ def time_vocab_ce(h, weight, b, labels, g) -> dict:
     M, D = hd.shape
     V = W.shape[1]
     loss, logz = K.vocab_ce_fwd(hd, W, bd, labels)
+    slots = K._sm_count(hd.device.index) * K.fwd_blocks_per_sm(D)
+
+    def fwd():
+        return K.vocab_ce_fwd(hd, W, bd, labels)
+
+    def bwd():
+        return K.vocab_ce_bwd(hd, W, bd, labels, logz, g)
 
     def plain_fwd():
         with torch.no_grad():
@@ -914,22 +972,30 @@ def time_vocab_ce(h, weight, b, labels, g) -> dict:
     def library_fwd_bwd():
         torch.autograd.grad(_ce_library(h, weight.T, b, labels), (h, weight, b), g)
 
-    fwd_bound = bound(nbytes(hd, W, bd, labels, loss, logz), 2 * M * D * V)
+    fwd_bytes = nbytes(hd, W, bd, labels, loss, logz)
+    fwd_f32 = bound(fwd_bytes, 2 * M * D * V)
+    fwd_tf32 = bound(fwd_bytes, 3 * 2 * M * D * V, TF32_FLOP_PER_S)
     bwd_bytes = nbytes(hd, W, bd, labels, logz, g) + nbytes(hd, W, bd)
     bwd_f32 = bound(bwd_bytes, 6 * M * D * V)
     bwd_tf32 = bound(bwd_bytes, 3 * 6 * M * D * V, TF32_FLOP_PER_S)
     plain_ms = cuda_ms(plain_fwd, iters=20, warmup=3)
     lib_ms = cuda_ms(library_fwd, iters=20, warmup=3)
     return dict(
-        fwd_ms=cuda_ms(lambda: K.vocab_ce_fwd(hd, W, bd, labels), iters=50, warmup=5),
-        bwd_ms=cuda_ms(lambda: K.vocab_ce_bwd(hd, W, bd, labels, logz, g), iters=20, warmup=3),
+        fwd_ms=cuda_ms(fwd, iters=50, warmup=5),
+        fwd_graph_ms=graph_ms(fwd, calls=20),
+        fwd_blocks_per_sm=K.fwd_blocks_per_sm(D),
+        fwd_splits=K.splits(-(-V // K.VOCAB_TILE), -(-M // K.ROW_TILE), slots),
+        bwd_ms=cuda_ms(bwd, iters=20, warmup=3),
+        bwd_graph_ms=graph_ms(bwd, calls=10),
         plain_fwd_ms=plain_ms,
         plain_bwd_ms=cuda_ms(lambda: _ce_grads(K.fullvocab_ce_rows_reference,
                                                h, weight, b, labels, g),
                              iters=10, warmup=3) - plain_ms,
         library_fwd_ms=lib_ms,
+        library_fwd_graph_ms=graph_ms(library_fwd, calls=10),
         library_bwd_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=3) - lib_ms,
-        fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        fwd_bound_ms=fwd_tf32[0], fwd_bound_by=fwd_tf32[1],
+        fwd_f32_bound_ms=fwd_f32[0], fwd_f32_bound_by=fwd_f32[1],
         bwd_bound_ms=bwd_tf32[0], bwd_bound_by=bwd_tf32[1],
         bwd_f32_bound_ms=bwd_f32[0], bwd_f32_bound_by=bwd_f32[1],
     )
@@ -2221,10 +2287,13 @@ def main(argv=None) -> int:
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
-    # and SDPA's beside them, take the device clock (CUDA graphs), as does
-    # K4's backward (four kernels behind one wrapper call)
+    # and SDPA's beside them, take the device clock (CUDA graphs), as do
+    # K4's backward (four kernels behind one wrapper call) and K3 (its
+    # forward beside the library's from a graph too)
     serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
     cand = dict(ssc_rows[0], bwd_ms=ssc_rows[0]["bwd_graph_ms"])
+    ce = dict(ce, fwd_ms=ce["fwd_graph_ms"], library_fwd_ms=ce["library_fwd_graph_ms"],
+              bwd_ms=ce["bwd_graph_ms"])
     training = dict(training, fwd_ms=training["fwd_graph_ms"],
                     library_fwd_ms=training["library_fwd_graph_ms"],
                     bwd_ms=training["bwd_graph_ms"])

@@ -1,5 +1,5 @@
 // Float32-accurate tile products on Hopper's tensor cores (sm_90a) through
-// mma.sync m16n8k8 TF32, for the backward kernels of vocab_ce.cu and the
+// mma.sync m16n8k8 TF32, for the kernels of vocab_ce.cu and the
 // attention kernels (attn_fwd_tc.cuh, mha_dropout.cu's backward).
 //
 // Split precision ("3xTF32"): each float32 operand x is cut into
@@ -10,7 +10,8 @@
 // exact in float32, so the result keeps float32 accuracy at three
 // tensor-core products where one alone keeps about three digits. The split
 // is done in registers as fragments are loaded, so shared memory holds the
-// float32 tiles only.
+// float32 tiles only; or once per tile (split_tile, SplitTile), where many
+// warps read one tile.
 //
 // Shared tiles are row-major with `ld` floats a row (a multiple of 32), the
 // 16-byte chunks of each row permuted by an XOR of the row's low three bits:
@@ -76,15 +77,23 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const FragA& a, const Fra
 // lands in lane 4g + t, which is the A fragment's and the B fragment's
 // layout. (Its .trans form moves 16-bit halves, so a B fragment read down a
 // tile's columns is loaded word by word.)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const float* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// this lane's ldmatrix address in a tile for the A fragment of rows m0..
+// and columns k0..
+__device__ __forceinline__ int a_offset(int m0, int k0, int ld) {
+  const int l = threadIdx.x % 32, blk = l / 8;
+  return at(m0 + l % 8 + 8 * (blk & 1), k0 + 4 * (blk >> 1), ld);
+}
 
 // the A fragment of rows m0.. and columns k0.. of a tile (ld floats a row)
 __device__ __forceinline__ void load_a(FragA& a, const float* s, int m0, int k0, int ld) {
-  const int l = threadIdx.x % 32, blk = l / 8;
   uint32_t r[4];
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(
-      s + at(m0 + l % 8 + 8 * (blk & 1), k0 + 4 * (blk >> 1), ld));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  ldmatrix_x4(r, s + a_offset(m0, k0, ld));
 #pragma unroll
   for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(r[q]), a.hi[q], a.lo[q]);
 }
@@ -95,14 +104,41 @@ __device__ __forceinline__ void load_b_rows2(FragB b[2], const float* s, int n0,
                                              int ld) {
   const int l = threadIdx.x % 32, blk = l / 8;
   uint32_t r[4];
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(
-      s + at(n0 + l % 8 + 8 * (blk >> 1), k0 + 4 * (blk & 1), ld));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  ldmatrix_x4(r, s + at(n0 + l % 8 + 8 * (blk >> 1), k0 + 4 * (blk & 1), ld));
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     split_tf32(__uint_as_float(r[2 * j]), b[j].hi[0], b[j].lo[0]);
     split_tf32(__uint_as_float(r[2 * j + 1]), b[j].hi[1], b[j].lo[1]);
+  }
+}
+
+// A tile split once into its TF32 hi and lo parts (split_tile), held as two
+// tiles of one layout: its A fragments load with no split
+struct SplitTile {
+  const float* hi;
+  const float* lo;
+};
+
+__device__ __forceinline__ void load_a(FragA& a, SplitTile s, int m0, int k0, int ld) {
+  const int o = a_offset(m0, k0, ld);
+  ldmatrix_x4(a.hi, s.hi + o);
+  ldmatrix_x4(a.lo, s.lo + o);
+}
+
+// the N floats of a staged tile (src) split into hi and lo tiles of the
+// same layout, as split_tf32 splits them; src may be hi (split in place)
+template <int N, int THREADS>
+__device__ __forceinline__ void split_tile(const float* src, float* hi, float* lo) {
+#pragma unroll
+  for (int i = threadIdx.x; i < N / 4; i += THREADS) {
+    const float4 x = reinterpret_cast<const float4*>(src)[i];
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    reinterpret_cast<uint4*>(hi)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
   }
 }
 

@@ -14,7 +14,8 @@
 //             dtable[n] = sum over (m, c) with ids[m, c] = n of coef[m, c] u[m] / tau.
 // Ids are taken as JAX's gather takes them: a negative id counts from the
 // end of the table, and the result is clamped into [0, N). No kernel reads
-// outside the table.
+// outside the table. An id outside [-N, N) still enters the logits and du,
+// but adds nothing to dtable: JAX's gradient, a scatter, drops it.
 //
 // What bounds it on an H100: operations. At HSTU's training shape (M = 256 x
 // 50 = 12,800 rows, C = 513, D = 64, N = 12,101) the forward is 2*M*C*D =
@@ -59,6 +60,8 @@
 //     same bits.
 // The products are scalar FMAs: a first kernel that is right and simple.
 
+#include <climits>
+
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 
@@ -100,9 +103,10 @@ __device__ __forceinline__ float group_sum(float x, int G) {
 }
 
 // Walks the C candidates of row `m` group by group: for every candidate c of
-// this lane's group, in increasing order, calls visit(c, id, e, logit) with
-// its clamped id, this lane's float4 e of the table row, and the logit.
-// Every lane of the warp runs the same steps (the shuffles need them all).
+// this lane's group, in increasing order, calls visit(c, id, in_table, e,
+// logit) with its clamped id, whether its raw id lay in [-N, N), this lane's
+// float4 e of the table row, and the logit. Every lane of the warp runs the
+// same steps (the shuffles need them all).
 template <typename Visit>
 __device__ __forceinline__ void for_candidates(const float4 uv, const int* __restrict__ row_ids,
                                                const float* __restrict__ table, int C, int D,
@@ -110,7 +114,12 @@ __device__ __forceinline__ void for_candidates(const float4 uv, const int* __res
   const int lane = threadIdx.x % 32;
   const int g = lane / G, q = lane % G, P = 32 / G;
   for (int c0 = 0; c0 < C; c0 += 32) {
-    const int own = c0 + lane < C ? clamp_id(row_ids[c0 + lane], N) : 0;
+    // the clamped id, with bit 31 set when the raw id lay outside [-N, N)
+    int own = 0;
+    if (c0 + lane < C) {
+      const int raw = row_ids[c0 + lane];
+      own = clamp_id(raw, N) | (raw >= -N && raw < N ? 0 : INT_MIN);
+    }
     for (int k0 = 0; k0 < 32 && c0 + k0 < C; k0 += kUnroll * P) {
       float4 e[kUnroll];
       int id[kUnroll];
@@ -118,13 +127,13 @@ __device__ __forceinline__ void for_candidates(const float4 uv, const int* __res
       for (int j = 0; j < kUnroll; ++j) {
         const int k = k0 + j * P + g;
         id[j] = __shfl_sync(kFull, own, k & 31);
-        e[j] = load4(table + (int64_t)id[j] * D, q, D);
+        e[j] = load4(table + (int64_t)(id[j] & INT_MAX) * D, q, D);
       }
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
         const int k = k0 + j * P + g;
         const float x = group_sum(dot4(uv, e[j]), G) * inv_tau;
-        if (k < 32 && c0 + k < C) visit(c0 + k, id[j], e[j], x);
+        if (k < 32 && c0 + k < C) visit(c0 + k, id[j] & INT_MAX, id[j] >= 0, e[j], x);
       }
     }
   }
@@ -141,7 +150,7 @@ cand_fwd_kernel(const float* __restrict__ user, const int* __restrict__ ids,
   const float4 uv = load4(user + m * D, lane % G, D);
   float mx = -INFINITY, sum = 0.f, pl = 0.f;
   for_candidates(uv, ids + m * C, table, C, D, N, inv_tau, G,
-                       [&](int c, int, float4, float x) {
+                       [&](int c, int, bool, float4, float x) {
                          if (c == 0) pl = x;
                          if (x > mx) {
                            sum = sum * expf(mx - x) + 1.f;  // exp(-inf) = 0 on the first
@@ -193,9 +202,9 @@ cand_live_kernel(const float* __restrict__ s, int* __restrict__ live, int* __res
 
 // Backward, 2: the blocks zero du of the rows with s = 0, and block b
 // takes the listed rows b, b + gridDim.x, ...: for m = live[b], du[m] and
-// the coef and clamped id of its C entries at b * C + c. Warp w walks
-// candidates [w * slice, (w + 1) * slice); the warps' du are added in warp
-// order.
+// the coef (0 for an id outside [-N, N)) and clamped id of its C entries
+// at b * C + c. Warp w walks candidates [w * slice, (w + 1) * slice); the
+// warps' du are added in warp order.
 __global__ void __launch_bounds__(kThreads)
 cand_rows_kernel(const float* __restrict__ user, const int* __restrict__ ids,
                  const float* __restrict__ table, const float* __restrict__ logz,
@@ -221,14 +230,14 @@ cand_rows_kernel(const float* __restrict__ user, const int* __restrict__ ids,
     if (n_c > 0)
       for_candidates(
           uv, ids + m * C + c_lo, table, n_c, D, N, inv_tau, G,
-          [&](int c, int id, float4 e, float x) {
+          [&](int c, int id, bool in_table, float4 e, float x) {
             const float cf = s * (expf(x - z) - (c_lo + c == 0 ? 1.f : 0.f));
             acc.x = fmaf(cf, e.x, acc.x);
             acc.y = fmaf(cf, e.y, acc.y);
             acc.z = fmaf(cf, e.z, acc.z);
             acc.w = fmaf(cf, e.w, acc.w);
-            if (q == 0) {
-              coef_row[c] = cf;
+            if (q == 0) {  // an id outside [-N, N) adds nothing to dtable, as in JAX
+              coef_row[c] = in_table ? cf : 0.f;
               key_row[c] = id;
             }
           });

@@ -11,11 +11,30 @@
 // arrives in its (V, D) row-major storage (what fc.weight is), and dW is
 // written in that layout too.
 //
-// The forward (scalar FMAs on tiles.cuh's 64 x 64 tiles, an online
-// logsumexp per row, vocabulary loops split across blocks and merged in a
-// fixed order) is 2*M*D*V = 15.9 GFLOP at BERT4Rec's training shape (M =
-// 10,240 selected rows, D = 64, V = 12,103), 237 us at the 67 TFLOP/s
-// float32 rate.
+// The forward. What bounds it on an H100: operations. Its work is 2*M*D*V
+// = 15.9 GFLOP at BERT4Rec's training shape (M = 10,240 selected rows, D =
+// 64, V = 12,103): 237 us at the 67 TFLOP/s float32 rate without tensor
+// cores, 96 us as three TF32 products at the 495 TFLOP/s tensor-core rate;
+// its inputs are 3.5 MB. So it runs on the tensor cores as the backward
+// does, and shares its logits: the same tile_logits, in the same fragment
+// order, so the backward's recomputed logits have the bits of those that
+// made logz:
+//   * a block takes a 64-row tile of h and a split of the 128-entry
+//     vocabulary tiles; h's tile is split once into TF32 hi and lo tiles in
+//     shared memory (its fragments are read by 4 warps each), and W's tiles
+//     are double-buffered by cp.async in float32 and split as fragments
+//     load (each read by 2 warps): splitting them once instead needs a third
+//     tile, one block an SM at D 64, and measured slower;
+//   * an online logsumexp on the accumulator fragments: each thread keeps
+//     (max, sum, label's logit) for its 4 rows over its 8 entries of every
+//     tile (bias added, -inf past V, exp2 of x - max), merged over the quad
+//     and then the 4 warps of a row at the end, in a fixed order; the
+//     logits never leave registers;
+//   * two blocks an SM up to D 64 (96 KB of shared memory each, at most 128
+//     registers a thread), one at D 128 (192 KB); the wrapper sizes the
+//     vocabulary splits to the blocks that fit (FWD_BLOCKS_PER_SM in
+//     ops/vocab_ce.py), and the splits' partials are merged in order by a
+//     second kernel: reruns give the same bits, and no atomics.
 //
 // The backward. What bounds it on an H100: operations. The TPU kernel's
 // work (the logits again, dh and dW) is 6*M*D*V = 47.6 GFLOP: 0.710 ms at
@@ -52,126 +71,29 @@
 // every warp that loads it (2 to 4), four integer operations each, about as
 // many instructions as the products issue (cvt.rna, a quarter-rate
 // conversion, was slower still); and two blocks an SM spill at 128
-// registers, so one block of 8 warps has to hide every latency. Left for the next step: wgmma
-// from shared memory (the only way to the full tensor-core rate; mma.sync
-// issues from registers, one warp at a time) with operands split once per
-// tile, TMA loads into an mbarrier-paced ring, and a persistent grid in
-// place of the split loops and their partials.
+// registers, so one block of 8 warps has to hide every latency. Left for
+// the next step: wgmma from shared memory (the only way to the full
+// tensor-core rate; mma.sync issues from registers, one warp at a time)
+// with operands split once per tile, TMA loads into an mbarrier-paced
+// ring, and a persistent grid in place of the split loops and their
+// partials.
 
 #include "mma_tf32.cuh"
-#include "tiles.cuh"
+#include "tiles.cuh"  // kMaxD, kFull, lse_merge, allow_smem, sum_splits
 
 namespace {
 
-// Forward: block (row tile, vocabulary split). Writes per split and row the
-// running max, the sum of exp(logit - max) and the label's logit (0 when the
-// label is in another split) into part[3][split][M].
-__global__ void __launch_bounds__(kThreads)
-vocab_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ wt,
-                    const float* __restrict__ bias, const int64_t* __restrict__ labels,
-                    float* __restrict__ part, int M, int D, int V, int tiles_per_split) {
-  extern __shared__ __align__(16) float smem[];
-  float* h_t = smem;             // D x kLd
-  float* w_t = h_t + D * kLd;    // D x kLd
-  float* b_s = w_t + D * kLd;    // kTile
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t r0 = (int64_t)blockIdx.x * kTile;
-  const int split = blockIdx.y;
-  const int n_tiles = (V + kTile - 1) / kTile;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-
-  load_dmajor(h_t, h, M, r0, D);
-  int64_t y[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = r0 + 4 * ty + i;
-    y[i] = r < M ? labels[r] : -1;
-  }
-  float m[4], s[4], picked[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    s[i] = 0.f;
-    picked[i] = 0.f;
-  }
-
-  float acc[4][4];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int64_t v0 = (int64_t)t * kTile;
-    __syncthreads();  // the previous tile is consumed
-    load_dmajor(w_t, wt, V, v0, D);
-    if (threadIdx.x < kTile) {
-      const int64_t v = v0 + threadIdx.x;
-      b_s[threadIdx.x] = v < V ? bias[v] : 0.f;
-    }
-    __syncthreads();
-    tile_dot(h_t, w_t, D, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x[4], tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t v = v0 + 4 * tx + j;
-        x[j] = v < V ? acc[i][j] + b_s[4 * tx + j] : -INFINITY;
-        tile_max = fmaxf(tile_max, x[j]);
-        if (v == y[i]) picked[i] = x[j];
-      }
-      if (tile_max == -INFINITY) continue;  // this thread's columns lie past V
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(x[j] - tile_max);  // exp(-inf) = 0
-      lse_merge(m[i], s[i], tile_max, sum);
-    }
-  }
-
-  // merge the 16 threads of each row (lanes tx = 0..15 of one half-warp)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(kFull, m[i], o);
-      const float s2 = __shfl_xor_sync(kFull, s[i], o);
-      picked[i] += __shfl_xor_sync(kFull, picked[i], o);
-      lse_merge(m[i], s[i], m2, s2);
-    }
-    const int64_t r = r0 + 4 * ty + i;
-    if (tx == 0 && r < M) {
-      const int64_t splits = gridDim.y;
-      part[(0 * splits + split) * M + r] = m[i];
-      part[(1 * splits + split) * M + r] = s[i];
-      part[(2 * splits + split) * M + r] = picked[i];
-    }
-  }
-}
-
-// logz and loss per row from the splits' partials
-__global__ void vocab_ce_combine_kernel(const float* __restrict__ part,
-                                        float* __restrict__ loss, float* __restrict__ logz,
-                                        int M, int splits) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= M) return;
-  float m = -INFINITY, s = 0.f, picked = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    lse_merge(m, s, part[(int64_t)k * M + r], part[((int64_t)splits + k) * M + r]);
-    picked += part[((int64_t)2 * splits + k) * M + r];
-  }
-  const float z = m + logf(s);
-  logz[r] = z;
-  loss[r] = z - picked;
-}
-
-// ---- backward on the tensor cores (mma_tf32.cuh) ----
-
-constexpr int kRows = 64;          // rows of h per tile
-constexpr int kVocab = 128;        // vocabulary entries per tile
-constexpr int kBwdThreads = 256;   // 8 warps
+constexpr int kRows = 64;         // rows of h per tile
+constexpr int kVocab = 128;       // vocabulary entries per tile
+constexpr int kTcThreads = 256;   // 8 warps
 constexpr float kLog2e = 1.4426950408889634f;
 
 // acc[i][j] = the logits (no bias) of tile rows rw + 16 i + (g, g + 8) and
-// entries vw + 8 j + (2t, 2t + 1): rows of h_s times rows of w_s, over DP
-template <int DP>
-__device__ __forceinline__ void tile_logits(const float* h_s, const float* w_s, int rw, int vw,
+// entries vw + 8 j + (2t, 2t + 1): rows of h_s times rows of w_s, over DP.
+// h's tile is a float32 tile (split as fragments load) or a SplitTile;
+// either way the products, and so the logits, have the same bits.
+template <int DP, typename TileH>
+__device__ __forceinline__ void tile_logits(TileH h_s, const float* w_s, int rw, int vw,
                                             float acc[2][4][4]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -195,6 +117,171 @@ __device__ __forceinline__ void tile_logits(const float* h_s, const float* w_s, 
     }
   }
 }
+
+__device__ __forceinline__ int label_in(int64_t y, int V) {
+  return y >= 0 && y < V ? (int)y : -1;
+}
+
+// Forward: block (64-row tile, vocabulary split), looping over the split's
+// 128-entry tiles. Writes per split and row the max logit, the sum of
+// exp(logit - max) and the label's logit (0 when the label is in another
+// split) into part[3][split][M]. h's tile is split once into hi and lo
+// tiles; W's tiles are double-buffered in float32 and split as fragments
+// load. Two blocks an SM fit up to DP 64; at 128 the shared memory allows
+// one, so its registers are not capped for two.
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, DP <= 64 ? 2 : 1)
+vocab_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ wt,
+                    const float* __restrict__ bias, const int64_t* __restrict__ labels,
+                    float* __restrict__ part, int M, int D, int V, int tiles_per_split) {
+  extern __shared__ __align__(16) float smem[];
+  float* hh_s = smem;               // kRows x DP: h's hi (its float32 tile first)
+  float* hl_s = hh_s + kRows * DP;  // kRows x DP: h's lo
+  float* w_s = hl_s + kRows * DP;   // 2 x kVocab x DP: W's tiles
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int64_t r0 = (int64_t)blockIdx.x * kRows;
+  const int split = blockIdx.y;
+  const int n_tiles = (V + kVocab - 1) / kVocab;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const SplitTile h_split{hh_s, hl_s};
+
+  stage_rows<kRows, DP, kTcThreads>(hh_s, h, M, r0, D);
+  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, V, (int64_t)t_begin * kVocab, D);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  split_tile<kRows * DP, kTcThreads>(hh_s, hh_s, hl_s);  // seen after the loop's first barrier
+
+  // logits: warps 2 (rows) x 4 (entries) of 32 x 32; each thread holds rows
+  // rw + 16 i + 8 hh + g, and of every tile the entries vw + 8 j + 2 t + e
+  const int rw = 32 * (warp / 4), vw = 32 * (warp % 4);
+  int y[2][2];
+  float mx[2][2], sum[2][2], picked[2][2];  // over this thread's entries so far
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t r = r0 + rw + 16 * i + 8 * hh + g;
+      y[i][hh] = r < M ? label_in(labels[r], V) : -1;
+      mx[i][hh] = -INFINITY;
+      sum[i][hh] = picked[i][hh] = 0.f;
+    }
+
+  float acc[2][4][4];
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int buf = (tile - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this tile is staged; the previous one's products are done
+    if (tile + 1 < t_end)
+      stage_rows<kVocab, DP, kTcThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, V,
+                                         (int64_t)(tile + 1) * kVocab, D);
+    cp_async_commit();
+    const int vb = tile * kVocab + vw + 2 * t;
+    float bias_c[4][2];  // -inf past V: those entries add exp(-inf) = 0
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = vb + 8 * j + e;
+        bias_c[j][e] = v < V ? __ldg(bias + v) : -INFINITY;
+      }
+    tile_logits<DP>(h_split, w_s + buf * kVocab * DP, rw, vw, acc);
+
+    // online logsumexp of each row over this thread's 8 entries of the tile
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float x[4][2], tile_max = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[j][e] = acc[i][j][2 * hh + e] + bias_c[j][e];
+            tile_max = fmaxf(tile_max, x[j][e]);
+          }
+        const int dy = y[i][hh] - vb;
+        if ((unsigned)dy < 32u) {  // the label may be one of this thread's entries
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (dy == 8 * j + e) picked[i][hh] = x[j][e];
+        }
+        const float m = fmaxf(mx[i][hh], tile_max);
+        if (m == -INFINITY) continue;  // no entry below V yet
+        // exp(x - m) as exp2: x - m is exact near the max
+        float s = sum[i][hh] * exp2f((mx[i][hh] - m) * kLog2e);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) s += exp2f((x[j][e] - m) * kLog2e);
+        sum[i][hh] = s;
+        mx[i][hh] = m;
+      }
+  }
+  cp_async_wait_all();
+
+  // merge each row over the quad's lanes (t), then over the 4 warps of its
+  // entries (vw) through shared memory, in a fixed order
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float m2 = __shfl_xor_sync(kFull, mx[i][hh], o);
+        const float s2 = __shfl_xor_sync(kFull, sum[i][hh], o);
+        picked[i][hh] += __shfl_xor_sync(kFull, picked[i][hh], o);
+        lse_merge(mx[i][hh], sum[i][hh], m2, s2);
+      }
+  __syncthreads();  // the tiles are consumed
+  float* red = w_s;  // [3][4][kRows]: (max, sum, picked) x entry warp x row
+  if (t == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = (warp % 4) * kRows + rw + 16 * i + 8 * hh + g;
+        red[k] = mx[i][hh];
+        red[4 * kRows + k] = sum[i][hh];
+        red[8 * kRows + k] = picked[i][hh];
+      }
+  __syncthreads();
+  const int64_t r = r0 + threadIdx.x;
+  if (threadIdx.x < kRows && r < M) {
+    float m = -INFINITY, s = 0.f, p = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = c * kRows + threadIdx.x;
+      lse_merge(m, s, red[k], red[4 * kRows + k]);
+      p += red[8 * kRows + k];
+    }
+    const int64_t splits = gridDim.y;
+    part[(0 * splits + split) * M + r] = m;
+    part[(1 * splits + split) * M + r] = s;
+    part[(2 * splits + split) * M + r] = p;
+  }
+}
+
+// logz and loss per row from the splits' partials
+__global__ void vocab_ce_combine_kernel(const float* __restrict__ part,
+                                        float* __restrict__ loss, float* __restrict__ logz,
+                                        int M, int splits) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  float m = -INFINITY, s = 0.f, picked = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    lse_merge(m, s, part[(int64_t)k * M + r], part[((int64_t)splits + k) * M + r]);
+    picked += part[((int64_t)2 * splits + k) * M + r];
+  }
+  const float z = m + logf(s);
+  logz[r] = z;
+  loss[r] = z - picked;
+}
+
+// ---- backward ----
 
 // out[i][j] += (A B) of A rows m0 + 16 i.. (a_s, LDA floats a row) and B
 // columns n0 + 8 j.. (b_s: rows k, LDB floats a row), over K. The tensor
@@ -251,15 +338,11 @@ __device__ __forceinline__ void to_dlog(float acc[2][4][4], const int y[2][2],
       }
 }
 
-__device__ __forceinline__ int label_in(int64_t y, int V) {
-  return y >= 0 && y < V ? (int)y : -1;
-}
-
 // Backward, dh: block (64-row tile, vocabulary split), looping over the
 // split's 128-entry tiles; dh, or its split's partial, goes to
 // dh_part[split][M][D].
 template <int DP>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kTcThreads, 1)
 vocab_ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ wt,
                    const float* __restrict__ bias, const int64_t* __restrict__ labels,
                    const float* __restrict__ logz, const float* __restrict__ grad,
@@ -275,8 +358,8 @@ vocab_ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ wt,
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  stage_rows<kRows, DP, kBwdThreads>(h_s, h, M, r0, D);
-  stage_rows<kVocab, DP, kBwdThreads>(w_s, wt, V, (int64_t)t_begin * kVocab, D);
+  stage_rows<kRows, DP, kTcThreads>(h_s, h, M, r0, D);
+  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, V, (int64_t)t_begin * kVocab, D);
   cp_async_commit();
 
   // logits: warps 2 (rows) x 4 (entries) of 32 x 32; dh: 4 (rows) x 2 (D)
@@ -308,7 +391,7 @@ vocab_ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ wt,
     cp_async_wait_all();
     __syncthreads();  // this tile is staged; the previous one's products are done
     if (tile + 1 < t_end)
-      stage_rows<kVocab, DP, kBwdThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, V,
+      stage_rows<kVocab, DP, kTcThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, V,
                                           (int64_t)(tile + 1) * kVocab, D);
     cp_async_commit();
     const int vb = tile * kVocab + vw + 2 * t;
@@ -352,7 +435,7 @@ vocab_ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ wt,
 // looping over the split's 64-row tiles; dW (V, D) and db, or the split's
 // partials, go to dw_part[split][V][D] and db_part[split][V].
 template <int DP>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kTcThreads, 1)
 vocab_ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ wt,
                    const float* __restrict__ bias, const int64_t* __restrict__ labels,
                    const float* __restrict__ logz, const float* __restrict__ grad,
@@ -376,7 +459,7 @@ vocab_ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ wt,
   // a row tile of h, and its rows' labels, logz and g, into buffer buf
   auto stage_tile = [&](int buf, int tile) {
     const int64_t r0 = (int64_t)tile * kRows;
-    stage_rows<kRows, DP, kBwdThreads>(h_s + buf * kRows * DP, h, M, r0, D);
+    stage_rows<kRows, DP, kTcThreads>(h_s + buf * kRows * DP, h, M, r0, D);
     if (threadIdx.x < kRows) {
       const int64_t r = r0 + threadIdx.x;
       const bool ok = r < M;
@@ -386,7 +469,7 @@ vocab_ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ wt,
       cp_async<4>(g_s + k, ok ? grad + r : grad, ok);
     }
   };
-  stage_rows<kVocab, DP, kBwdThreads>(w_s, wt, V, v0, D);
+  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, V, v0, D);
   if (threadIdx.x < kVocab) {
     const bool ok = v0 + threadIdx.x < V;
     cp_async<4>(b_s + threadIdx.x, ok ? bias + v0 + threadIdx.x : bias, ok);
@@ -496,7 +579,7 @@ size_t dw_smem() {  // + labels (int64), logz and g of two row tiles, and the bi
                           kVocab);
 }
 
-// the width the backward pads D to: one build of its kernels per width
+// the width the kernels pad D to: one build of each kernel per width
 int padded_width(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : 128; }
 
 template <int DP>
@@ -517,7 +600,7 @@ cudaError_t bwd_run(const float* h, const float* wt, const float* bias, const in
   if (M > 0) {
     float* dh_out = dh_splits > 1 ? dh_part : dh;
     const dim3 grid((unsigned)m_tiles, (unsigned)dh_splits);
-    vocab_ce_dh_kernel<DP><<<grid, kBwdThreads, dh_smem<DP>(), st>>>(
+    vocab_ce_dh_kernel<DP><<<grid, kTcThreads, dh_smem<DP>(), st>>>(
         h, wt, bias, labels, logz, g, dh_out, M, D, V, dh_per);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (dh_splits > 1 &&
@@ -528,7 +611,7 @@ cudaError_t bwd_run(const float* h, const float* wt, const float* bias, const in
   float* dw_out = dw_splits > 1 ? dw_part : dw;
   float* db_out = dw_splits > 1 ? db_part : db;
   const dim3 grid((unsigned)v_tiles, (unsigned)dw_splits);
-  vocab_ce_dw_kernel<DP><<<grid, kBwdThreads, dw_smem<DP>(), st>>>(
+  vocab_ce_dw_kernel<DP><<<grid, kTcThreads, dw_smem<DP>(), st>>>(
       h, wt, bias, labels, logz, g, dw_out, db_out, M, D, V, dw_per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (dw_splits > 1) {
@@ -539,40 +622,65 @@ cudaError_t bwd_run(const float* h, const float* wt, const float* bias, const in
   return cudaSuccess;
 }
 
-size_t fwd_smem(int D) { return sizeof(float) * ((size_t)2 * D * kLd + kTile); }
-
-bool bad_shape(int M, int D, int V, int split_a, int split_b) {
-  return M < 0 || D < 1 || D > kMaxD || V < 1 || split_a < 1 || split_b < 1;
+template <int DP>
+size_t fwd_smem() {
+  return sizeof(float) * ((size_t)2 * kRows * DP + 2 * kVocab * DP);
 }
 
-int tiles_per(int tiles, int splits) { return (tiles + splits - 1) / splits; }
+struct FwdArgs {
+  const float *h, *wt, *bias;
+  const int64_t* labels;
+  float *part, *loss, *logz;
+  int M, D, V, splits;
+  cudaStream_t stream;
+};
+
+// The forward at one width
+template <int DP>
+cudaError_t fwd_run(const FwdArgs& a) {
+  const auto kernel = vocab_ce_fwd_kernel<DP>;
+  const size_t smem = fwd_smem<DP>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int v_tiles = (a.V + kVocab - 1) / kVocab;
+  const int per = (v_tiles + a.splits - 1) / a.splits;
+  if ((a.splits - 1) * per >= v_tiles) return cudaErrorInvalidValue;  // an empty split
+  if (a.M == 0) return cudaSuccess;
+  const dim3 grid((unsigned)((a.M + kRows - 1) / kRows), (unsigned)a.splits);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(a.h, a.wt, a.bias, a.labels, a.part, a.M, a.D,
+                                               a.V, per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vocab_ce_combine_kernel<<<(unsigned)((a.M + 255) / 256), 256, 0, a.stream>>>(
+      a.part, a.loss, a.logz, a.M, a.splits);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int M, int D, int V, int split_a, int split_b) {
+  return M < 0 || D < 1 || D > kMaxD || D % 4 != 0 || V < 1 || split_a < 1 || split_b < 1;
+}
 
 }  // namespace
 
-// h (M, D), wt (V, D), bias (V,): contiguous float32; labels (M,) int64.
-// part: 3 * splits * M floats of scratch. Writes loss and logz (M,). The
-// vocabulary tiles are cut into `splits` runs of equal length (the last may
-// be shorter, none empty). Launches on `stream`; returns the first CUDA
-// error (0 on success).
+// h (M, D), wt (V, D), bias (V,): contiguous float32, D a multiple of 4 and
+// h and wt 16-byte aligned; labels (M,) int64. part: 3 * splits * M floats
+// of scratch. Writes loss and logz (M,). The 128-entry vocabulary tiles are
+// cut into `splits` runs of equal length (the last may be shorter, none
+// empty). Launches on `stream`; returns the first CUDA error (0 on
+// success).
 extern "C" int vocab_ce_fwd_f32(const float* h, const float* wt, const float* bias,
                                 const int64_t* labels, float* part, float* loss,
-                                float* logz, int M, int D, int V, int splits,
-                                void* stream) {
+                                float* logz, int M, int D, int V, int splits, void* stream) {
   if (bad_shape(M, D, V, splits, 1)) return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int v_tiles = (V + kTile - 1) / kTile;
-  const int per = tiles_per(v_tiles, splits);
-  if ((splits - 1) * per >= v_tiles) return (int)cudaErrorInvalidValue;  // an empty split
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(vocab_ce_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((M + kTile - 1) / kTile), (unsigned)splits);
-  vocab_ce_fwd_kernel<<<grid, kThreads, smem, st>>>(h, wt, bias, labels, part, M, D, V, per);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  vocab_ce_combine_kernel<<<(unsigned)((M + 255) / 256), 256, 0, st>>>(part, loss, logz, M,
-                                                                      splits);
-  return (int)cudaGetLastError();
+  const FwdArgs a{h, wt, bias, labels, part, loss, logz, M, D, V, splits,
+                  (cudaStream_t)stream};
+  switch (padded_width(D)) {
+    case 32:
+      return (int)fwd_run<32>(a);
+    case 64:
+      return (int)fwd_run<64>(a);
+    default:
+      return (int)fwd_run<128>(a);
+  }
 }
 
 // The backward for the loss gradient g (M,): dh (M, D), dw (V, D) (the
@@ -586,8 +694,7 @@ extern "C" int vocab_ce_bwd_f32(const float* h, const float* wt, const float* bi
                                 float* dh_part, float* dw_part, float* db_part, float* dh,
                                 float* dw, float* db, int M, int D, int V, int dh_splits,
                                 int dw_splits, void* stream) {
-  if (bad_shape(M, D, V, dh_splits, dw_splits) || D % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(M, D, V, dh_splits, dw_splits)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (padded_width(D)) {
     case 32:

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -55,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import _build
 from .attention import _launch
-from .vocab_ce import TILE, _sm_count, splits
+from .vocab_ce import _sm_count
 
 __all__ = [
     "CAND_CHUNK",
@@ -79,6 +80,8 @@ __all__ = [
 ]
 
 MAX_D = 128  # the widest embedding the kernels take
+TILE = 64  # K5's rows and negatives per tile (csrc/tiles.cuh kTile)
+BLOCKS_PER_SM = 4  # the grid K5's backward aims for, in blocks per SM
 # K4's backward (csrc/sampled_softmax_cand.cu): warps of a row block (each
 # a slice of the row's candidates, and the most warps on one table row);
 # compact entries per chunk of the transpose, sorted 4 bits a pass (CUB's
@@ -151,10 +154,21 @@ def _take_ids(cand_ids: torch.Tensor, N: int) -> torch.Tensor:
     return torch.where(ids < 0, ids + N, ids).clamp(0, N - 1)
 
 
+def _in_table(cand_ids: torch.Tensor, N: int) -> torch.Tensor:
+    """Whether each id lies in [-N, N), where JAX's gather reads it without
+    clamping, and so where its gradient (a scatter) does not drop it."""
+    return (cand_ids >= -N) & (cand_ids < N)
+
+
 def _cand_logits(user, cand_ids, table, temperature):
-    """(logits (M, C), gathered candidates (M, C, D), int64 ids (M, C))."""
-    ids = _take_ids(cand_ids, table.shape[0])
+    """(logits (M, C), gathered candidates (M, C, D), int64 ids (M, C)). A
+    candidate whose id lies outside [-N, N) is read from the row it is
+    clamped to but passes autograd no gradient to the table, as in JAX."""
+    N = table.shape[0]
+    ids = _take_ids(cand_ids, N)
     cand = F.embedding(ids, table)
+    if torch.is_grad_enabled() and table.requires_grad:
+        cand = torch.where(_in_table(cand_ids, N)[..., None], cand, cand.detach())
     return torch.einsum("md,mcd->mc", user, cand) / temperature, cand, ids
 
 
@@ -182,12 +196,16 @@ def sampled_softmax_cand_bwd_reference(
     """The plain version of the per-position backward kernels, from the
     formula: with coef = s (exp(logit - logz) - [c = 0]), du = coef . e / tau
     over a row's candidates and dtable[n] = the sum of coef u / tau over
-    the entries with id n. Returns (du (M, D), dtable (N, D))."""
+    the entries with id n. An id outside [-N, N) is clamped into the table
+    for the logits and du, but adds nothing to dtable, as JAX's gradient
+    (a scatter that drops out-of-range indices) leaves it out. Returns
+    (du (M, D), dtable (N, D))."""
     logits, cand, ids = _cand_logits(user, cand_ids, table, temperature)
     onehot = torch.zeros_like(logits)
     onehot[:, 0] = 1.0
     coef = s[:, None] * (torch.exp(logits - logz[:, None]) - onehot)
     du = torch.einsum("mc,mcd->md", coef, cand) / temperature
+    coef = torch.where(_in_table(cand_ids, table.shape[0]), coef, torch.zeros_like(coef))
     contrib = (coef[:, :, None] * user[:, None, :]).reshape(-1, user.shape[1])
     dtable = torch.zeros_like(table).index_add_(0, ids.reshape(-1), contrib) / temperature
     return du, dtable
@@ -313,6 +331,16 @@ def sampled_softmax_shared_fwd(
 sampled_softmax_shared_fwd.launches = 0
 
 
+def dneg_splits(tiles: int, other_tiles: int, sms: int) -> int:
+    """How many blocks share K5 backward's loop over ``tiles`` row tiles
+    for dneg, so that ``other_tiles`` x that many blocks fill about
+    BLOCKS_PER_SM blocks per SM. The kernel gives each ceil(tiles / runs)
+    tiles; no run is empty."""
+    tiles = max(tiles, 1)
+    want = max(1, min(tiles, math.ceil(BLOCKS_PER_SM * sms / max(other_tiles, 1))))
+    return math.ceil(tiles / math.ceil(tiles / want))
+
+
 def sampled_softmax_shared_bwd(
     user: torch.Tensor,
     pos: torch.Tensor,
@@ -331,7 +359,7 @@ def sampled_softmax_shared_bwd(
     fn = "sampled_softmax_shared_bwd"
     M, D, K = _check(fn, user, pos, neg)
     _check_rows(fn, M, user, logz=logz, pos_logit=pos_logit, s=s)
-    runs = splits(-(-M // TILE), -(-K // TILE), _sm_count(user.device.index or 0))
+    runs = dneg_splits(-(-M // TILE), -(-K // TILE), _sm_count(user.device.index or 0))
     new = functools.partial(torch.empty, dtype=torch.float32, device=user.device)
     du, dpos, dneg = new((M, D)), new((M, D)), new((K, D))
     part = new((runs, K, D)) if runs > 1 else None

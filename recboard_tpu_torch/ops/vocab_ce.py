@@ -11,9 +11,10 @@ logits to memory; the kernel never does.
   kernel against.
 * ``vocab_ce_fwd`` and ``vocab_ce_bwd`` — the wrappers of the hand-written
   CUDA kernels (``csrc/vocab_ce.cu``) that replace the TPU kernels
-  ``_fwd_kernel`` and ``_bwd_kernel``. CUDA tensors only. The backward's
-  products run on the tensor cores in split-precision TF32
-  (``csrc/mma_tf32.cuh``), which keeps float32 accuracy.
+  ``_fwd_kernel`` and ``_bwd_kernel``. CUDA tensors only. Both run their
+  products on the tensor cores in split-precision TF32
+  (``csrc/mma_tf32.cuh``), which keeps float32 accuracy, and take D a
+  multiple of 4 (``check_width``).
 * ``VocabCE`` — the autograd function over them (the custom VJP of
   ``recboard_tpu``'s ``_rows_fused``).
 * ``fullvocab_ce_rows`` — dispatch by device: the plain version on the
@@ -42,18 +43,24 @@ from .attention import _launch
 __all__ = [
     "MAX_D",
     "VocabCE",
-    "bwd_splits",
-    "check_bwd_width",
+    "check_width",
     "fullvocab_ce_rows",
     "fullvocab_ce_rows_reference",
+    "fwd_blocks_per_sm",
+    "splits",
     "vocab_ce_bwd",
     "vocab_ce_fwd",
 ]
 
 MAX_D = 128  # the widest hidden size the kernels take
-TILE = 64  # the forward's rows and vocabulary entries per tile (csrc/tiles.cuh kTile)
-BLOCKS_PER_SM = 4  # the grid the forward aims for, in blocks per SM
-ROW_TILE, VOCAB_TILE = 64, 128  # the backward's tiles (csrc/vocab_ce.cu kRows, kVocab)
+ROW_TILE, VOCAB_TILE = 64, 128  # the kernels' tiles (csrc/vocab_ce.cu kRows, kVocab)
+
+
+def fwd_blocks_per_sm(D: int) -> int:
+    """The forward's blocks an SM holds at width D: two up to D 64 (96 KB
+    of shared memory and 128 registers a thread each), one at a width
+    padded to 128 (192 KB). (The backward holds one an SM.)"""
+    return 2 if D <= 64 else 1
 
 
 def fullvocab_ce_rows_reference(
@@ -66,43 +73,34 @@ def fullvocab_ce_rows_reference(
     return logz - picked
 
 
-def splits(tiles: int, other_tiles: int, sms: int) -> int:
-    """How many blocks share a loop of ``tiles`` tiles, so that
-    ``other_tiles`` x that many blocks fill about BLOCKS_PER_SM blocks per
-    SM. The kernels give each ceil(tiles / runs) tiles; no run is empty."""
-    tiles = max(tiles, 1)
-    want = max(1, min(tiles, math.ceil(BLOCKS_PER_SM * sms / max(other_tiles, 1))))
-    return math.ceil(tiles / math.ceil(tiles / want))
-
-
 @functools.lru_cache(maxsize=None)
-def bwd_splits(tiles: int, other_tiles: int, sms: int) -> int:
-    """How many blocks share a backward kernel's loop of ``tiles`` tiles,
-    beside ``other_tiles`` blocks of the other axis, on ``sms`` SMs that
-    hold one block each (the kernels' registers allow no more). Blocks are
-    of equal length and run in waves, so this takes the runs that make the
-    fewest tile steps in all, waves x (run length + 1 for a block's
-    staging and write-out); a tie goes to fewer runs, which write fewer
-    partials. The kernels give each ceil(tiles / runs) tiles; no run is
-    empty."""
+def splits(tiles: int, other_tiles: int, slots: int) -> int:
+    """How many blocks share a kernel's loop of ``tiles`` tiles, beside
+    ``other_tiles`` blocks of the other axis, on a card that holds
+    ``slots`` blocks at once (SMs x the blocks an SM holds: one for the
+    backward, whose registers allow no more; ``fwd_blocks_per_sm`` for the
+    forward). Blocks are of equal length and run in waves, so this
+    takes the runs that make the fewest tile steps in all, waves x (run
+    length + 1 for a block's staging and write-out); a tie goes to fewer
+    runs, which write fewer partials. The kernels give each
+    ceil(tiles / runs) tiles; no run is empty."""
     tiles, other = max(tiles, 1), max(other_tiles, 1)
     best = None
     for per in range(tiles, 0, -1):
         runs = math.ceil(tiles / per)
-        cost = math.ceil(other * runs / max(sms, 1)) * (per + 1)
+        cost = math.ceil(other * runs / max(slots, 1)) * (per + 1)
         if best is None or cost < best[0]:
             best = (cost, runs)
     return best[1]
 
 
-def check_bwd_width(D: int) -> None:
-    """Raises ValueError unless D is a multiple of 4 in [4, MAX_D]: the
-    backward kernels stage rows in 16-byte copies, so a row may not end
-    inside one (they pad D with zeros to 32, 64 or 128). No model of the
-    port has such a D."""
+def check_width(fn: str, D: int) -> None:
+    """Raises ValueError unless D is a multiple of 4 in [4, MAX_D]: both
+    kernels stage rows in 16-byte copies, so a row may not end inside one
+    (they pad D with zeros to 32, 64 or 128). Every model of the port has
+    such a D."""
     if not (0 < D <= MAX_D and D % 4 == 0):
-        raise ValueError(f"vocab_ce_bwd: D={D}; the backward takes D a multiple of 4 "
-                         f"in [4, {MAX_D}]")
+        raise ValueError(f"{fn}: D={D}; the kernels take D a multiple of 4 in [4, {MAX_D}]")
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,12 +134,6 @@ def _sm_count(index: int) -> int:
 def _check(fn: str, h, W, b, labels) -> Tuple[int, int, int]:
     """Raises unless the operands are what the kernels take; returns
     (M, D, V)."""
-    for name, t in (("h", h), ("W", W), ("b", b), ("labels", labels)):
-        if t.device.type != "cuda" or t.device != h.device:
-            raise ValueError(f"{fn}: {name} must be a CUDA tensor on h's device, got {t.device}")
-    for name, t in (("h", h), ("W", W), ("b", b)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
     if h.dim() != 2 or W.dim() != 2 or b.dim() != 1 or labels.dim() != 1:
         raise ValueError(f"{fn}: h must be (M, D), W (D, V), b (V,) and labels (M,)")
     M, D = h.shape
@@ -151,8 +143,13 @@ def _check(fn: str, h, W, b, labels) -> Tuple[int, int, int]:
             f"{fn}: shapes h {tuple(h.shape)}, W {tuple(W.shape)}, b {tuple(b.shape)}, "
             f"labels {tuple(labels.shape)} do not match"
         )
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"{fn}: D={D}; the kernels take 1 <= D <= {MAX_D}")
+    check_width(fn, D)
+    for name, t in (("h", h), ("W", W), ("b", b), ("labels", labels)):
+        if t.device.type != "cuda" or t.device != h.device:
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor on h's device, got {t.device}")
+    for name, t in (("h", h), ("W", W), ("b", b)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
     if not W.T.is_contiguous():
         raise ValueError(
             f"{fn}: W must be the transpose of a contiguous (V, D) tensor "
@@ -160,23 +157,31 @@ def _check(fn: str, h, W, b, labels) -> Tuple[int, int, int]:
         )
     if not (h.is_contiguous() and b.is_contiguous() and labels.is_contiguous()):
         raise ValueError(f"{fn}: h, b and labels must be contiguous")
+    if h.data_ptr() % 16 or W.data_ptr() % 16:
+        raise ValueError(f"{fn}: h and W must start on a 16-byte boundary")
     if labels.dtype != torch.int64:
         raise ValueError(f"{fn}: labels must be int64, got {labels.dtype}")
     return M, D, V
 
 
 def vocab_ce_fwd(
-    h: torch.Tensor, W: torch.Tensor, b: torch.Tensor, labels: torch.Tensor
+    h: torch.Tensor,
+    W: torch.Tensor,
+    b: torch.Tensor,
+    labels: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel: (loss, logz), both (M,) float32, of what
-    ``fullvocab_ce_rows_reference`` computes. ``vocab_ce_fwd.launches``
-    counts its calls."""
+    """The forward kernels: (loss, logz), both (M,) float32, of what
+    ``fullvocab_ce_rows_reference`` computes, a label outside [0, V)
+    picking no logit. Raises ValueError unless D is a multiple of 4
+    (``check_width``) and h and W start on 16 bytes.
+    ``vocab_ce_fwd.launches`` counts its calls."""
     M, D, V = _check("vocab_ce_fwd", h, W, b, labels)
     loss = torch.empty(M, dtype=torch.float32, device=h.device)
     logz = torch.empty_like(loss)
     if M == 0:
         return loss, logz
-    runs = splits(-(-V // TILE), -(-M // TILE), _sm_count(h.device.index or 0))
+    slots = _sm_count(h.device.index) * fwd_blocks_per_sm(D)
+    runs = splits(-(-V // VOCAB_TILE), -(-M // ROW_TILE), slots)
     part = torch.empty((3, runs, M), dtype=torch.float32, device=h.device)
     _launch(
         "vocab_ce_fwd", _kernels()[0], h.device,
@@ -201,22 +206,18 @@ def vocab_ce_bwd(
     """The backward kernels for the loss gradient ``g`` (M,), given the
     forward's ``logz``: (dh (M, D), dW (D, V), db (V,)). dW is the
     transpose of a contiguous (V, D) tensor, the layout of W itself.
-    Raises ValueError unless D is a multiple of 4 (``check_bwd_width``)
-    and h and W start on 16 bytes. ``vocab_ce_bwd.launches`` counts its
-    calls."""
+    Raises ValueError unless D is a multiple of 4 (``check_width``) and h
+    and W start on 16 bytes. ``vocab_ce_bwd.launches`` counts its calls."""
     M, D, V = _check("vocab_ce_bwd", h, W, b, labels)
-    check_bwd_width(D)
-    if h.data_ptr() % 16 or W.data_ptr() % 16:
-        raise ValueError("vocab_ce_bwd: h and W must start on a 16-byte boundary")
     for name, t in (("logz", logz), ("g", g)):
         if (t.shape != (M,) or t.dtype != torch.float32 or t.device != h.device
                 or not t.is_contiguous()):
             raise ValueError(
                 f"vocab_ce_bwd: {name} must be a contiguous float32 ({M},) tensor on h's device"
             )
-    sms = _sm_count(h.device.index or 0)
+    sms = _sm_count(h.device.index)
     v_tiles, m_tiles = -(-V // VOCAB_TILE), -(-M // ROW_TILE)
-    dh_runs, dw_runs = bwd_splits(v_tiles, m_tiles, sms), bwd_splits(m_tiles, v_tiles, sms)
+    dh_runs, dw_runs = splits(v_tiles, m_tiles, sms), splits(m_tiles, v_tiles, sms)
     new = functools.partial(torch.empty, dtype=torch.float32, device=h.device)
     dh, dwt, db = new((M, D)), new((V, D)), new(V)
     dh_part = new((dh_runs, M, D)) if dh_runs > 1 else None
@@ -259,8 +260,8 @@ def fullvocab_ce_rows(
 ) -> torch.Tensor:
     """Per-row CE of ``h @ W + b`` against integer ``labels``: (M,) losses,
     differentiable in h, W and b. CPU tensors take the plain version; CUDA
-    tensors the kernels, whatever M and V (the backward's D a multiple of
-    4: ``check_bwd_width``)."""
+    tensors the kernels, whatever M and V (D a multiple of 4:
+    ``check_width``)."""
     labels = labels.to(torch.int64)
     if h.device.type == "cpu":
         return fullvocab_ce_rows_reference(h, W, b, labels)

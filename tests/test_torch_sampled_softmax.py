@@ -13,6 +13,8 @@ The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 them against this plain version there.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,3 +144,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         L.sampled_softmax_shared_bwd(user, pos, neg, rows, rows, rows, 0.1)
     assert L.sampled_softmax_shared_fwd.launches == 0
     assert L.sampled_softmax_shared_bwd.launches == 0
+
+
+@pytest.mark.parametrize("tiles,other", [(200, 8), (7, 600), (5, 2), (1, 1), (100, 100)])
+def test_dneg_splits_cover_every_tile_once(tiles, other):
+    """K5 backward's split of its dneg loop across blocks: runs of equal
+    length (the last may be shorter), none empty, as the kernel assumes,
+    and no more than fill 132 SMs with BLOCKS_PER_SM blocks each."""
+    runs = L.dneg_splits(tiles, other, 132)
+    per = math.ceil(tiles / runs)  # the kernel's run length
+    assert runs >= 1 and (runs - 1) * per < tiles <= runs * per
+    assert runs <= max(1, math.ceil(L.BLOCKS_PER_SM * 132 / other))

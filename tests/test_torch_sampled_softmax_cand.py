@@ -133,6 +133,25 @@ def test_ids_out_of_range_are_taken_as_jax_takes_them():
     np.testing.assert_allclose(dtable, np.asarray(gt), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("loss", ["reference", "chunked"])
+def test_autograd_drops_out_of_range_ids_from_the_table_gradient(loss):
+    """Autograd of the plain loss, in one piece and in chunks, gives JAX's
+    gradients with ids outside [-N, N) on weighted rows: their entries
+    reach du through the rows they are clamped to, and dtable not at all."""
+    user, ids, table, w = _inputs(32, 4, 8, 10, seed=2)
+    ids[0, 1], ids[3, 2], ids[5, 0], ids[6, 3] = -1, -11, 10, 1000
+    w[3] = w[5] = w[6] = 1.0
+    fn = (L.sampled_softmax_loss_reference if loss == "reference"
+          else lambda *a: L.sampled_softmax_loss(*a, chunk=8))
+    value, du, dtable = _torch_loss(fn, user, ids, table, w, 0.3)
+    want, (gu, gt) = jax.value_and_grad(
+        lambda u, t: L_jax.sampled_softmax_loss_reference(u, jnp.asarray(ids), t, w, 0.3),
+        argnums=(0, 1))(user, table)
+    np.testing.assert_allclose(value, float(want), rtol=RTOL)
+    np.testing.assert_allclose(du, np.asarray(gu), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(dtable, np.asarray(gt), rtol=0, atol=ATOL)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """No fallback: the kernel wrappers launch on CUDA tensors or raise;
     only ``sampled_softmax_loss`` sends CPU tensors to the plain version."""
@@ -164,8 +183,10 @@ def emulated_bwd(user, ids, table, logz, s, tau, chunk=L.CAND_CHUNK):
     sorted by id in radix passes, with each id's (start, count) run in it
     (cand_chunk_kernel); table row n's entries as its runs in chunk order,
     walked by S warps over ranges of chunks whose partial sums are added in
-    warp order (cand_segment_kernel). ``keys`` are the compact ids and
-    ``perm`` the order in which the segments visit the compact entries."""
+    warp order (cand_segment_kernel); an entry whose id lies outside
+    [-N, N) keeps its du term and has coef 0 in the compact array, so it
+    adds nothing to dtable. ``keys`` are the compact ids and ``perm`` the
+    order in which the segments visit the compact entries."""
     M, D = user.shape
     C, N = ids.shape[1], table.shape[0]
     inv_tau = 1.0 / tau
@@ -183,7 +204,8 @@ def emulated_bwd(user, ids, table, logz, s, tau, chunk=L.CAND_CHUNK):
         part = part + (coef[:, lo:lo + slice_, None] * cand[:, lo:lo + slice_]).sum(1)
     du[live] = part * inv_tau
     keys = taken[live].reshape(-1).numpy()
-    coef = coef.reshape(-1)
+    inside = (ids[live] >= -N) & (ids[live] < N)
+    coef = torch.where(inside, coef, torch.zeros_like(coef)).reshape(-1)
     entries = len(keys)
     chunks = -(-entries // chunk)
     end_bit = N.bit_length()
@@ -240,11 +262,10 @@ BWD_CASES = {
 
 
 def _out_of_range_share(user, ids, table, logz, s, tau):
-    """(N, D): what the entries whose ids lie outside [-N, N) add to the
-    rows they are clamped to. JAX's forward clamps such an id, but its
+    """(N, D): what the entries whose ids lie outside [-N, N) would add to
+    the rows they are clamped to. JAX's forward clamps such an id, but its
     gradient (a scatter that drops out-of-range indices) leaves it out of
-    the table's gradient; the port, plain version and kernels alike, adds
-    it to the clamped row."""
+    the table's gradient, and so does the port."""
     N = table.shape[0]
     taken = L._take_ids(ids, N)
     logits = torch.einsum("md,mcd->mc", user, table[taken]) / tau
@@ -257,10 +278,11 @@ def _out_of_range_share(user, ids, table, logz, s, tau):
                                               contrib.reshape(-1, user.shape[1])) / tau
 
 
-def test_out_of_range_ids_differ_from_jax_only_in_the_table_gradient():
-    """The one difference from JAX's gradient: the plain backward's dtable
-    is JAX's plus what the out-of-range entries add to their clamped rows
-    (nonzero here); du and the loss agree."""
+def test_out_of_range_ids_match_jax_in_the_table_gradient():
+    """The plain backward's du and dtable equal JAX's gradients with ids
+    outside [-N, N) present: those entries enter the logits and du through
+    the rows they are clamped to, and add nothing to dtable, though they
+    would add something (the share is nonzero here)."""
     M, C, D, N, tau = 64, 5, 8, 16, 0.5
     user, ids, table, w = _bwd_inputs(M, C, D, N, 3, 0.3, True)
     w[5] = w[6] = 1.0  # the rows holding ids N and N + 1000
@@ -273,32 +295,29 @@ def test_out_of_range_ids_differ_from_jax_only_in_the_table_gradient():
     gu, gt = jax.grad(lambda u, t: L_jax.sampled_softmax_loss_reference(
         u, jnp.asarray(ids), t, w, tau), argnums=(0, 1))(user, table)
     np.testing.assert_allclose(du.numpy(), np.asarray(gu), rtol=0, atol=ATOL)
-    np.testing.assert_allclose((dtable - share).numpy(), np.asarray(gt), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(dtable.numpy(), np.asarray(gt), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=list(BWD_CASES))
 def test_emulated_backward_matches_jax_grads(case):
     """The kernels' algorithm (emulated) against ``jax.grad`` of the JAX
     reference and of its chunked scan, within atol 1e-5 (float32 sums of
-    C and of each table row's entries in other orders), dtable less what
-    out-of-range ids add to their clamped rows (JAX drops it; see
-    ``_out_of_range_share``); du exactly 0 on rows of weight 0 and dtable
-    on table rows that no weighted row drew."""
+    C and of each table row's entries in other orders), out-of-range ids
+    included; du exactly 0 on rows of weight 0 and dtable on table rows
+    that no weighted row drew."""
     M, C, D, N, tau, zero_share, bad_ids, chunk = BWD_CASES[case]
     user, ids, table, w = _bwd_inputs(M, C, D, N, M + C, zero_share, bad_ids)
     ut, it, tt = _t(user), _t(ids), _t(table)
     logz, _ = L.sampled_softmax_cand_rows_reference(ut, it, tt, tau)
     s = _t(w / max(w.sum(), 1.0))
     du, dtable, _, _, S = emulated_bwd(ut, it, tt, logz, s, tau, chunk=chunk)
-    share = _out_of_range_share(ut, it, tt, logz, s, tau)
     for loss in (L_jax.sampled_softmax_loss_reference,
                  lambda u, i, t, w_, tau_: L_jax.sampled_softmax_loss(u, i, t, w_, tau_,
                                                                       chunk=128)):
         gu, gt = jax.grad(lambda u, t: loss(u, jnp.asarray(ids), t, w, tau),
                           argnums=(0, 1))(user, table)
         np.testing.assert_allclose(du.numpy(), np.asarray(gu), rtol=0, atol=ATOL)
-        np.testing.assert_allclose((dtable - share).numpy(), np.asarray(gt), rtol=0,
-                                   atol=ATOL)
+        np.testing.assert_allclose(dtable.numpy(), np.asarray(gt), rtol=0, atol=ATOL)
     assert not du[_t(w) == 0].any()
     drawn = np.zeros(N, dtype=bool)
     drawn[L._take_ids(it[_t(w) > 0], N).reshape(-1).numpy()] = True
