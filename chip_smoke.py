@@ -88,15 +88,20 @@ Phases, one JSON line each; any failure exits non-zero:
    trained run served with the CPU's lists and its ``--bench`` line; the
    toy store's 5-seed shared-negative band.
 15. kernels_sampled_softmax_cand, kernels_dropout — K4
-   (sampled_softmax_cand forward and backward) at HSTU's training shape,
-   its last batch, the JAX test's shape (ids repeated in rows and out of
-   range), D 128, large logits at tau 0.01 and the toy store's protocol
-   (300 items, tau 0.05): against its plain versions
-   and the loss's autograd, du exactly 0 on rows of weight 0 and dtable on
-   table rows no weighted row drew, the same bits on a rerun, the
-   backward's transpose equal to a stable sort of the live ids; at the
-   training shape the backward also by part (rows, transpose, segments),
-   on the device clock and with its launches per call; K7
+   (sampled_softmax_cand forward and backward, both over the weighted
+   rows alone) at HSTU's training shape, its last batch, the JAX test's
+   shape (ids repeated in rows and out of range), D 128, large logits at
+   tau 0.01, the toy store's protocol (300 items, tau 0.05), every row
+   weighted and one candidate: against its plain versions (the forward's
+   weighted) and the loss's autograd, logz and pos_logit exactly 0 and du
+   exactly 0 on rows of weight 0, dtable on table rows no weighted row
+   drew, the same bits on a rerun, the backward's transpose equal to a
+   stable sort of the live ids, at one candidate du and dtable exactly 0
+   (the backward recomputes the forward's logits bit for bit); at the
+   training shape forward and backward also by part
+   (the listing, the row kernel; transpose, segments), on the device
+   clock, with the backward's launches per call and both gathers' L2
+   rates; K7
    (dropout_mask) at (1024, 50, 64) and a ragged length, bit-equal to its
    plain version, its kept share and values, seeds; each with CUDA-event
    times beside the plain version, a library call and the bound. Then
@@ -323,6 +328,11 @@ SSC_EXTRA = [  # correctness only
     # items, tau 0.05, its pad share; about 2,600 entries per table row,
     # each id about 1.7 times in every row
     ("toy_store", 2_560, 513, 64, 300, 0.05, "l2", 0.449),
+    ("all_rows", 2_048, 513, 64, 12_101, 0.1, "l2", 0.0),  # every row through the one entry
+    # one candidate: logz is the logit itself, so the backward's coefficients
+    # exp(logit - logz) - 1, and du and dtable, are exactly 0 if and only if
+    # the backward recomputes the forward's logits bit for bit
+    ("one_candidate", 2_048, 1, 64, 12_101, 0.1, "l2", HSTU_PAD_SHARE),
 ]
 # logz and pos_logit: max |kernel - plain| over max(1, max |plain|) (SS_TOL);
 # du and dtable: over each gradient's largest |plain| (GRAD_TOL): sums of D
@@ -411,19 +421,22 @@ def device_kernels(fn, calls: int) -> list:
     return [(name, us / 1e3, n) for name, us, n in profiled_ops(prof, calls, device=True)]
 
 
-# K4 backward's kernels by part
+# K4's kernels by part, forward and backward: both list their rows with
+# cand_live_kernel, so a part is told by the call it is timed in
+SSC_FWD_PARTS = {"cand_live_kernel": "live", "cand_fwd_kernel": "rows"}
 SSC_BWD_PARTS = {"cand_live_kernel": "live", "cand_rows_kernel": "rows",
                  "cand_chunk_kernel": "transpose", "cand_segment_kernel": "segments"}
 
 
-def bwd_parts(bwd, calls: int) -> tuple:
-    """({part: device ms per call}, launches per call) of K4's backward;
-    raises if it ran a kernel that is not its own."""
+def kernel_parts(fn, parts_of: dict, what: str, calls: int) -> tuple:
+    """({part: device ms per call}, launches per call) of the kernels one
+    call of ``fn`` runs, by ``parts_of`` (a kernel name's substring to its
+    part); raises if it ran a kernel not named there."""
     parts, launches = {}, 0.0
-    for name, ms, n in device_kernels(bwd, calls):
-        part = next((p for k, p in SSC_BWD_PARTS.items() if k in name), None)
+    for name, ms, n in device_kernels(fn, calls):
+        part = next((p for k, p in parts_of.items() if k in name), None)
         if part is None:
-            raise SystemExit(f"sampled_softmax_cand_bwd ran a kernel not its own: {name}")
+            raise SystemExit(f"{what} ran a kernel not its own: {name}")
         parts[part] = parts.get(part, 0.0) + ms
         launches += n
     return parts, launches
@@ -1182,12 +1195,14 @@ def transpose_is_stable_sort(scratch, C: int, N: int) -> bool:
 
 
 def check_sampled_softmax_cand(rng):
-    """K4 against its plain versions on the card: logz and pos_logit; du and
+    """K4 against its plain versions on the card: logz and pos_logit against
+    the weighted plain forward, exactly 0 on rows of weight 0; du and
     dtable against the backward's formula; the loss and its gradients
     through SampledSoftmaxCandidates against autograd of the plain loss; du
     exactly 0 on rows of weight 0 and dtable on the table rows no weighted
     row drew; the same bits on a rerun; the backward's transpose against a
-    stable sort, exactly; times at the timed shape."""
+    stable sort, exactly; at one candidate, du and dtable exactly 0 (the
+    backward takes the forward's logits); times at the timed shape."""
     import torch
 
     from recboard_tpu_torch.ops import losses as S
@@ -1198,13 +1213,16 @@ def check_sampled_softmax_cand(rng):
         user, ids, table, w = ssc_inputs(case, rng)
         u, e = user.detach(), table.detach()
         s = (w / w.sum().clamp_min(1.0)).contiguous()
-        out = S.sampled_softmax_cand_fwd(u, ids, e, tau)
+        out = S.sampled_softmax_cand_fwd(u, ids, e, w, tau)
         du, dtable, scratch = S._cand_bwd(u, ids, e, out[0], s, tau)
         out += (du, dtable)
-        again = S.sampled_softmax_cand_fwd(u, ids, e, tau)
+        again = S.sampled_softmax_cand_fwd(u, ids, e, w, tau)
         again += S.sampled_softmax_cand_bwd(u, ids, e, again[0], s, tau)
-        want = S.sampled_softmax_cand_rows_reference(u, ids, e, tau)
-        want += S.sampled_softmax_cand_bwd_reference(u, ids, e, want[0], s, tau)
+        want = S.sampled_softmax_cand_rows_reference(u, ids, e, tau, weights=w)
+        # the backward's formula takes every row's logz: a row of s = 0 then
+        # gives 0, where the weighted forward's 0 could give 0 x inf
+        every_z = S.sampled_softmax_cand_rows_reference(u, ids, e, tau)[0]
+        want += S.sampled_softmax_cand_bwd_reference(u, ids, e, every_z, s, tau)
         loss = S.SampledSoftmaxCandidates.apply(user, ids, table, w, tau)
         loss_g = torch.autograd.grad(loss, (user, table))
         want_loss = S.sampled_softmax_loss_reference(user, ids, table, w, tau)
@@ -1219,9 +1237,11 @@ def check_sampled_softmax_cand(rng):
         zero = w == 0
         drawn = torch.zeros(N, dtype=torch.bool, device=ids.device)
         drawn[S._take_ids(ids[~zero], N).reshape(-1)] = True
-        zeros_exact = not bool(out[2][zero].any() or out[3][~drawn].any()
-                               or loss_g[0][zero].any() or loss_g[1][~drawn].any())
+        zeros_exact = not bool(out[0][zero].any() or out[1][zero].any() or out[2][zero].any()
+                               or out[3][~drawn].any() or loss_g[0][zero].any()
+                               or loss_g[1][~drawn].any())
         finite = all(bool(torch.isfinite(x).all()) for x in out + loss_g + (loss,))
+        same_logits = C > 1 or not bool(out[2].any() or out[3].any())
         transpose_exact = transpose_is_stable_sort(scratch, C, N)
         worst["fwd"] = max(worst["fwd"], abs_err)
         worst["bwd"] = max(worst["bwd"], g_abs)
@@ -1231,37 +1251,45 @@ def check_sampled_softmax_cand(rng):
                    loss_err=abs(float(loss.detach()) - float(want_loss.detach())),
                    grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=GRAD_TOL,
                    finite=finite, zeros_exact=zeros_exact, same_bits=same_bits,
-                   transpose_exact=transpose_exact, live_entries=int(scratch["n_live"]) * C,
+                   same_logits_both_ways=same_logits, transpose_exact=transpose_exact,
+                   live_entries=int(scratch["n_live"]) * C,
                    max_logit=float(want[0].abs().max()))
         if case in SSC_SHAPES:
-            row.update(time_sampled_softmax_cand(user, ids, table, w, tau, out[0], s))
+            row.update(time_sampled_softmax_cand(user, ids, table, w, tau, every_z, s))
         emit("kernels", kernel="sampled_softmax_cand", **row)
         if (not finite or not zeros_exact or not same_bits or not transpose_exact
-                or not err <= SS_TOL or not g_rel <= GRAD_TOL):
+                or not same_logits or not err <= SS_TOL or not g_rel <= GRAD_TOL):
             raise SystemExit(f"sampled_softmax_cand disagrees with its plain version at "
                              f"{name}: fwd {err}, grads {g_rel}, zeros exact {zeros_exact}, "
-                             f"same bits {same_bits}, transpose exact {transpose_exact}")
+                             f"same bits {same_bits}, transpose exact {transpose_exact}, "
+                             f"same logits both ways {same_logits}")
         rows.append(row)
-        del user, ids, table, w, out, again, want, loss_g, want_loss_g, scratch
+        del user, ids, table, w, out, again, want, every_z, loss_g, want_loss_g, scratch
     return rows, worst
 
 
 def time_sampled_softmax_cand(user, ids, table, w, tau, logz, s) -> dict:
-    """CUDA-event times of K4's forward and backward, the backward also on
-    the device clock (CUDA-graph replays, which also show it never waits
-    on the host) and by part from torch.profiler (live: the list of rows
-    of nonzero gradient; rows; transpose: the chunk sorts; segments), its
-    launches per call against those of the backward it replaced (row
-    kernel, the stable
-    torch.sort of all M * C ids, segment kernel; the sort timed alone as
-    ``sort_ms``), its live entries and the L2 bytes its two gathers of
-    D-wide rows need; the plain versions, and torch.logsumexp over
-    torch.bmm of the F.embedding gather (forward, and autograd backward),
-    with the bounds: each input the function needs read once and each
-    output written once; the forward 2*M*C*D FLOP over every row; the
+    """CUDA-event times of K4's forward and backward, both also on the
+    device clock (CUDA-graph replays, which also show they never wait on
+    the host) and by part from torch.profiler (the forward: live, the list
+    of rows of weight != 0, and rows; the backward: live, the list of rows
+    of nonzero gradient, rows, transpose (the chunk sorts) and segments);
+    the backward's launches per call against those of the backward it
+    replaced (row kernel, the stable torch.sort of all M * C ids, segment
+    kernel; the sort timed alone as ``sort_ms``); each pass's weighted
+    entries and the L2 bytes and rate of its gathers of D-wide rows; the
+    plain versions, and torch.logsumexp over torch.bmm of the F.embedding
+    gather: the forward on the weighted rows (taken by index before the
+    timing; on every row as ``library_fwd_all_rows_ms``), and the autograd
+    backward. The forward also with every row weighted, on the device
+    clock (``fwd_every_row_graph_ms``). The bounds: each input the
+    function needs read once and each output written once. The forward reads w, the weighted rows'
+    user rows and ids and the table, writes logz and pos_logit, and does
+    2*C*D FLOP per weighted row (``fwd_all_rows_bound_ms``: every row's
+    inputs and FLOP, the bound before the forward took the weights); the
     backward 6*C*D FLOP per row of nonzero gradient (the logits again, du
-    and dtable), the only rows whose user row, ids and logz it reads (a row
-    of s = 0 gives du = 0 and adds nothing to dtable)."""
+    and dtable), the only rows whose user row, ids and logz it reads (a
+    row of s = 0 gives du = 0 and adds nothing to dtable)."""
     import torch
     import torch.nn.functional as F
 
@@ -1273,41 +1301,63 @@ def time_sampled_softmax_cand(user, ids, table, w, tau, logz, s) -> dict:
     ids_long = S._take_ids(ids, e.shape[0])
     W = w.sum().clamp_min(1.0)
     weighted = int((s != 0).sum())
+    on = torch.nonzero(w).flatten()
+    u_on, ids_on = u[on].contiguous(), ids_long[on].contiguous()
 
-    def library(uu, ee):
-        logits = torch.bmm(F.embedding(ids_long, ee), uu[:, :, None])[..., 0] / tau
+    def library(uu, ee, rows_ids):
+        logits = torch.bmm(F.embedding(rows_ids, ee), uu[:, :, None])[..., 0] / tau
         return torch.logsumexp(logits, -1), logits[:, 0]
 
     def library_fwd():
         with torch.no_grad():
-            return library(u, e)
+            return library(u_on, e, ids_on)
+
+    def library_fwd_all_rows():
+        with torch.no_grad():
+            return library(u, e, ids_long)
 
     def library_fwd_bwd():
-        lz, pl = library(user, table)
+        lz, pl = library(user, table, ids_long)
         torch.autograd.grad(((lz - pl) * w).sum() / W, (user, table))
 
     def plain_fwd():
         with torch.no_grad():
-            return S.sampled_softmax_cand_rows_reference(u, ids, e, tau)
+            return S.sampled_softmax_cand_rows_reference(u, ids, e, tau, weights=w)
 
-    flat = ids.reshape(-1)
-    fwd_bound = bound(nbytes(u, ids, e, logz, logz), 2 * M * C * D)
-    weighted_bytes = weighted * (u[0].nbytes + ids[0].nbytes + logz[0].nbytes)
-    # s and the table in, du and dtable out, and the weighted rows' inputs
-    bwd_bound = bound(nbytes(s, e) + nbytes(u, e) + weighted_bytes, 6 * weighted * C * D)
-    lib_ms = cuda_ms(library_fwd, iters=20, warmup=3)
+    def fwd():
+        return S.sampled_softmax_cand_fwd(u, ids, e, w, tau)
 
     def bwd():
         return S.sampled_softmax_cand_bwd(u, ids, e, logz, s, tau)
 
-    parts, bwd_launches = bwd_parts(bwd, calls=20)
+    flat = ids.reshape(-1)
+    row_bytes = u[0].nbytes + ids[0].nbytes
+    fwd_bound = bound(nbytes(w, e, logz, logz) + weighted * row_bytes, 2 * weighted * C * D)
+    fwd_all_rows_bound = bound(nbytes(u, ids, e, logz, logz), 2 * M * C * D)
+    # s and the table in, du and dtable out, and the weighted rows' inputs
+    bwd_bound = bound(nbytes(s, e) + nbytes(u, e) + weighted * (row_bytes + logz[0].nbytes),
+                      6 * weighted * C * D)
+    lib_all_ms = cuda_ms(library_fwd_all_rows, iters=20, warmup=3)
+    fwd_parts, fwd_launches = kernel_parts(fwd, SSC_FWD_PARTS, "sampled_softmax_cand_fwd", 20)
+    parts, bwd_launches = kernel_parts(bwd, SSC_BWD_PARTS, "sampled_softmax_cand_bwd", 20)
     sort_launches = sum(n for _, _, n in device_kernels(
         lambda: torch.sort(flat, stable=True), calls=1))
     live_entries = weighted * C
-    gather_gb = 2 * live_entries * D * 4 / 1e9
+    fwd_gather_gb = live_entries * D * 4 / 1e9
+    gather_gb = 2 * fwd_gather_gb
+    fwd_graph = graph_ms(fwd, calls=20)
     bwd_graph = graph_ms(bwd, calls=20)
+    ones = torch.ones_like(w)
     return dict(
-        fwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_fwd(u, ids, e, tau), iters=50, warmup=5),
+        fwd_ms=cuda_ms(fwd, iters=50, warmup=5),
+        fwd_graph_ms=fwd_graph,
+        fwd_every_row_graph_ms=graph_ms(lambda: S.sampled_softmax_cand_fwd(u, ids, e, ones, tau),
+                                        calls=20),
+        fwd_parts_ms=fwd_parts,
+        fwd_launches_per_call=fwd_launches,
+        fwd_ptxas=ptxas_lines("sampled_softmax_cand", "cand_fwd_kernel"),
+        fwd_gather_gb=fwd_gather_gb,
+        fwd_gather_tb_per_s=fwd_gather_gb / fwd_graph,
         bwd_ms=cuda_ms(bwd, iters=50, warmup=5),
         bwd_graph_ms=bwd_graph,
         bwd_parts_ms=parts,
@@ -1320,9 +1370,12 @@ def time_sampled_softmax_cand(user, ids, table, w, tau, logz, s) -> dict:
         plain_fwd_ms=cuda_ms(plain_fwd, iters=20, warmup=3),
         plain_bwd_ms=cuda_ms(lambda: S.sampled_softmax_cand_bwd_reference(u, ids, e, logz, s, tau),
                              iters=10, warmup=2),
-        library_fwd_ms=lib_ms,
-        library_bwd_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=2) - lib_ms,
+        library_fwd_ms=cuda_ms(library_fwd, iters=20, warmup=3),
+        library_fwd_all_rows_ms=lib_all_ms,
+        library_bwd_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=2) - lib_all_ms,
         fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        fwd_all_rows_bound_ms=fwd_all_rows_bound[0],
+        fwd_all_rows_bound_by=fwd_all_rows_bound[1],
         bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
         gathered_gb_per_pass=M * C * D * 4 / 1e9,
     )
@@ -2288,10 +2341,11 @@ def main(argv=None) -> int:
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
     # and SDPA's beside them, take the device clock (CUDA graphs), as do
-    # K4's backward (four kernels behind one wrapper call) and K3 (its
-    # forward beside the library's from a graph too)
+    # K4 (two kernels behind one wrapper call forward, four backward) and
+    # K3 (its forward beside the library's from a graph too)
     serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
-    cand = dict(ssc_rows[0], bwd_ms=ssc_rows[0]["bwd_graph_ms"])
+    cand = dict(ssc_rows[0], fwd_ms=ssc_rows[0]["fwd_graph_ms"],
+                bwd_ms=ssc_rows[0]["bwd_graph_ms"])
     ce = dict(ce, fwd_ms=ce["fwd_graph_ms"], library_fwd_ms=ce["library_fwd_graph_ms"],
               bwd_ms=ce["bwd_graph_ms"])
     training = dict(training, fwd_ms=training["fwd_graph_ms"],
@@ -2324,7 +2378,7 @@ def main(argv=None) -> int:
         kernel_entry("sampled_softmax_cand_fwd", "sampled_softmax_cand.cu",
                      "recboard_tpu/ops/losses.py:170",
                      p_trained["launches"]["sampled_softmax_cand_fwd"], ssc_worst["fwd"],
-                     ssc_rows[0], "fwd_"),
+                     cand, "fwd_"),
         kernel_entry("sampled_softmax_cand_bwd", "sampled_softmax_cand.cu",
                      "recboard_tpu/ops/losses.py:186",
                      p_trained["launches"]["sampled_softmax_cand_bwd"], ssc_worst["bwd"],

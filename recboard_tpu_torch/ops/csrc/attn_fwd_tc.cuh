@@ -96,11 +96,6 @@ constexpr int kFwdRows = 16 * kFwdWarps;  // query rows per block
 constexpr int kFwdKeys = 64;              // keys per tile
 constexpr int kFwdMaxHd = 128;
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // rows [r0, r0 + ROWS) of one head of a (n, row_stride) float32 array (its
 // columns [col, col + hd)) into a swizzled tile of LD floats a row, columns
 // [0, kd) with kd = hd rounded up to 8; rows past n and columns past hd are

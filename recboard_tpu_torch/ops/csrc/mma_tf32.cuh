@@ -168,6 +168,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+// waits until at most N of this thread's newest cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // rows [r0, r0 + ROWS) of a row-major (n, D) float32 array into a swizzled
 // tile of DP floats a row; rows past n and columns past D are zeros. D is a
 // multiple of 4 and the array 16-byte aligned, so each 16-byte chunk is

@@ -6,8 +6,9 @@
 // :133). Row m of the encodings u (M, D) has its own C candidate ids
 // ids (M, C) into the table e (N, D), the positive in column 0:
 //   logit[m, c] = u[m] . e[ids[m, c]] / tau;
-//   forward:  logz[m] = logsumexp over c of logit[m, c], pos_logit[m] =
-//             logit[m, 0];
+//   forward, for row weights w (M,): logz[m] = logsumexp over c of
+//             logit[m, c] and pos_logit[m] = logit[m, 0] where w[m] != 0,
+//             both 0 where w[m] = 0;
 //   backward, for row gradients s (M,) of logz - pos_logit, with
 //   coef[m, c] = s[m] (exp(logit[m, c] - logz[m]) - [c = 0]):
 //             du[m]     = sum over c of coef[m, c] e[ids[m, c]] / tau,
@@ -17,27 +18,40 @@
 // outside the table. An id outside [-N, N) still enters the logits and du,
 // but adds nothing to dtable: JAX's gradient, a scatter, drops it.
 //
-// What bounds it on an H100: operations. At HSTU's training shape (M = 256 x
-// 50 = 12,800 rows, C = 513, D = 64, N = 12,101) the forward is 2*M*C*D =
-// 0.84 GFLOP, 12.5 us at the 67 TFLOP/s float32 rate, against 32.8 MB of
-// inputs (9.8 us at 3.35 TB/s). But the rows it gathers are M*C*D*4 = 1.68
-// GB per pass: the 3.1 MB table stays in L2, and the gather's L2 traffic is
-// what a kernel of this shape waits on. The design:
-//   * one warp per row. The warp splits into groups of G lanes (G the power
-//     of two that covers D in float4s); a group takes one candidate, each of
-//     its lanes a float4 of the row, so a group's loads are one contiguous
-//     row and 32 / G candidates are in flight per step. The dot is reduced
-//     inside the group with shuffles;
-//   * the row's ids are read 32 at a time, one per lane, and handed to the
-//     groups by shuffles; the table rows of a few steps are loaded before
-//     their dots are taken;
-//   * the forward keeps an online logsumexp per group and merges the groups
-//     at the end; it writes logz and pos_logit, never the (M, C) logits;
-//   * the backward recomputes the logits, in four kernels and no library
-//     call. At the training shape 87.9 % of rows are pads with s = 0, so
-//     only 1,553 rows (797 K (m, c) entries) carry gradient:
-//     1. cand_live_kernel (one block) lists the rows with s != 0 in order,
+// What bounds it on an H100: at HSTU's training shape (M = 256 x 50 = 12,800
+// rows, C = 513, D = 64, N = 12,101) 87.9 % of rows are pads of weight 0,
+// and a pad row's logz only ever meets a 0 (its loss term is multiplied by
+// its weight, its row gradient is 0). The forward takes the weights, as the
+// TPU kernel does, and computes the 1,553 weighted rows only: 0.10 GFLOP
+// (1.5 us at the 67 TFLOP/s float32 rate) against 6.8 MB of inputs and
+// outputs (2.0 us at 3.35 TB/s). But the candidate rows it gathers are
+// 1,553 * C * D * 4 = 0.204 GB: the 3.1 MB table stays in L2, and that
+// gather's L2 traffic and latency are what a kernel of this shape waits
+// on. Both passes load a candidate's table row the same way: a group of
+// G lanes (G the power of two that covers D in float4s), each lane a
+// float4 of the row, so a group's loads are one contiguous row. A logit is
+// the sum of the G lanes' float4 dots in the order of group_sum's
+// shuffles, times 1 / tau rounded on its own (cand_logit): the forward
+// forms the same sum in one lane, so the backward's exp(logit - logz) is
+// taken on the logits that made logz. The design:
+//   * the forward, in two kernels:
+//     1. cand_live_kernel (one block) lists the rows with w != 0 in order,
 //        and their count, in device memory: the host never waits on it;
+//     2. cand_fwd_kernel: a block of kFwdWarps warps per listed row, its
+//        C candidates cut into tiles of 32 and the tiles dealt to the
+//        warps (a slice each). A warp stages a tile's 32 table rows
+//        through shared memory with cp.async (16 bytes a lane), into a
+//        ring of two tiles, so 32 rows are in flight while it takes the
+//        dots of the 32 before; then each lane takes one candidate of the
+//        tile, its whole dot and an online (max, sum) on its own, with no
+//        shuffle and no exp repeated across lanes. The lanes are merged by
+//        shuffles and the slices in warp order. It writes logz and
+//        pos_logit, never the (M, C) logits, and exactly 0 in both on rows
+//        of weight 0;
+//   * the backward recomputes the logits, in four kernels and no library
+//     call, over the rows with s != 0 (797 K (m, c) entries at the
+//     training shape):
+//     1. cand_live_kernel lists them;
 //     2. cand_rows_kernel: a block of 8 warps per listed row, each warp a
 //        slice of its C candidates, so enough table rows are in flight;
 //        du is merged across the slices in warp order through shared
@@ -58,25 +72,28 @@
 //        the S partial sums are added in warp order.
 //     No float atomics and no order taken from atomics: reruns give the
 //     same bits.
-// The products are scalar FMAs: a first kernel that is right and simple.
+// The products are scalar FMAs.
 
 #include <climits>
 
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 
-#include "tiles.cuh"  // kThreads, kMaxD, kFull, lse_merge
+#include "mma_tf32.cuh"  // cp_async, cp_async_commit, cp_async_wait
+#include "tiles.cuh"     // kThreads, kMaxD, kFull, lse_merge
 
 namespace {
 
-constexpr int kWarps = kThreads / 32;  // forward: one row per warp
+constexpr int kWarps = kThreads / 32;  // backward: a block's warps (row kernel: a slice each)
+constexpr int kFwdWarps = 4;           // forward: a row block, one slice of the row per warp
+constexpr int kFwdStages = 2;          // forward: tiles of 32 table rows a warp stages
 constexpr int kListThreads = 1024;     // cand_live_kernel's one block
 constexpr int kSortThreads = 512;      // cand_chunk_kernel: a chunk of
 constexpr int kSortItems = 16;         //   512 x 16 entries a block
 constexpr int kChunk = kSortThreads * kSortItems;
 // compact entries are indexed in int32: M * C at most this
 constexpr int64_t kMaxEntries = 2147483647LL - kChunk;
-constexpr int kUnroll = 4;             // steps whose table rows load together
+constexpr int kUnroll = 4;             // backward: steps whose table rows load together
 constexpr int kRunBatches = 4;         // segment kernel: runs of 4 x 32 chunks a warp holds
 
 // JAX's gather: a negative id counts from the end, then clamp into [0, N)
@@ -100,6 +117,27 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
 __device__ __forceinline__ float group_sum(float x, int G) {
   for (int o = G / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
+}
+
+// a candidate's logit from this lane's float4s of u and of its table row,
+// the same in every lane of the group. Rounded on its own (no FMA with
+// what follows), so that forward and backward take the same value
+__device__ __forceinline__ float cand_logit(float4 uv, float4 e, int G, float inv_tau) {
+  return __fmul_rn(group_sum(dot4(uv, e), G), inv_tau);
+}
+
+// x[0] + ... + x[n - 1] added as group_sum adds the n lanes' values (lane
+// j takes lane j + n / 2's, then j + n / 4's, ...), which gives every lane
+// the same bits; x is overwritten
+template <int n>
+__device__ __forceinline__ float shuffle_order_sum(float* x) {
+  if constexpr (n == 1) {
+    return x[0];
+  } else {
+#pragma unroll
+    for (int j = 0; j < n / 2; ++j) x[j] += x[j + n / 2];
+    return shuffle_order_sum<n / 2>(x);
+  }
 }
 
 // Walks the C candidates of row `m` group by group: for every candidate c of
@@ -132,61 +170,29 @@ __device__ __forceinline__ void for_candidates(const float4 uv, const int* __res
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
         const int k = k0 + j * P + g;
-        const float x = group_sum(dot4(uv, e[j]), G) * inv_tau;
+        const float x = cand_logit(uv, e[j], G, inv_tau);
         if (k < 32 && c0 + k < C) visit(c0 + k, id[j] & INT_MAX, id[j] >= 0, e[j], x);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-cand_fwd_kernel(const float* __restrict__ user, const int* __restrict__ ids,
-                const float* __restrict__ table, float* __restrict__ logz,
-                float* __restrict__ pos_logit, int M, int C, int D, int N, float inv_tau,
-                int G) {
-  const int64_t m = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (m >= M) return;  // the whole warp
-  const int lane = threadIdx.x % 32;
-  const float4 uv = load4(user + m * D, lane % G, D);
-  float mx = -INFINITY, sum = 0.f, pl = 0.f;
-  for_candidates(uv, ids + m * C, table, C, D, N, inv_tau, G,
-                       [&](int c, int, bool, float4, float x) {
-                         if (c == 0) pl = x;
-                         if (x > mx) {
-                           sum = sum * expf(mx - x) + 1.f;  // exp(-inf) = 0 on the first
-                           mx = x;
-                         } else {
-                           sum += expf(x - mx);
-                         }
-                       });
-  // merge the groups; column 0 was group 0's first candidate
-  for (int o = G; o < 32; o <<= 1) {
-    const float m2 = __shfl_xor_sync(kFull, mx, o);
-    const float s2 = __shfl_xor_sync(kFull, sum, o);
-    lse_merge(mx, sum, m2, s2);
-  }
-  if (lane == 0) {
-    logz[m] = mx + logf(sum);
-    pos_logit[m] = pl;
-  }
-}
-
-// Backward, 1: the rows with s != 0 in increasing order (live) and their
-// count (n_live). Each thread takes a contiguous run of rows, whose
-// flags it loads 32 at a time.
+// 1 (forward and backward): the rows with flag[m] != 0 in increasing order
+// (live) and their count (n_live). Each thread takes a contiguous run of
+// rows, whose flags it loads 32 at a time.
 __global__ void __launch_bounds__(kListThreads)
-cand_live_kernel(const float* __restrict__ s, int* __restrict__ live, int* __restrict__ n_live,
-                 int M) {
+cand_live_kernel(const float* __restrict__ flag, int* __restrict__ live,
+                 int* __restrict__ n_live, int M) {
   using Scan = cub::BlockScan<int, kListThreads>;
   __shared__ typename Scan::TempStorage scan;
   const int per = (M + kListThreads - 1) / kListThreads;
   const int lo = (int)min((int64_t)M, (int64_t)threadIdx.x * per);
   const int hi = min(M, lo + per);
-  auto flags = [&](int g0) {  // bit j: row g0 + j has s != 0
+  auto flags = [&](int g0) {  // bit j: row g0 + j has flag != 0
     unsigned bits = 0u;
 #pragma unroll
     for (int j = 0; j < 32; ++j)
-      if (g0 + j < hi && s[g0 + j] != 0.f) bits |= 1u << j;
+      if (g0 + j < hi && flag[g0 + j] != 0.f) bits |= 1u << j;
     return bits;
   };
   const unsigned first = lo < hi ? flags(lo) : 0u;  // the usual run: 32 rows or fewer
@@ -198,6 +204,108 @@ cand_live_kernel(const float* __restrict__ s, int* __restrict__ live, int* __res
     for (unsigned bits = g0 == lo ? first : flags(g0); bits; bits &= bits - 1)
       live[at++] = g0 + __ffs(bits) - 1;
   if (threadIdx.x == 0) *n_live = total;
+}
+
+// Forward, 2: the blocks write logz = pos_logit = 0 on the rows with
+// w = 0, and block b takes the listed rows b, b + gridDim.x, ...: the C
+// candidates of row m = live[b] are cut into tiles of 32, and warp v takes
+// tiles v, v + kFwdWarps, ... (its slice). A tile's table rows are copied
+// by cp.async into a ring of kFwdStages tiles in shared memory, 16 bytes a
+// lane, one row per group of G lanes (float4 q of row r at r G + (q ^
+// (r mod min(G, 8))), so that lanes reading whole rows share no bank), while
+// the warp takes the dots of the tile before; the next tile's ids are read
+// as a tile is issued. Lane l then takes candidate l of the tile: its dot
+// with u (in registers) summed over the G float4s in the order of
+// group_sum's shuffles, so the logit has cand_logit's bits, and an online
+// (max, sum). The lanes are merged by shuffles, the warps in warp order.
+template <int G>
+__global__ void __launch_bounds__(kFwdWarps * 32, G < 32 ? 3 : 1)
+cand_fwd_kernel(const float* __restrict__ user, const int* __restrict__ ids,
+                const float* __restrict__ table, const float* __restrict__ w,
+                const int* __restrict__ live, const int* __restrict__ n_live,
+                float* __restrict__ logz, float* __restrict__ pos_logit, int M, int C, int D,
+                int N, float inv_tau) {
+  constexpr int P = 32 / G, SW = (G < 8 ? G : 8) - 1;
+  for (int64_t i = (int64_t)blockIdx.x * kFwdWarps * 32 + threadIdx.x; i < M;
+       i += (int64_t)gridDim.x * kFwdWarps * 32)
+    if (w[i] == 0.f) logz[i] = pos_logit[i] = 0.f;  // the rows cand_live_kernel left out
+  const int rows = *n_live;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / G, q = lane % G;
+  extern __shared__ float4 staged[];
+  float4* ring = staged + warp * kFwdStages * 32 * G;
+  __shared__ float part_m[kFwdWarps], part_s[kFwdWarps];
+  const int tiles = (C + 31) / 32;
+  const int own_tiles = warp < tiles ? (tiles - warp + kFwdWarps - 1) / kFwdWarps : 0;
+  for (int64_t b = blockIdx.x; b < rows; b += gridDim.x) {
+    const int64_t m = live[b];
+    const int* __restrict__ row_ids = ids + m * C;
+    float4 uv[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) uv[j] = load4(user + m * D, j, D);
+    auto tile_ids = [&](int i) {  // lane l: the clamped id of candidate l of tile i
+      const int c = 32 * (warp + i * kFwdWarps) + lane;
+      return i < own_tiles && c < C ? clamp_id(row_ids[c], N) : 0;
+    };
+    int next = tile_ids(0);
+    auto issue = [&](int i) {  // the table rows of this warp's tile i into its slot
+      if (i >= own_tiles) return;  // the whole warp
+      const int own = next;
+      next = tile_ids(i + 1);
+      const int c0 = 32 * (warp + i * kFwdWarps);
+      float4* slot = ring + (i % kFwdStages) * 32 * G;
+#pragma unroll
+      for (int r0 = 0; r0 < 32; r0 += P) {
+        const int r = r0 + g, id = __shfl_sync(kFull, own, r);
+        const bool ok = c0 + r < C && 4 * q < D;
+        cp_async<16>(slot + r * G + (q ^ (r & SW)),
+                     ok ? table + (int64_t)id * D + 4 * q : table, ok);
+      }
+    };
+    float mx = -INFINITY, sum = 0.f, pl = 0.f;
+#pragma unroll
+    for (int i = 0; i < kFwdStages - 1; ++i) {
+      issue(i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < own_tiles; ++i) {
+      __syncwarp();  // every lane has read the slot that is filled next
+      issue(i + kFwdStages - 1);
+      cp_async_commit();
+      cp_async_wait<kFwdStages - 1>();
+      __syncwarp();  // tile i has landed, from every lane's copies
+      const float4* row = ring + (i % kFwdStages) * 32 * G + lane * G;
+      float x[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) x[j] = dot4(uv[j], row[j ^ (lane & SW)]);
+      const float x0 = __fmul_rn(shuffle_order_sum<G>(x), inv_tau);  // cand_logit
+      const int c = 32 * (warp + i * kFwdWarps) + lane;
+      if (c == 0) pl = x0;
+      if (c < C) {
+        if (x0 > mx) {
+          sum = sum * expf(mx - x0) + 1.f;  // exp(-inf) = 0 on the first
+          mx = x0;
+        } else {
+          sum += expf(x0 - mx);
+        }
+      }
+    }
+    for (int o = 1; o < 32; o <<= 1) {  // merge the lanes
+      const float m2 = __shfl_xor_sync(kFull, mx, o);
+      const float s2 = __shfl_xor_sync(kFull, sum, o);
+      lse_merge(mx, sum, m2, s2);
+    }
+    if (lane == 0) {
+      part_m[warp] = mx;
+      part_s[warp] = sum;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {  // merge the slices in warp order; column 0 was warp 0's
+      for (int v = 1; v < kFwdWarps; ++v) lse_merge(mx, sum, part_m[v], part_s[v]);
+      logz[m] = mx + logf(sum);
+      pos_logit[m] = pl;
+    }
+    __syncthreads();  // part_m and part_s are taken again by the next row
+  }
 }
 
 // Backward, 2: the blocks zero du of the rows with s = 0, and block b
@@ -438,25 +546,59 @@ bool bad_shape(int M, int C, int D, int N) {
   return M < 0 || C < 1 || D < 4 || D > kMaxD || D % 4 != 0 || N < 1;
 }
 
-unsigned row_blocks(int64_t rows) { return (unsigned)((rows + kWarps - 1) / kWarps); }
+// the grid of a row kernel, whose count of listed rows stays on the card:
+// a few waves of the SMs, enough for the listed rows at HSTU's pad share,
+// and at most one block a row
+unsigned row_grid(int M) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (unsigned)min((int64_t)M, (int64_t)16 * sms);
+}
+
+// the forward's row kernel for G lanes a candidate: its dynamic shared
+// memory is kFwdWarps x kFwdStages tiles of 32 rows of G float4s
+template <int G>
+int launch_fwd(cudaStream_t st, const float* user, const int* ids, const float* table,
+               const float* w, const int* live, const int* n_live, float* logz, float* pos_logit,
+               int M, int C, int D, int N, float inv_tau) {
+  const size_t smem = (size_t)kFwdWarps * kFwdStages * 32 * G * sizeof(float4);
+  const cudaError_t err = allow_smem(cand_fwd_kernel<G>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cand_fwd_kernel<G><<<row_grid(M), kFwdWarps * 32, smem, st>>>(
+      user, ids, table, w, live, n_live, logz, pos_logit, M, C, D, N, inv_tau);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 // user (M, D) and table (N, D) contiguous float32 with 16-byte aligned
-// rows (D a multiple of 4, at most kMaxD), ids (M, C) contiguous int32.
-// Writes logz and pos_logit (M,). Launches on `stream`; returns the
-// first CUDA error (0 on success).
+// rows (D a multiple of 4, at most kMaxD), ids (M, C) contiguous int32,
+// weights w (M,) float32. Writes logz and pos_logit (M,), through the
+// scratch the caller allocates: live (M,) and n_live (1,) int32. Launches
+// its two kernels on `stream`; the count of rows with w != 0 stays in
+// device memory. Returns the first CUDA error (0 on success).
 extern "C" int sampled_softmax_cand_fwd_f32(const float* user, const int* ids,
-                                            const float* table, float* logz, float* pos_logit,
-                                            int M, int C, int D, int N, float inv_tau,
-                                            void* stream) {
+                                            const float* table, const float* w, float* logz,
+                                            float* pos_logit, int* live, int* n_live, int M,
+                                            int C, int D, int N, float inv_tau, void* stream) {
   if (bad_shape(M, C, D, N)) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const int G = group_lanes(D);
   const cudaStream_t st = (cudaStream_t)stream;
-  cand_fwd_kernel<<<row_blocks(M), kThreads, 0, st>>>(user, ids, table, logz, pos_logit, M, C,
-                                                      D, N, inv_tau, G);
-  return (int)cudaGetLastError();
+  cand_live_kernel<<<1, kListThreads, 0, st>>>(w, live, n_live, M);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  auto go = [&](auto launch) {
+    return launch(st, user, ids, table, w, live, n_live, logz, pos_logit, M, C, D, N, inv_tau);
+  };
+  switch (group_lanes(D)) {
+    case 1: return go(launch_fwd<1>);
+    case 2: return go(launch_fwd<2>);
+    case 4: return go(launch_fwd<4>);
+    case 8: return go(launch_fwd<8>);
+    case 16: return go(launch_fwd<16>);
+    default: return go(launch_fwd<32>);
+  }
 }
 
 // The backward for row gradients g (M,) of logz - pos_logit: du (M, D)
@@ -478,13 +620,8 @@ extern "C" int sampled_softmax_cand_bwd_f32(const float* user, const int* ids, c
   while (end_bit < 31 && (N >> end_bit) != 0) ++end_bit;
   cand_live_kernel<<<1, kListThreads, 0, st>>>(g, live, n_live, M);
   if (M > 0) {
-    // as many blocks as a few waves of the SMs: enough for the listed rows
-    // at HSTU's pad share, and no block that only zeroes a row of du
-    int dev = 0, sms = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cand_rows_kernel<<<(unsigned)min((int64_t)M, (int64_t)16 * sms), kThreads, 0, st>>>(
-        user, ids, table, logz, g, live, n_live, du, coef, keys, M, C, D, N, inv_tau, G);
+    cand_rows_kernel<<<row_grid(M), kThreads, 0, st>>>(user, ids, table, logz, g, live, n_live,
+                                                       du, coef, keys, M, C, D, N, inv_tau, G);
     const int64_t chunks = ((int64_t)M * C + kChunk - 1) / kChunk;
     cand_chunk_kernel<<<(unsigned)chunks, kSortThreads, 0, st>>>(
         reinterpret_cast<const unsigned*>(keys), n_live, order, runs, C, N, end_bit);

@@ -14,7 +14,9 @@ temperature.
   wrappers of the hand-written CUDA kernels
   (``csrc/sampled_softmax_cand.cu``) that replace the TPU kernel
   ``_fwd_kernel`` of ``sampled_softmax_loss_pallas`` and add its
-  backward; CUDA tensors only. ``SampledSoftmaxCandidates`` is the
+  backward; CUDA tensors only. Both compute the weighted rows alone (the
+  forward those of weight != 0, the backward those of gradient != 0),
+  listed on the card. ``SampledSoftmaxCandidates`` is the
   autograd function over them; ``sampled_softmax_loss_reference``,
   ``sampled_softmax_cand_rows_reference`` and
   ``sampled_softmax_cand_bwd_reference`` are their plain versions.
@@ -48,7 +50,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +62,8 @@ from .vocab_ce import _sm_count
 
 __all__ = [
     "CAND_CHUNK",
+    "CAND_FWD_WARPS",
+    "CAND_LIST_THREADS",
     "CAND_MAX_ENTRIES",
     "CAND_RADIX_BITS",
     "CAND_WARPS",
@@ -82,10 +86,14 @@ __all__ = [
 MAX_D = 128  # the widest embedding the kernels take
 TILE = 64  # K5's rows and negatives per tile (csrc/tiles.cuh kTile)
 BLOCKS_PER_SM = 4  # the grid K5's backward aims for, in blocks per SM
-# K4's backward (csrc/sampled_softmax_cand.cu): warps of a row block (each
-# a slice of the row's candidates, and the most warps on one table row);
-# compact entries per chunk of the transpose, sorted 4 bits a pass (CUB's
-# block radix sort); the most compact entries (int32 indices)
+# K4 (csrc/sampled_softmax_cand.cu): threads of the one block that lists
+# the weighted rows; warps of the forward's row block (each a slice of the
+# row's tiles of 32 candidates); warps of the backward's row block (each a
+# slice of the row's candidates, and the most warps on one table row);
+# compact entries per chunk of the backward's transpose, sorted 4 bits a
+# pass (CUB's block radix sort); the most compact entries (int32 indices)
+CAND_LIST_THREADS = 1024
+CAND_FWD_WARPS = 4
 CAND_WARPS = 8
 CAND_CHUNK = 512 * 16
 CAND_RADIX_BITS = 4
@@ -177,12 +185,20 @@ def sampled_softmax_cand_rows_reference(
     cand_ids: torch.Tensor,  # (M, C); positive at column 0
     table: torch.Tensor,  # (N, D)
     temperature: float = 1.0,
+    weights: Optional[torch.Tensor] = None,  # (M,)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the per-position forward kernel: (logz,
+    """The plain version of the per-position forward kernels: (logz,
     pos_logit), each (M,), the logsumexp of a row's C logits and its
-    column-0 logit."""
+    column-0 logit; with ``weights``, both exactly 0 on rows of weight 0,
+    as the kernels write them (selected, not multiplied: a row's logits
+    need not be finite)."""
     logits, _, _ = _cand_logits(user, cand_ids, table, temperature)
-    return torch.logsumexp(logits, dim=-1), logits[:, 0]
+    logz, pos_logit = torch.logsumexp(logits, dim=-1), logits[:, 0]
+    if weights is None:
+        return logz, pos_logit
+    live = weights != 0
+    return (torch.where(live, logz, torch.zeros_like(logz)),
+            torch.where(live, pos_logit, torch.zeros_like(pos_logit)))
 
 
 def sampled_softmax_cand_bwd_reference(
@@ -248,7 +264,7 @@ def sampled_softmax_loss(
     if user.device.type != "cpu":
         return SampledSoftmaxCandidates.apply(
             user.contiguous(), cand_ids.to(torch.int32).contiguous(), table.contiguous(),
-            weights, float(temperature))
+            weights.to(torch.float32).contiguous(), float(temperature))
     total = user.new_zeros(())
     for start in range(0, user.shape[0], chunk):
         rows = slice(start, start + chunk)
@@ -302,9 +318,9 @@ def _check(fn: str, user, pos, neg) -> Tuple[int, int, int]:
 
 def _check_rows(fn: str, M: int, user, **rows) -> None:
     for name, t in rows.items():
-        if (t.shape != (M,) or t.dtype != torch.float32 or t.device != user.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{fn}: {name} must be a contiguous float32 ({M},) tensor "
+        if (t.shape != (M,) or t.dtype != torch.float32 or t.device.type != "cuda"
+                or t.device != user.device or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be a contiguous float32 ({M},) CUDA tensor "
                              "on user's device")
 
 
@@ -407,8 +423,9 @@ def _cand_kernels():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.sampled_softmax_cand_fwd_f32
     fwd.argtypes = [
-        ptr, ptr, ptr,  # user, ids, table
+        ptr, ptr, ptr, ptr,  # user, ids, table, weights
         ptr, ptr,  # logz, pos_logit
+        ptr, ptr,  # scratch: live, n_live
         i32, i32, i32, i32, f32,  # M, C, D, N, 1 / temperature
         ptr,  # stream
     ]
@@ -448,22 +465,30 @@ def _check_cand(fn: str, user, cand_ids, table) -> Tuple[int, int, int, int]:
 
 
 def sampled_softmax_cand_fwd(
-    user: torch.Tensor, cand_ids: torch.Tensor, table: torch.Tensor, temperature: float
+    user: torch.Tensor,
+    cand_ids: torch.Tensor,
+    table: torch.Tensor,
+    weights: torch.Tensor,
+    temperature: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The per-position forward kernel: (logz, pos_logit), both (M,)
+    """The per-position forward kernels: (logz, pos_logit), both (M,)
     float32, the logsumexp of each row's C logits u . table[id] / tau and
-    its column-0 logit; ids (M, C) int32. Every row is computed.
+    its column-0 logit on the rows with weights != 0, and exactly 0 on the
+    others; ids (M, C) int32, weights (M,) float32. The weighted rows are
+    listed on the card, and a row kernel computes them alone: no host
+    synchronisation, so a CUDA graph captures it.
     ``sampled_softmax_cand_fwd.launches`` counts its calls."""
-    M, C, D, N = _check_cand("sampled_softmax_cand_fwd", user, cand_ids, table)
-    logz = torch.empty(M, dtype=torch.float32, device=user.device)
-    pos_logit = torch.empty_like(logz)
+    fn = "sampled_softmax_cand_fwd"
+    _check_rows(fn, user.shape[0], user, weights=weights)
+    M, C, D, N = _check_cand(fn, user, cand_ids, table)
+    new = functools.partial(torch.empty, device=user.device)
+    logz, pos_logit = new(M, dtype=torch.float32), new(M, dtype=torch.float32)
     if M == 0:
         return logz, pos_logit
-    _launch(
-        "sampled_softmax_cand_fwd", _cand_kernels()[0], user.device,
-        user.data_ptr(), cand_ids.data_ptr(), table.data_ptr(), logz.data_ptr(),
-        pos_logit.data_ptr(), M, C, D, N, 1.0 / temperature,
-    )
+    live, n_live = new(M, dtype=torch.int32), new(1, dtype=torch.int32)
+    _launch(fn, _cand_kernels()[0], user.device, user.data_ptr(), cand_ids.data_ptr(),
+            table.data_ptr(), weights.data_ptr(), logz.data_ptr(), pos_logit.data_ptr(),
+            live.data_ptr(), n_live.data_ptr(), M, C, D, N, 1.0 / temperature)
     sampled_softmax_cand_fwd.launches += 1
     return logz, pos_logit
 
@@ -519,14 +544,15 @@ sampled_softmax_cand_bwd.launches = 0
 
 
 class SampledSoftmaxCandidates(torch.autograd.Function):
-    """The per-position sampled softmax on the card: the forward kernel
-    gives each row's logsumexp and positive logit, the weighted mean is
-    taken here, and the backward kernels recompute the logits from the
-    saved logsumexp. Gradients flow to user and table."""
+    """The per-position sampled softmax on the card: the forward kernels
+    give each weighted row's logsumexp and positive logit (0 on rows of
+    weight 0), the weighted mean is taken here, and the backward kernels
+    recompute the logits from the saved logsumexp. Gradients flow to user
+    and table."""
 
     @staticmethod
     def forward(ctx, user, cand_ids, table, weights, temperature):
-        logz, pos_logit = sampled_softmax_cand_fwd(user, cand_ids, table, temperature)
+        logz, pos_logit = sampled_softmax_cand_fwd(user, cand_ids, table, weights, temperature)
         W = weights.sum().clamp_min(1.0)
         ctx.save_for_backward(user, cand_ids, table, weights, logz, W)
         ctx.temperature = temperature

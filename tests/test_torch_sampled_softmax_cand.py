@@ -154,15 +154,184 @@ def test_autograd_drops_out_of_range_ids_from_the_table_gradient(loss):
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """No fallback: the kernel wrappers launch on CUDA tensors or raise;
-    only ``sampled_softmax_loss`` sends CPU tensors to the plain version."""
-    user, ids, table, _ = (torch.from_numpy(a) for a in _inputs(8, 3, 8, 5, seed=0))
+    only ``sampled_softmax_loss`` sends CPU tensors to the plain version.
+    The forward's weights must be a contiguous float32 (M,) CUDA tensor."""
+    user, ids, table, w = (torch.from_numpy(a) for a in _inputs(8, 3, 8, 5, seed=0))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        L.sampled_softmax_cand_fwd(user, ids, table, 0.1)
+        L.sampled_softmax_cand_fwd(user, ids, table, w, 0.1)
+    for bad in (w, w.double(), torch.ones(9), torch.ones(8, 1), torch.ones(16)[::2]):
+        with pytest.raises(ValueError, match="weights must be a contiguous float32"):
+            L.sampled_softmax_cand_fwd(user, ids, table, bad, 0.1)
     rows = torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         L.sampled_softmax_cand_bwd(user, ids, table, rows, rows, 0.1)
     assert L.sampled_softmax_cand_fwd.launches == 0
     assert L.sampled_softmax_cand_bwd.launches == 0
+
+
+# -------------------------------------------- K4's forward, as the kernels run it
+def _lse_merge(m, s, m2, s2):
+    """tiles.cuh's lse_merge on float32 arrays: a max of -inf holds nothing."""
+    m, s = m.copy(), s.copy()
+    both = (m != -np.inf) & (m2 != -np.inf)
+    take = (m == -np.inf) & (m2 != -np.inf)
+    n = np.maximum(m, m2)
+    with np.errstate(invalid="ignore"):
+        merged = s * np.exp(m - n) + s2 * np.exp(m2 - n)
+    s[both], m[both] = merged[both], n[both]
+    s[take], m[take] = s2[take], m2[take]
+    return m, s
+
+
+def _listed(w):
+    """cand_live_kernel: thread t of the one block counts the rows with
+    w != 0 in its run [t * per, (t + 1) * per), an exclusive scan of the
+    counts places each run's rows, in order."""
+    M = len(w)
+    per = -(-M // L.CAND_LIST_THREADS)
+    runs = [np.nonzero(w[t * per:(t + 1) * per])[0] + t * per
+            for t in range(L.CAND_LIST_THREADS)]
+    at = np.cumsum([0] + [len(r) for r in runs])
+    live = np.empty(at[-1], dtype=np.int64)
+    for t, r in enumerate(runs):
+        live[at[t]:at[t + 1]] = r
+    return live
+
+
+def emulated_fwd(user, ids, table, w, tau):
+    """(logz, pos_logit, live, logits) as K4's forward kernels compute
+    them, in float32: the rows with w != 0 listed in order
+    (cand_live_kernel); their logits over the clamped ids; per listed row,
+    the C candidates cut into tiles of 32, tile t dealt to warp t %
+    CAND_FWD_WARPS, lane l of a warp taking candidate l of each of its
+    tiles in order with an online (max, sum); the lanes merged by the xor
+    butterfly, the warps in warp order (cand_fwd_kernel); 0 in both
+    outputs on rows of weight 0."""
+    M = user.shape[0]
+    C, N = ids.shape[1], table.shape[0]
+    live = _listed(w)
+    taken = L._take_ids(torch.from_numpy(ids), N).numpy()
+    logits = (np.einsum("md,mcd->mc", user[live], table[taken[live]]) / np.float32(tau)
+              ).astype(np.float32)
+    n, tiles = len(live), -(-C // 32)
+    total_m, total_s = np.full(n, -np.inf, np.float32), np.zeros(n, np.float32)
+    for warp in range(L.CAND_FWD_WARPS):
+        ms, ss = [], []
+        for lane in range(32):
+            mx, sm = np.full(n, -np.inf, np.float32), np.zeros(n, np.float32)
+            for t in range(warp, tiles, L.CAND_FWD_WARPS):
+                c = 32 * t + lane
+                if c >= C:
+                    continue
+                x = logits[:, c]
+                up = x > mx
+                with np.errstate(over="ignore", invalid="ignore"):  # both branches run
+                    sm = np.where(up, sm * np.exp(mx - x) + np.float32(1),
+                                  sm + np.exp(x - mx)).astype(np.float32)
+                mx = np.where(up, x, mx)
+            ms.append(mx)
+            ss.append(sm)
+        for o in (1, 2, 4, 8, 16):  # the lanes' butterfly
+            pairs = [_lse_merge(ms[i], ss[i], ms[i ^ o], ss[i ^ o]) for i in range(32)]
+            ms, ss = [p[0] for p in pairs], [p[1] for p in pairs]
+        total_m, total_s = _lse_merge(total_m, total_s, ms[0], ss[0])
+    logz, pos_logit = np.zeros(M, np.float32), np.zeros(M, np.float32)
+    logz[live] = total_m + np.log(total_s)
+    pos_logit[live] = logits[:, 0]
+    return logz, pos_logit, live, logits
+
+
+# (M, C, D, N, tau, zero share, out-of-range ids): the JAX test's C = 5 (one
+# tile: warps 1-3 hold no candidate, lanes 5-31 none); a ragged D over two
+# tiles; HSTU's widths on the toy store's 300 items (17 tiles, the last of
+# one candidate); the widest D; logits of a few hundred (tau 0.01,
+# unnormalised rows); one candidate; no weighted row; every row weighted
+FWD_CASES = {
+    "jax_test_empty_slices": (64, 5, 8, 16, 1.0, 0.3, True),
+    "ragged_D_empty_warps": (40, 33, 24, 7, 0.5, 0.3, False),
+    "hstu_widths": (64, 513, 64, 300, 0.05, 0.449, True),
+    "widest_D": (48, 129, 128, 50, 0.1, 0.5, False),
+    "large_logits": (64, 200, 16, 40, 0.01, 0.3, True),
+    "one_candidate": (32, 1, 8, 10, 0.5, 0.3, False),
+    "all_zero_rows": (48, 7, 8, 16, 0.3, 1.0, False),
+    "all_rows": (48, 65, 16, 30, 0.2, 0.0, True),
+}
+FWD_RTOL = 1e-6  # float32 logsumexps of the same logits in other orders
+# float32 dots of D products in other orders: max |got - want| over
+# max(1, max |want|), as chip_smoke holds the kernels
+LOGIT_TOL = 1e-6
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=list(FWD_CASES))
+def test_emulated_forward_matches_jax_logsumexp(case):
+    """The forward kernels' algorithm (emulated) against JAX: the listing
+    equals torch.nonzero(w); the listed rows' logits (clamped ids) are
+    JAX's (its gather of the ids, its einsum) within LOGIT_TOL; their logz
+    (slices, online (max, sum), merge order) is JAX's logsumexp of the
+    same logits within FWD_RTOL relative, and pos_logit their column 0;
+    rows of weight 0 give exactly 0. The loss from them is JAX's
+    reference loss."""
+    M, C, D, N, tau, zero_share, bad_ids = FWD_CASES[case]
+    user, ids, table, w = _bwd_inputs(M, C, D, N, M + C + 1, zero_share, bad_ids)
+    logz, pos_logit, live, logits = emulated_fwd(user, ids, table, w, tau)
+    np.testing.assert_array_equal(live, torch.nonzero(_t(w)).flatten().numpy())
+    want = jnp.einsum("md,mcd->mc", user, jnp.asarray(table)[jnp.asarray(ids)]) / tau
+    want = np.asarray(want)[live]
+    assert np.abs(logits - want).max(initial=0.0) <= LOGIT_TOL * max(1.0, np.abs(want).max(
+        initial=0.0))
+    want_z = np.asarray(jax.scipy.special.logsumexp(jnp.asarray(logits), axis=-1))
+    np.testing.assert_allclose(logz[live], want_z, rtol=FWD_RTOL, atol=FWD_RTOL)
+    np.testing.assert_array_equal(pos_logit[live], logits[:, 0])
+    off = w == 0
+    assert not logz[off].any() and not pos_logit[off].any()
+    loss = float(((logz - pos_logit) * w).sum() / max(w.sum(), 1.0))
+    np.testing.assert_allclose(loss, float(L_jax.sampled_softmax_loss_reference(
+        user, jnp.asarray(ids), jnp.asarray(table), w, tau)), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("M,C,D,N", [(64, 5, 8, 16), (300, 9, 24, 12)],
+                         ids=["jax_kernel_test", "ragged_D_many_repeats"])
+@pytest.mark.parametrize("tau", [1.0, 0.1])
+def test_weighted_plain_forward_matches_jax(M, C, D, N, tau):
+    """The weighted plain forward (what chip_smoke holds the kernels
+    against) gives JAX's loss, from the TPU kernel in interpret mode and
+    from its reference, and exactly 0 in both outputs on rows of weight 0."""
+    user, ids, table, w = _inputs(M, C, D, N, seed=M + C)
+    logz, pos_logit = L.sampled_softmax_cand_rows_reference(_t(user), _t(ids), _t(table), tau,
+                                                            weights=_t(w))
+    assert not logz[_t(w) == 0].any() and not pos_logit[_t(w) == 0].any()
+    loss = float(((logz - pos_logit) * _t(w)).sum() / max(w.sum(), 1.0))
+    np.testing.assert_allclose(loss, float(L_jax.sampled_softmax_loss_pallas(
+        user, ids, table, w, tau, block=32, interpret=True)), rtol=RTOL)
+    np.testing.assert_allclose(loss, float(L_jax.sampled_softmax_loss_reference(
+        user, ids, table, w, tau)), rtol=RTOL)
+
+
+def test_non_finite_weight_zero_row_stays_out_of_the_kernels_loss():
+    """A deliberate difference: a row of weight 0 whose logits are not
+    finite makes JAX's loss NaN (NaN x 0), in the TPU kernel and its
+    reference, and so the port's CPU path, which follows them. The kernels
+    never compute such a row and write 0 for it, so on the card the loss
+    stays finite: the weighted plain version and the emulated kernels give
+    the loss of the other rows."""
+    user, ids, table, w = _inputs(64, 5, 8, 16, seed=11)
+    w[7] = 0.0
+    user[7] = np.nan
+    tau = 0.5
+    for want in (L_jax.sampled_softmax_loss_pallas(user, ids, table, w, tau, block=32,
+                                                   interpret=True),
+                 L_jax.sampled_softmax_loss_reference(user, ids, table, w, tau),
+                 L.sampled_softmax_loss(_t(user), _t(ids), _t(table), _t(w), tau)):
+        assert np.isnan(float(want))
+    keep = np.arange(64) != 7
+    finite = float(L_jax.sampled_softmax_loss_reference(user[keep], ids[keep], table, w[keep],
+                                                        tau))
+    logz, pos_logit = L.sampled_softmax_cand_rows_reference(_t(user), _t(ids), _t(table), tau,
+                                                            weights=_t(w))
+    emu_z, emu_p, _, _ = emulated_fwd(user, ids, table, w, tau)
+    for z, p in ((logz.numpy(), pos_logit.numpy()), (emu_z, emu_p)):
+        assert z[7] == 0.0 and p[7] == 0.0
+        np.testing.assert_allclose(float(((z - p) * w).sum() / w.sum()), finite, rtol=RTOL)
 
 
 # ------------------------------------------- K4's backward, as the kernels run it
