@@ -75,12 +75,19 @@ Phases, one JSON line each; any failure exits non-zero:
    forward and backward once per step each, K1 twice per evaluated batch.
 12. bert4rec_quality — the toy store's BERT4Rec protocol for 5 seeds.
 13. kernels_sampled_softmax, kernels_rel_bias — K5 (sampled_softmax_shared
-   forward and backward) at HSTU's training shape, its last batch, the
-   JAX test's shape and large logits, with du and dpos exactly 0 on rows
-   of weight 0; K6 (stacked_rel_bias_bwd) at HSTU's shape, all 129
-   buckets, a ragged batch and L 200; each against its plain version,
-   with CUDA-event times beside the plain version, a library call and
-   the bound.
+   forward and backward; the backward over the rows of s != 0 alone, on
+   the tensor cores) at HSTU's training shape with its pad share, its
+   last batch, the JAX test's shape, large logits, every row weighted,
+   no row weighted, D 13 and D 128: the backward called directly against
+   its plain listed-rows version and through the loss's autograd, du and
+   dpos exactly 0 on rows of weight 0 (all three outputs 0 with no row
+   weighted), the same bits on a rerun; at the training shape both passes
+   also on the device clock, the backward by part (listing, tiles,
+   finishing sums) with its ptxas lines and with every row live, the
+   bounds on the live rows and on all, the library on both; K6
+   (stacked_rel_bias_bwd) at HSTU's shape, all 129 buckets, a ragged
+   batch and L 200; each against its plain version, with CUDA-event
+   times beside the plain version, a library call and the bound.
 14. hstu_train, hstu_profile, hstu_train_time, hstu_quality — phases 6, 5,
    7 and 8 for HSTU at the reference config with shared negatives, its
    training cut to one epoch: K5 forward and backward and K6 once per
@@ -280,13 +287,23 @@ CE_F64_TOL = 1e-5
 CE_BIG = 100.0  # bias added to every 97th entry: exp() overflows float32 there
 
 # K5 (shared-negative sampled softmax): (name, M, K, D, temperature,
-# l2-normalised inputs); the first is HSTU's training shape (256 rows x
-# 50 positions, 512 negatives, D 64, tau 0.1)
-SS_SHAPES = [("hstu_train", 12_800, 512, 64, 0.1, True)]
+# l2-normalised inputs, share of rows of weight 0); the first is HSTU's
+# training shape (256 rows x 50 positions, 512 negatives, D 64, tau 0.1)
+# with the pad share of its batches (87.9 %, as the hstu_train phase
+# reports): the backward computes the rows of nonzero gradient alone
+HSTU_PAD_SHARE = 0.879
+SS_ZERO_SHARE = 0.4  # rows of weight 0 in the correctness cases
+SS_SHAPES = [("hstu_train", 12_800, 512, 64, 0.1, True, HSTU_PAD_SHARE)]
 SS_EXTRA = [  # correctness only
-    ("hstu_last_batch", 6_600, 512, 64, 0.1, True),  # 21,892 rows mod 256 = 132, x 50
-    ("jax_test", 70, 12, 8, 0.3, False),
-    ("large_logits", 1_000, 512, 64, 0.01, False),  # |logits| past 88: exp() overflows
+    # 21,892 rows mod 256 = 132, x 50
+    ("hstu_last_batch", 6_600, 512, 64, 0.1, True, SS_ZERO_SHARE),
+    ("jax_test", 70, 12, 8, 0.3, False, SS_ZERO_SHARE),
+    # |logits| past 88: exp() overflows float32
+    ("large_logits", 1_000, 512, 64, 0.01, False, SS_ZERO_SHARE),
+    ("all_rows", 2_048, 512, 64, 0.1, True, 0.0),  # no row of weight 0
+    ("no_live_row", 2_048, 512, 64, 0.1, True, 1.0),  # every weight 0: du, dpos, dneg exactly 0
+    ("ragged_D_13", 1_000, 300, 13, 0.3, False, SS_ZERO_SHARE),  # 4-byte staging, a ragged tile
+    ("widest_D", 2_000, 512, 128, 0.1, True, SS_ZERO_SHARE),
 ]
 # logz and pos_logit: max |kernel - plain| over max(1, max |plain|); sums
 # of D products and logsumexps of K + 1 terms in other orders
@@ -295,7 +312,6 @@ SS_TOL = 1e-5
 # ~1e-4 of float32 rounding in either version, which exp() turns into a
 # relative error of the same size in every probability
 SS_LARGE_GRAD_TOL = 1e-3
-SS_ZERO_SHARE = 0.4  # rows of weight 0 (HSTU's pad positions)
 
 # K6 (relative-bias backward): (name, NB, B, L, active buckets K, bucket
 # columns); the first is HSTU's training shape: 4 blocks, batch 256,
@@ -316,8 +332,7 @@ RB_EXTRA = [  # correctness only
 # "large" unnormalised rows whose logits at tau 0.01 reach a few hundred,
 # where exp() overflows float32. The first is HSTU's training shape (256
 # rows x 50 positions, 1 + 512 candidates, D 64, 12,101 items, tau 0.1)
-# with the pad share of its batches (87.9 %, as the hstu_train phase reports)
-HSTU_PAD_SHARE = 0.879
+# with the pad share of its batches (HSTU_PAD_SHARE, as K5's)
 SSC_SHAPES = [("hstu_train", 12_800, 513, 64, 12_101, 0.1, "l2", HSTU_PAD_SHARE)]
 SSC_EXTRA = [  # correctness only
     ("hstu_last_batch", 6_600, 513, 64, 12_101, 0.1, "l2", HSTU_PAD_SHARE),
@@ -421,9 +436,12 @@ def device_kernels(fn, calls: int) -> list:
     return [(name, us / 1e3, n) for name, us, n in profiled_ops(prof, calls, device=True)]
 
 
-# K4's kernels by part, forward and backward: both list their rows with
-# cand_live_kernel, so a part is told by the call it is timed in
+# K4's kernels by part, forward and backward, and K5's backward's: each
+# lists its rows with cand_live_kernel, so a part is told by the call it is
+# timed in
 SSC_FWD_PARTS = {"cand_live_kernel": "live", "cand_fwd_kernel": "rows"}
+SS_BWD_PARTS = {"cand_live_kernel": "live", "shared_bwd_tile_kernel": "tiles",
+                "shared_bwd_finish_kernel": "finish"}
 SSC_BWD_PARTS = {"cand_live_kernel": "live", "cand_rows_kernel": "rows",
                  "cand_chunk_kernel": "transpose", "cand_segment_kernel": "segments"}
 
@@ -1016,10 +1034,11 @@ def time_vocab_ce(h, weight, b, labels, g) -> dict:
 
 def ss_inputs(case, rng):
     """(user, pos, neg, weights) of one K5 case on the card, the three
-    embeddings requiring their gradients; a share of rows of weight 0."""
+    embeddings requiring their gradients; the case's share of rows of
+    weight 0."""
     import torch
 
-    name, M, K, D, tau, normalised = case
+    name, M, K, D, tau, normalised, zero_share = case
     scale = 1.0 if normalised else 3.0 / math.sqrt(D)
     out = []
     for n in (M, M, K):
@@ -1027,21 +1046,25 @@ def ss_inputs(case, rng):
         if normalised:
             x /= np.linalg.norm(x, axis=1, keepdims=True)
         out.append(torch.from_numpy(x.astype(np.float32)).cuda().requires_grad_())
-    w = (rng.random(M) >= SS_ZERO_SHARE).astype(np.float32)
+    w = (rng.random(M) >= zero_share).astype(np.float32)
     return (*out, torch.from_numpy(w).cuda())
 
 
 def check_sampled_softmax(rng):
-    """K5 against its plain version on the card: logz and pos_logit, the
-    loss's gradients in user, pos and neg, du and dpos exactly 0 on rows
-    of weight 0; times at the timed shape."""
+    """K5 against its plain versions on the card: logz and pos_logit; the
+    backward called directly against ``sampled_softmax_shared_bwd_reference``
+    on the forward's outputs (the rows of s != 0 alone), the same bits on a
+    rerun, du and dpos exactly 0 on rows of s = 0, and with no such row
+    (``no_live_row``) du, dpos and dneg exactly 0; the loss's gradients in
+    user, pos and neg against autograd of the plain loss; everything
+    finite; times at the timed shape."""
     import torch
 
     from recboard_tpu_torch.ops import losses as S
 
     rows, worst = [], dict(fwd=0.0, bwd=0.0)
     for case in SS_SHAPES + SS_EXTRA:
-        name, M, K, D, tau, _ = case
+        name, M, K, D, tau, _, zero_share = case
         user, pos, neg, w = ss_inputs(case, rng)
         u, p, n = user.detach(), pos.detach(), neg.detach()
         logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, tau)
@@ -1051,40 +1074,69 @@ def check_sampled_softmax(rng):
         want_g = torch.autograd.grad(want, (user, pos, neg))
         got = S.SampledSoftmaxShared.apply(user, pos, neg, w, tau)
         got_g = torch.autograd.grad(got, (user, pos, neg))
+        s = (w / w.sum().clamp_min(1.0)).contiguous()
+        bwd = S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)
+        again = S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)
+        plain_bwd = S.sampled_softmax_shared_bwd_reference(u, p, n, logz, pos_logit, s, tau)
         torch.cuda.synchronize()
         err = max(rel_err(logz, want_logz), rel_err(pos_logit, want_pl))
         abs_err = max(float((logz - want_logz).abs().max()),
                       float((pos_logit - want_pl).abs().max()))
         g_rel = grad_rel_err(got_g, want_g)
         g_abs = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
+        bwd_rel = grad_rel_err(bwd, plain_bwd)
+        bwd_abs = max(float((a - b).abs().max()) for a, b in zip(bwd, plain_bwd))
         g_tol = SS_LARGE_GRAD_TOL if name == "large_logits" else GRAD_TOL
         zero = w == 0
-        zero_rows_exact = not bool(got_g[0][zero].any() or got_g[1][zero].any())
-        finite = all(bool(torch.isfinite(x).all()) for x in (logz, pos_logit, got) + got_g)
+        zero_rows_exact = not any(bool(x[zero].any()) for x in (got_g[0], got_g[1], *bwd[:2]))
+        all_zero = not any(bool(x.any()) for x in (*got_g, *bwd))
+        same_bits = all(torch.equal(a, b) for a, b in zip(bwd, again))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (logz, pos_logit, got, *got_g, *bwd))
         worst["fwd"] = max(worst["fwd"], abs_err)
-        worst["bwd"] = max(worst["bwd"], g_abs)
-        row = dict(shape=name, M=M, K=K, D=D, tau=tau, max_abs_err=abs_err, max_rel_err=err,
+        worst["bwd"] = max(worst["bwd"], g_abs, bwd_abs)
+        row = dict(shape=name, M=M, K=K, D=D, tau=tau, zero_share=zero_share,
+                   live_rows=int((s != 0).sum()), max_abs_err=abs_err, max_rel_err=err,
                    tol=SS_TOL, loss_err=abs(float(got.detach()) - float(want.detach())),
-                   grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=g_tol, finite=finite,
-                   zero_rows_exact=zero_rows_exact,
+                   grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=g_tol,
+                   bwd_max_abs_err=bwd_abs, bwd_rel_err=bwd_rel, same_bits=same_bits,
+                   finite=finite, zero_rows_exact=zero_rows_exact, all_zero=all_zero,
                    max_logit=float(want_logz.abs().max()))
         if case in SS_SHAPES:
             row.update(time_sampled_softmax(user, pos, neg, w, tau))
         emit("kernels", kernel="sampled_softmax_shared", **row)
-        if not finite or not zero_rows_exact or not err <= SS_TOL or not g_rel <= g_tol:
-            raise SystemExit(f"sampled_softmax_shared disagrees with its plain version at "
-                             f"{name}: fwd {err}, grads {g_rel}, zero rows exact "
-                             f"{zero_rows_exact}")
+        if (not finite or not zero_rows_exact or not same_bits or not err <= SS_TOL
+                or not g_rel <= g_tol or not bwd_rel <= g_tol
+                or (name == "no_live_row" and not all_zero)):
+            raise SystemExit(f"sampled_softmax_shared disagrees with its plain versions at "
+                             f"{name}: fwd {err}, grads {g_rel}, backward {bwd_rel}, zero "
+                             f"rows exact {zero_rows_exact}, same bits {same_bits}, all "
+                             f"zero {all_zero}")
         rows.append(row)
+        del user, pos, neg, w, got_g, want_g, bwd, again, plain_bwd
     return rows, worst
 
 
 def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
-    """CUDA-event times of K5's forward and backward, its plain version and
-    F.cross_entropy over the concatenated positive and torch.addmm logits
-    (forward, and autograd backward), with the bounds: the forward
-    2*M*K*D FLOP, the backward 6*M*K*D (the logits again, du and dneg), each
-    input read once and each output written once."""
+    """Times of K5's forward and backward, by CUDA events and on the device
+    clock (CUDA-graph replays, which also show the backward never waits on
+    the host), the backward by part from torch.profiler (live, the list of
+    rows of s != 0; tiles, the tensor-core products; finish, the partials'
+    fixed-order sums) with its launches per call and ptxas lines, and with
+    every row's s nonzero on the device clock; beside them the plain
+    versions (the forward's; the backward's own,
+    ``sampled_softmax_shared_bwd_reference``, and autograd of the plain
+    loss) and F.cross_entropy over the concatenated positive and
+    torch.addmm logits (forward, and autograd backward: on the rows of
+    weight != 0, taken by index before the timing, and on every row). The
+    bounds: each input read once and each output written once. The
+    forward does 2*M*K*D FLOP; the backward reads s, logz and pos_logit,
+    the live rows of u and p and neg, writes du and dpos for every row and
+    dneg, and does 6*K*D FLOP a live row (the logits again, du and dneg),
+    as three TF32 products at the tensor-core rate (``bwd_bound_ms``) and at
+    the float32 rate (``bwd_f32_bound_ms``); ``bwd_all_rows_bound_ms`` is
+    the bound of the all-row backward it replaced (every row's inputs and
+    6*M*K*D FLOP at the float32 rate)."""
     import torch
     import torch.nn.functional as F
 
@@ -1096,39 +1148,72 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
     logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, tau)
     W = w.sum().clamp_min(1.0)
     s = (w / W).contiguous()
-    zeros = torch.zeros(M, dtype=torch.long, device=u.device)
+    every_s = torch.full_like(s, 1.0 / M)
+    on = torch.nonzero(s).flatten()
+    live = len(on)
     zero = torch.zeros((), device=u.device)
 
-    def library(uu, pp, nn_):
+    def library(uu, pp, nn_, ww):
         logits = torch.cat([((uu * pp).sum(-1) / tau)[:, None],
                             torch.addmm(zero, uu, nn_.T, beta=0, alpha=1 / tau)], 1)
-        return (F.cross_entropy(logits, zeros, reduction="none") * w).sum() / W
+        labels = torch.zeros(uu.shape[0], dtype=torch.long, device=uu.device)
+        return (F.cross_entropy(logits, labels, reduction="none") * ww).sum() / W
 
-    def plain(uu, pp, nn_):
-        return S.sampled_softmax_loss_shared_reference(uu, pp, nn_, w, tau)
+    def plain(uu, pp, nn_, ww):
+        return S.sampled_softmax_loss_shared_reference(uu, pp, nn_, ww, tau)
 
-    def no_grad(fn):
+    u_on, p_on = (x[on].clone().requires_grad_() for x in (u, p))
+    w_on = w[on].contiguous()
+    every = (user, pos, neg, w)
+    live_rows = (u_on, p_on, neg, w_on)
+
+    def no_grad(fn, args):
         def call():
             with torch.no_grad():
-                return fn(u, p, n)
+                return fn(*(x.detach() for x in args[:3]), args[3])
         return call
 
-    def fwd_bwd(fn):
-        return lambda: torch.autograd.grad(fn(user, pos, neg), (user, pos, neg))
+    def fwd_bwd(fn, args):
+        return lambda: torch.autograd.grad(fn(*args), args[:3])
+
+    def fwd():
+        return S.sampled_softmax_shared_fwd(u, p, n, tau)
+
+    def bwd():
+        return S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)
 
     fwd_bound = bound(nbytes(u, p, n, logz, pos_logit), 2 * M * K * D)
-    bwd_bound = bound(nbytes(u, p, n, logz, pos_logit, s) + nbytes(u, p, n), 6 * M * K * D)
-    plain_ms = cuda_ms(no_grad(plain), iters=50, warmup=5)
-    lib_ms = cuda_ms(no_grad(library), iters=50, warmup=5)
+    bwd_bytes = nbytes(s, logz, pos_logit, n) + nbytes(u, p, n) + live * 2 * D * u.element_size()
+    bwd_bound = bound(bwd_bytes, 3 * 6 * live * K * D, TF32_FLOP_PER_S)
+    bwd_f32 = bound(bwd_bytes, 6 * live * K * D)
+    bwd_all_rows = bound(nbytes(u, p, n, logz, pos_logit, s) + nbytes(u, p, n), 6 * M * K * D)
+    plain_ms = cuda_ms(no_grad(plain, every), iters=50, warmup=5)
+    lib_ms = cuda_ms(no_grad(library, every), iters=50, warmup=5)
+    lib_on_ms = cuda_ms(no_grad(library, live_rows), iters=50, warmup=5)
+    parts, bwd_launches = kernel_parts(bwd, SS_BWD_PARTS, "sampled_softmax_shared_bwd", 20)
     return dict(
-        fwd_ms=cuda_ms(lambda: S.sampled_softmax_shared_fwd(u, p, n, tau)),
-        bwd_ms=cuda_ms(lambda: S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)),
+        fwd_ms=cuda_ms(fwd),
+        fwd_graph_ms=graph_ms(fwd, calls=20),
+        bwd_ms=cuda_ms(bwd),
+        bwd_graph_ms=graph_ms(bwd, calls=20),
+        bwd_every_row_graph_ms=graph_ms(
+            lambda: S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, every_s, tau),
+            calls=20),
+        bwd_parts_ms=parts,
+        bwd_launches_per_call=bwd_launches,
+        bwd_ptxas=ptxas_lines("sampled_softmax", "shared_bwd_tile_kernel"),
+        live_rows=live,
         plain_fwd_ms=plain_ms,
-        plain_bwd_ms=cuda_ms(fwd_bwd(plain), iters=50, warmup=5) - plain_ms,
+        plain_bwd_ms=cuda_ms(lambda: S.sampled_softmax_shared_bwd_reference(
+            u, p, n, logz, pos_logit, s, tau), iters=50, warmup=5),
+        plain_bwd_autograd_ms=cuda_ms(fwd_bwd(plain, every), iters=50, warmup=5) - plain_ms,
         library_fwd_ms=lib_ms,
-        library_bwd_ms=cuda_ms(fwd_bwd(library), iters=50, warmup=5) - lib_ms,
+        library_bwd_ms=cuda_ms(fwd_bwd(library, live_rows), iters=50, warmup=5) - lib_on_ms,
+        library_bwd_all_rows_ms=cuda_ms(fwd_bwd(library, every), iters=50, warmup=5) - lib_ms,
         fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
         bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+        bwd_f32_bound_ms=bwd_f32[0], bwd_f32_bound_by=bwd_f32[1],
+        bwd_all_rows_bound_ms=bwd_all_rows[0], bwd_all_rows_bound_by=bwd_all_rows[1],
     )
 
 
@@ -2341,11 +2426,13 @@ def main(argv=None) -> int:
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
     # and SDPA's beside them, take the device clock (CUDA graphs), as do
-    # K4 (two kernels behind one wrapper call forward, four backward) and
-    # K3 (its forward beside the library's from a graph too)
+    # K4 (two kernels behind one wrapper call forward, four backward), K3
+    # (its forward beside the library's from a graph too) and K5's backward
+    # (three kernels behind one wrapper call)
     serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
     cand = dict(ssc_rows[0], fwd_ms=ssc_rows[0]["fwd_graph_ms"],
                 bwd_ms=ssc_rows[0]["bwd_graph_ms"])
+    shared_bwd = dict(ss_rows[0], bwd_ms=ss_rows[0]["bwd_graph_ms"])
     ce = dict(ce, fwd_ms=ce["fwd_graph_ms"], library_fwd_ms=ce["library_fwd_graph_ms"],
               bwd_ms=ce["bwd_graph_ms"])
     training = dict(training, fwd_ms=training["fwd_graph_ms"],
@@ -2371,7 +2458,7 @@ def main(argv=None) -> int:
         kernel_entry("sampled_softmax_shared_bwd", "sampled_softmax.cu",
                      "recboard_tpu/ops/losses.py:255",
                      h_trained["launches"]["sampled_softmax_shared_bwd"], ss_worst["bwd"],
-                     ss_rows[0], "bwd_"),
+                     shared_bwd, "bwd_"),
         kernel_entry("stacked_rel_bias_bwd", "rel_bias.cu", "recboard_tpu/ops/rel_bias.py:69",
                      h_trained["launches"]["stacked_rel_bias_bwd"], rb_worst, rb_rows[0],
                      "bwd_"),

@@ -1,6 +1,7 @@
 // Float32-accurate tile products on Hopper's tensor cores (sm_90a) through
-// mma.sync m16n8k8 TF32, for the kernels of vocab_ce.cu and the
-// attention kernels (attn_fwd_tc.cuh, mha_dropout.cu's backward).
+// mma.sync m16n8k8 TF32, for the kernels of vocab_ce.cu, K5's backward
+// (sampled_softmax.cu) and the attention kernels (attn_fwd_tc.cuh,
+// mha_dropout.cu's backward).
 //
 // Split precision ("3xTF32"): each float32 operand x is cut into
 // hi = tf32(x) and lo = tf32(x - hi), both rounded as cvt.rna rounds (done
@@ -188,6 +189,119 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
     const bool ok = r0 + r < n && c < D;
     cp_async<16>(dst + at(r, c, DP), ok ? src + (r0 + r) * D + c : src, ok);
   }
+}
+
+// ---- tile products shared by the kernels (K3's, and K5's backward)
+
+// acc[i][j] = the logits (no bias) of tile rows rw + 16 i + (g, g + 8) and
+// entries vw + 8 j + (2t, 2t + 1): rows of h_s times rows of w_s, over DP.
+// h's tile is a float32 tile (split as fragments load) or a SplitTile;
+// either way the products, and so the logits, have the same bits.
+template <int DP, typename TileH>
+__device__ __forceinline__ void tile_logits(TileH h_s, const float* w_s, int rw, int vw,
+                                            float acc[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DP; k0 += 8) {
+    FragA a[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) load_a(a[i], h_s, rw + 16 * i, k0, DP);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      FragB b[2];
+      load_b_rows2(b, w_s, vw + 8 * j, k0, DP);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_3xtf32(acc[i][j + jj], a[i], b[jj]);
+    }
+  }
+}
+
+// out[i][j] += (A B) of A rows m0 + 16 i.. (a_s, LDA floats a row) and B
+// columns n0 + 8 j.. (b_s: rows k, LDB floats a row), over K. The tensor
+// cores truncate as they accumulate, which over a long sum drifts: so the
+// tile's product is summed apart and added to out in float32 (rounded to
+// nearest), once per tile.
+template <int MT, int NT, int K, int LDA, int LDB>
+__device__ __forceinline__ void mma_accumulate(const float* a_s, int m0, const float* b_s, int n0,
+                                               int g, int t, float out[MT][NT][4]) {
+  float part[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA a[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) load_a(a[i], a_s, m0 + 16 * i, k0, LDA);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      FragB b;
+      load_b_cols(b, b_s, k0, n0 + 8 * j, LDB, g, t);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_3xtf32(part[i][j], a[i], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[i][j][q] += part[i][j][q];
+}
+
+// the A fragment (m0.., k0..) of A = tile^T: tile rows are k, columns m.
+// Each of its four words is a 4 x 8 read down the tile's columns, as
+// load_b_cols reads, so the lanes hit 32 distinct banks
+__device__ __forceinline__ void load_a_cols(FragA& a, const float* s, int m0, int k0, int ld,
+                                            int g, int t) {
+  split_tf32(s[at(k0 + t, m0 + g, ld)], a.hi[0], a.lo[0]);
+  split_tf32(s[at(k0 + t, m0 + g + 8, ld)], a.hi[1], a.lo[1]);
+  split_tf32(s[at(k0 + t + 4, m0 + g, ld)], a.hi[2], a.lo[2]);
+  split_tf32(s[at(k0 + t + 4, m0 + g + 8, ld)], a.hi[3], a.lo[3]);
+}
+
+// mma_accumulate with A = a_s^T: out[i][j] += (a_s^T B) of a_s columns
+// m0 + 16 i.. (a_s: rows k, LDA floats a row), so that one copy of a tile
+// is the A operand of both A B and A^T B
+template <int MT, int NT, int K, int LDA, int LDB>
+__device__ __forceinline__ void mma_accumulate_at(const float* a_s, int m0, const float* b_s,
+                                                  int n0, int g, int t, float out[MT][NT][4]) {
+  float part[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA a[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) load_a_cols(a[i], a_s, m0 + 16 * i, k0, LDA, g, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      FragB b;
+      load_b_cols(b, b_s, k0, n0 + 8 * j, LDB, g, t);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_3xtf32(part[i][j], a[i], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[i][j][q] += part[i][j][q];
 }
 
 }  // namespace

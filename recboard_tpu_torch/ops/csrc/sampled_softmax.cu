@@ -12,40 +12,72 @@
 //     du = (P n + coef p) / tau, dpos = coef u / tau, dneg = P^T u / tau.
 // Neither writes the (M, K) logits: they are recomputed tile by tile.
 //
-// What bounds it on an H100: operations. At HSTU's training shape (M =
-// 256 x 50 = 12,800 rows, K = 512, D = 64) the forward is 2*M*K*D = 0.84
+// The forward. What bounds it on an H100: operations. At HSTU's training
+// shape (M = 256 x 50 = 12,800 rows, K = 512, D = 64) it is 2*M*K*D = 0.84
 // GFLOP, 12.5 us at the 67 TFLOP/s float32 rate, against 6.8 MB of inputs
-// (2.0 us at 3.35 TB/s); the backward (logits again, du and dneg) is 2.52
-// GFLOP, 37.6 us. So the logits stay out of device memory and the effort
-// goes to the products, in the tiling vocab_ce.cu uses (tiles.cuh):
-//   * a tile is 64 rows x 64 negatives; 256 threads each hold a 4 x 4 block
-//     of it in registers, fed by float4 loads from d-major copies of the two
-//     operand tiles in shared memory. The negatives are tiled: at K = 512,
-//     D = 64 they are 128 KB, which the TPU kernel held whole in VMEM;
-//   * the forward keeps an online logsumexp per thread, seeded by the
-//     positive logit on one thread of each row, and merges the 16 threads
-//     of a row at the end;
-//   * the TPU grid runs in order and adds dneg across its steps; Hopper
-//     blocks run in no order, so the backward is two kernels without
-//     atomics: a row-tile kernel (du, dpos) and a negative-tile kernel
-//     (dneg) whose loop over row tiles is split across blocks that write
-//     partials, added in a fixed order by a second pass. Reruns give the
-//     same bits.
-// Rows with s = 0 get du and dpos exactly 0 (P and coef are products by 0).
-// The products are scalar FMAs: a first kernel that is right and simple.
+// (2.0 us at 3.35 TB/s). It runs scalar FMAs in tiles.cuh's tiling: a tile
+// is 64 rows x 64 negatives, 256 threads each hold a 4 x 4 block of it in
+// registers, fed by float4 loads from d-major copies of the two operand
+// tiles in shared memory; an online logsumexp per thread, seeded by the
+// positive logit on one thread of each row, merged over the 16 threads of
+// a row at the end.
+//
+// The backward. A row of s = 0 adds exactly nothing to du, dpos or dneg
+// (P and coef are products by 0), and at that shape 87.9 % of the rows are
+// pads of weight 0. So it computes the rows of s != 0 alone: 1,553 of
+// 12,800, 6*1,553*K*D = 0.305 GFLOP (1.85 us as three TF32 products at the
+// 495 TFLOP/s tensor-core rate, 4.6 us at the float32 rate). What bounds it
+// is then bytes: du and dpos are written for all M rows (6.55 MB), and the
+// live rows of u and p, n, dneg and the three (M,) vectors add 1.2 MB, 2.3
+// us at 3.35 TB/s. The design, three kernels behind one call, with no host
+// synchronisation, no float atomics and no library call:
+//   1. cand_live_kernel (live_rows.cuh, K4's) lists the rows of s != 0 in
+//      order, and their count, in device memory;
+//   2. shared_bwd_tile_kernel<DP>: block (128-negative tile, split) stages
+//      its negatives once and walks its split's tiles of 64 listed rows,
+//      gathered through the list by cp.async (zeros past the list, past K
+//      and past D). Per tile, K3's tile_logits gives the 64 x 128 logits
+//      (mma.sync TF32 in split precision, 3xTF32, mma_tf32.cuh: float32
+//      accuracy); P is made in registers from the fragments (exp2 of the
+//      logit - logz, times s) and written once to shared memory, where that
+//      one copy feeds both second products: mma_accumulate gives du's
+//      partial P n over this block's negatives, written to du_part at the
+//      rows' list positions, and mma_accumulate_at (the same copy read down
+//      its columns) adds P^T u to the block's running dneg, written to
+//      dneg_part once its split is done. Before that, while its tiles load,
+//      every block writes its share of du = dpos = 0 on the rows of s = 0
+//      (a warp a row over the whole grid), so no torch.empty contents
+//      reach autograd. D is padded with zeros to 32, 64 or 128, one build
+//      per width; a D that is not a multiple of 4 (or a row that is not
+//      16-byte aligned) is staged by 4-byte copies;
+//   3. shared_bwd_finish_kernel adds the partials in a fixed order: du over
+//      the ceil(K / 128) negative tiles, then + coef p, times 1 / tau, and
+//      dpos = coef u / tau, a warp a listed row; dneg over the splits that
+//      took tiles (their number from the count in device memory), times 1 /
+//      tau. Reruns give the same bits; with no row of s != 0, du, dpos and
+//      dneg are exactly 0.
+// At the training shape the grid is 4 negative tiles x 50 splits; the 25
+// tiles of listed rows give one tile to each of 25 splits, so 100 blocks
+// take tiles and 100 only write zeros.
+// The forward's logits are scalar-FMA sums and the backward's are 3xTF32
+// mma.sync sums: they differ by float32 rounding, so P's rows sum to 1
+// within float32, not bit for bit (the forward moves onto tile_logits
+// when it is redesigned).
+// What holds it back: latency. At the training shape 100 blocks, one an
+// SM, each make one pass of logits and two products from mma.sync
+// fragments that are split again at every load (about as many integer
+// operations as the products issue), after a chain of dependent loads
+// (the count, the list, the rows); the listing and the finishing pass are
+// launches of their own. Left for later: operands split once per tile,
+// wgmma, and the finishing sums in the tile kernel's last blocks.
 
-#include "tiles.cuh"
+#include <algorithm>
+
+#include "live_rows.cuh"  // cand_live_kernel, kListThreads
+#include "mma_tf32.cuh"   // tile_logits, mma_accumulate, mma_accumulate_at, cp_async
+#include "tiles.cuh"      // the forward's tiles; kMaxD, kFull, lse_merge, allow_smem
 
 namespace {
-
-__device__ __forceinline__ void zero_out(float out[4][kChunks][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][k][j] = 0.f;
-}
 
 // Forward: block = one row tile, looping over every negative tile.
 __global__ void __launch_bounds__(kThreads)
@@ -116,152 +148,271 @@ shared_fwd_kernel(const float* __restrict__ user, const float* __restrict__ pos,
   }
 }
 
-// P[i][j] for rows 4 ty + i of the row tile at r0 and negatives 4 tx + j of
-// the tile at k0, from the products' 4 x 4 block; 0 past M or K
-__device__ __forceinline__ void probs(float acc[4][4], int64_t r0, int64_t k0, int ty, int tx,
-                                      int M, int K, const float z[4], const float s[4],
-                                      float inv_tau) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool row_ok = r0 + 4 * ty + i < M;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j] = (row_ok && k0 + 4 * tx + j < K) ? expf(acc[i][j] * inv_tau - z[i]) * s[i]
-                                                  : 0.f;
-  }
-}
+// ---- backward ----
 
-// Backward, du and dpos: block = one row tile, looping over every negative
-// tile.
-__global__ void __launch_bounds__(kThreads)
-shared_du_kernel(const float* __restrict__ user, const float* __restrict__ pos,
-                 const float* __restrict__ neg, const float* __restrict__ logz,
-                 const float* __restrict__ pos_logit, const float* __restrict__ grad,
-                 float* __restrict__ du, float* __restrict__ dpos, int M, int D, int K,
-                 float inv_tau) {
-  extern __shared__ __align__(16) float smem[];
-  const int D4 = round4(D);
-  float* u_t = smem;              // D x kLd
-  float* n_t = u_t + D * kLd;     // D x kLd
-  float* n_r = n_t + D * kLd;     // kTile x D4
-  float* p_t = n_r + kTile * D4;  // kTile (negatives) x kLd (rows)
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t r0 = (int64_t)blockIdx.x * kTile;
+constexpr int kRows = 64;         // listed rows per tile
+constexpr int kNegs = 128;        // negatives per tile
+constexpr int kTcThreads = 256;   // 8 warps
+constexpr int kFinishThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
-  load_dmajor(u_t, user, M, r0, D);
-  float z[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = r0 + 4 * ty + i;
-    z[i] = r < M ? logz[r] : 0.f;
-    s[i] = r < M ? grad[r] : 0.f;
-  }
-  float out[4][kChunks][4];
-  zero_out(out);
-
-  float acc[4][4];
-  const int n_tiles = (K + kTile - 1) / kTile;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int64_t k0 = (int64_t)t * kTile;
-    __syncthreads();  // the previous tile is consumed
-    load_dmajor(n_t, neg, K, k0, D);
-    load_rowmajor(n_r, neg, K, k0, D, D4);
-    __syncthreads();
-    tile_dot(u_t, n_t, D, ty, tx, acc);
-    probs(acc, r0, k0, ty, tx, M, K, z, s, inv_tau);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)  // p_t[k][r]: the rows of one negative contiguous
-      *reinterpret_cast<float4*>(p_t + (4 * tx + j) * kLd + 4 * ty) =
-          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-    __syncthreads();
-    tile_accumulate(p_t, n_r, D4, ty, tx, out);  // du += P n
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = r0 + 4 * ty + i;
-    if (r >= M) continue;
-    const float coef = s[i] * (expf(pos_logit[r] - z[i]) - 1.f);
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kTile * k + 4 * tx + j;
-        if (c >= D) continue;
-        du[r * D + c] = (out[i][k][j] + coef * pos[r * D + c]) * inv_tau;
-        dpos[r * D + c] = coef * user[r * D + c] * inv_tau;
-      }
-  }
-}
-
-// Backward, dneg: block (negative tile, row split); dneg, or the split's
-// partial, goes to dneg_part[split][K][D].
-__global__ void __launch_bounds__(kThreads)
-shared_dneg_kernel(const float* __restrict__ user, const float* __restrict__ neg,
-                   const float* __restrict__ logz, const float* __restrict__ grad,
-                   float* __restrict__ dneg_part, int M, int D, int K, float inv_tau,
-                   int tiles_per_split) {
-  extern __shared__ __align__(16) float smem[];
-  const int D4 = round4(D);
-  float* n_t = smem;              // D x kLd
-  float* u_t = n_t + D * kLd;     // D x kLd
-  float* u_r = u_t + D * kLd;     // kTile x D4
-  float* p_t = u_r + kTile * D4;  // kTile (rows) x kLd (negatives)
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t k0 = (int64_t)blockIdx.x * kTile;
-  const int split = blockIdx.y;
-  const int n_tiles = (M + kTile - 1) / kTile;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-
-  load_dmajor(n_t, neg, K, k0, D);
-  float out[4][kChunks][4];
-  zero_out(out);
-
-  float acc[4][4];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int64_t r0 = (int64_t)t * kTile;
-    __syncthreads();  // the previous tile is consumed; on the first pass, neg is staged
-    load_dmajor(u_t, user, M, r0, D);
-    load_rowmajor(u_r, user, M, r0, D, D4);
-    float z[4], s[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t r = r0 + 4 * ty + i;
-      z[i] = r < M ? logz[r] : 0.f;
-      s[i] = r < M ? grad[r] : 0.f;
+// rows row(r), r < ROWS, of a row-major (., D) float32 array into a
+// swizzled tile of DP floats a row (mma_tf32.cuh's layout); a row index
+// below 0, and the columns past D, are zeros. 16-byte copies when vec (D a
+// multiple of 4 and the array 16-byte aligned), else 4-byte ones.
+template <int ROWS, int DP, typename Row>
+__device__ __forceinline__ void stage_gather(float* dst, const float* __restrict__ src, int D,
+                                             bool vec, Row row) {
+  if (vec) {
+    constexpr int kC = DP / 4;
+    for (int i = threadIdx.x; i < ROWS * kC; i += kTcThreads) {
+      const int r = i / kC, c = 4 * (i % kC);
+      const int64_t m = row(r);
+      const bool ok = m >= 0 && c < D;
+      cp_async<16>(dst + at(r, c, DP), ok ? src + m * D + c : src, ok);
     }
-    __syncthreads();
-    tile_dot(u_t, n_t, D, ty, tx, acc);  // rows 4 ty + i, negatives 4 tx + j
-    probs(acc, r0, k0, ty, tx, M, K, z, s, inv_tau);
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += kTcThreads) {
+      const int r = i / DP, c = i % DP;
+      const int64_t m = row(r);
+      const bool ok = m >= 0 && c < D;
+      cp_async<4>(dst + at(r, c, DP), ok ? src + m * D + c : src, ok);
+    }
+  }
+}
+
+// The ceil(n / kRows) tiles of the n listed rows are cut into runs of
+// `per` tiles (the last may be shorter), one a split; the first `used`
+// splits take tiles, the others none
+__device__ __forceinline__ void tile_runs(int n, int splits, int& tiles, int& per, int& used) {
+  tiles = (n + kRows - 1) / kRows;
+  per = (tiles + splits - 1) / splits;
+  used = per > 0 ? (tiles + per - 1) / per : 0;
+}
+
+// Backward, 2: block (negative tile, split) takes its split's tiles of
+// listed rows, one after another: each tile's 64 x 128 logits (tile_logits,
+// 3xTF32), P in registers, P once to shared memory, then du's partial over
+// this block's negatives, P n, to du_part[negative tile][list position],
+// and dneg's, P^T u, added to the block's running dneg; that goes to
+// dneg_part[split] at the end. First every block writes its share of the
+// zeros of du and dpos on the rows with s = 0, while its first tiles load.
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, DP <= 64 ? 2 : 1)
+shared_bwd_tile_kernel(const float* __restrict__ user, const float* __restrict__ neg,
+                       const float* __restrict__ logz, const float* __restrict__ grad,
+                       const int* __restrict__ live, const int* __restrict__ n_live,
+                       float* __restrict__ du, float* __restrict__ dpos,
+                       float* __restrict__ du_part, float* __restrict__ dneg_part, int M, int D,
+                       int K, float inv_tau, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* n_s = smem;              // kNegs x DP: this block's negatives
+  float* u_s = n_s + kNegs * DP;  // kRows x DP: a tile of listed rows
+  float* p_s = u_s + kRows * DP;  // kRows x kNegs: P
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t k0 = (int64_t)blockIdx.x * kNegs;
+  const int n = *n_live;
+  int tiles, per, used;
+  tile_runs(n, gridDim.y, tiles, per, used);
+  const int t_begin = min(tiles, (int)blockIdx.y * per), t_end = min(tiles, t_begin + per);
+
+  auto stage_u = [&](int tile) {
+    const int64_t b0 = (int64_t)tile * kRows;
+    stage_gather<kRows, DP>(u_s, user, D, vec,
+                            [&](int r) { return b0 + r < n ? (int64_t)live[b0 + r] : -1; });
+  };
+  // logz and s of this thread's rows of a tile: rows rw + 16 i + 8 hh + g
+  // of the logits (below); 0 past the list
+  const int rw = 32 * (warp / 4), vw = 32 * (warp % 4);
+  float zr[2][2], sr[2][2];
+  auto row_consts = [&](int tile) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)  // p_t[r][k]: the negatives of one row contiguous
-      *reinterpret_cast<float4*>(p_t + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    __syncthreads();
-    tile_accumulate(p_t, u_r, D4, ty, tx, out);  // dneg[k] += sum_r P[r][k] u[r]
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t b = (int64_t)tile * kRows + rw + 16 * i + 8 * hh + g;
+        const int64_t m = b < n ? live[b] : -1;
+        zr[i][hh] = m >= 0 ? logz[m] : 0.f;
+        sr[i][hh] = m >= 0 ? grad[m] : 0.f;
+      }
+  };
+  if (t_begin < t_end) {
+    stage_gather<kNegs, DP>(n_s, neg, D, vec,
+                            [&](int r) { return k0 + r < K ? k0 + r : (int64_t)-1; });
+    stage_u(t_begin);
+    row_consts(t_begin);
+  }
+  cp_async_commit();
+
+  // du and dpos exactly 0 on the rows cand_live_kernel left out: a warp
+  // takes 32 rows at a time over the whole grid, a lane reading one row's
+  // s; the last blocks, those of the splits that take no tile, first
+  const int64_t warps = (int64_t)gridDim.x * gridDim.y * (kTcThreads / 32);
+  const int64_t from_last =
+      warps - 1 - (((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * (kTcThreads / 32) + warp);
+  for (int64_t r0 = 32 * from_last; r0 < M; r0 += 32 * warps) {
+    const bool zero = r0 + lane < M && grad[r0 + lane] == 0.f;
+    for (unsigned rows = __ballot_sync(kFull, zero); rows; rows &= rows - 1) {
+      const int64_t r = r0 + __ffs(rows) - 1;
+      for (int d = lane; d < D; d += 32) du[r * D + d] = dpos[r * D + d] = 0.f;
+    }
   }
 
+  // warps: the logits 2 (rows) x 4 (negatives) of 32 x 32; du 4 (rows) x 2
+  // (D); dneg 4 (negatives) x 2 (D)
+  const int rd = 16 * (warp / 2), vd = 32 * (warp / 2), dd = (DP / 2) * (warp % 2);
+  constexpr int NT = DP / 16;
+  float dn[2][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t k = k0 + 4 * ty + i;
-    if (k >= K) continue;
-    float* dst = dneg_part + ((int64_t)split * K + k) * D;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int c4 = 0; c4 < kChunks; ++c4)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kTile * c4 + 4 * tx + j;
-        if (c < D) dst[c] = out[i][c4][j] * inv_tau;
+      for (int q = 0; q < 4; ++q) dn[i][j][q] = 0.f;
+  bool col_ok[4][2];  // negatives past K take no probability
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) col_ok[j][e] = k0 + vw + 8 * j + 2 * t + e < K;
+
+  float acc[2][4][4];
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    if (tile > t_begin) {
+      __syncthreads();  // the previous tile's products are done
+      stage_u(tile);
+      cp_async_commit();
+      row_consts(tile);
+    }
+    const int64_t b0 = (int64_t)tile * kRows;
+    cp_async_wait_all();
+    __syncthreads();  // the tiles are staged
+
+    tile_logits<DP>(u_s, n_s, rw, vw, acc);
+    // P = s exp(logit - logz): a row past the list has u = 0 and s = 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int hh = q >> 1, e = q & 1;
+          const float x = acc[i][j][q] * inv_tau;
+          acc[i][j][q] = col_ok[j][e] ? exp2f((x - zr[i][hh]) * kLog2e) * sr[i][hh] : 0.f;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)  // p_s[r][k]
+          *reinterpret_cast<float2*>(p_s + at(rw + 16 * i + 8 * hh + g, vw + 8 * j + 2 * t,
+                                              kNegs)) =
+              make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+    __syncthreads();
+
+    float du_o[1][NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) du_o[0][j][q] = 0.f;
+    mma_accumulate<1, NT, kNegs, kNegs, DP>(p_s, rd, n_s, dd, g, t, du_o);  // P n
+    float* dst = du_part + (int64_t)blockIdx.x * M * D;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t b = b0 + rd + 8 * hh + g;
+        const int d = dd + 8 * j + 2 * t;
+        if (b >= n) continue;
+        if (d < D) dst[b * D + d] = du_o[0][j][2 * hh];
+        if (d + 1 < D) dst[b * D + d + 1] = du_o[0][j][2 * hh + 1];
       }
+    mma_accumulate_at<2, NT, kRows, kNegs, DP>(p_s, vd, u_s, dd, g, t, dn);  // dneg += P^T u
   }
+
+  if (t_begin >= t_end) return;  // this split wrote no partial
+  float* dst = dneg_part + (int64_t)blockIdx.y * K * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t k = k0 + vd + 16 * i + 8 * hh + g;
+        const int d = dd + 8 * j + 2 * t;
+        if (k >= K) continue;
+        if (d < D) dst[k * D + d] = dn[i][j][2 * hh];
+        if (d + 1 < D) dst[k * D + d + 1] = dn[i][j][2 * hh + 1];
+      }
+}
+
+// Backward, 3: the partials added in a fixed order. A warp a listed row b,
+// m = live[b]: du[m] = (the du_part of each negative tile in order + coef
+// p[m]) / tau and dpos[m] = coef u[m] / tau, with coef = s (exp(pos_logit
+// - logz) - 1); then dneg = the dneg_part of each split that took tiles,
+// in order, / tau (exactly 0 with no listed row).
+__global__ void __launch_bounds__(kFinishThreads)
+shared_bwd_finish_kernel(const float* __restrict__ user, const float* __restrict__ pos,
+                         const float* __restrict__ logz, const float* __restrict__ pos_logit,
+                         const float* __restrict__ grad, const int* __restrict__ live,
+                         const int* __restrict__ n_live, const float* __restrict__ du_part,
+                         const float* __restrict__ dneg_part, float* __restrict__ du,
+                         float* __restrict__ dpos, float* __restrict__ dneg, int M, int D, int K,
+                         int neg_tiles, int splits, float inv_tau) {
+  const int n = *n_live;
+  int tiles, per, used;
+  tile_runs(n, splits, tiles, per, used);
+  const int lane = threadIdx.x % 32;
+  const int64_t warps = (int64_t)gridDim.x * (kFinishThreads / 32);
+  for (int64_t b = (int64_t)blockIdx.x * (kFinishThreads / 32) + threadIdx.x / 32; b < n;
+       b += warps) {
+    const int64_t m = live[b];
+    const float s = grad[m], z = logz[m];
+    const float coef = s * (expf(pos_logit[m] - z) - 1.f);
+    for (int d = lane; d < D; d += 32) {
+      float acc = 0.f;
+      for (int k = 0; k < neg_tiles; ++k) acc += du_part[((int64_t)k * M + b) * D + d];
+      du[m * D + d] = (acc + coef * pos[m * D + d]) * inv_tau;
+      dpos[m * D + d] = coef * user[m * D + d] * inv_tau;
+    }
+  }
+  const int64_t kd = (int64_t)K * D;
+  for (int64_t i = (int64_t)blockIdx.x * kFinishThreads + threadIdx.x; i < kd;
+       i += (int64_t)gridDim.x * kFinishThreads) {
+    float acc = 0.f;
+    for (int k = 0; k < used; ++k) acc += dneg_part[k * kd + i];
+    dneg[i] = acc * inv_tau;
+  }
+}
+
+template <int DP>
+size_t tile_smem() {
+  return sizeof(float) * ((size_t)kNegs * DP + (size_t)kRows * DP + (size_t)kRows * kNegs);
+}
+
+template <int DP>
+cudaError_t launch_tiles(dim3 grid, cudaStream_t st, const float* user, const float* neg,
+                         const float* logz, const float* g, const int* live, const int* n_live,
+                         float* du, float* dpos, float* du_part, float* dneg_part, int M, int D,
+                         int K, float inv_tau, bool vec) {
+  const cudaError_t err = allow_smem(shared_bwd_tile_kernel<DP>, tile_smem<DP>());
+  if (err != cudaSuccess) return err;
+  shared_bwd_tile_kernel<DP><<<grid, kTcThreads, tile_smem<DP>(), st>>>(
+      user, neg, logz, g, live, n_live, du, dpos, du_part, dneg_part, M, D, K, inv_tau, vec);
+  return cudaGetLastError();
+}
+
+// the finishing kernel's grid: a warp for each row and a thread for each
+// element of dneg, up to four blocks an SM
+unsigned finish_grid(int M, int K, int D) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t want = std::max<int64_t>((M + 7) / 8, ((int64_t)K * D + 255) / 256);
+  return (unsigned)std::max<int64_t>(1, std::min<int64_t>(want, (int64_t)4 * sms));
 }
 
 size_t fwd_smem(int D) { return sizeof(float) * (size_t)2 * D * kLd; }
-
-size_t bwd_smem(int D) {
-  return sizeof(float) * ((size_t)2 * D * kLd + (size_t)kTile * round4(D) + (size_t)kTile * kLd);
-}
 
 bool bad_shape(int M, int D, int K) { return M < 0 || D < 1 || D > kMaxD || K < 1; }
 
@@ -286,38 +437,37 @@ extern "C" int sampled_softmax_shared_fwd_f32(const float* user, const float* po
 }
 
 // The backward for row gradients g (M,) of logz - pos_logit: du, dpos (M, D)
-// and dneg (K, D). The row tiles of dneg's sum are cut into `splits` runs
-// of equal length (the last may be shorter, none empty); with more than
-// one, dneg_part holds splits * K * D floats of scratch, else it is unused
-// (may be null).
+// and dneg (K, D), through the scratch the caller allocates: live (M,) and
+// n_live (1,) int32, du_part (ceil(K / 128) * M * D) and dneg_part (splits *
+// K * D) float32. The tiles of listed rows are cut into `splits` runs of
+// equal length (splits <= 65535). Launches its three kernels on `stream`;
+// the count of rows with g != 0 stays in device memory. Returns the first
+// CUDA error (0 on success).
 extern "C" int sampled_softmax_shared_bwd_f32(const float* user, const float* pos,
                                               const float* neg, const float* logz,
                                               const float* pos_logit, const float* g,
-                                              float* du, float* dpos, float* dneg,
-                                              float* dneg_part, int M, int D, int K,
-                                              float inv_tau, int splits, void* stream) {
-  if (bad_shape(M, D, K) || splits < 1) return (int)cudaErrorInvalidValue;
+                                              float* du, float* dpos, float* dneg, int* live,
+                                              int* n_live, float* du_part, float* dneg_part,
+                                              int M, int D, int K, float inv_tau, int splits,
+                                              void* stream) {
+  if (bad_shape(M, D, K) || splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int64_t dneg_n = (int64_t)K * D;
-  if (M == 0) return (int)cudaMemsetAsync(dneg, 0, sizeof(float) * dneg_n, st);
-  const int m_tiles = (M + kTile - 1) / kTile;
-  const int per = (m_tiles + splits - 1) / splits;
-  if ((splits - 1) * per >= m_tiles) return (int)cudaErrorInvalidValue;  // an empty split
-  const size_t smem = bwd_smem(D);
-  cudaError_t err;
-  if ((err = allow_smem(shared_du_kernel, smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(shared_dneg_kernel, smem)) != cudaSuccess) return (int)err;
-
-  shared_du_kernel<<<(unsigned)m_tiles, kThreads, smem, st>>>(user, pos, neg, logz, pos_logit,
-                                                              g, du, dpos, M, D, K, inv_tau);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const dim3 grid((unsigned)((K + kTile - 1) / kTile), (unsigned)splits);
-  shared_dneg_kernel<<<grid, kThreads, smem, st>>>(user, neg, logz, g,
-                                                   splits > 1 ? dneg_part : dneg, M, D, K,
-                                                   inv_tau, per);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (splits > 1 && (err = sum_splits(dneg_part, dneg, dneg_n, splits, st)) != cudaSuccess)
-    return (int)err;
-  return 0;
+  cand_live_kernel<<<1, kListThreads, 0, st>>>(g, live, n_live, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int neg_tiles = (K + kNegs - 1) / kNegs;
+  if (M > 0) {
+    const bool vec = D % 4 == 0 && ((uintptr_t)user | (uintptr_t)neg) % 16 == 0;
+    const dim3 grid((unsigned)neg_tiles, (unsigned)splits);
+    auto go = [&](auto launch) {
+      return launch(grid, st, user, neg, logz, g, live, n_live, du, dpos, du_part, dneg_part, M,
+                    D, K, inv_tau, vec);
+    };
+    err = D <= 32 ? go(launch_tiles<32>) : D <= 64 ? go(launch_tiles<64>) : go(launch_tiles<128>);
+    if (err != cudaSuccess) return (int)err;
+  }
+  shared_bwd_finish_kernel<<<finish_grid(M, K, D), kFinishThreads, 0, st>>>(
+      user, pos, logz, pos_logit, g, live, n_live, du_part, dneg_part, du, dpos, dneg, M, D, K,
+      neg_tiles, splits, inv_tau);
+  return (int)cudaGetLastError();
 }

@@ -35,8 +35,9 @@
 // forms the same sum in one lane, so the backward's exp(logit - logz) is
 // taken on the logits that made logz. The design:
 //   * the forward, in two kernels:
-//     1. cand_live_kernel (one block) lists the rows with w != 0 in order,
-//        and their count, in device memory: the host never waits on it;
+//     1. cand_live_kernel (one block, live_rows.cuh, shared with K5's
+//        backward) lists the rows with w != 0 in order, and their count,
+//        in device memory: the host never waits on it;
 //     2. cand_fwd_kernel: a block of kFwdWarps warps per listed row, its
 //        C candidates cut into tiles of 32 and the tiles dealt to the
 //        warps (a slice each). A warp stages a tile's 32 table rows
@@ -77,17 +78,16 @@
 #include <climits>
 
 #include <cub/block/block_radix_sort.cuh>
-#include <cub/block/block_scan.cuh>
 
-#include "mma_tf32.cuh"  // cp_async, cp_async_commit, cp_async_wait
-#include "tiles.cuh"     // kThreads, kMaxD, kFull, lse_merge
+#include "live_rows.cuh"  // cand_live_kernel, kListThreads
+#include "mma_tf32.cuh"    // cp_async, cp_async_commit, cp_async_wait
+#include "tiles.cuh"      // kThreads, kMaxD, kFull, lse_merge
 
 namespace {
 
 constexpr int kWarps = kThreads / 32;  // backward: a block's warps (row kernel: a slice each)
 constexpr int kFwdWarps = 4;           // forward: a row block, one slice of the row per warp
 constexpr int kFwdStages = 2;          // forward: tiles of 32 table rows a warp stages
-constexpr int kListThreads = 1024;     // cand_live_kernel's one block
 constexpr int kSortThreads = 512;      // cand_chunk_kernel: a chunk of
 constexpr int kSortItems = 16;         //   512 x 16 entries a block
 constexpr int kChunk = kSortThreads * kSortItems;
@@ -175,35 +175,6 @@ __device__ __forceinline__ void for_candidates(const float4 uv, const int* __res
       }
     }
   }
-}
-
-// 1 (forward and backward): the rows with flag[m] != 0 in increasing order
-// (live) and their count (n_live). Each thread takes a contiguous run of
-// rows, whose flags it loads 32 at a time.
-__global__ void __launch_bounds__(kListThreads)
-cand_live_kernel(const float* __restrict__ flag, int* __restrict__ live,
-                 int* __restrict__ n_live, int M) {
-  using Scan = cub::BlockScan<int, kListThreads>;
-  __shared__ typename Scan::TempStorage scan;
-  const int per = (M + kListThreads - 1) / kListThreads;
-  const int lo = (int)min((int64_t)M, (int64_t)threadIdx.x * per);
-  const int hi = min(M, lo + per);
-  auto flags = [&](int g0) {  // bit j: row g0 + j has flag != 0
-    unsigned bits = 0u;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-      if (g0 + j < hi && flag[g0 + j] != 0.f) bits |= 1u << j;
-    return bits;
-  };
-  const unsigned first = lo < hi ? flags(lo) : 0u;  // the usual run: 32 rows or fewer
-  int count = __popc(first);
-  for (int g0 = lo + 32; g0 < hi; g0 += 32) count += __popc(flags(g0));
-  int at, total;
-  Scan(scan).ExclusiveSum(count, at, total);
-  for (int g0 = lo; g0 < hi; g0 += 32)
-    for (unsigned bits = g0 == lo ? first : flags(g0); bits; bits &= bits - 1)
-      live[at++] = g0 + __ffs(bits) - 1;
-  if (threadIdx.x == 0) *n_live = total;
 }
 
 // Forward, 2: the blocks write logz = pos_logit = 0 on the rows with

@@ -1,8 +1,9 @@
-// Float32 tiles of 64 rows x 64 columns for the kernels of vocab_ce.cu and
-// sampled_softmax.cu: 256 threads each hold a 4 x 4 block of a tile
+// Float32 tiles of 64 rows x 64 columns for K5's forward
+// (sampled_softmax.cu): 256 threads each hold a 4 x 4 block of a tile
 // product in registers, fed by float4 loads from d-major copies of the two
-// operand tiles in shared memory; an online logsumexp merge; partials of a
-// split loop added in a fixed order.
+// operand tiles in shared memory. And what the other kernels share: an
+// online logsumexp merge, partials of a split loop added in a fixed order,
+// the opt-in to more than 48 KB of shared memory.
 
 #pragma once
 
@@ -16,10 +17,7 @@ constexpr int kTile = 64;               // rows, and columns, per tile
 constexpr int kThreads = 256;           // 16 x 16 threads, a 4 x 4 block each
 constexpr int kLd = kTile + 4;          // leading dim of d-major tiles (float4-aligned)
 constexpr int kMaxD = 128;              // the wrapper refuses a wider D
-constexpr int kChunks = kMaxD / kTile;  // 64-column chunks of D per thread
 constexpr unsigned kFull = 0xffffffffu;
-
-__host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 
 // a row-major (n, D) tile [r0, r0 + 64) into a d-major shared tile
 // dst[d * kLd + r]; rows past n are zeros
@@ -29,16 +27,6 @@ __device__ __forceinline__ void load_dmajor(float* dst, const float* __restrict_
     const int r = i / D, d = i - r * D;
     const int64_t g = r0 + r;
     dst[d * kLd + r] = g < n ? src[g * D + d] : 0.f;
-  }
-}
-
-// the same tile row-major, dst[r * D4 + d], zeros past n and past D
-__device__ __forceinline__ void load_rowmajor(float* dst, const float* __restrict__ src,
-                                              int64_t n, int64_t r0, int D, int D4) {
-  for (int i = threadIdx.x; i < kTile * D4; i += kThreads) {
-    const int r = i / D4, d = i - r * D4;
-    const int64_t g = r0 + r;
-    dst[i] = (g < n && d < D) ? src[g * D + d] : 0.f;
   }
 }
 
@@ -59,28 +47,6 @@ __device__ __forceinline__ void tile_dot(const float* a_t, const float* b_t, int
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[i][k][j] += sum_t lhs[t][4 ty + i] * rhs[t][64 k + 4 tx + j] over the
-// 64 entries t of a tile: lhs d-major (kLd), rhs row-major (D4)
-__device__ __forceinline__ void tile_accumulate(const float* lhs, const float* rhs, int D4,
-                                                int ty, int tx,
-                                                float out[4][kChunks][4]) {
-  for (int t = 0; t < kTile; ++t) {
-    const float4 a = *reinterpret_cast<const float4*>(lhs + t * kLd + 4 * ty);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k) {
-      const int c = kTile * k + 4 * tx;
-      if (c >= D4) continue;
-      const float4 b = *reinterpret_cast<const float4*>(rhs + t * D4 + c);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) out[i][k][j] = fmaf(av[i], bv[j], out[i][k][j]);
-    }
   }
 }
 

@@ -78,7 +78,7 @@
 // ring, and a persistent grid in place of the split loops and their
 // partials.
 
-#include "mma_tf32.cuh"
+#include "mma_tf32.cuh"  // tile_logits, mma_accumulate, stage_rows
 #include "tiles.cuh"  // kMaxD, kFull, lse_merge, allow_smem, sum_splits
 
 namespace {
@@ -87,36 +87,6 @@ constexpr int kRows = 64;         // rows of h per tile
 constexpr int kVocab = 128;       // vocabulary entries per tile
 constexpr int kTcThreads = 256;   // 8 warps
 constexpr float kLog2e = 1.4426950408889634f;
-
-// acc[i][j] = the logits (no bias) of tile rows rw + 16 i + (g, g + 8) and
-// entries vw + 8 j + (2t, 2t + 1): rows of h_s times rows of w_s, over DP.
-// h's tile is a float32 tile (split as fragments load) or a SplitTile;
-// either way the products, and so the logits, have the same bits.
-template <int DP, typename TileH>
-__device__ __forceinline__ void tile_logits(TileH h_s, const float* w_s, int rw, int vw,
-                                            float acc[2][4][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-#pragma unroll
-  for (int k0 = 0; k0 < DP; k0 += 8) {
-    FragA a[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) load_a(a[i], h_s, rw + 16 * i, k0, DP);
-#pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      FragB b[2];
-      load_b_rows2(b, w_s, vw + 8 * j, k0, DP);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_3xtf32(acc[i][j + jj], a[i], b[jj]);
-    }
-  }
-}
 
 __device__ __forceinline__ int label_in(int64_t y, int V) {
   return y >= 0 && y < V ? (int)y : -1;
@@ -282,42 +252,6 @@ __global__ void vocab_ce_combine_kernel(const float* __restrict__ part,
 }
 
 // ---- backward ----
-
-// out[i][j] += (A B) of A rows m0 + 16 i.. (a_s, LDA floats a row) and B
-// columns n0 + 8 j.. (b_s: rows k, LDB floats a row), over K. The tensor
-// cores truncate as they accumulate, which over a long sum drifts: so the
-// tile's product is summed apart and added to out in float32 (rounded to
-// nearest), once per tile.
-template <int MT, int NT, int K, int LDA, int LDB>
-__device__ __forceinline__ void mma_accumulate(const float* a_s, int m0, const float* b_s, int n0,
-                                               int g, int t, float out[MT][NT][4]) {
-  float part[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    FragA a[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) load_a(a[i], a_s, m0 + 16 * i, k0, LDA);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      FragB b;
-      load_b_cols(b, b_s, k0, n0 + 8 * j, LDB, g, t);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma_3xtf32(part[i][j], a[i], b);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) out[i][j][q] += part[i][j][q];
-}
 
 // logits -> dlog in place: rows [i][h] (h = 0, 1: g and g + 8) with label
 // y (-1 when out of range), zl = logz * log2(e) (+inf past M) and g;

@@ -29,7 +29,9 @@ temperature.
 * ``sampled_softmax_shared_fwd`` and ``sampled_softmax_shared_bwd`` — the
   wrappers of the hand-written CUDA kernels (``csrc/sampled_softmax.cu``)
   that replace the TPU kernels ``_shared_fwd_kernel`` and
-  ``_shared_bwd_kernel``; CUDA tensors only.
+  ``_shared_bwd_kernel``; CUDA tensors only. The backward computes the
+  rows of nonzero gradient alone, listed on the card, on the tensor cores;
+  ``sampled_softmax_shared_bwd_reference`` is its plain version.
 * ``SampledSoftmaxShared`` — the autograd function over them (the custom
   VJP ``sampled_softmax_shared_fused``).
 
@@ -80,12 +82,15 @@ __all__ = [
     "sampled_softmax_loss_shared",
     "sampled_softmax_loss_shared_reference",
     "sampled_softmax_shared_bwd",
+    "sampled_softmax_shared_bwd_reference",
     "sampled_softmax_shared_fwd",
 ]
 
 MAX_D = 128  # the widest embedding the kernels take
-TILE = 64  # K5's rows and negatives per tile (csrc/tiles.cuh kTile)
-BLOCKS_PER_SM = 4  # the grid K5's backward aims for, in blocks per SM
+# K5's backward (csrc/sampled_softmax.cu): listed rows and negatives per
+# tile (kRows, kNegs); the blocks per SM its grid aims for (two fit at D <= 64)
+SHARED_ROW_TILE, SHARED_NEG_TILE = 64, 128
+BLOCKS_PER_SM = 2
 # K4 (csrc/sampled_softmax_cand.cu): threads of the one block that lists
 # the weighted rows; warps of the forward's row block (each a slice of the
 # row's tiles of 32 candidates); warps of the backward's row block (each a
@@ -135,6 +140,32 @@ def sampled_softmax_loss_shared_reference(
     neg_logits = (user @ neg.T) / temperature  # (M, K)
     logz = torch.logsumexp(torch.cat([pos_logit[:, None], neg_logits], dim=1), dim=-1)
     return _weighted_mean(logz - pos_logit, weights)
+
+
+def sampled_softmax_shared_bwd_reference(
+    user: torch.Tensor,  # (M, D)
+    pos: torch.Tensor,  # (M, D)
+    neg: torch.Tensor,  # (K, D)
+    logz: torch.Tensor,  # (M,) from the forward
+    pos_logit: torch.Tensor,  # (M,) from the forward
+    s: torch.Tensor,  # (M,) row gradients of logz - pos_logit
+    temperature: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernels, from the formula of
+    ``_shared_bwd_kernel``: with P = s exp(u neg^T / tau - logz) and coef =
+    s (exp(pos_logit - logz) - 1), du = (P neg + coef pos) / tau, dpos =
+    coef u / tau and dneg = P^T u / tau, over the rows with s != 0 alone
+    (``torch.nonzero``); du and dpos are exactly 0 on the others, which add
+    nothing to dneg even where their logits are not finite. Returns (du
+    (M, D), dpos (M, D), dneg (K, D))."""
+    live = torch.nonzero(s).flatten()
+    u, sl, z = user[live], s[live], logz[live]
+    P = sl[:, None] * torch.exp(u @ neg.T / temperature - z[:, None])
+    coef = sl * (torch.exp(pos_logit[live] - z) - 1.0)
+    du, dpos = torch.zeros_like(user), torch.zeros_like(pos)
+    du[live] = (P @ neg + coef[:, None] * pos[live]) / temperature
+    dpos[live] = coef[:, None] * u / temperature
+    return du, dpos, P.T @ u / temperature
 
 
 def sampled_softmax_loss_shared(
@@ -289,8 +320,9 @@ def _kernels():
     bwd = lib.sampled_softmax_shared_bwd_f32
     bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # user, pos, neg, logz, pos_logit, s
-        ptr, ptr, ptr, ptr,  # du, dpos, dneg, dneg_part
-        i32, i32, i32, f32, i32,  # M, D, K, 1 / temperature, dneg splits
+        ptr, ptr, ptr,  # du, dpos, dneg
+        ptr, ptr, ptr, ptr,  # scratch: live, n_live, du_part, dneg_part
+        i32, i32, i32, f32, i32,  # M, D, K, 1 / temperature, splits
         ptr,  # stream
     ]
     fwd.restype = bwd.restype = i32
@@ -348,10 +380,12 @@ sampled_softmax_shared_fwd.launches = 0
 
 
 def dneg_splits(tiles: int, other_tiles: int, sms: int) -> int:
-    """How many blocks share K5 backward's loop over ``tiles`` row tiles
-    for dneg, so that ``other_tiles`` x that many blocks fill about
+    """How many splits K5's backward cuts its ``tiles`` tiles of listed rows
+    into (the tiles of every row, the most there can be), so that
+    ``other_tiles`` negative tiles x that many blocks fill about
     BLOCKS_PER_SM blocks per SM. The kernel gives each ceil(tiles / runs)
-    tiles; no run is empty."""
+    of the tiles actually listed, taking the count from device memory; at
+    the most tiles no run is empty. Each split holds one partial dneg."""
     tiles = max(tiles, 1)
     want = max(1, min(tiles, math.ceil(BLOCKS_PER_SM * sms / max(other_tiles, 1))))
     return math.ceil(tiles / math.ceil(tiles / want))
@@ -368,23 +402,29 @@ def sampled_softmax_shared_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels for row gradients ``s`` (M,) of the loss
     logz - pos_logit, given the forward's outputs: (du (M, D), dpos (M, D),
-    dneg (K, D)). Rows with s = 0 get du and dpos exactly 0. dneg's sum
-    over rows is split across blocks whose partials are added in a fixed
-    order, so reruns give the same bits.
-    ``sampled_softmax_shared_bwd.launches`` counts its calls."""
+    dneg (K, D)). The rows with s != 0 are listed on the card and computed
+    alone, their products on the tensor cores in split-precision TF32 (3
+    products a term: float32 accuracy); du and dpos are exactly 0 on the
+    other rows. Partials are added in a fixed order, with no float atomics
+    and no host synchronisation: reruns give the same bits, and a CUDA
+    graph captures it. ``sampled_softmax_shared_bwd.launches`` counts its
+    calls."""
     fn = "sampled_softmax_shared_bwd"
     M, D, K = _check(fn, user, pos, neg)
     _check_rows(fn, M, user, logz=logz, pos_logit=pos_logit, s=s)
-    runs = dneg_splits(-(-M // TILE), -(-K // TILE), _sm_count(user.device.index or 0))
-    new = functools.partial(torch.empty, dtype=torch.float32, device=user.device)
-    du, dpos, dneg = new((M, D)), new((M, D)), new((K, D))
-    part = new((runs, K, D)) if runs > 1 else None
+    neg_tiles = -(-K // SHARED_NEG_TILE)
+    splits = dneg_splits(-(-M // SHARED_ROW_TILE), neg_tiles, _sm_count(user.device.index or 0))
+    new = functools.partial(torch.empty, device=user.device)
+    du, dpos = new((M, D), dtype=torch.float32), new((M, D), dtype=torch.float32)
+    dneg = new((K, D), dtype=torch.float32)
+    scratch = (new(M, dtype=torch.int32), new(1, dtype=torch.int32),
+               new((neg_tiles, M, D), dtype=torch.float32),
+               new((splits, K, D), dtype=torch.float32))
     _launch(
         fn, _kernels()[1], user.device,
         user.data_ptr(), pos.data_ptr(), neg.data_ptr(), logz.data_ptr(),
         pos_logit.data_ptr(), s.data_ptr(), du.data_ptr(), dpos.data_ptr(),
-        dneg.data_ptr(), None if part is None else part.data_ptr(),
-        M, D, K, 1.0 / temperature, runs,
+        dneg.data_ptr(), *(t.data_ptr() for t in scratch), M, D, K, 1.0 / temperature, splits,
     )
     sampled_softmax_shared_bwd.launches += 1
     return du, dpos, dneg

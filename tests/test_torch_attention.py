@@ -15,6 +15,7 @@ import torch
 
 from recboard_tpu.ops import attention as A_jax
 from recboard_tpu_torch.ops import attention as A
+from tf32_emulation import mm_split, mm_tf32, tf32
 
 ATOL = RTOL = 1e-5
 
@@ -126,30 +127,7 @@ def test_mha_off_cpu_dropout_raises():
 KEY_TILE = 64  # keys per tile of the kernel's online softmax
 
 
-def _tf32(x):
-    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits'
-    weight to the magnitude, then clear them."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64)
-    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
-
-
-def _mm_tf32(a, b):
-    """a @ b from one TF32 product: each operand rounded to about three
-    digits."""
-    return _tf32(a) @ _tf32(b)
-
-
-def _mm_split(a, b):
-    """a @ b as the tensor cores compute it in split precision: lo*hi +
-    hi*lo + hi*hi with hi = tf32(x) and lo = tf32(x - hi), each product
-    exact, summed in float32."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
-
-
-def emulated_fwd(q, k, v, H, causal, key_pad=None, bias=None, mm=_mm_split,
+def emulated_fwd(q, k, v, H, causal, key_pad=None, bias=None, mm=mm_split,
                  rate=0.0, seed=None):
     """(out (B, L, D), lse (B, H, L)) as the kernel computes them: scores
     and P V by ``mm``, an online softmax over tiles of 64 keys (a running
@@ -236,8 +214,8 @@ def test_one_tf32_product_misses_the_tolerance():
     want = np.asarray(A_jax.mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                           H, causal))
     args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), H, causal)
-    three = emulated_fwd(*args, mm=_mm_split)[0].numpy()
-    one = emulated_fwd(*args, mm=_mm_tf32)[0].numpy()
+    three = emulated_fwd(*args, mm=mm_split)[0].numpy()
+    one = emulated_fwd(*args, mm=mm_tf32)[0].numpy()
     assert np.abs(three - want).max() <= ATOL
     assert np.abs(one - want).max() > ATOL
 
@@ -265,4 +243,4 @@ def test_tf32_rounds_as_cvt_rna():
     x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10, -(1.0 + 2.0**-11),
                       1.0 + 2.0**-11 - 2.0**-23, 3.0])
     want = [1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0, 3.0]
-    assert _tf32(x).tolist() == want
+    assert tf32(x).tolist() == want

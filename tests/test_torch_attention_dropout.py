@@ -20,7 +20,8 @@ import torch
 
 from recboard_tpu.ops import attention as A_jax
 from recboard_tpu_torch.ops import attention as A
-from test_torch_attention import TC_SHAPES, _mm_split, _mm_tf32, _tc_inputs, emulated_fwd
+from test_torch_attention import TC_SHAPES, _tc_inputs, emulated_fwd
+from tf32_emulation import mm_split, mm_tf32
 
 OUT_TOL, GRAD_TOL = 1e-5, 1e-4
 
@@ -242,7 +243,7 @@ def bwd_row_tile(hd):
 
 
 def emulated_bwd(q, k, v, out, lse, dout, H, causal, key_pad=None, bias=None, rate=0.0,
-                 seed=None, mm=_mm_split):
+                 seed=None, mm=mm_split):
     """(dq, dk, dv, dbias) as the kernel computes them from the forward's
     ``out`` and ``lse``: key tiles of 64 by query tiles of ``bwd_row_tile``
     rows; S^T = K Q^T and dP^T = V dO^T by ``mm``; P = exp(x - lse) on
@@ -312,7 +313,7 @@ def _assert_grads_within(got, want, tol=BWD_REL_TOL):
         assert err <= tol * np.abs(b).max(), (name, err, np.abs(b).max())
 
 
-def _emulated_grads_at_batch_one(name, mm=_mm_split):
+def _emulated_grads_at_batch_one(name, mm=mm_split):
     """(emulated grads, JAX kernel's grads) at B = 1 with dropout active."""
     L, S, H, hd, causal, pad, with_bias, rate = TC_BWD_SHAPES[name]
     seed = 135792468
@@ -386,7 +387,7 @@ def test_one_tf32_product_misses_the_backward_tolerance():
     """Why the backward computes each product three times: with one TF32
     product the gradients miss 1e-5 of their largest magnitude, where split
     precision holds it."""
-    got, want = _emulated_grads_at_batch_one("sasrec_1x64", mm=_mm_tf32)
+    got, want = _emulated_grads_at_batch_one("sasrec_1x64", mm=mm_tf32)
     worst = max(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max()
                 for a, b in zip(got, want))
     assert worst > BWD_REL_TOL

@@ -23,6 +23,8 @@ import torch
 
 from recboard_tpu.ops import losses as L_jax
 from recboard_tpu_torch.ops import losses as L
+from test_torch_sampled_softmax_cand import _listed
+from tf32_emulation import mm_split
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -155,3 +157,255 @@ def test_dneg_splits_cover_every_tile_once(tiles, other):
     per = math.ceil(tiles / runs)  # the kernel's run length
     assert runs >= 1 and (runs - 1) * per < tiles <= runs * per
     assert runs <= max(1, math.ceil(L.BLOCKS_PER_SM * 132 / other))
+
+
+# ------------------------------------------ K5's backward, as the kernels run it
+LOG2E = 1.4426950408889634
+
+
+def _tile_runs(n, splits):
+    """(tiles, per, used) as the backward's kernels cut the ceil(n / 64)
+    tiles of n listed rows into runs of ``per`` over ``splits`` splits, the
+    first ``used`` of them taking tiles (csrc/sampled_softmax.cu
+    tile_runs)."""
+    tiles = -(-n // L.SHARED_ROW_TILE)
+    per = -(-tiles // splits)
+    return tiles, per, (-(-tiles // per) if per else 0)
+
+
+def _padded_width(D):
+    return 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def emulated_shared_bwd(user, pos, neg, logz, pos_logit, s, tau, splits, mm=mm_split):
+    """(du, dpos, dneg) as the backward's kernels compute them: the rows of
+    s != 0 listed (cand_live_kernel); D padded with zeros to 32, 64 or
+    128; block (128-negative tile, split) walks its split's tiles of 64
+    listed rows: the logits by ``mm`` (3xTF32 on the card), times 1 / tau,
+    P = s exp2((x - logz) log2 e) (0 past K and past the list), du's
+    partial P n to its negative tile's slot, and P^T u added to the
+    block's running dneg, tile by tile; then du over the negative tiles in
+    order, + coef p, times 1 / tau, and dneg over the splits that took
+    tiles, in order, times 1 / tau. Float32 tensors in, as the kernels
+    take them."""
+    M, D = user.shape
+    K = neg.shape[0]
+    DP = _padded_width(D)
+    inv_tau = torch.tensor(1.0 / tau, dtype=torch.float32)
+    live = torch.from_numpy(_listed(s.numpy()))
+    n = len(live)
+    tiles, per, used = _tile_runs(n, splits)
+    neg_tiles = -(-K // L.SHARED_NEG_TILE)
+    RT, NT = L.SHARED_ROW_TILE, L.SHARED_NEG_TILE
+
+    def padded(x, rows):
+        out = torch.zeros(rows, DP)
+        out[:x.shape[0], :D] = x
+        return out
+
+    du_part = torch.zeros(neg_tiles, n, D)
+    dneg_part = torch.zeros(max(used, 1), K, D)
+    for nt in range(neg_tiles):
+        k0 = nt * NT
+        n_t = padded(neg[k0:k0 + NT], NT)
+        col_ok = torch.arange(k0, k0 + NT) < K
+        for split in range(splits):
+            t_begin = min(tiles, split * per)
+            t_end = min(tiles, t_begin + per)
+            dn = torch.zeros(NT, DP)
+            for tile in range(t_begin, t_end):
+                b = torch.arange(tile * RT, min(n, (tile + 1) * RT))
+                rows = live[b]
+                u_t = padded(user[rows], RT)
+                z, sr = torch.zeros(RT), torch.zeros(RT)
+                z[:len(b)], sr[:len(b)] = logz[rows], s[rows]
+                x = mm(u_t, n_t.T) * inv_tau
+                P = torch.where(col_ok, torch.exp2((x - z[:, None]) * LOG2E) * sr[:, None], 0.0)
+                du_part[nt, b] = mm(P, n_t)[:len(b), :D]
+                dn = dn + mm(P.T, u_t)
+            if t_begin < t_end:
+                dneg_part[split, k0:k0 + NT] = dn[:min(NT, K - k0), :D]
+    du, dpos = torch.zeros(M, D), torch.zeros(M, D)
+    coef = s[live] * (torch.exp(pos_logit[live] - logz[live]) - 1.0)
+    acc = torch.zeros(n, D)
+    for nt in range(neg_tiles):
+        acc = acc + du_part[nt]
+    du[live] = (acc + coef[:, None] * pos[live]) * inv_tau
+    dpos[live] = coef[:, None] * user[live] * inv_tau
+    dneg = torch.zeros(K, D)
+    for split in range(used):
+        dneg = dneg + dneg_part[split]
+    return du, dpos, dneg * inv_tau
+
+
+def _bwd_case(M, K, D, tau, scale, share, seed):
+    """user, pos, neg (l2-normalised rows for scale None, else normal rows
+    of that scale) and 0/1 weights with about ``share`` of them 0."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in (M, M, K):
+        x = rng.normal(size=(n, D)) * (scale or 1.0)
+        if scale is None:
+            x /= np.linalg.norm(x, axis=1, keepdims=True)
+        out.append(x.astype(np.float32))
+    w = (rng.random(M) >= share).astype(np.float32)
+    return (*out, w)
+
+
+def _jax_shared_bwd(user, pos, neg, w, tau):
+    """JAX's forward outputs (logz, pos_logit) and the VJP of the fused
+    loss for a cotangent of 1 (its backward kernel in interpret mode), with
+    the row gradients s = w / max(sum w, 1) it takes."""
+    logz, pos_logit = L_jax._shared_fused_run(user, pos, neg, tau, True)
+    _, vjp = jax.vjp(lambda u, p, n: L_jax.sampled_softmax_shared_fused(
+        u, p, n, jnp.asarray(w), tau, True), user, pos, neg)
+    grads = [np.array(x) for x in vjp(jnp.float32(1.0))]
+    s = (w / max(w.sum(), 1.0)).astype(np.float32)
+    return np.array(logz), np.array(pos_logit), s, grads
+
+
+def _float64_bwd(user, pos, neg, s, tau):
+    """The backward's function in float64, its logz and pos_logit too."""
+    u, p, n = (torch.from_numpy(x).double() for x in (user, pos, neg))
+    pl_ = (u * p).sum(-1) / tau
+    logz = torch.logsumexp(torch.cat([pl_[:, None], u @ n.T / tau], 1), -1)
+    out = L.sampled_softmax_shared_bwd_reference(u, p, n, logz, pl_,
+                                                 torch.from_numpy(s).double(), tau)
+    return [x.numpy() for x in out]
+
+
+def _rel(got, want) -> float:
+    """max over the three of max |got - want| / max |want| (0 where both
+    are 0), as chip_smoke.py measures gradients."""
+    errs = []
+    for a, b in zip(got, want):
+        err = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()
+        errs.append(0.0 if err == 0 else err / np.abs(np.asarray(b, np.float64)).max())
+    return max(errs)
+
+
+# (M, K, D, tau, scale (None: l2-normalised rows), share of weight 0, SMs
+# the splits are sized for): the JAX test's shape; ragged row and negative
+# tiles; D not a multiple of 4; HSTU's widths and pad share at a small M;
+# no row of s != 0; every row live over splits of two tiles; logits of a
+# few hundred, where exp() overflows float32 without logz
+BWD_CASES = {
+    "jax_test": (70, 12, 8, 0.3, 1.0, 0.5, 132),
+    "ragged": (150, 300, 16, 0.3, 1.0, 0.4, 132),
+    "D_13": (90, 140, 13, 0.5, 1.0, 0.4, 132),
+    "hstu_widths": (640, 512, 64, 0.1, None, 0.879, 132),
+    "no_live_row": (64, 40, 8, 0.3, 1.0, 1.0, 132),
+    "every_row": (200, 70, 24, 0.3, 1.0, 0.0, 1),
+    "large_logits": (100, 200, 64, 0.01, 3 / 8, 0.4, 132),
+}
+# against float64: relative to each gradient's largest entry, 1e-5 (sums of
+# float32 products in other orders, logz rounded to float32); at logits of
+# a few hundred, against float64 and JAX alike, 1e-3 relative
+# (chip_smoke.py's SS_LARGE_GRAD_TOL: float32 logits and logz of a few
+# hundred carry ~1e-5 of rounding in either version, which exp() passes on
+# to every probability), where the other cases hold JAX's to the file's atol
+F64_TOL, LARGE_TOL = 1e-5, 1e-3
+
+
+def _assert_near_jax(case, got, want):
+    if case == "large_logits":
+        assert _rel(got, want) <= LARGE_TOL
+        return
+    for name, a, b in zip(("du", "dpos", "dneg"), got, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_plain_shared_bwd_matches_jax(case):
+    """``sampled_softmax_shared_bwd_reference`` (the kernels' function over
+    the rows of s != 0 alone) against JAX's du, dpos and dneg from the same
+    logz and pos_logit, within the file's atol (LARGE_TOL relative at
+    logits of a few hundred); du and dpos exactly 0 on rows of s = 0."""
+    M, K, D, tau, scale, share, _ = BWD_CASES[case]
+    user, pos, neg, w = _bwd_case(M, K, D, tau, scale, share, seed=M + K)
+    logz, pos_logit, s, want = _jax_shared_bwd(user, pos, neg, w, tau)
+    got = [x.numpy() for x in L.sampled_softmax_shared_bwd_reference(
+        *(torch.from_numpy(x) for x in (user, pos, neg, logz, pos_logit, s)), tau)]
+    _assert_near_jax(case, got, want)
+    assert not got[0][s == 0].any() and not got[1][s == 0].any()
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_emulated_shared_bwd_matches_jax_and_float64(case):
+    """The kernels' algorithm (``emulated_shared_bwd``: the listing, the
+    grid of listed row tiles and negative tiles, 3xTF32 products, partials
+    added in the kernels' order) against JAX's gradients within the file's
+    atol and against float64 within F64_TOL relative (both LARGE_TOL
+    relative at logits of a few hundred); with no live row every output
+    exactly 0."""
+    M, K, D, tau, scale, share, sms = BWD_CASES[case]
+    user, pos, neg, w = _bwd_case(M, K, D, tau, scale, share, seed=M + K)
+    logz, pos_logit, s, want = _jax_shared_bwd(user, pos, neg, w, tau)
+    splits = L.dneg_splits(-(-M // L.SHARED_ROW_TILE), -(-K // L.SHARED_NEG_TILE), sms)
+    got = [x.numpy() for x in emulated_shared_bwd(
+        *(torch.from_numpy(x) for x in (user, pos, neg, logz, pos_logit, s)), tau, splits)]
+    _assert_near_jax(case, got, want)
+    tol = LARGE_TOL if case == "large_logits" else F64_TOL
+    assert _rel(got, _float64_bwd(user, pos, neg, s, tau)) <= tol
+    assert not got[0][s == 0].any() and not got[1][s == 0].any()
+    if case == "no_live_row":
+        assert not any(x.any() for x in got)
+
+
+@pytest.mark.parametrize("M", [0, 1, 31, 1024, 1025, 5000, 12_800])
+def test_emulated_listing_equals_nonzero(M):
+    """cand_live_kernel's listing (runs of ceil(M / 1024) rows a thread,
+    placed by an exclusive scan) lists exactly ``torch.nonzero(s)``, in
+    order: a share of zeros, every row, none, and a NaN (not 0, so
+    listed)."""
+    rng = np.random.default_rng(M)
+    for s in (np.where(rng.random(M) < 0.879, 0.0, rng.random(M)), np.ones(M), np.zeros(M),
+              np.where(np.arange(M) == M // 2, np.nan, 0.0)):
+        s = s.astype(np.float32)
+        want = torch.nonzero(torch.from_numpy(s)).flatten().numpy()
+        np.testing.assert_array_equal(_listed(s), want)
+
+
+@pytest.mark.parametrize("M,K", [(12_800, 512), (6_600, 512), (70, 12), (2_048, 512),
+                                 (640, 130), (200_000, 8_192)])
+def test_shared_bwd_grid_covers_every_live_tile_once(M, K):
+    """The backward's grid, (negative tiles, splits), with the splits from
+    ``dneg_splits`` for every row's tiles on 132 SMs: for every count of
+    listed rows n <= M, the splits' runs of tiles cover each of the
+    ceil(n / 64) tiles once, the first ``used`` splits take tiles and the
+    others none (the finishing pass adds ``used`` partials); splits fit
+    the grid's y dimension."""
+    splits = L.dneg_splits(-(-M // L.SHARED_ROW_TILE), -(-K // L.SHARED_NEG_TILE), 132)
+    assert 1 <= splits <= 65_535
+    for n in sorted({0, 1, 63, 64, 65, 1_553, M // 2, M - 1, M} - {-1}):
+        if not 0 <= n <= M:
+            continue
+        tiles, per, used = _tile_runs(n, splits)
+        seen = []
+        for split in range(splits):
+            t_begin = min(tiles, split * per)
+            t_end = min(tiles, t_begin + per)
+            assert (t_begin < t_end) == (split < used)
+            seen.extend(range(t_begin, t_end))
+        assert seen == list(range(tiles))
+
+
+def test_non_finite_weight_zero_row_stays_out_of_the_shared_backward():
+    """A deliberate difference: a row of weight 0 whose logits are not
+    finite makes JAX's gradients NaN (its P is NaN x 0, which spreads into
+    all of dneg). The backward kernels, and their plain version, compute
+    the rows of s != 0 alone, so du and dpos are 0 on that row and dneg is
+    the other rows' dneg, finite."""
+    M, K, D, tau = 70, 12, 8, 0.3
+    user, pos, neg, w = _bwd_case(M, K, D, tau, 1.0, 0.5, seed=3)
+    w[7] = 0.0
+    user[7] = np.nan
+    logz, pos_logit, s, (du, dpos, dneg) = _jax_shared_bwd(user, pos, neg, w, tau)
+    assert np.isnan(dneg).all() and np.isnan(du[7]).all()
+    got = [x.numpy() for x in L.sampled_softmax_shared_bwd_reference(
+        *(torch.from_numpy(x) for x in (user, pos, neg, logz, pos_logit, s)), tau)]
+    assert all(np.isfinite(x).all() for x in got)
+    assert not got[0][7].any() and not got[1][7].any()
+    keep = np.arange(M) != 7
+    want = _float64_bwd(user[keep], pos[keep], neg, s[keep], tau)
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=ATOL)

@@ -27,6 +27,7 @@ import torch
 from recboard_tpu.ops.vocab_ce import _fwd_pallas, _rows_jnp
 from recboard_tpu.ops.vocab_ce import fullvocab_ce_rows as ce_jax
 from recboard_tpu_torch.ops import vocab_ce as K
+from tf32_emulation import mm_split, mm_tf32, tf32
 
 VALUE_TOL, GRAD_TOL = 1e-5, 1e-4
 
@@ -105,29 +106,6 @@ def test_splits_cover_every_tile_once(tiles, other):
     assert 1 <= runs <= tiles and (runs - 1) * per < tiles <= runs * per
 
 
-def _tf32(x):
-    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits'
-    weight to the magnitude, then clear them."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64)
-    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
-
-
-def _mm_tf32(a, b):
-    """a @ b from one TF32 product: each operand rounded to about three
-    digits."""
-    return _tf32(a) @ _tf32(b)
-
-
-def _mm_split(a, b):
-    """a @ b as the backward's tensor cores compute it, in split precision:
-    lo*hi + hi*lo + hi*hi with hi = tf32(x) and lo = tf32(x - hi), each
-    product exact, summed in float32."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
-
-
 def _emulated_bwd(h, W, b, y, g, mm, logz=None):
     """(dh, dW, db) of the per-row losses for the row gradient g, with the
     backward kernels' three products (the logits again, dh, dW) done by
@@ -167,8 +145,8 @@ def test_split_tf32_backward_keeps_float32_accuracy():
             torch.from_numpy(w / w.sum()))
     f64 = [t.numpy() for t in _emulated_bwd(
         *(a.double() if a.is_floating_point() else a for a in args), mm=torch.matmul)]
-    three = [t.numpy() for t in _emulated_bwd(*args, mm=_mm_split)]
-    one = [t.numpy() for t in _emulated_bwd(*args, mm=_mm_tf32)]
+    three = [t.numpy() for t in _emulated_bwd(*args, mm=mm_split)]
+    one = [t.numpy() for t in _emulated_bwd(*args, mm=mm_tf32)]
 
     assert _rel(three, want) <= GRAD_TOL
     assert _rel(three, f64) <= 1e-5
@@ -182,7 +160,7 @@ def test_tf32_rounds_as_cvt_rna():
     x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10, -(1.0 + 2.0**-11),
                       1.0 + 2.0**-11 - 2.0**-23, 3.0])
     want = [1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0, 3.0]
-    assert _tf32(x).tolist() == want
+    assert tf32(x).tolist() == want
 
 
 def test_bwd_width_takes_multiples_of_4():
@@ -236,7 +214,7 @@ def _lse_merge(m, s, m2, s2):
     return torch.where(m2 == -math.inf, m, torch.where(m == -math.inf, m2, n)), s
 
 
-def _emulated_fwd(h, W, b, y, runs, mm=_mm_split):
+def _emulated_fwd(h, W, b, y, runs, mm=mm_split):
     """(loss, logz) as the forward kernels compute them: W padded with zero
     columns, and b with -inf, to whole 128-entry tiles; each tile's logits
     from ``mm`` plus the bias; per row, each of the 16 threads that share
@@ -362,9 +340,9 @@ def test_split_tf32_forward_keeps_float32_accuracy():
         mm=torch.matmul)]
     _, f64_logz = _fwd_float64(h, W, b, y)
     grads = {}
-    for name, mm in (("three", _mm_split), ("one", _mm_tf32)):
+    for name, mm in (("three", mm_split), ("one", mm_tf32)):
         _, logz = _emulated_fwd(*args, runs=4, mm=mm)
-        grads[name] = [t.numpy() for t in _emulated_bwd(*args, g, mm=_mm_split, logz=logz)]
+        grads[name] = [t.numpy() for t in _emulated_bwd(*args, g, mm=mm_split, logz=logz)]
         if name == "three":
             np.testing.assert_allclose(logz.numpy(), f64_logz, rtol=0, atol=FWD_TOL)
         else:
