@@ -1128,11 +1128,14 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
     ``sampled_softmax_shared_bwd_reference``, and autograd of the plain
     loss) and F.cross_entropy over the concatenated positive and
     torch.addmm logits (forward, and autograd backward: on the rows of
-    weight != 0, taken by index before the timing, and on every row). The
-    bounds: each input read once and each output written once. The
-    forward does 2*M*K*D FLOP; the backward reads s, logz and pos_logit,
-    the live rows of u and p and neg, writes du and dpos for every row and
-    dneg, and does 6*K*D FLOP a live row (the logits again, du and dneg),
+    weight != 0, taken by index before the timing, and on every row; the
+    backward on the device clock, a graph's forward and backward less its
+    forward, and beside it by CUDA events, ``library_bwd_host_ms`` and
+    ``library_bwd_all_rows_host_ms``, which the host paces). The bounds:
+    each input read once and each output written once. The forward does
+    2*M*K*D FLOP; the backward reads s and neg and the live rows of u, p,
+    logz and pos_logit, writes du and dpos for every row and dneg, and
+    does 6*K*D FLOP a live row (the logits again, du and dneg),
     as three TF32 products at the tensor-core rate (``bwd_bound_ms``) and at
     the float32 rate (``bwd_f32_bound_ms``); ``bwd_all_rows_bound_ms`` is
     the bound of the all-row backward it replaced (every row's inputs and
@@ -1162,10 +1165,13 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
     def plain(uu, pp, nn_, ww):
         return S.sampled_softmax_loss_shared_reference(uu, pp, nn_, ww, tau)
 
+    # fresh leaves: the caller's hold autograd nodes made on the default
+    # stream, on which a captured backward may not wait
+    u_all, p_all, n_all = (x.clone().requires_grad_() for x in (u, p, n))
     u_on, p_on = (x[on].clone().requires_grad_() for x in (u, p))
     w_on = w[on].contiguous()
-    every = (user, pos, neg, w)
-    live_rows = (u_on, p_on, neg, w_on)
+    every = (u_all, p_all, n_all, w)
+    live_rows = (u_on, p_on, n_all, w_on)
 
     def no_grad(fn, args):
         def call():
@@ -1183,13 +1189,15 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
         return S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)
 
     fwd_bound = bound(nbytes(u, p, n, logz, pos_logit), 2 * M * K * D)
-    bwd_bytes = nbytes(s, logz, pos_logit, n) + nbytes(u, p, n) + live * 2 * D * u.element_size()
+    bwd_bytes = nbytes(s, n) + nbytes(u, p, n) + live * (2 * D + 2) * u.element_size()
     bwd_bound = bound(bwd_bytes, 3 * 6 * live * K * D, TF32_FLOP_PER_S)
     bwd_f32 = bound(bwd_bytes, 6 * live * K * D)
     bwd_all_rows = bound(nbytes(u, p, n, logz, pos_logit, s) + nbytes(u, p, n), 6 * M * K * D)
     plain_ms = cuda_ms(no_grad(plain, every), iters=50, warmup=5)
     lib_ms = cuda_ms(no_grad(library, every), iters=50, warmup=5)
     lib_on_ms = cuda_ms(no_grad(library, live_rows), iters=50, warmup=5)
+    lib_graph_ms = graph_ms(no_grad(library, every), calls=10)
+    lib_on_graph_ms = graph_ms(no_grad(library, live_rows), calls=10)
     parts, bwd_launches = kernel_parts(bwd, SS_BWD_PARTS, "sampled_softmax_shared_bwd", 20)
     return dict(
         fwd_ms=cuda_ms(fwd),
@@ -1208,8 +1216,11 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
             u, p, n, logz, pos_logit, s, tau), iters=50, warmup=5),
         plain_bwd_autograd_ms=cuda_ms(fwd_bwd(plain, every), iters=50, warmup=5) - plain_ms,
         library_fwd_ms=lib_ms,
-        library_bwd_ms=cuda_ms(fwd_bwd(library, live_rows), iters=50, warmup=5) - lib_on_ms,
-        library_bwd_all_rows_ms=cuda_ms(fwd_bwd(library, every), iters=50, warmup=5) - lib_ms,
+        library_bwd_ms=graph_ms(fwd_bwd(library, live_rows), calls=10) - lib_on_graph_ms,
+        library_bwd_all_rows_ms=graph_ms(fwd_bwd(library, every), calls=10) - lib_graph_ms,
+        library_bwd_host_ms=cuda_ms(fwd_bwd(library, live_rows), iters=50, warmup=5) - lib_on_ms,
+        library_bwd_all_rows_host_ms=(
+            cuda_ms(fwd_bwd(library, every), iters=50, warmup=5) - lib_ms),
         fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
         bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
         bwd_f32_bound_ms=bwd_f32[0], bwd_f32_bound_by=bwd_f32[1],

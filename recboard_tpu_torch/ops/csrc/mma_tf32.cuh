@@ -175,21 +175,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// rows [r0, r0 + ROWS) of a row-major (n, D) float32 array into a swizzled
-// tile of DP floats a row; rows past n and columns past D are zeros. D is a
-// multiple of 4 and the array 16-byte aligned, so each 16-byte chunk is
-// wholly inside or outside it.
-template <int ROWS, int DP, int THREADS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int64_t n,
-                                           int64_t r0, int D) {
-  constexpr int kChunks = DP / 4;
+// rows m of a row-major (., D) float32 array into a swizzled tile of DP
+// floats a row, tile row r taking array row m where row(r, m) is true and
+// zeros where it is false; columns past D are zeros. 16-byte copies when
+// vec (D a multiple of 4 and the array 16-byte aligned, so each 16-byte
+// chunk is wholly inside or outside it), else 4-byte ones.
+template <int ROWS, int DP, int THREADS, typename Row>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int D,
+                                           bool vec, Row row) {
+  if (vec) {
+    constexpr int kChunks = DP / 4;
 #pragma unroll
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = 4 * (i % kChunks);
-    const bool ok = r0 + r < n && c < D;
-    cp_async<16>(dst + at(r, c, DP), ok ? src + (r0 + r) * D + c : src, ok);
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+      const int r = i / kChunks, c = 4 * (i % kChunks);
+      int64_t m;
+      const bool ok = row(r, m) && c < D;
+      cp_async<16>(dst + at(r, c, DP), ok ? src + m * D + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+      const int r = i / DP, c = i % DP;
+      int64_t m;
+      const bool ok = row(r, m) && c < D;
+      cp_async<4>(dst + at(r, c, DP), ok ? src + m * D + c : src, ok);
+    }
   }
 }
+
+// stage_rows' row map of rows [r0, r0 + ROWS) of an array of n rows
+struct RowsFrom {
+  int64_t r0, n;
+  __device__ __forceinline__ bool operator()(int r, int64_t& m) const {
+    m = r0 + r;
+    return m < n;
+  }
+};
 
 // ---- tile products shared by the kernels (K3's, and K5's backward)
 
@@ -223,12 +243,25 @@ __device__ __forceinline__ void tile_logits(TileH h_s, const float* w_s, int rw,
   }
 }
 
-// out[i][j] += (A B) of A rows m0 + 16 i.. (a_s, LDA floats a row) and B
-// columns n0 + 8 j.. (b_s: rows k, LDB floats a row), over K. The tensor
-// cores truncate as they accumulate, which over a long sum drifts: so the
-// tile's product is summed apart and added to out in float32 (rounded to
-// nearest), once per tile.
-template <int MT, int NT, int K, int LDA, int LDB>
+// the A fragment (m0.., k0..) of A = tile^T: tile rows are k, columns m.
+// Each of its four words is a 4 x 8 read down the tile's columns, as
+// load_b_cols reads, so the lanes hit 32 distinct banks
+__device__ __forceinline__ void load_a_cols(FragA& a, const float* s, int m0, int k0, int ld,
+                                            int g, int t) {
+  split_tf32(s[at(k0 + t, m0 + g, ld)], a.hi[0], a.lo[0]);
+  split_tf32(s[at(k0 + t, m0 + g + 8, ld)], a.hi[1], a.lo[1]);
+  split_tf32(s[at(k0 + t + 4, m0 + g, ld)], a.hi[2], a.lo[2]);
+  split_tf32(s[at(k0 + t + 4, m0 + g + 8, ld)], a.hi[3], a.lo[3]);
+}
+
+// out[i][j] += (A B) of A rows m0 + 16 i.. and B columns n0 + 8 j.. (b_s:
+// rows k, LDB floats a row), over K. A is a_s (rows m, LDA floats a row),
+// or with A_COLS a_s^T (a_s rows k, columns m): so one copy of a tile is
+// the A operand of both A B and A^T B. The tensor cores truncate as they
+// accumulate, which over a long sum drifts: so the tile's product is
+// summed apart and added to out in float32 (rounded to nearest), once per
+// tile.
+template <int MT, int NT, int K, int LDA, int LDB, bool A_COLS = false>
 __device__ __forceinline__ void mma_accumulate(const float* a_s, int m0, const float* b_s, int n0,
                                                int g, int t, float out[MT][NT][4]) {
   float part[MT][NT][4];
@@ -242,52 +275,12 @@ __device__ __forceinline__ void mma_accumulate(const float* a_s, int m0, const f
   for (int k0 = 0; k0 < K; k0 += 8) {
     FragA a[MT];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) load_a(a[i], a_s, m0 + 16 * i, k0, LDA);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      FragB b;
-      load_b_cols(b, b_s, k0, n0 + 8 * j, LDB, g, t);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma_3xtf32(part[i][j], a[i], b);
+    for (int i = 0; i < MT; ++i) {
+      if constexpr (A_COLS)
+        load_a_cols(a[i], a_s, m0 + 16 * i, k0, LDA, g, t);
+      else
+        load_a(a[i], a_s, m0 + 16 * i, k0, LDA);
     }
-  }
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) out[i][j][q] += part[i][j][q];
-}
-
-// the A fragment (m0.., k0..) of A = tile^T: tile rows are k, columns m.
-// Each of its four words is a 4 x 8 read down the tile's columns, as
-// load_b_cols reads, so the lanes hit 32 distinct banks
-__device__ __forceinline__ void load_a_cols(FragA& a, const float* s, int m0, int k0, int ld,
-                                            int g, int t) {
-  split_tf32(s[at(k0 + t, m0 + g, ld)], a.hi[0], a.lo[0]);
-  split_tf32(s[at(k0 + t, m0 + g + 8, ld)], a.hi[1], a.lo[1]);
-  split_tf32(s[at(k0 + t + 4, m0 + g, ld)], a.hi[2], a.lo[2]);
-  split_tf32(s[at(k0 + t + 4, m0 + g + 8, ld)], a.hi[3], a.lo[3]);
-}
-
-// mma_accumulate with A = a_s^T: out[i][j] += (a_s^T B) of a_s columns
-// m0 + 16 i.. (a_s: rows k, LDA floats a row), so that one copy of a tile
-// is the A operand of both A B and A^T B
-template <int MT, int NT, int K, int LDA, int LDB>
-__device__ __forceinline__ void mma_accumulate_at(const float* a_s, int m0, const float* b_s,
-                                                  int n0, int g, int t, float out[MT][NT][4]) {
-  float part[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    FragA a[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) load_a_cols(a[i], a_s, m0 + 16 * i, k0, LDA, g, t);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       FragB b;

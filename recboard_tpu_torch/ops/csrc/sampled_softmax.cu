@@ -27,29 +27,28 @@
 // pads of weight 0. So it computes the rows of s != 0 alone: 1,553 of
 // 12,800, 6*1,553*K*D = 0.305 GFLOP (1.85 us as three TF32 products at the
 // 495 TFLOP/s tensor-core rate, 4.6 us at the float32 rate). What bounds it
-// is then bytes: du and dpos are written for all M rows (6.55 MB), and the
-// live rows of u and p, n, dneg and the three (M,) vectors add 1.2 MB, 2.3
-// us at 3.35 TB/s. The design, three kernels behind one call, with no host
+// is then bytes: du and dpos are written for all M rows (6.55 MB), and s,
+// n, dneg and the live rows of u, p, logz and pos_logit add 1.1 MB, 2.3 us
+// at 3.35 TB/s. The design, three kernels behind one call, with no host
 // synchronisation, no float atomics and no library call:
 //   1. cand_live_kernel (live_rows.cuh, K4's) lists the rows of s != 0 in
 //      order, and their count, in device memory;
-//   2. shared_bwd_tile_kernel<DP>: block (128-negative tile, split) stages
-//      its negatives once and walks its split's tiles of 64 listed rows,
-//      gathered through the list by cp.async (zeros past the list, past K
-//      and past D). Per tile, K3's tile_logits gives the 64 x 128 logits
-//      (mma.sync TF32 in split precision, 3xTF32, mma_tf32.cuh: float32
-//      accuracy); P is made in registers from the fragments (exp2 of the
-//      logit - logz, times s) and written once to shared memory, where that
-//      one copy feeds both second products: mma_accumulate gives du's
-//      partial P n over this block's negatives, written to du_part at the
-//      rows' list positions, and mma_accumulate_at (the same copy read down
-//      its columns) adds P^T u to the block's running dneg, written to
-//      dneg_part once its split is done. Before that, while its tiles load,
-//      every block writes its share of du = dpos = 0 on the rows of s = 0
-//      (a warp a row over the whole grid), so no torch.empty contents
-//      reach autograd. D is padded with zeros to 32, 64 or 128, one build
-//      per width; a D that is not a multiple of 4 (or a row that is not
-//      16-byte aligned) is staged by 4-byte copies;
+//   2. shared_bwd_tile_kernel<DP>: block (128-negative tile, split) stages its
+//      negatives once and walks its split's tiles of 64 listed rows, gathered
+//      through the list by mma_tf32.cuh's stage_rows (cp.async; zeros past the
+//      list, past K and past D). Per tile, K3's tile_logits gives the 64 x 128
+//      logits (mma.sync TF32 in split precision, 3xTF32, mma_tf32.cuh: float32
+//      accuracy); P is made in registers from the fragments (exp2 of the logit
+//      - logz, times s) and written once to shared memory, where that one copy
+//      feeds both second products: mma_accumulate gives du's partial P n over
+//      this block's negatives, written to du_part at the rows' list positions,
+//      and mma_accumulate with A_COLS (the same copy read down its columns)
+//      adds P^T u to the block's running dneg, written to dneg_part once its
+//      split is done. Before that, while its tiles load, every block writes its
+//      share of du = dpos = 0 on the rows of s = 0 (a warp a row over the whole
+//      grid), so no torch.empty contents reach autograd. D is padded with zeros
+//      to 32, 64 or 128, one build per width; a D that is not a multiple of 4
+//      (or a row that is not 16-byte aligned) is staged by 4-byte copies;
 //   3. shared_bwd_finish_kernel adds the partials in a fixed order: du over
 //      the ceil(K / 128) negative tiles, then + coef p, times 1 / tau, and
 //      dpos = coef u / tau, a warp a listed row; dneg over the splits that
@@ -70,11 +69,14 @@
 // (the count, the list, the rows); the listing and the finishing pass are
 // launches of their own. Left for later: operands split once per tile,
 // wgmma, and the finishing sums in the tile kernel's last blocks.
+// Its scratch is sized on the host, which does not know the live count:
+// du_part holds ceil(K / 128) partials for every row, 4 ceil(K / 128) M D
+// bytes (13.1 MB at the training shape), and so grows with K.
 
 #include <algorithm>
 
 #include "live_rows.cuh"  // cand_live_kernel, kListThreads
-#include "mma_tf32.cuh"   // tile_logits, mma_accumulate, mma_accumulate_at, cp_async
+#include "mma_tf32.cuh"   // tile_logits, mma_accumulate, stage_rows, cp_async
 #include "tiles.cuh"      // the forward's tiles; kMaxD, kFull, lse_merge, allow_smem
 
 namespace {
@@ -156,31 +158,6 @@ constexpr int kTcThreads = 256;   // 8 warps
 constexpr int kFinishThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// rows row(r), r < ROWS, of a row-major (., D) float32 array into a
-// swizzled tile of DP floats a row (mma_tf32.cuh's layout); a row index
-// below 0, and the columns past D, are zeros. 16-byte copies when vec (D a
-// multiple of 4 and the array 16-byte aligned), else 4-byte ones.
-template <int ROWS, int DP, typename Row>
-__device__ __forceinline__ void stage_gather(float* dst, const float* __restrict__ src, int D,
-                                             bool vec, Row row) {
-  if (vec) {
-    constexpr int kC = DP / 4;
-    for (int i = threadIdx.x; i < ROWS * kC; i += kTcThreads) {
-      const int r = i / kC, c = 4 * (i % kC);
-      const int64_t m = row(r);
-      const bool ok = m >= 0 && c < D;
-      cp_async<16>(dst + at(r, c, DP), ok ? src + m * D + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += kTcThreads) {
-      const int r = i / DP, c = i % DP;
-      const int64_t m = row(r);
-      const bool ok = m >= 0 && c < D;
-      cp_async<4>(dst + at(r, c, DP), ok ? src + m * D + c : src, ok);
-    }
-  }
-}
-
 // The ceil(n / kRows) tiles of the n listed rows are cut into runs of
 // `per` tiles (the last may be shorter), one a split; the first `used`
 // splits take tiles, the others none
@@ -218,8 +195,12 @@ shared_bwd_tile_kernel(const float* __restrict__ user, const float* __restrict__
 
   auto stage_u = [&](int tile) {
     const int64_t b0 = (int64_t)tile * kRows;
-    stage_gather<kRows, DP>(u_s, user, D, vec,
-                            [&](int r) { return b0 + r < n ? (int64_t)live[b0 + r] : -1; });
+    // a row index or -1, tested after: as an early return this spilled
+    // 48 more bytes at DP 64, and the tiles took 1 us more
+    stage_rows<kRows, DP, kTcThreads>(u_s, user, D, vec, [&](int r, int64_t& m) {
+      m = b0 + r < n ? (int64_t)live[b0 + r] : -1;
+      return m >= 0;
+    });
   };
   // logz and s of this thread's rows of a tile: rows rw + 16 i + 8 hh + g
   // of the logits (below); 0 past the list
@@ -237,8 +218,7 @@ shared_bwd_tile_kernel(const float* __restrict__ user, const float* __restrict__
       }
   };
   if (t_begin < t_end) {
-    stage_gather<kNegs, DP>(n_s, neg, D, vec,
-                            [&](int r) { return k0 + r < K ? k0 + r : (int64_t)-1; });
+    stage_rows<kNegs, DP, kTcThreads>(n_s, neg, D, vec, RowsFrom{k0, K});
     stage_u(t_begin);
     row_consts(t_begin);
   }
@@ -327,7 +307,7 @@ shared_bwd_tile_kernel(const float* __restrict__ user, const float* __restrict__
         if (d < D) dst[b * D + d] = du_o[0][j][2 * hh];
         if (d + 1 < D) dst[b * D + d + 1] = du_o[0][j][2 * hh + 1];
       }
-    mma_accumulate_at<2, NT, kRows, kNegs, DP>(p_s, vd, u_s, dd, g, t, dn);  // dneg += P^T u
+    mma_accumulate<2, NT, kRows, kNegs, DP, true>(p_s, vd, u_s, dd, g, t, dn);  // dneg += P^T u
   }
 
   if (t_begin >= t_end) return;  // this split wrote no partial
@@ -404,10 +384,7 @@ cudaError_t launch_tiles(dim3 grid, cudaStream_t st, const float* user, const fl
 
 // the finishing kernel's grid: a warp for each row and a thread for each
 // element of dneg, up to four blocks an SM
-unsigned finish_grid(int M, int K, int D) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+unsigned finish_grid(int M, int K, int D, int sms) {
   const int64_t want = std::max<int64_t>((M + 7) / 8, ((int64_t)K * D + 255) / 256);
   return (unsigned)std::max<int64_t>(1, std::min<int64_t>(want, (int64_t)4 * sms));
 }
@@ -437,25 +414,30 @@ extern "C" int sampled_softmax_shared_fwd_f32(const float* user, const float* po
 }
 
 // The backward for row gradients g (M,) of logz - pos_logit: du, dpos (M, D)
-// and dneg (K, D), through the scratch the caller allocates: live (M,) and
-// n_live (1,) int32, du_part (ceil(K / 128) * M * D) and dneg_part (splits *
-// K * D) float32. The tiles of listed rows are cut into `splits` runs of
-// equal length (splits <= 65535). Launches its three kernels on `stream`;
-// the count of rows with g != 0 stays in device memory. Returns the first
-// CUDA error (0 on success).
+// and dneg (K, D), through one scratch buffer the caller allocates, of
+// ceil(K / 128) * M * D + splits * K * D + M + 1 words: du_part and
+// dneg_part (float32), then live (M,) and n_live (1,) (int32). The tiles of
+// listed rows are cut into `splits` runs of equal length (splits <= 65535);
+// `sms` is the card's SM count. Launches its three kernels on `stream`; the
+// count of rows with g != 0 stays in device memory. Returns the first CUDA
+// error (0 on success).
 extern "C" int sampled_softmax_shared_bwd_f32(const float* user, const float* pos,
                                               const float* neg, const float* logz,
                                               const float* pos_logit, const float* g,
-                                              float* du, float* dpos, float* dneg, int* live,
-                                              int* n_live, float* du_part, float* dneg_part,
-                                              int M, int D, int K, float inv_tau, int splits,
-                                              void* stream) {
-  if (bad_shape(M, D, K) || splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
+                                              float* du, float* dpos, float* dneg,
+                                              float* scratch, int M, int D, int K, float inv_tau,
+                                              int splits, int sms, void* stream) {
+  if (bad_shape(M, D, K) || splits < 1 || splits > 65535 || sms < 1)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  const int neg_tiles = (K + kNegs - 1) / kNegs;
+  float* du_part = scratch;
+  float* dneg_part = du_part + (int64_t)neg_tiles * M * D;
+  int* live = reinterpret_cast<int*>(dneg_part + (int64_t)splits * K * D);
+  int* n_live = live + M;
   cand_live_kernel<<<1, kListThreads, 0, st>>>(g, live, n_live, M);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int neg_tiles = (K + kNegs - 1) / kNegs;
   if (M > 0) {
     const bool vec = D % 4 == 0 && ((uintptr_t)user | (uintptr_t)neg) % 16 == 0;
     const dim3 grid((unsigned)neg_tiles, (unsigned)splits);
@@ -466,7 +448,7 @@ extern "C" int sampled_softmax_shared_bwd_f32(const float* user, const float* po
     err = D <= 32 ? go(launch_tiles<32>) : D <= 64 ? go(launch_tiles<64>) : go(launch_tiles<128>);
     if (err != cudaSuccess) return (int)err;
   }
-  shared_bwd_finish_kernel<<<finish_grid(M, K, D), kFinishThreads, 0, st>>>(
+  shared_bwd_finish_kernel<<<finish_grid(M, K, D, sms), kFinishThreads, 0, st>>>(
       user, pos, logz, pos_logit, g, live, n_live, du_part, dneg_part, du, dpos, dneg, M, D, K,
       neg_tiles, splits, inv_tau);
   return (int)cudaGetLastError();

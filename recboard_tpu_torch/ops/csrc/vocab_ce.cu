@@ -116,8 +116,8 @@ vocab_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ wt,
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
   const SplitTile h_split{hh_s, hl_s};
 
-  stage_rows<kRows, DP, kTcThreads>(hh_s, h, M, r0, D);
-  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, V, (int64_t)t_begin * kVocab, D);
+  stage_rows<kRows, DP, kTcThreads>(hh_s, h, D, true, RowsFrom{r0, M});
+  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, D, true, RowsFrom{(int64_t)t_begin * kVocab, V});
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -144,8 +144,8 @@ vocab_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ wt,
     cp_async_wait_all();
     __syncthreads();  // this tile is staged; the previous one's products are done
     if (tile + 1 < t_end)
-      stage_rows<kVocab, DP, kTcThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, V,
-                                         (int64_t)(tile + 1) * kVocab, D);
+      stage_rows<kVocab, DP, kTcThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, D, true,
+                                         RowsFrom{(int64_t)(tile + 1) * kVocab, V});
     cp_async_commit();
     const int vb = tile * kVocab + vw + 2 * t;
     float bias_c[4][2];  // -inf past V: those entries add exp(-inf) = 0
@@ -292,8 +292,8 @@ vocab_ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ wt,
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  stage_rows<kRows, DP, kTcThreads>(h_s, h, M, r0, D);
-  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, V, (int64_t)t_begin * kVocab, D);
+  stage_rows<kRows, DP, kTcThreads>(h_s, h, D, true, RowsFrom{r0, M});
+  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, D, true, RowsFrom{(int64_t)t_begin * kVocab, V});
   cp_async_commit();
 
   // logits: warps 2 (rows) x 4 (entries) of 32 x 32; dh: 4 (rows) x 2 (D)
@@ -325,8 +325,8 @@ vocab_ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ wt,
     cp_async_wait_all();
     __syncthreads();  // this tile is staged; the previous one's products are done
     if (tile + 1 < t_end)
-      stage_rows<kVocab, DP, kTcThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, V,
-                                          (int64_t)(tile + 1) * kVocab, D);
+      stage_rows<kVocab, DP, kTcThreads>(w_s + (buf ^ 1) * kVocab * DP, wt, D, true,
+                                          RowsFrom{(int64_t)(tile + 1) * kVocab, V});
     cp_async_commit();
     const int vb = tile * kVocab + vw + 2 * t;
     float bias_c[4][2];
@@ -393,7 +393,7 @@ vocab_ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ wt,
   // a row tile of h, and its rows' labels, logz and g, into buffer buf
   auto stage_tile = [&](int buf, int tile) {
     const int64_t r0 = (int64_t)tile * kRows;
-    stage_rows<kRows, DP, kTcThreads>(h_s + buf * kRows * DP, h, M, r0, D);
+    stage_rows<kRows, DP, kTcThreads>(h_s + buf * kRows * DP, h, D, true, RowsFrom{r0, M});
     if (threadIdx.x < kRows) {
       const int64_t r = r0 + threadIdx.x;
       const bool ok = r < M;
@@ -403,7 +403,7 @@ vocab_ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ wt,
       cp_async<4>(g_s + k, ok ? grad + r : grad, ok);
     }
   };
-  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, V, v0, D);
+  stage_rows<kVocab, DP, kTcThreads>(w_s, wt, D, true, RowsFrom{v0, V});
   if (threadIdx.x < kVocab) {
     const bool ok = v0 + threadIdx.x < V;
     cp_async<4>(b_s + threadIdx.x, ok ? bias + v0 + threadIdx.x : bias, ok);

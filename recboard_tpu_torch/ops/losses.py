@@ -321,8 +321,8 @@ def _kernels():
     bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # user, pos, neg, logz, pos_logit, s
         ptr, ptr, ptr,  # du, dpos, dneg
-        ptr, ptr, ptr, ptr,  # scratch: live, n_live, du_part, dneg_part
-        i32, i32, i32, f32, i32,  # M, D, K, 1 / temperature, splits
+        ptr,  # scratch: du_part, dneg_part, live, n_live
+        i32, i32, i32, f32, i32, i32,  # M, D, K, 1 / temperature, splits, SMs
         ptr,  # stream
     ]
     fwd.restype = bwd.restype = i32
@@ -413,18 +413,18 @@ def sampled_softmax_shared_bwd(
     M, D, K = _check(fn, user, pos, neg)
     _check_rows(fn, M, user, logz=logz, pos_logit=pos_logit, s=s)
     neg_tiles = -(-K // SHARED_NEG_TILE)
-    splits = dneg_splits(-(-M // SHARED_ROW_TILE), neg_tiles, _sm_count(user.device.index or 0))
-    new = functools.partial(torch.empty, device=user.device)
-    du, dpos = new((M, D), dtype=torch.float32), new((M, D), dtype=torch.float32)
-    dneg = new((K, D), dtype=torch.float32)
-    scratch = (new(M, dtype=torch.int32), new(1, dtype=torch.int32),
-               new((neg_tiles, M, D), dtype=torch.float32),
-               new((splits, K, D), dtype=torch.float32))
+    sms = _sm_count(user.device.index or 0)
+    splits = dneg_splits(-(-M // SHARED_ROW_TILE), neg_tiles, sms)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=user.device)
+    du, dpos, dneg = new((M, D)), new((M, D)), new((K, D))
+    # du_part (neg_tiles, M, D) and dneg_part (splits, K, D), then the int32
+    # list of live rows (M,) and its count, which the kernels slice
+    scratch = new(neg_tiles * M * D + splits * K * D + M + 1)
     _launch(
         fn, _kernels()[1], user.device,
         user.data_ptr(), pos.data_ptr(), neg.data_ptr(), logz.data_ptr(),
         pos_logit.data_ptr(), s.data_ptr(), du.data_ptr(), dpos.data_ptr(),
-        dneg.data_ptr(), *(t.data_ptr() for t in scratch), M, D, K, 1.0 / temperature, splits,
+        dneg.data_ptr(), scratch.data_ptr(), M, D, K, 1.0 / temperature, splits, sms,
     )
     sampled_softmax_shared_bwd.launches += 1
     return du, dpos, dneg
