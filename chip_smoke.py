@@ -86,8 +86,12 @@ Phases, one JSON line each; any failure exits non-zero:
    finishing sums) with its ptxas lines and with every row live, the
    bounds on the live rows and on all, the library on both; K6
    (stacked_rel_bias_bwd) at HSTU's shape, all 129 buckets, a ragged
-   batch and L 200; each against its plain version, with CUDA-event
-   times beside the plain version, a library call and the bound.
+   batch, L 200, an odd L (L * L not a multiple of 4) and one bias
+   block; each against its plain version, the same bits on a rerun; at
+   the training shape its times by CUDA events and on the device clock,
+   by part (binning pass, finishing sums), with its ptxas lines, beside
+   the plain version, the library call (index_add_, also on the device
+   clock) and the bound.
 14. hstu_train, hstu_profile, hstu_train_time, hstu_quality — phases 6, 5,
    7 and 8 for HSTU at the reference config with shared negatives, its
    training cut to one epoch: K5 forward and backward and K6 once per
@@ -323,6 +327,8 @@ RB_EXTRA = [  # correctness only
     ("all_buckets", 4, 256, 50, 129, 129),
     ("ragged_B", 4, 37, 50, HSTU_ACTIVE_K, 129),
     ("long_L", 4, 64, 200, HSTU_ACTIVE_K, 129),
+    ("odd_L", 3, 45, 37, HSTU_ACTIVE_K, 129),  # L * L not a multiple of 4: 4-byte loads
+    ("one_block", 1, 29, 7, 23, 40),  # tests/test_ops.py's L and K, one bias block
 ]
 
 
@@ -444,6 +450,7 @@ SS_BWD_PARTS = {"cand_live_kernel": "live", "shared_bwd_tile_kernel": "tiles",
                 "shared_bwd_finish_kernel": "finish"}
 SSC_BWD_PARTS = {"cand_live_kernel": "live", "cand_rows_kernel": "rows",
                  "cand_chunk_kernel": "transpose", "cand_segment_kernel": "segments"}
+RB_BWD_PARTS = {"rel_bias_hist_kernel": "hist", "rel_bias_sum_kernel": "sum"}
 
 
 def kernel_parts(fn, parts_of: dict, what: str, calls: int) -> tuple:
@@ -1216,6 +1223,7 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
             u, p, n, logz, pos_logit, s, tau), iters=50, warmup=5),
         plain_bwd_autograd_ms=cuda_ms(fwd_bwd(plain, every), iters=50, warmup=5) - plain_ms,
         library_fwd_ms=lib_ms,
+        library_fwd_graph_ms=lib_graph_ms,
         library_bwd_ms=graph_ms(fwd_bwd(library, live_rows), calls=10) - lib_on_graph_ms,
         library_bwd_all_rows_ms=graph_ms(fwd_bwd(library, every), calls=10) - lib_graph_ms,
         library_bwd_host_ms=cuda_ms(fwd_bwd(library, live_rows), iters=50, warmup=5) - lib_on_ms,
@@ -1599,34 +1607,37 @@ def check_rel_bias(rng):
         want = torch.autograd.grad(want_out, (ts_w, pos_w), g)
         got_out = R.stacked_rel_bias(ts, ts_w, pos_w, K)
         got = torch.autograd.grad(got_out, (ts_w, pos_w), g)
+        bucket = R._bucketize(ts, L, K)
+        again = R.stacked_rel_bias_bwd(bucket, g, K, columns)
         torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
         g_rel = grad_rel_err(got, want)
         g_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
         out_same = bool(torch.equal(got_out, want_out))
         beyond_zero = not bool(got[0][:, K:].any())
-        buckets = int(R._bucketize(ts, L, K).unique().numel())
+        buckets = int(bucket.unique().numel())
         worst = max(worst, g_abs)
         row = dict(shape=name, NB=NB, B=B, L=L, K=K, columns=columns, buckets_hit=buckets,
                    grad_max_abs_err=g_abs, grad_rel_err=g_rel, grad_rel_tol=GRAD_TOL,
-                   forward_equal=out_same,
-                   zero_beyond_K=beyond_zero)
+                   forward_equal=out_same, zero_beyond_K=beyond_zero, same_bits=same_bits)
         if case in RB_SHAPES:
             row.update(time_rel_bias(ts, ts_w, pos_w, g, K))
         emit("kernels", kernel="stacked_rel_bias_bwd", **row)
-        if not out_same or not beyond_zero or not g_rel <= GRAD_TOL:
+        if not out_same or not beyond_zero or not same_bits or not g_rel <= GRAD_TOL:
             raise SystemExit(f"stacked_rel_bias_bwd disagrees with its plain version at "
                              f"{name}: grads {g_rel}, forward equal {out_same}, zero "
-                             f"beyond K {beyond_zero}")
+                             f"beyond K {beyond_zero}, same bits on a rerun {same_bits}")
         rows.append(row)
-        del ts, ts_w, pos_w, g, want_out, got_out
+        del ts, ts_w, pos_w, g, want_out, got_out, bucket, again
     return rows, worst
 
 
 def time_rel_bias(ts, ts_w, pos_w, g, K) -> dict:
-    """CUDA-event times of K6, the plain version's backward (autograd of the
-    gathers) and index_add_ of the cotangent into both histograms, with the
-    bound: the cotangent and the bucket ids read once, the two gradients
-    written once, one add per entry and histogram."""
+    """Times of K6 by CUDA events and on the device clock (whole and by
+    part), the plain version's backward (autograd of the gathers) and
+    index_add_ of the cotangent into both histograms (also on the device
+    clock), with the bound: the cotangent and the bucket ids read once,
+    the two gradients written once, one add per entry and histogram."""
     import torch
 
     from recboard_tpu_torch.ops import rel_bias as R
@@ -1650,13 +1661,22 @@ def time_rel_bias(ts, ts_w, pos_w, g, K) -> dict:
         return (torch.zeros_like(dts).index_add_(1, flat_bucket, g2),
                 torch.zeros_like(dpos).index_add_(1, flat_rel, g2))
 
+    def bwd():
+        return R.stacked_rel_bias_bwd(bucket, g, K, columns)
+
     elements = NB * B * L * L
     bwd_bound = bound(nbytes(g, bucket, dts, dpos), 2 * elements)
     plain_ms = cuda_ms(plain_fwd, iters=50, warmup=5)
+    parts, launches = kernel_parts(bwd, RB_BWD_PARTS, "stacked_rel_bias_bwd", 20)
     return dict(
-        bwd_ms=cuda_ms(lambda: R.stacked_rel_bias_bwd(bucket, g, K, columns)),
+        bwd_ms=cuda_ms(bwd),
+        bwd_graph_ms=graph_ms(bwd),
+        bwd_parts_ms=parts,
+        bwd_launches_per_call=launches,
+        bwd_ptxas=ptxas_lines("rel_bias", "rel_bias_"),
         plain_bwd_ms=cuda_ms(plain_fwd_bwd, iters=50, warmup=5) - plain_ms,
         library_bwd_ms=cuda_ms(library, iters=50, warmup=5),
+        library_bwd_graph_ms=graph_ms(library, calls=10),
         bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
     )
 
@@ -2438,12 +2458,15 @@ def main(argv=None) -> int:
     # K1 and K2 run near or below their wrappers' host time: their entries,
     # and SDPA's beside them, take the device clock (CUDA graphs), as do
     # K4 (two kernels behind one wrapper call forward, four backward), K3
-    # (its forward beside the library's from a graph too) and K5's backward
-    # (three kernels behind one wrapper call)
+    # (its forward beside the library's from a graph too), K5's backward
+    # (three kernels behind one wrapper call) and K6 (two kernels, beside
+    # index_add_ from a graph too)
     serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
     cand = dict(ssc_rows[0], fwd_ms=ssc_rows[0]["fwd_graph_ms"],
                 bwd_ms=ssc_rows[0]["bwd_graph_ms"])
     shared_bwd = dict(ss_rows[0], bwd_ms=ss_rows[0]["bwd_graph_ms"])
+    rel_bias = dict(rb_rows[0], bwd_ms=rb_rows[0]["bwd_graph_ms"],
+                    library_bwd_ms=rb_rows[0]["library_bwd_graph_ms"])
     ce = dict(ce, fwd_ms=ce["fwd_graph_ms"], library_fwd_ms=ce["library_fwd_graph_ms"],
               bwd_ms=ce["bwd_graph_ms"])
     training = dict(training, fwd_ms=training["fwd_graph_ms"],
@@ -2471,7 +2494,7 @@ def main(argv=None) -> int:
                      h_trained["launches"]["sampled_softmax_shared_bwd"], ss_worst["bwd"],
                      shared_bwd, "bwd_"),
         kernel_entry("stacked_rel_bias_bwd", "rel_bias.cu", "recboard_tpu/ops/rel_bias.py:69",
-                     h_trained["launches"]["stacked_rel_bias_bwd"], rb_worst, rb_rows[0],
+                     h_trained["launches"]["stacked_rel_bias_bwd"], rb_worst, rel_bias,
                      "bwd_"),
         kernel_entry("sampled_softmax_cand_fwd", "sampled_softmax_cand.cu",
                      "recboard_tpu/ops/losses.py:170",

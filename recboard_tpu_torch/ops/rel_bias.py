@@ -15,7 +15,8 @@ come back without a transpose.
 * ``stacked_rel_bias_bwd`` — the wrapper of the hand-written CUDA kernel
   (``csrc/rel_bias.cu``) that replaces the TPU kernel ``_bwd_kernel``:
   the histograms of the cotangent over buckets and over Toeplitz
-  diagonals. CUDA tensors only.
+  diagonals, in one pass over the cotangent for every bias block, with
+  the grid of ``launch_grid``. CUDA tensors only.
 * ``StackedRelBiasFn`` — the autograd function: the same gathers forward
   (saving the bucket ids), the kernel backward.
 * ``stacked_rel_bias`` — dispatch by device: the plain version on the
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -46,8 +47,9 @@ __all__ = [
     "stacked_rel_bias_reference",
 ]
 
-BLOCKS_PER_SM = 4  # the grid the kernel aims for, per bias block
-THREADS = 256  # csrc/rel_bias.cu kThreads: 8 warps, one histogram each
+MAX_THREADS = 256  # csrc/rel_bias.cu kMaxThreads
+MAX_GROUP = 4  # csrc/rel_bias.cu kMaxGroup: bias blocks a block bins at once
+HIST_BYTES = 200 * 1024  # shared memory for a block's per-thread bucket histograms
 
 
 def _bucketize(timestamps: torch.Tensor, L: int, K: int) -> torch.Tensor:
@@ -92,17 +94,45 @@ def _kernel():
     fn.argtypes = [
         ptr, ptr,  # g, bucket
         ptr, ptr, ptr,  # part, dts, dpos
-        i32, i32, i32, i32, i32, i32,  # NB, B, L, K, ts columns, blocks per bias block
+        i32, i32, i32, i32, i32,  # NB, B, L, K, ts columns
+        i32, i32, i32, i32, i32,  # threads, group, vec, chunk, rows (launch_grid)
         ptr,  # stream
     ]
     fn.restype = i32
     return fn
 
 
-def grid_blocks(elements: int, sms: int) -> int:
-    """Blocks per bias block over ``elements`` cotangent entries: about
-    BLOCKS_PER_SM per SM in all, and at least 8 entries per thread."""
-    return max(1, min(-(-elements // (8 * THREADS)), BLOCKS_PER_SM * sms))
+class Grid(NamedTuple):
+    threads: int  # a block, a multiple of 32
+    group: int  # bias blocks a block bins at once; passes = ceil(NB / group)
+    vec: int  # consecutive (m, n) positions a thread reads at once: 4 or 1
+    chunk: int  # slots of vec positions a block takes of the L x L tile
+    rows: int  # batch rows a block walks
+    blocks: int  # blocks a pass: chunks of the tile x runs of rows
+    passes: int
+
+
+@functools.lru_cache(maxsize=None)
+def launch_grid(NB: int, B: int, L: int, K: int, sms: int, vec: int) -> Grid:
+    """The kernel's grid: the tile's L * L / vec slots cut into the fewest
+    chunks of at most MAX_THREADS (fewer threads where K bins a thread
+    would overflow HIST_BYTES), a thread a slot; as many bias blocks a
+    pass as the histograms' shared memory holds (up to MAX_GROUP); the
+    batch rows cut into runs so that about one block an SM works."""
+    threads = MAX_THREADS
+    while threads > 32 and 4 * K * threads > HIST_BYTES:
+        threads //= 2
+    if 4 * K * threads > HIST_BYTES:
+        raise ValueError(f"stacked_rel_bias_bwd: K={K} bucket bins do not fit a block")
+    slots = L * L // vec
+    chunks = -(-slots // threads)
+    chunk = -(-slots // chunks)
+    threads = -(-chunk // 32) * 32
+    group = min(MAX_GROUP, NB, HIST_BYTES // (4 * K * threads))
+    passes = -(-NB // group)
+    runs = max(1, min(B, sms // (chunks * passes)))
+    rows = max(1, -(-B // runs))
+    return Grid(threads, group, vec, chunk, rows, chunks * -(-B // rows), passes)
 
 
 def stacked_rel_bias_bwd(
@@ -110,9 +140,12 @@ def stacked_rel_bias_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel: from the (B, L, L) int32 bucket ids and the
     cotangent g (NB, B, L, L), (dts (NB, ts_columns) with zeros from column
-    K on, dpos (NB, 2L - 1)). Each block sums its share of the entries into
-    histograms in shared memory in a fixed order, and a second pass adds
-    the blocks' histograms in a fixed order: reruns give the same bits.
+    K on, dpos (NB, 2L - 1)). A block reads its rows' ids once for up to
+    MAX_GROUP bias blocks, bins them into per-thread histograms and sums
+    each (m, n) over its rows, folded along the diagonals for dpos; a
+    second pass adds the blocks' partials. Every addition is in a fixed
+    order: reruns give the same bits. dts and dpos are views of one
+    allocation that also holds the partials.
     ``stacked_rel_bias_bwd.launches`` counts its calls."""
     fn = "stacked_rel_bias_bwd"
     for name, t in (("bucket", bucket), ("g", g)):
@@ -129,12 +162,18 @@ def stacked_rel_bias_bwd(
     NB, B, L, _ = g.shape
     if not 1 <= K <= ts_columns:
         raise ValueError(f"{fn}: K={K} must lie in [1, {ts_columns}]")
-    blocks = grid_blocks(B * L * L, _sm_count(g.device.index or 0))
-    new = functools.partial(torch.empty, dtype=torch.float32, device=g.device)
-    part = new((NB, blocks, K + 2 * L - 1))
-    dts, dpos = new((NB, ts_columns)), new((NB, 2 * L - 1))
+    aligned = g.data_ptr() % 16 == 0 and bucket.data_ptr() % 16 == 0
+    vec = 4 if L * L % 4 == 0 and aligned else 1
+    grid = launch_grid(NB, B, L, K, _sm_count(g.device.index or 0), vec)
+    R = 2 * L - 1
+    out = torch.empty(NB * (ts_columns + R + (K + R) * grid.blocks), dtype=torch.float32,
+                      device=g.device)
+    dts = out[: NB * ts_columns].view(NB, ts_columns)
+    dpos = out[NB * ts_columns : NB * (ts_columns + R)].view(NB, R)
+    part = out[NB * (ts_columns + R) :]
     _launch(fn, _kernel(), g.device, g.data_ptr(), bucket.data_ptr(), part.data_ptr(),
-            dts.data_ptr(), dpos.data_ptr(), NB, B, L, K, ts_columns, blocks)
+            dts.data_ptr(), dpos.data_ptr(), NB, B, L, K, ts_columns, grid.threads,
+            grid.group, grid.vec, grid.chunk, grid.rows)
     stacked_rel_bias_bwd.launches += 1
     return dts, dpos
 
