@@ -75,16 +75,21 @@ Phases, one JSON line each; any failure exits non-zero:
    forward and backward once per step each, K1 twice per evaluated batch.
 12. bert4rec_quality — the toy store's BERT4Rec protocol for 5 seeds.
 13. kernels_sampled_softmax, kernels_rel_bias — K5 (sampled_softmax_shared
-   forward and backward; the backward over the rows of s != 0 alone, on
-   the tensor cores) at HSTU's training shape with its pad share, its
-   last batch, the JAX test's shape, large logits, every row weighted,
-   no row weighted, D 13 and D 128: the backward called directly against
-   its plain listed-rows version and through the loss's autograd, du and
-   dpos exactly 0 on rows of weight 0 (all three outputs 0 with no row
-   weighted), the same bits on a rerun; at the training shape both passes
-   also on the device clock, the backward by part (listing, tiles,
-   finishing sums) with its ptxas lines and with every row live, the
-   bounds on the live rows and on all, the library on both; K6
+   forward and backward, the forward over the rows of weight != 0 alone
+   and the backward over those of s != 0, both on the tensor cores) at
+   HSTU's training shape with its pad share, its last batch, the JAX
+   test's shape, large logits, every row weighted, no row weighted, D 13
+   and D 128: the forward against its plain weighted version, logz and
+   pos_logit exactly 0 on rows of weight 0; the backward called directly
+   against its plain listed-rows version and through the loss's
+   autograd, du and dpos exactly 0 on rows of weight 0 (every output 0
+   with no row weighted), the same bits on a rerun of either pass; at
+   one negative whose logit the positive's cannot reach, dneg exactly
+   s sum(u) / tau (the backward takes the forward's logits bit for bit);
+   at the training shape both passes also on the device clock, by part
+   (listing, tiles, merge or finishing sums) with their ptxas lines and
+   with every row weighted, the bounds on the weighted rows and on all,
+   the library on both; K6
    (stacked_rel_bias_bwd) at HSTU's shape, all 129 buckets, a ragged
    batch, L 200, an odd L (L * L not a multiple of 4) and one bias
    block; each against its plain version, the same bits on a rerun; at
@@ -442,10 +447,12 @@ def device_kernels(fn, calls: int) -> list:
     return [(name, us / 1e3, n) for name, us, n in profiled_ops(prof, calls, device=True)]
 
 
-# K4's kernels by part, forward and backward, and K5's backward's: each
+# K4's and K5's kernels by part, forward and backward: each
 # lists its rows with cand_live_kernel, so a part is told by the call it is
 # timed in
 SSC_FWD_PARTS = {"cand_live_kernel": "live", "cand_fwd_kernel": "rows"}
+SS_FWD_PARTS = {"cand_live_kernel": "live", "shared_fwd_tile_kernel": "tiles",
+                "shared_fwd_merge_kernel": "merge"}
 SS_BWD_PARTS = {"cand_live_kernel": "live", "shared_bwd_tile_kernel": "tiles",
                 "shared_bwd_finish_kernel": "finish"}
 SSC_BWD_PARTS = {"cand_live_kernel": "live", "cand_rows_kernel": "rows",
@@ -1058,13 +1065,16 @@ def ss_inputs(case, rng):
 
 
 def check_sampled_softmax(rng):
-    """K5 against its plain versions on the card: logz and pos_logit; the
-    backward called directly against ``sampled_softmax_shared_bwd_reference``
-    on the forward's outputs (the rows of s != 0 alone), the same bits on a
-    rerun, du and dpos exactly 0 on rows of s = 0, and with no such row
-    (``no_live_row``) du, dpos and dneg exactly 0; the loss's gradients in
-    user, pos and neg against autograd of the plain loss; everything
-    finite; times at the timed shape."""
+    """K5 against its plain versions on the card: logz and pos_logit
+    against ``sampled_softmax_shared_fwd_reference`` (the rows of weight
+    != 0 alone), exactly 0 on rows of weight 0; the backward called
+    directly against ``sampled_softmax_shared_bwd_reference`` on the
+    forward's outputs (the rows of s != 0 alone), du and dpos exactly 0 on
+    rows of s = 0; the same bits on a rerun of either pass; with no
+    weighted row (``no_live_row``) every output exactly 0; the loss's
+    gradients in user, pos and neg against autograd of the plain loss;
+    everything finite; times at the timed shape; then
+    ``check_shared_same_logits``."""
     import torch
 
     from recboard_tpu_torch.ops import losses as S
@@ -1074,9 +1084,9 @@ def check_sampled_softmax(rng):
         name, M, K, D, tau, _, zero_share = case
         user, pos, neg, w = ss_inputs(case, rng)
         u, p, n = user.detach(), pos.detach(), neg.detach()
-        logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, tau)
-        want_pl = (u * p).sum(-1) / tau
-        want_logz = torch.logsumexp(torch.cat([want_pl[:, None], u @ n.T / tau], 1), -1)
+        logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, w, tau)
+        fwd_again = S.sampled_softmax_shared_fwd(u, p, n, w, tau)
+        want_logz, want_pl = S.sampled_softmax_shared_fwd_reference(u, p, n, w, tau)
         want = S.sampled_softmax_loss_shared_reference(user, pos, neg, w, tau)
         want_g = torch.autograd.grad(want, (user, pos, neg))
         got = S.SampledSoftmaxShared.apply(user, pos, neg, w, tau)
@@ -1095,9 +1105,11 @@ def check_sampled_softmax(rng):
         bwd_abs = max(float((a - b).abs().max()) for a, b in zip(bwd, plain_bwd))
         g_tol = SS_LARGE_GRAD_TOL if name == "large_logits" else GRAD_TOL
         zero = w == 0
-        zero_rows_exact = not any(bool(x[zero].any()) for x in (got_g[0], got_g[1], *bwd[:2]))
-        all_zero = not any(bool(x.any()) for x in (*got_g, *bwd))
-        same_bits = all(torch.equal(a, b) for a, b in zip(bwd, again))
+        zero_rows_exact = not any(bool(x[zero].any()) for x in (
+            logz, pos_logit, got_g[0], got_g[1], *bwd[:2]))
+        all_zero = not any(bool(x.any()) for x in (logz, pos_logit, *got_g, *bwd))
+        same_bits = all(torch.equal(a, b) for a, b in zip(
+            (logz, pos_logit, *bwd), (*fwd_again, *again)))
         finite = all(bool(torch.isfinite(x).all())
                      for x in (logz, pos_logit, got, *got_g, *bwd))
         worst["fwd"] = max(worst["fwd"], abs_err)
@@ -1120,33 +1132,78 @@ def check_sampled_softmax(rng):
                              f"rows exact {zero_rows_exact}, same bits {same_bits}, all "
                              f"zero {all_zero}")
         rows.append(row)
-        del user, pos, neg, w, got_g, want_g, bwd, again, plain_bwd
+        del user, pos, neg, w, got_g, want_g, bwd, again, plain_bwd, fwd_again
+    check_shared_same_logits(rng)
     return rows, worst
+
+
+def check_shared_same_logits(rng) -> None:
+    """K5's backward takes the forward's logits bit for bit. At K = 1 with
+    the positive's logit 28 or more below the negative's, the forward's
+    logz is the negative's logit x exactly (1 + exp(-28) rounds to 1 in
+    float32), so the backward's P = s exp(x' - logz), from its own
+    recomputed logit x', is s exactly if and only if x' = x. u's entries
+    are +-1/8, s a power of 2 (1,024 rows of weight 1 of 2,048) and 1 /
+    tau 4: every product and sum of P^T u is exact, so dneg = s sum(u) / tau
+    exactly, whatever order the tensor cores add in; the negative, a unit
+    vector of normal entries, is not a TF32 value, so its logits round.
+    Fails unless dneg is exactly that."""
+    import torch
+
+    from recboard_tpu_torch.ops import losses as S
+
+    M, D, tau = 2_048, 64, 0.25
+    neg = rng.normal(size=(1, D))
+    neg /= np.linalg.norm(neg)
+    # rows mostly of neg's signs, so that their logits are far from 0
+    signs = np.sign(neg) * np.where(rng.random((M, D)) < 0.25, -1.0, 1.0)
+    w = np.zeros(M)
+    w[rng.permutation(M)[:M // 2]] = 1.0
+    u, p, n, w = (torch.from_numpy(x.astype(np.float32)).cuda()
+                  for x in (signs / 8, -signs, neg, w))
+    logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, w, tau)
+    s = (w / w.sum()).contiguous()
+    _, _, dneg = S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)
+    live = w != 0
+    want = (u[live].double().sum(0) * float(s[live][0])).float()[None] * (1.0 / tau)
+    gap = float((pos_logit - logz)[live].max())
+    exact = bool(torch.equal(dneg, want))
+    emit("kernels", kernel="sampled_softmax_shared", shape="one_negative", M=M, K=1, D=D,
+         tau=tau, live_rows=int(live.sum()), positive_gap=gap,
+         dneg_max_abs_err=float((dneg - want).abs().max()), same_logits_both_ways=exact)
+    if not exact or not gap <= -28.0:
+        raise SystemExit(f"sampled_softmax_shared: the backward does not take the forward's "
+                         f"logits at one negative (dneg exact {exact}, positive gap {gap})")
 
 
 def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
     """Times of K5's forward and backward, by CUDA events and on the device
-    clock (CUDA-graph replays, which also show the backward never waits on
-    the host), the backward by part from torch.profiler (live, the list of
-    rows of s != 0; tiles, the tensor-core products; finish, the partials'
-    fixed-order sums) with its launches per call and ptxas lines, and with
-    every row's s nonzero on the device clock; beside them the plain
-    versions (the forward's; the backward's own,
-    ``sampled_softmax_shared_bwd_reference``, and autograd of the plain
-    loss) and F.cross_entropy over the concatenated positive and
-    torch.addmm logits (forward, and autograd backward: on the rows of
-    weight != 0, taken by index before the timing, and on every row; the
-    backward on the device clock, a graph's forward and backward less its
-    forward, and beside it by CUDA events, ``library_bwd_host_ms`` and
-    ``library_bwd_all_rows_host_ms``, which the host paces). The bounds:
-    each input read once and each output written once. The forward does
-    2*M*K*D FLOP; the backward reads s and neg and the live rows of u, p,
+    clock (CUDA-graph replays, which also show neither pass waits on the
+    host), both by part from torch.profiler (live, the list of rows of
+    w != 0 or s != 0; tiles, the tensor-core products; merge or finish,
+    the partials' fixed-order merges or sums) with their launches per call
+    and ptxas lines, and with every row weighted on the device clock;
+    beside them the plain versions (the forward's own,
+    ``sampled_softmax_shared_fwd_reference``; the backward's own,
+    ``sampled_softmax_shared_bwd_reference``; the plain loss on every row,
+    ``plain_loss_ms``, and its autograd backward) and F.cross_entropy over
+    the concatenated positive and torch.addmm logits (forward, and
+    autograd backward: on the rows of weight != 0, taken by index before
+    the timing, and on every row; on the device clock, the backward a
+    graph's forward and backward less its forward, and by CUDA events,
+    ``library_bwd_host_ms`` and ``library_bwd_all_rows_host_ms``, which
+    the host paces). The bounds: each input read once and each output
+    written once. The forward reads w, neg and the weighted rows of u and
+    p, writes logz and pos_logit for every row, and does 2*K*D FLOP a
+    weighted row; the backward reads s and neg and the live rows of u, p,
     logz and pos_logit, writes du and dpos for every row and dneg, and
-    does 6*K*D FLOP a live row (the logits again, du and dneg),
-    as three TF32 products at the tensor-core rate (``bwd_bound_ms``) and at
-    the float32 rate (``bwd_f32_bound_ms``); ``bwd_all_rows_bound_ms`` is
-    the bound of the all-row backward it replaced (every row's inputs and
-    6*M*K*D FLOP at the float32 rate)."""
+    does 6*K*D FLOP a live row (the logits again, du and dneg); each as
+    three TF32 products at the tensor-core rate (``fwd_bound_ms``,
+    ``bwd_bound_ms``) and at the float32 rate (``fwd_f32_bound_ms``,
+    ``bwd_f32_bound_ms``); ``fwd_all_rows_bound_ms`` and
+    ``bwd_all_rows_bound_ms`` are the bounds of the all-row passes they
+    replaced (every row's inputs, 2*M*K*D and 6*M*K*D FLOP at the float32
+    rate)."""
     import torch
     import torch.nn.functional as F
 
@@ -1155,10 +1212,11 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
     u, p, n = user.detach(), pos.detach(), neg.detach()
     M, D = u.shape
     K = n.shape[0]
-    logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, tau)
+    logz, pos_logit = S.sampled_softmax_shared_fwd(u, p, n, w, tau)
     W = w.sum().clamp_min(1.0)
     s = (w / W).contiguous()
     every_s = torch.full_like(s, 1.0 / M)
+    ones = torch.ones_like(w)
     on = torch.nonzero(s).flatten()
     live = len(on)
     zero = torch.zeros((), device=u.device)
@@ -1190,12 +1248,15 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
         return lambda: torch.autograd.grad(fn(*args), args[:3])
 
     def fwd():
-        return S.sampled_softmax_shared_fwd(u, p, n, tau)
+        return S.sampled_softmax_shared_fwd(u, p, n, w, tau)
 
     def bwd():
         return S.sampled_softmax_shared_bwd(u, p, n, logz, pos_logit, s, tau)
 
-    fwd_bound = bound(nbytes(u, p, n, logz, pos_logit), 2 * M * K * D)
+    fwd_bytes = nbytes(w, n, logz, pos_logit) + live * 2 * D * u.element_size()
+    fwd_bound = bound(fwd_bytes, 3 * 2 * live * K * D, TF32_FLOP_PER_S)
+    fwd_f32 = bound(fwd_bytes, 2 * live * K * D)
+    fwd_all_rows = bound(nbytes(u, p, n, logz, pos_logit), 2 * M * K * D)
     bwd_bytes = nbytes(s, n) + nbytes(u, p, n) + live * (2 * D + 2) * u.element_size()
     bwd_bound = bound(bwd_bytes, 3 * 6 * live * K * D, TF32_FLOP_PER_S)
     bwd_f32 = bound(bwd_bytes, 6 * live * K * D)
@@ -1205,10 +1266,16 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
     lib_on_ms = cuda_ms(no_grad(library, live_rows), iters=50, warmup=5)
     lib_graph_ms = graph_ms(no_grad(library, every), calls=10)
     lib_on_graph_ms = graph_ms(no_grad(library, live_rows), calls=10)
+    fwd_parts, fwd_launches = kernel_parts(fwd, SS_FWD_PARTS, "sampled_softmax_shared_fwd", 20)
     parts, bwd_launches = kernel_parts(bwd, SS_BWD_PARTS, "sampled_softmax_shared_bwd", 20)
     return dict(
         fwd_ms=cuda_ms(fwd),
         fwd_graph_ms=graph_ms(fwd, calls=20),
+        fwd_every_row_graph_ms=graph_ms(
+            lambda: S.sampled_softmax_shared_fwd(u, p, n, ones, tau), calls=20),
+        fwd_parts_ms=fwd_parts,
+        fwd_launches_per_call=fwd_launches,
+        fwd_ptxas=ptxas_lines("sampled_softmax", "shared_fwd_tile_kernel"),
         bwd_ms=cuda_ms(bwd),
         bwd_graph_ms=graph_ms(bwd, calls=20),
         bwd_every_row_graph_ms=graph_ms(
@@ -1218,18 +1285,24 @@ def time_sampled_softmax(user, pos, neg, w, tau) -> dict:
         bwd_launches_per_call=bwd_launches,
         bwd_ptxas=ptxas_lines("sampled_softmax", "shared_bwd_tile_kernel"),
         live_rows=live,
-        plain_fwd_ms=plain_ms,
+        plain_fwd_ms=cuda_ms(lambda: S.sampled_softmax_shared_fwd_reference(u, p, n, w, tau),
+                             iters=50, warmup=5),
+        plain_loss_ms=plain_ms,
         plain_bwd_ms=cuda_ms(lambda: S.sampled_softmax_shared_bwd_reference(
             u, p, n, logz, pos_logit, s, tau), iters=50, warmup=5),
         plain_bwd_autograd_ms=cuda_ms(fwd_bwd(plain, every), iters=50, warmup=5) - plain_ms,
         library_fwd_ms=lib_ms,
         library_fwd_graph_ms=lib_graph_ms,
+        library_fwd_on_rows_ms=lib_on_ms,
+        library_fwd_on_rows_graph_ms=lib_on_graph_ms,
         library_bwd_ms=graph_ms(fwd_bwd(library, live_rows), calls=10) - lib_on_graph_ms,
         library_bwd_all_rows_ms=graph_ms(fwd_bwd(library, every), calls=10) - lib_graph_ms,
         library_bwd_host_ms=cuda_ms(fwd_bwd(library, live_rows), iters=50, warmup=5) - lib_on_ms,
         library_bwd_all_rows_host_ms=(
             cuda_ms(fwd_bwd(library, every), iters=50, warmup=5) - lib_ms),
         fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        fwd_f32_bound_ms=fwd_f32[0], fwd_f32_bound_by=fwd_f32[1],
+        fwd_all_rows_bound_ms=fwd_all_rows[0], fwd_all_rows_bound_by=fwd_all_rows[1],
         bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
         bwd_f32_bound_ms=bwd_f32[0], bwd_f32_bound_by=bwd_f32[1],
         bwd_all_rows_bound_ms=bwd_all_rows[0], bwd_all_rows_bound_by=bwd_all_rows[1],
@@ -2458,13 +2531,16 @@ def main(argv=None) -> int:
     # K1 and K2 run near or below their wrappers' host time: their entries,
     # and SDPA's beside them, take the device clock (CUDA graphs), as do
     # K4 (two kernels behind one wrapper call forward, four backward), K3
-    # (its forward beside the library's from a graph too), K5's backward
-    # (three kernels behind one wrapper call) and K6 (two kernels, beside
-    # index_add_ from a graph too)
+    # (its forward beside the library's from a graph too), K5 (three
+    # kernels behind one wrapper call each way; its forward beside the
+    # library's on the weighted rows from a graph too) and K6 (two
+    # kernels, beside index_add_ from a graph too)
     serving = dict(serving, ms=serving["graph_ms"], library_ms=serving["library_graph_ms"])
     cand = dict(ssc_rows[0], fwd_ms=ssc_rows[0]["fwd_graph_ms"],
                 bwd_ms=ssc_rows[0]["bwd_graph_ms"])
-    shared_bwd = dict(ss_rows[0], bwd_ms=ss_rows[0]["bwd_graph_ms"])
+    shared = dict(ss_rows[0], fwd_ms=ss_rows[0]["fwd_graph_ms"],
+                  library_fwd_ms=ss_rows[0]["library_fwd_on_rows_graph_ms"],
+                  bwd_ms=ss_rows[0]["bwd_graph_ms"])
     rel_bias = dict(rb_rows[0], bwd_ms=rb_rows[0]["bwd_graph_ms"],
                     library_bwd_ms=rb_rows[0]["library_bwd_graph_ms"])
     ce = dict(ce, fwd_ms=ce["fwd_graph_ms"], library_fwd_ms=ce["library_fwd_graph_ms"],
@@ -2488,11 +2564,11 @@ def main(argv=None) -> int:
         kernel_entry("sampled_softmax_shared_fwd", "sampled_softmax.cu",
                      "recboard_tpu/ops/losses.py:239",
                      h_trained["launches"]["sampled_softmax_shared_fwd"], ss_worst["fwd"],
-                     ss_rows[0], "fwd_"),
+                     shared, "fwd_"),
         kernel_entry("sampled_softmax_shared_bwd", "sampled_softmax.cu",
                      "recboard_tpu/ops/losses.py:255",
                      h_trained["launches"]["sampled_softmax_shared_bwd"], ss_worst["bwd"],
-                     shared_bwd, "bwd_"),
+                     shared, "bwd_"),
         kernel_entry("stacked_rel_bias_bwd", "rel_bias.cu", "recboard_tpu/ops/rel_bias.py:69",
                      h_trained["launches"]["stacked_rel_bias_bwd"], rb_worst, rel_bias,
                      "bwd_"),

@@ -12,15 +12,39 @@
 //     du = (P n + coef p) / tau, dpos = coef u / tau, dneg = P^T u / tau.
 // Neither writes the (M, K) logits: they are recomputed tile by tile.
 //
-// The forward. What bounds it on an H100: operations. At HSTU's training
-// shape (M = 256 x 50 = 12,800 rows, K = 512, D = 64) it is 2*M*K*D = 0.84
-// GFLOP, 12.5 us at the 67 TFLOP/s float32 rate, against 6.8 MB of inputs
-// (2.0 us at 3.35 TB/s). It runs scalar FMAs in tiles.cuh's tiling: a tile
-// is 64 rows x 64 negatives, 256 threads each hold a 4 x 4 block of it in
-// registers, fed by float4 loads from d-major copies of the two operand
-// tiles in shared memory; an online logsumexp per thread, seeded by the
-// positive logit on one thread of each row, merged over the 16 threads of
-// a row at the end.
+// The forward. A row of weight 0 adds nothing to the loss (its logz and
+// pos_logit are multiplied by 0), and the backward reads them only on rows
+// of s != 0, which have w != 0; at HSTU's training shape (M = 256 x 50 =
+// 12,800 rows, K = 512, D = 64) 87.9 % of the rows are pads of weight 0.
+// So it computes the rows of w != 0 alone: 1,553 of 12,800, 2*1,553*K*D =
+// 0.102 GFLOP (0.62 us as three TF32 products at the 495 TFLOP/s
+// tensor-core rate, 1.52 us at the 67 TFLOP/s float32 rate), against 1.08
+// MB of w, the weighted rows of u and p, n, and logz and pos_logit written
+// for every row (0.32 us at 3.35 TB/s). The design, three kernels behind
+// one call, with no host synchronisation, no atomics and no library call:
+//   1. cand_live_kernel (live_rows.cuh, K4's) lists the rows of w != 0 in
+//      order, and their count, in device memory;
+//   2. shared_fwd_tile_kernel<DP>: block (128-negative tile, split) stages
+//      its negatives once and walks its split's tiles of 64 listed rows,
+//      gathered through the list by stage_rows, the next one staged by
+//      cp.async while the current one is multiplied. Per tile, tile_logits
+//      gives the 64 x 128 logits in the backward's warp layout and DP, so
+//      the backward recomputes them bit for bit; an online logsumexp on the
+//      accumulator fragments gives each row's (max, sum of exp) over the
+//      block's negatives: each thread over its 8 entries (-inf past K, exp2
+//      of (x - max) log2 e), then the quad's lanes, then the row's 4 warps
+//      in order, written at the row's list position. Before that, while its
+//      tiles load, every block writes its share of logz = pos_logit = 0 on
+//      the rows of weight 0 (a thread a row, the blocks without tiles
+//      first), so no torch.empty contents reach the loss;
+//   3. shared_fwd_merge_kernel, a programmatic dependent launch: a warp a
+//      listed row makes pos_logit = u.p / tau (lane sums, then a fixed
+//      shuffle tree) while the tile kernel runs, waits for that kernel's
+//      end, and merges (pos_logit, 1) with the negative tiles' partials in
+//      order: logz = max + log(sum).
+// Reruns give the same bits; with no weighted row, logz and pos_logit are
+// exactly 0. The grid is the backward's (below): at the training shape 4
+// negative tiles x 50 splits, 100 blocks taking one tile each.
 //
 // The backward. A row of s = 0 adds exactly nothing to du, dpos or dneg
 // (P and coef are products by 0), and at that shape 87.9 % of the rows are
@@ -58,10 +82,8 @@
 // At the training shape the grid is 4 negative tiles x 50 splits; the 25
 // tiles of listed rows give one tile to each of 25 splits, so 100 blocks
 // take tiles and 100 only write zeros.
-// The forward's logits are scalar-FMA sums and the backward's are 3xTF32
-// mma.sync sums: they differ by float32 rounding, so P's rows sum to 1
-// within float32, not bit for bit (the forward moves onto tile_logits
-// when it is redesigned).
+// Its logits are the forward's, bit for bit (the same tile_logits call,
+// warp layout and DP), so P is formed from the logz they made.
 // What holds it back: latency. At the training shape 100 blocks, one an
 // SM, each make one pass of logits and two products from mma.sync
 // fragments that are split again at every load (about as many integer
@@ -69,88 +91,18 @@
 // (the count, the list, the rows); the listing and the finishing pass are
 // launches of their own. Left for later: operands split once per tile,
 // wgmma, and the finishing sums in the tile kernel's last blocks.
-// Its scratch is sized on the host, which does not know the live count:
-// du_part holds ceil(K / 128) partials for every row, 4 ceil(K / 128) M D
-// bytes (13.1 MB at the training shape), and so grows with K.
+// Their scratch is sized on the host, which does not know the live count:
+// the backward's du_part holds ceil(K / 128) partials for every row, 4
+// ceil(K / 128) M D bytes (13.1 MB at the training shape), and so grows
+// with K; the forward's partials take 8 ceil(K / 128) M bytes (410 KB).
 
 #include <algorithm>
 
 #include "live_rows.cuh"  // cand_live_kernel, kListThreads
 #include "mma_tf32.cuh"   // tile_logits, mma_accumulate, stage_rows, cp_async
-#include "tiles.cuh"      // the forward's tiles; kMaxD, kFull, lse_merge, allow_smem
+#include "tiles.cuh"      // kMaxD, kFull, lse_merge, allow_smem
 
 namespace {
-
-// Forward: block = one row tile, looping over every negative tile.
-__global__ void __launch_bounds__(kThreads)
-shared_fwd_kernel(const float* __restrict__ user, const float* __restrict__ pos,
-                  const float* __restrict__ neg, float* __restrict__ logz,
-                  float* __restrict__ pos_logit, int M, int D, int K, float inv_tau) {
-  extern __shared__ __align__(16) float smem[];
-  float* u_t = smem;            // D x kLd
-  float* n_t = u_t + D * kLd;   // D x kLd
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t r0 = (int64_t)blockIdx.x * kTile;
-
-  load_dmajor(u_t, user, M, r0, D);
-  __syncthreads();
-  // the positive logit of each row: the 16 threads of a row split D
-  float pl[4], m[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = r0 + 4 * ty + i;
-    float p = 0.f;
-    if (r < M)
-      for (int d = tx; d < D; d += 16) p = fmaf(u_t[d * kLd + 4 * ty + i], pos[r * D + d], p);
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) p += __shfl_xor_sync(kFull, p, o);
-    pl[i] = p * inv_tau;
-    m[i] = tx == 0 ? pl[i] : -INFINITY;  // one thread of the row holds it
-    s[i] = tx == 0 ? 1.f : 0.f;
-  }
-
-  float acc[4][4];
-  const int n_tiles = (K + kTile - 1) / kTile;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int64_t k0 = (int64_t)t * kTile;
-    __syncthreads();  // the previous tile is consumed
-    load_dmajor(n_t, neg, K, k0, D);
-    __syncthreads();
-    tile_dot(u_t, n_t, D, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x[4], tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        x[j] = k0 + 4 * tx + j < K ? acc[i][j] * inv_tau : -INFINITY;
-        tile_max = fmaxf(tile_max, x[j]);
-      }
-      if (tile_max == -INFINITY) continue;  // this thread's columns lie past K
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(x[j] - tile_max);  // exp(-inf) = 0
-      lse_merge(m[i], s[i], tile_max, sum);
-    }
-  }
-
-  // merge the 16 threads of each row (lanes tx = 0..15 of one half-warp)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(kFull, m[i], o);
-      const float s2 = __shfl_xor_sync(kFull, s[i], o);
-      lse_merge(m[i], s[i], m2, s2);
-    }
-    const int64_t r = r0 + 4 * ty + i;
-    if (tx == 0 && r < M) {
-      logz[r] = m[i] + logf(s[i]);
-      pos_logit[r] = pl[i];
-    }
-  }
-}
-
-// ---- backward ----
 
 constexpr int kRows = 64;         // listed rows per tile
 constexpr int kNegs = 128;        // negatives per tile
@@ -166,6 +118,170 @@ __device__ __forceinline__ void tile_runs(int n, int splits, int& tiles, int& pe
   per = (tiles + splits - 1) / splits;
   used = per > 0 ? (tiles + per - 1) / per : 0;
 }
+
+// ---- forward ----
+
+// Forward, 2: block (negative tile, split) takes its split's tiles of
+// listed rows, one after another, the next one staged while the current
+// one is multiplied: each tile's 64 x 128 logits (tile_logits, 3xTF32, as
+// the backward recomputes them), then each row's (max, sum of exp) over
+// this block's negatives, to part[0 or 1][negative tile][list position].
+// First every block writes its share of the zeros of logz and pos_logit
+// on the rows of weight 0, while its first tiles load.
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, DP <= 64 ? 2 : 1)
+shared_fwd_tile_kernel(const float* __restrict__ user, const float* __restrict__ neg,
+                       const float* __restrict__ weights, const int* __restrict__ live,
+                       const int* __restrict__ n_live, float* __restrict__ logz,
+                       float* __restrict__ pos_logit, float* __restrict__ part, int M, int D,
+                       int K, float inv_tau, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* n_s = smem;                  // kNegs x DP: this block's negatives
+  float* u_s = n_s + kNegs * DP;      // 2 x kRows x DP: tiles of listed rows
+  float* red = u_s + 2 * kRows * DP;  // 2 x 4 x kRows: (max, sum) x warp x row
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int64_t k0 = (int64_t)blockIdx.x * kNegs;
+  const int n = *n_live;
+  int tiles, per, used;
+  tile_runs(n, gridDim.y, tiles, per, used);
+  const int t_begin = min(tiles, (int)blockIdx.y * per), t_end = min(tiles, t_begin + per);
+
+  auto stage_u = [&](int tile, float* dst) {
+    const int64_t b0 = (int64_t)tile * kRows;
+    stage_rows<kRows, DP, kTcThreads>(dst, user, D, vec, [&](int r, int64_t& m) {
+      m = b0 + r < n ? (int64_t)live[b0 + r] : -1;
+      return m >= 0;
+    });
+  };
+  if (t_begin < t_end) {
+    stage_rows<kNegs, DP, kTcThreads>(n_s, neg, D, vec, RowsFrom{k0, K});
+    stage_u(t_begin, u_s);
+  }
+  cp_async_commit();
+  // the merging kernel may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;");
+
+  // logz = pos_logit = 0 on the rows cand_live_kernel left out: a thread a
+  // row over the whole grid, the last blocks, those of the splits that take
+  // no tile, first
+  const int64_t threads = (int64_t)gridDim.x * gridDim.y * kTcThreads;
+  const int64_t from_last =
+      threads - 1 - (((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kTcThreads + threadIdx.x);
+  for (int64_t r = from_last; r < M; r += threads)
+    if (weights[r] == 0.f) logz[r] = pos_logit[r] = 0.f;
+
+  // logits: warps 2 (rows) x 4 (negatives) of 32 x 32; each thread holds
+  // rows rw + 16 i + 8 hh + g and negatives vw + 8 j + 2 t + e
+  const int rw = 32 * (warp / 4), vw = 32 * (warp % 4);
+  bool col_ok[4][2];  // negatives past K take no part
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) col_ok[j][e] = k0 + vw + 8 * j + 2 * t + e < K;
+
+  float acc[2][4][4];
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int buf = (tile - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this tile is staged; the previous one's partials are read
+    if (tile + 1 < t_end) stage_u(tile + 1, u_s + (buf ^ 1) * kRows * DP);
+    cp_async_commit();
+
+    tile_logits<DP>(u_s + buf * kRows * DP, n_s, rw, vw, acc);
+    // each row's (max, sum of exp2((x - max) log2 e)) over this thread's 8
+    // entries, then over the quad's lanes
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float x[4][2], m = -INFINITY, s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[j][e] = col_ok[j][e] ? acc[i][j][2 * hh + e] * inv_tau : -INFINITY;
+            m = fmaxf(m, x[j][e]);
+          }
+        if (m != -INFINITY) {  // else this thread's negatives all lie past K
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) s += exp2f((x[j][e] - m) * kLog2e);
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float m2 = __shfl_xor_sync(kFull, m, o);
+          const float s2 = __shfl_xor_sync(kFull, s, o);
+          lse_merge(m, s, m2, s2);
+        }
+        if (t == 0) {
+          const int r = rw + 16 * i + 8 * hh + g;
+          red[(warp % 4) * kRows + r] = m;
+          red[(4 + warp % 4) * kRows + r] = s;
+        }
+      }
+    __syncthreads();
+    // the row's 4 warps in order: this negative tile's partial
+    const int64_t b = (int64_t)tile * kRows + threadIdx.x;
+    if (threadIdx.x < kRows && b < n) {
+      float m = -INFINITY, s = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        lse_merge(m, s, red[c * kRows + threadIdx.x], red[(4 + c) * kRows + threadIdx.x]);
+      part[(int64_t)blockIdx.x * M + b] = m;
+      part[((int64_t)gridDim.x + blockIdx.x) * M + b] = s;
+    }
+  }
+}
+
+// Forward, 3: a warp a listed row b, m = live[b]: pos_logit[m] = u[m].p[m]
+// / tau (lane l adds d = l, l + 32, ..., then a fixed shuffle tree), made
+// while the tile kernel runs; then, once that kernel has ended, logz[m]
+// from (pos_logit, 1) merged with each negative tile's partial in order.
+// A programmatic dependent launch of the tile kernel, which ran after the
+// listing: the list may be read at once, the partials after the wait.
+__global__ void __launch_bounds__(kFinishThreads)
+shared_fwd_merge_kernel(const float* __restrict__ user, const float* __restrict__ pos,
+                        const int* __restrict__ live, const int* __restrict__ n_live,
+                        const float* __restrict__ part, float* __restrict__ logz,
+                        float* __restrict__ pos_logit, int M, int D, int neg_tiles,
+                        float inv_tau) {
+  const int64_t b = (int64_t)blockIdx.x * (kFinishThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (b >= *n_live) return;  // whole warps
+  const int64_t m = live[b];
+  float dot = 0.f;
+  for (int d = lane; d < D; d += 32) dot = fmaf(user[m * D + d], pos[m * D + d], dot);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (lane != 0) return;
+  const float pl = dot * inv_tau;
+  float mx = pl, s = 1.f;
+  for (int k = 0; k < neg_tiles; ++k)
+    lse_merge(mx, s, part[(int64_t)k * M + b], part[((int64_t)neg_tiles + k) * M + b]);
+  logz[m] = mx + logf(s);
+  pos_logit[m] = pl;
+}
+
+template <int DP>
+size_t fwd_tile_smem() {
+  return sizeof(float) * ((size_t)kNegs * DP + (size_t)2 * kRows * DP + (size_t)8 * kRows);
+}
+
+template <int DP>
+cudaError_t launch_fwd_tiles(dim3 grid, cudaStream_t st, const float* user, const float* neg,
+                             const float* w, const int* live, const int* n_live, float* logz,
+                             float* pos_logit, float* part, int M, int D, int K, float inv_tau,
+                             bool vec) {
+  const cudaError_t err = allow_smem(shared_fwd_tile_kernel<DP>, fwd_tile_smem<DP>());
+  if (err != cudaSuccess) return err;
+  shared_fwd_tile_kernel<DP><<<grid, kTcThreads, fwd_tile_smem<DP>(), st>>>(
+      user, neg, w, live, n_live, logz, pos_logit, part, M, D, K, inv_tau, vec);
+  return cudaGetLastError();
+}
+
+// ---- backward ----
 
 // Backward, 2: block (negative tile, split) takes its split's tiles of
 // listed rows, one after another: each tile's 64 x 128 logits (tile_logits,
@@ -389,28 +505,54 @@ unsigned finish_grid(int M, int K, int D, int sms) {
   return (unsigned)std::max<int64_t>(1, std::min<int64_t>(want, (int64_t)4 * sms));
 }
 
-size_t fwd_smem(int D) { return sizeof(float) * (size_t)2 * D * kLd; }
-
 bool bad_shape(int M, int D, int K) { return M < 0 || D < 1 || D > kMaxD || K < 1; }
 
 }  // namespace
 
-// user, pos (M, D) and neg (K, D): contiguous float32. Writes logz and
-// pos_logit (M,). Launches on `stream`; returns the first CUDA error (0 on
-// success).
+// user, pos (M, D) and neg (K, D), weights (M,): contiguous float32.
+// Writes logz and pos_logit (M,) on the rows of weight != 0, and exactly 0
+// on the others, through one scratch buffer the caller allocates, of 2 *
+// ceil(K / 128) * M + M + 1 words: the partials (float32), then live (M,)
+// and n_live (1,) (int32). The tiles of listed rows are cut into `splits`
+// runs of equal length (splits <= 65535). Launches its three kernels on
+// `stream`; the count of weighted rows stays in device memory. Returns the
+// first CUDA error (0 on success).
 extern "C" int sampled_softmax_shared_fwd_f32(const float* user, const float* pos,
-                                              const float* neg, float* logz,
-                                              float* pos_logit, int M, int D, int K,
-                                              float inv_tau, void* stream) {
-  if (bad_shape(M, D, K)) return (int)cudaErrorInvalidValue;
+                                              const float* neg, const float* weights,
+                                              float* logz, float* pos_logit, float* scratch,
+                                              int M, int D, int K, float inv_tau, int splits,
+                                              void* stream) {
+  if (bad_shape(M, D, K) || splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(shared_fwd_kernel, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int neg_tiles = (K + kNegs - 1) / kNegs;
+  float* part = scratch;
+  int* live = reinterpret_cast<int*>(part + (int64_t)2 * neg_tiles * M);
+  int* n_live = live + M;
+  cand_live_kernel<<<1, kListThreads, 0, st>>>(weights, live, n_live, M);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  shared_fwd_kernel<<<(unsigned)((M + kTile - 1) / kTile), kThreads, smem,
-                      (cudaStream_t)stream>>>(user, pos, neg, logz, pos_logit, M, D, K,
-                                              inv_tau);
-  return (int)cudaGetLastError();
+  const bool vec = D % 4 == 0 && ((uintptr_t)user | (uintptr_t)neg) % 16 == 0;
+  const dim3 grid((unsigned)neg_tiles, (unsigned)splits);
+  auto go = [&](auto launch) {
+    return launch(grid, st, user, neg, weights, live, n_live, logz, pos_logit, part, M, D, K,
+                  inv_tau, vec);
+  };
+  err = D <= 32 ? go(launch_fwd_tiles<32>)
+                : D <= 64 ? go(launch_fwd_tiles<64>) : go(launch_fwd_tiles<128>);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(((int64_t)M + 7) / 8));  // a warp a row
+  config.blockDim = dim3(kFinishThreads);
+  config.stream = st;
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = &early;
+  config.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&config, shared_fwd_merge_kernel, user, pos, (const int*)live,
+                                 (const int*)n_live, (const float*)part, logz, pos_logit, M, D,
+                                 neg_tiles, inv_tau);
 }
 
 // The backward for row gradients g (M,) of logz - pos_logit: du, dpos (M, D)

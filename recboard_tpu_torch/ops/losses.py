@@ -29,9 +29,11 @@ temperature.
 * ``sampled_softmax_shared_fwd`` and ``sampled_softmax_shared_bwd`` — the
   wrappers of the hand-written CUDA kernels (``csrc/sampled_softmax.cu``)
   that replace the TPU kernels ``_shared_fwd_kernel`` and
-  ``_shared_bwd_kernel``; CUDA tensors only. The backward computes the
-  rows of nonzero gradient alone, listed on the card, on the tensor cores;
-  ``sampled_softmax_shared_bwd_reference`` is its plain version.
+  ``_shared_bwd_kernel``; CUDA tensors only. Both compute the weighted
+  rows alone (the forward those of weight != 0, the backward those of
+  gradient != 0), listed on the card, on the tensor cores, and take the
+  same logits; ``sampled_softmax_shared_fwd_reference`` and
+  ``sampled_softmax_shared_bwd_reference`` are their plain versions.
 * ``SampledSoftmaxShared`` — the autograd function over them (the custom
   VJP ``sampled_softmax_shared_fused``).
 
@@ -84,11 +86,12 @@ __all__ = [
     "sampled_softmax_shared_bwd",
     "sampled_softmax_shared_bwd_reference",
     "sampled_softmax_shared_fwd",
+    "sampled_softmax_shared_fwd_reference",
 ]
 
 MAX_D = 128  # the widest embedding the kernels take
-# K5's backward (csrc/sampled_softmax.cu): listed rows and negatives per
-# tile (kRows, kNegs); the blocks per SM its grid aims for (two fit at D <= 64)
+# K5's kernels (csrc/sampled_softmax.cu): listed rows and negatives per
+# tile (kRows, kNegs); the blocks per SM their grid aims for (two fit at D <= 64)
 SHARED_ROW_TILE, SHARED_NEG_TILE = 64, 128
 BLOCKS_PER_SM = 2
 # K4 (csrc/sampled_softmax_cand.cu): threads of the one block that lists
@@ -142,6 +145,26 @@ def sampled_softmax_loss_shared_reference(
     return _weighted_mean(logz - pos_logit, weights)
 
 
+def sampled_softmax_shared_fwd_reference(
+    user: torch.Tensor,  # (M, D)
+    pos: torch.Tensor,  # (M, D)
+    neg: torch.Tensor,  # (K, D)
+    weights: torch.Tensor,  # (M,)
+    temperature: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the forward kernels: (logz, pos_logit), each
+    (M,), with pos_logit = u.p / tau and logz = logsumexp([pos_logit,
+    u neg^T / tau]) on the rows with weights != 0 alone (``torch.nonzero``),
+    and exactly 0 on the others, whose inputs need not be finite."""
+    live = torch.nonzero(weights).flatten()
+    u = user[live]
+    pl_ = (u * pos[live]).sum(-1) / temperature
+    z = torch.logsumexp(torch.cat([pl_[:, None], u @ neg.T / temperature], dim=1), dim=-1)
+    logz, pos_logit = user.new_zeros(user.shape[0]), user.new_zeros(user.shape[0])
+    logz[live], pos_logit[live] = z, pl_
+    return logz, pos_logit
+
+
 def sampled_softmax_shared_bwd_reference(
     user: torch.Tensor,  # (M, D)
     pos: torch.Tensor,  # (M, D)
@@ -183,7 +206,8 @@ def sampled_softmax_loss_shared(
     pos = F.embedding(pos_ids.long(), table)
     if user.device.type == "cpu":
         return sampled_softmax_loss_shared_reference(user, pos, neg, weights, temperature)
-    return SampledSoftmaxShared.apply(user.contiguous(), pos, neg, weights, float(temperature))
+    return SampledSoftmaxShared.apply(user.contiguous(), pos, neg,
+                                      weights.to(torch.float32).contiguous(), float(temperature))
 
 
 def _take_ids(cand_ids: torch.Tensor, N: int) -> torch.Tensor:
@@ -312,9 +336,10 @@ def _kernels():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.sampled_softmax_shared_fwd_f32
     fwd.argtypes = [
-        ptr, ptr, ptr,  # user, pos, neg
+        ptr, ptr, ptr, ptr,  # user, pos, neg, weights
         ptr, ptr,  # logz, pos_logit
-        i32, i32, i32, f32,  # M, D, K, 1 / temperature
+        ptr,  # scratch: partials, live, n_live
+        i32, i32, i32, f32, i32,  # M, D, K, 1 / temperature, splits
         ptr,  # stream
     ]
     bwd = lib.sampled_softmax_shared_bwd_f32
@@ -357,20 +382,38 @@ def _check_rows(fn: str, M: int, user, **rows) -> None:
 
 
 def sampled_softmax_shared_fwd(
-    user: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, temperature: float
+    user: torch.Tensor,
+    pos: torch.Tensor,
+    neg: torch.Tensor,
+    weights: torch.Tensor,
+    temperature: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel: (logz, pos_logit), both (M,) float32, with
+    """The forward kernels: (logz, pos_logit), both (M,) float32, with
     pos_logit = u.p / tau and logz = logsumexp([pos_logit, u.neg^T / tau])
-    per row. ``sampled_softmax_shared_fwd.launches`` counts its calls."""
-    M, D, K = _check("sampled_softmax_shared_fwd", user, pos, neg)
-    logz = torch.empty(M, dtype=torch.float32, device=user.device)
-    pos_logit = torch.empty_like(logz)
+    on the rows with weights != 0, and exactly 0 on the others; weights
+    (M,) float32. The weighted rows are listed on the card and computed
+    alone, their logits on the tensor cores in split-precision TF32 (3
+    products a term: float32 accuracy), tile by tile as the backward
+    recomputes them; partials are merged in a fixed order, with no atomics
+    and no host synchronisation: reruns give the same bits, and a CUDA
+    graph captures it. ``sampled_softmax_shared_fwd.launches`` counts its
+    calls."""
+    fn = "sampled_softmax_shared_fwd"
+    M, D, K = _check(fn, user, pos, neg)
+    _check_rows(fn, M, user, weights=weights)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=user.device)
+    logz, pos_logit = new(M), new(M)
     if M == 0:
         return logz, pos_logit
+    neg_tiles = -(-K // SHARED_NEG_TILE)
+    splits = dneg_splits(-(-M // SHARED_ROW_TILE), neg_tiles, _sm_count(user.device.index or 0))
+    # the (max, sum) partials (2, neg_tiles, M), then the int32 list of
+    # weighted rows (M,) and its count, which the kernels slice
+    scratch = new(2 * neg_tiles * M + M + 1)
     _launch(
-        "sampled_softmax_shared_fwd", _kernels()[0], user.device,
-        user.data_ptr(), pos.data_ptr(), neg.data_ptr(), logz.data_ptr(),
-        pos_logit.data_ptr(), M, D, K, 1.0 / temperature,
+        fn, _kernels()[0], user.device,
+        user.data_ptr(), pos.data_ptr(), neg.data_ptr(), weights.data_ptr(), logz.data_ptr(),
+        pos_logit.data_ptr(), scratch.data_ptr(), M, D, K, 1.0 / temperature, splits,
     )
     sampled_softmax_shared_fwd.launches += 1
     return logz, pos_logit
@@ -380,12 +423,13 @@ sampled_softmax_shared_fwd.launches = 0
 
 
 def dneg_splits(tiles: int, other_tiles: int, sms: int) -> int:
-    """How many splits K5's backward cuts its ``tiles`` tiles of listed rows
+    """How many splits K5's kernels cut their ``tiles`` tiles of listed rows
     into (the tiles of every row, the most there can be), so that
     ``other_tiles`` negative tiles x that many blocks fill about
     BLOCKS_PER_SM blocks per SM. The kernel gives each ceil(tiles / runs)
     of the tiles actually listed, taking the count from device memory; at
-    the most tiles no run is empty. Each split holds one partial dneg."""
+    the most tiles no run is empty. Each split holds one partial dneg in
+    the backward."""
     tiles = max(tiles, 1)
     want = max(1, min(tiles, math.ceil(BLOCKS_PER_SM * sms / max(other_tiles, 1))))
     return math.ceil(tiles / math.ceil(tiles / want))
@@ -434,14 +478,14 @@ sampled_softmax_shared_bwd.launches = 0
 
 
 class SampledSoftmaxShared(torch.autograd.Function):
-    """The shared-negative sampled softmax on the card: the forward kernel
-    gives each row's logsumexp and positive logit, the weighted mean is
-    taken here, and the backward kernels recompute the logits from the
-    saved logsumexp."""
+    """The shared-negative sampled softmax on the card: the forward kernels
+    give each weighted row's logsumexp and positive logit (0 on rows of
+    weight 0), the weighted mean is taken here, and the backward kernels
+    recompute the logits from the saved logsumexp."""
 
     @staticmethod
     def forward(ctx, user, pos, neg, weights, temperature):
-        logz, pos_logit = sampled_softmax_shared_fwd(user, pos, neg, temperature)
+        logz, pos_logit = sampled_softmax_shared_fwd(user, pos, neg, weights, temperature)
         W = weights.sum().clamp_min(1.0)
         ctx.save_for_backward(user, pos, neg, weights, logz, pos_logit, W)
         ctx.temperature = temperature

@@ -23,7 +23,7 @@ import torch
 
 from recboard_tpu.ops import losses as L_jax
 from recboard_tpu_torch.ops import losses as L
-from test_torch_sampled_softmax_cand import _listed
+from test_torch_sampled_softmax_cand import _listed, _lse_merge
 from tf32_emulation import mm_split
 
 RTOL, ATOL = 1e-5, 1e-5
@@ -137,10 +137,10 @@ def test_per_position_reference_matches_jax():
 def test_kernel_wrappers_refuse_cpu_tensors():
     """No fallback: the kernel wrappers launch on CUDA tensors or raise;
     only ``sampled_softmax_loss_shared`` sends CPU tensors to the plain
-    version."""
-    user, pos, neg, _ = (torch.from_numpy(a) for a in _dense_inputs(8, 4, 8, seed=0))
+    version. The forward takes the row weights too."""
+    user, pos, neg, w = (torch.from_numpy(a) for a in _dense_inputs(8, 4, 8, seed=0))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        L.sampled_softmax_shared_fwd(user, pos, neg, 0.1)
+        L.sampled_softmax_shared_fwd(user, pos, neg, w, 0.1)
     rows = torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         L.sampled_softmax_shared_bwd(user, pos, neg, rows, rows, rows, 0.1)
@@ -409,3 +409,189 @@ def test_non_finite_weight_zero_row_stays_out_of_the_shared_backward():
     keep = np.arange(M) != 7
     want = _float64_bwd(user[keep], pos[keep], neg, s[keep], tau)
     np.testing.assert_allclose(got[2], want[2], rtol=0, atol=ATOL)
+
+
+# ------------------------------------------- K5's forward, as the kernels run it
+def emulated_shared_fwd(user, pos, neg, w, tau, mm=mm_split):
+    """(logz, pos_logit) as the forward's kernels compute them: the rows of
+    w != 0 listed (cand_live_kernel); D padded with zeros to 32, 64 or 128;
+    for each 128-negative tile and tile of 64 listed rows, the logits by
+    ``mm`` (3xTF32 on the card, as the backward takes them), times 1 / tau,
+    -inf past K; each row's (max, sum of exp2((x - max) log2 e)) over each
+    of the 16 threads that share it (4 negative warps c x 4 quad lanes t,
+    negatives 32 c + 8 j + 2 t + e of the tile), merged over the quad (t ^
+    1, then t ^ 2) and over the warps in order; then per listed row
+    pos_logit = u.p / tau and logz from (pos_logit, 1) merged with the
+    negative tiles' partials in order; both exactly 0 on rows of weight 0.
+    A partial does not depend on which block takes its tile, so the grid's
+    splits play no part. Float32 tensors in, numpy arrays out."""
+    M, D = user.shape
+    K = neg.shape[0]
+    DP = _padded_width(D)
+    inv_tau = np.float32(1.0 / tau)
+    live = _listed(w.numpy())
+    n = len(live)
+    RT, NT = L.SHARED_ROW_TILE, L.SHARED_NEG_TILE
+    neg_tiles = -(-K // NT)
+
+    def padded(x, rows):
+        out = torch.zeros(rows, DP)
+        out[:x.shape[0], :D] = x
+        return out
+
+    part_m = np.full((neg_tiles, n), -np.inf, np.float32)
+    part_s = np.zeros((neg_tiles, n), np.float32)
+    for nt in range(neg_tiles):
+        k0 = nt * NT
+        n_t = padded(neg[k0:k0 + NT], NT)
+        col_ok = np.arange(k0, k0 + NT) < K
+        for tile in range(-(-n // RT)):
+            b = np.arange(tile * RT, min(n, (tile + 1) * RT))
+            x = mm(padded(user[live[b]], RT), n_t.T).numpy()[:len(b)] * inv_tau
+            x = np.where(col_ok, x, -np.inf).astype(np.float32)
+            x = x.reshape(len(b), 4, 4, 4, 2).transpose(0, 1, 3, 2, 4).reshape(len(b), 4, 4, 8)
+            m = x.max(-1)  # (rows, c, t)
+            with np.errstate(invalid="ignore"):
+                s = np.exp2((x - m[..., None]) * np.float32(LOG2E)).sum(-1, dtype=np.float32)
+            s = np.where(m > -np.inf, s, np.float32(0.0))
+            m01, s01 = _lse_merge(m[:, :, 0], s[:, :, 0], m[:, :, 1], s[:, :, 1])
+            m23, s23 = _lse_merge(m[:, :, 2], s[:, :, 2], m[:, :, 3], s[:, :, 3])
+            mq, sq = _lse_merge(m01, s01, m23, s23)
+            mk = np.full(len(b), -np.inf, np.float32)
+            sk = np.zeros(len(b), np.float32)
+            for c in range(4):
+                mk, sk = _lse_merge(mk, sk, mq[:, c], sq[:, c])
+            part_m[nt, b], part_s[nt, b] = mk, sk
+    pl_ = (user[live] * pos[live]).sum(-1).numpy() * inv_tau
+    mx, s = pl_.copy(), np.ones(n, np.float32)
+    for nt in range(neg_tiles):
+        mx, s = _lse_merge(mx, s, part_m[nt], part_s[nt])
+    logz, pos_logit = np.zeros(M, np.float32), np.zeros(M, np.float32)
+    logz[live], pos_logit[live] = mx + np.log(s), pl_
+    return logz, pos_logit
+
+
+# (M, K, D, tau, scale (None: l2-normalised rows), share of weight 0):
+# the JAX test's K 12, under one negative tile; K 300 with D 13, a ragged
+# tile and 4-byte staging; D 128; logits of a few hundred; every row
+# weighted; no row weighted; HSTU's widths and pad share at a small M
+FWD_CASES = {
+    "jax_test": (70, 12, 8, 0.3, 1.0, 0.4),
+    "ragged_D_13": (90, 300, 13, 0.3, 1.0, 0.4),
+    "widest_D": (130, 200, 128, 0.1, None, 0.4),
+    "large_logits": (100, 200, 64, 0.01, 3 / 8, 0.4),
+    "every_row": (200, 70, 24, 0.3, 1.0, 0.0),
+    "no_live_row": (64, 40, 8, 0.3, 1.0, 1.0),
+    "hstu_widths": (640, 512, 64, 0.1, None, 0.879),
+}
+# logz and pos_logit: max |got - want| over max(1, max |want|), as
+# chip_smoke.py's SS_TOL: sums of D products and logsumexps of K + 1 terms
+# in other orders at float32
+FWD_TOL = 1e-5
+
+
+def _fwd_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max(initial=0.0) / max(1.0, np.abs(want).max(initial=0.0)))
+
+
+def _jax_shared_fwd(user, pos, neg, tau):
+    """JAX's (logz, pos_logit) on every row: the TPU kernel in interpret
+    mode."""
+    logz, pos_logit = L_jax._shared_fused_run(user, pos, neg, tau, True)
+    return np.array(logz), np.array(pos_logit)
+
+
+def _float64_fwd(user, pos, neg, tau):
+    u, p, n = (torch.from_numpy(x).double() for x in (user, pos, neg))
+    pl_ = (u * p).sum(-1) / tau
+    return torch.logsumexp(torch.cat([pl_[:, None], u @ n.T / tau], 1), -1).numpy(), pl_.numpy()
+
+
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_plain_shared_fwd_matches_jax(case):
+    """``sampled_softmax_shared_fwd_reference`` (the kernels' function over
+    the rows of weight != 0 alone) against JAX's forward kernel on those
+    rows within FWD_TOL, and exactly 0 on the others."""
+    M, K, D, tau, scale, share = FWD_CASES[case]
+    user, pos, neg, w = _bwd_case(M, K, D, tau, scale, share, seed=M + K + 1)
+    got = [x.numpy() for x in L.sampled_softmax_shared_fwd_reference(
+        *(torch.from_numpy(x) for x in (user, pos, neg, w)), tau)]
+    want = _jax_shared_fwd(user, pos, neg, tau)
+    live = w != 0
+    for a, b in zip(got, want):
+        assert _fwd_rel(a[live], b[live]) <= FWD_TOL
+        assert not a[~live].any()
+
+
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_emulated_shared_fwd_matches_jax_and_float64(case):
+    """The forward kernels' algorithm (``emulated_shared_fwd``: the listing,
+    tiles of 64 listed rows x 128 negatives, 3xTF32 logits, the online
+    logsumexp merged in the kernels' order) against JAX's forward kernel
+    and float64 on the weighted rows within FWD_TOL; exactly 0 on the
+    other rows, everything finite."""
+    M, K, D, tau, scale, share = FWD_CASES[case]
+    user, pos, neg, w = _bwd_case(M, K, D, tau, scale, share, seed=M + K + 1)
+    got = emulated_shared_fwd(*(torch.from_numpy(x) for x in (user, pos, neg, w)), tau)
+    live = w != 0
+    for want in (_jax_shared_fwd(user, pos, neg, tau), _float64_fwd(user, pos, neg, tau)):
+        for a, b in zip(got, want):
+            assert _fwd_rel(a[live], b[live]) <= FWD_TOL
+    for a in got:
+        assert np.isfinite(a).all() and not a[~live].any()
+    if case == "large_logits":
+        assert np.abs(got[0]).max() > 88.0  # exp() overflows float32 without the max
+
+
+def test_emulated_passes_take_the_same_logits():
+    """The forward's logz, from the same 3xTF32 logits as the backward
+    recomputes, gives the backward's P = s exactly where it must: at one
+    negative whose logit x the positive's trails by 28 or more, logz is x
+    exactly (1 + exp(-28) rounds to 1 in float32), so P = s exp(x - logz)
+    = s; with u's entries +-1/8, s a power of 2 and 1 / tau 4, dneg =
+    s sum(u) / tau exactly (chip_smoke.py's check_shared_same_logits holds
+    the kernels to the same)."""
+    rng = np.random.default_rng(0)
+    M, D, tau = 256, 64, 0.25
+    neg = rng.normal(size=(1, D))
+    neg /= np.linalg.norm(neg)
+    signs = np.sign(neg) * np.where(rng.random((M, D)) < 0.25, -1.0, 1.0)
+    w = np.zeros(M)
+    w[rng.permutation(M)[:M // 2]] = 1.0
+    u, p, n, wt = (torch.from_numpy(x.astype(np.float32)) for x in (signs / 8, -signs, neg, w))
+    logz, pos_logit = emulated_shared_fwd(u, p, n, wt, tau)
+    live = w != 0
+    x = (mm_split(u, n.T)[:, 0] * np.float32(1 / tau)).numpy()
+    assert (pos_logit - logz)[live].max() <= -28.0
+    np.testing.assert_array_equal(logz[live], x[live])
+    s = (wt / wt.sum()).float()
+    splits = L.dneg_splits(-(-M // L.SHARED_ROW_TILE), 1, 132)
+    _, _, dneg = emulated_shared_bwd(u, p, n, *(torch.from_numpy(a) for a in (logz, pos_logit)),
+                                     s, tau, splits)
+    want = (u[live].double().sum(0) * float(s[live][0])).float()[None] * (1.0 / tau)
+    assert torch.equal(dneg, want)
+
+
+def test_non_finite_weight_zero_row_stays_out_of_the_shared_forward():
+    """A deliberate difference: a row of weight 0 whose u is not finite
+    makes JAX's logz NaN there, and its loss NaN (NaN x 0). The forward
+    kernels, their plain version and the emulation compute the rows of
+    weight != 0 alone: logz and pos_logit are 0 on that row, and the
+    weighted mean is the other rows' loss, finite."""
+    M, K, D, tau = 70, 12, 8, 0.3
+    user, pos, neg, w = _bwd_case(M, K, D, tau, 1.0, 0.5, seed=3)
+    w[7] = 0.0
+    user[7] = np.nan
+    jax_logz, _ = _jax_shared_fwd(user, pos, neg, tau)
+    jax_loss = L_jax.sampled_softmax_shared_fused(user, pos, neg, jnp.asarray(w), tau, True)
+    assert np.isnan(jax_logz[7]) and np.isnan(float(jax_loss))
+    ins = [torch.from_numpy(x) for x in (user, pos, neg, w)]
+    keep = np.arange(M) != 7
+    z64, pl64 = _float64_fwd(user[keep], pos[keep], neg, tau)
+    want = float(((z64 - pl64) * w[keep]).sum() / w.sum())
+    for logz, pos_logit in (L.sampled_softmax_shared_fwd_reference(*ins, tau),
+                            emulated_shared_fwd(*ins, tau)):
+        logz, pos_logit = np.asarray(logz), np.asarray(pos_logit)
+        assert np.isfinite(logz).all() and logz[7] == 0.0 and pos_logit[7] == 0.0
+        np.testing.assert_allclose(((logz - pos_logit) * w).sum() / w.sum(), want, rtol=RTOL)
