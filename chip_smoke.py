@@ -130,8 +130,24 @@ Phases, one JSON line each; any failure exits non-zero:
    toy store's protocol through the kernels against the same step through
    their plain versions, every parameter's gradient; the toy store's
    5-seed per-position band.
+17. device_samplers, {sasrec,bert4rec,hstu_pp}_ods_{train,train_time,
+   train_profile}, resume_check, pool_check, sasrec_ods_quality,
+   hstu_pp_ods_quality — training on batches drawn on the card
+   (``--on-device-sampling``, ``data/device.py``): each sampler at the
+   training shape, one epoch drawn with no host synchronisation (sync
+   debug mode "error"), windows, targets, times and negatives against the
+   dataset, the same bits per (seed, epoch, step), the card's draws
+   through the CPU sampler's gathers; the syncs of a whole step counted.
+   Phases 6 and 7 for SASRec, BERT4Rec and per-position HSTU with the
+   device sampler (launches from its steps_per_epoch), printed beside the
+   host-pipe run of the same model. A resume checkpoint read back bit for
+   bit, and 2 epochs straight (twice) against 1 plus ``--resume``. Pool
+   ranking of each trained run on the card against the CPU. The toy
+   store's 5-seed SASRec and per-position HSTU bands with device sampling.
 
-Each phase prints its seconds. Then a ``{"kernels": [...]}`` line, the
+Each quality phase runs its seeds as processes of their own, all started
+together (the protocol's steps are host-bound). Each phase prints its
+seconds. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 1 before printing any result. Scratch files go to
 build/chip_smoke/.
@@ -1839,7 +1855,9 @@ def layout(tree, path=()) -> dict:
 
 # each slice: its model (the key where not given), widths, random weights,
 # training config, flags and epochs (TRAIN_EPOCHS where not given), toy-store
-# protocol and quality anchor, and the prefix of its phase names
+# protocol and quality anchor, the prefix of its phase names, and for a
+# device-sampled slice the host-pipe slice it is printed beside
+ODS = dict(on_device_sampling=True)
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
                    batch=TRAIN_BATCH, protocol=STORE_PROTOCOL, store=STORE_NDCG10, tag=""),
@@ -1853,6 +1871,18 @@ SLICES = {
     "HSTU_pp": dict(model="HSTU", widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG,
                     batch=HSTU_BATCH, protocol=HSTU_PP_STORE_PROTOCOL,
                     store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_"),
+    # the same runs with every batch drawn on the card (data/device.py)
+    "SASRec_ods": dict(model="SASRec", widths=SASREC, params=sasrec_flax_params,
+                       config=TRAIN_CONFIG, batch=TRAIN_BATCH, flags=ODS,
+                       protocol=dict(STORE_PROTOCOL, **ODS), store=STORE_NDCG10,
+                       tag="sasrec_ods_", host="SASRec"),
+    "BERT4Rec_ods": dict(model="BERT4Rec", widths=BERT4REC, params=bert4rec_flax_params,
+                         config=B4R_CONFIG, batch=TRAIN_BATCH, flags=ODS,
+                         tag="bert4rec_ods_", host="BERT4Rec"),
+    "HSTU_pp_ods": dict(model="HSTU", widths=HSTU, params=hstu_flax_params,
+                        config=HSTU_CONFIG, batch=HSTU_BATCH, flags=ODS,
+                        protocol=dict(HSTU_PP_STORE_PROTOCOL, **ODS),
+                        store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_ods_", host="HSTU_pp"),
 }
 
 
@@ -2121,10 +2151,12 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
 def train_slice(seed: int, dataset, name: str) -> dict:
     """``run`` at the slice ``name``'s reference config on the SynBeautyXL-shaped
     dataset for its epochs, validated every epoch: the loss is
-    finite, every kernel launched exactly as ``expected_launches`` says,
-    the best checkpoint is in the flax layout, and the run serves on the
-    GPU with the CPU's lists (for HSTU, which has no serving phase of its
-    own, then the ``--bench`` line)."""
+    finite, every kernel launched exactly as ``expected_launches`` says
+    (steps from the host pipe, or from the device sampler's
+    ``steps_per_epoch``), the best checkpoint is in the flax layout, and
+    the run serves on the GPU with the CPU's lists (for HSTU through the
+    host pipe, which has no serving phase of its own, then the ``--bench``
+    line)."""
     import torch
 
     from recboard_tpu_torch import run, serve
@@ -2135,16 +2167,32 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     flags, epochs = spec.get("flags", {}), spec.get("epochs", TRAIN_EPOCHS)
     argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
                       config=spec["config"], epochs=epochs, eval_freq=1,
-                      **flags)
+                      checkpoint_path=os.path.join(WORK, "infos", name), **flags)
     counter = run.build_model(model, dataset, dict(widths, seed=seed), "cpu")
-    batches = list(counter.sure_trainpipe(widths["maxlen"], spec["batch"]))
-    sizes = [int(b[Size]) for b in batches]
-    steps = len(sizes)
-    pads = sum(int((b[counter.ISeq] == counter.PADDING_VALUE).sum()) for b in batches)
-    pad_share = pads / sum(b[counter.ISeq].size for b in batches)
+    on_device = bool(flags.get("on_device_sampling"))
+    if on_device:
+        sampler = run.DEVICE_SAMPLERS[model](dataset, widths["maxlen"], spec["batch"],
+                                             num_pads=counter.NUM_PADS, device="cpu")
+        steps = sampler.steps_per_epoch
+        sizes = [spec["batch"]] * steps
+        # over the valid users' input windows (each window less its last target)
+        inputs = sampler._packed[sampler._valid_users][:, :widths["maxlen"]]
+        pad_share = float((inputs == 0).double().mean())
+    else:
+        batches = list(counter.sure_trainpipe(widths["maxlen"], spec["batch"]))
+        sizes = [int(b[Size]) for b in batches]
+        steps = len(sizes)
+        pads = sum(int((b[counter.ISeq] == counter.PADDING_VALUE).sum()) for b in batches)
+        pad_share = pads / sum(b[counter.ISeq].size for b in batches)
     n_valid = len(list(counter.sure_validpipe(widths["maxlen"])))
     n_test = len(list(counter.sure_testpipe(widths["maxlen"])))
-    if model == "HSTU":
+    if model == "HSTU" and on_device:
+        # every device-sampled step is full: the kernels' training shape
+        if spec["batch"] * widths["maxlen"] != SSC_SHAPES[0][1] or (
+                counter.rel_bias.active_buckets != HSTU_ACTIVE_K):
+            raise SystemExit(f"HSTU: {spec['batch']} x {widths['maxlen']} rows a step; the "
+                             f"kernel phases checked {SSC_SHAPES[0][1]}")
+    elif model == "HSTU":
         # the shapes the kernel phases checked: K6's active buckets, the
         # loss kernel's last batch (K5's and K4's)
         active = counter.rel_bias.active_buckets
@@ -2205,18 +2253,21 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     emit(f"{tag}train_serve", users=len(gpu), cpu_agree=True, tie_tol=TIE_TOL,
          float64_arbitrated=arbitrated)
     out = dict(launches=launches, run_dir=run_dir, steps=steps)
-    if model == "HSTU":
+    if model == "HSTU" and not on_device:
         out["bench"] = run_bench(run_dir)
         emit(f"{tag}bench", **out["bench"])
     return out
 
 
-def time_training(run_dir: str, phase: str) -> None:
+def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
     """Per-step and per-epoch times of the trained run's configuration on
-    the card: the host pipe alone for one epoch, each step of that epoch
-    alone on batches already on the card (synchronised), one whole epoch
-    as the Coach runs it, and one more epoch under torch.profiler for the
-    device time by kernel and the device's idle share."""
+    the card: the host pipe alone for one epoch (or, for a device sampler,
+    drawing the epoch's batches on the card, synchronised), each step of
+    that epoch alone on batches already on the card (synchronised), one
+    whole epoch as the Coach runs it, and one more epoch under
+    torch.profiler for the device time by kernel and the device's idle
+    share. Returns the headline numbers; ``beside`` (another run's) is
+    printed next to them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2228,15 +2279,25 @@ def time_training(run_dir: str, phase: str) -> None:
     device = torch.device("cuda")
     dataset = run.load_dataset(cfg)
     model = run.build_model(cfg.model, dataset, cfg, device)
-    trainpipe, validpipe, testpipe = run.build_pipes(model, cfg)
+    trainpipe, validpipe, testpipe = run.build_pipes(model, cfg, device)
     coach = Coach(dataset, trainpipe, validpipe, testpipe, model, cfg, device)
 
     trainpipe.set_seed(int(cfg.seed)).set_epoch(0)
+    on_device = getattr(trainpipe, "is_device_sampler", False)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    batches = list(trainpipe)
+    if on_device:
+        perm = trainpipe.prepare()
+        staged = [trainpipe.sample_prepared(perm, step)
+                  for step in range(trainpipe.steps_per_epoch)]
+        torch.cuda.synchronize()
+        examples = trainpipe.steps_per_epoch * trainpipe.batch_size
+    else:
+        batches = list(trainpipe)
+        examples = sum(int(b[Size]) for b in batches)
     pipe_s = time.perf_counter() - t0
-    examples = sum(int(b[Size]) for b in batches)
-    staged = [coach.to_device(b) for b in batches]
+    if not on_device:
+        staged = [coach.to_device(b) for b in batches]
     for batch in staged[:3]:
         coach.train_step(batch)
     step_ms = []
@@ -2252,11 +2313,13 @@ def time_training(run_dir: str, phase: str) -> None:
     coach.train(1)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
+    pipe = dict(device_draw_s=pipe_s) if on_device else dict(host_pipe_s=pipe_s)
     emit(f"{phase}_time", model=cfg.model, steps=len(staged), examples=examples,
          step_p50_ms=float(np.percentile(step_ms, 50)),
          step_p95_ms=float(np.percentile(step_ms, 95)),
-         device_step_s=sum(step_ms) / 1e3, host_pipe_s=pipe_s, epoch_s=epoch_s,
-         examples_per_s=examples / epoch_s)
+         device_step_s=sum(step_ms) / 1e3, epoch_s=epoch_s,
+         examples_per_s=examples / epoch_s, **pipe,
+         **({"beside": beside} if beside else {}))
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2267,15 +2330,20 @@ def time_training(run_dir: str, phase: str) -> None:
     kernels = profiled_ops(prof, len(staged), device=True)
     host = profiled_ops(prof, len(staged), device=False)
     device_us = sum(us for _, us, _ in kernels)
+    out = dict(examples_per_s=examples / epoch_s, **pipe,
+               idle_share=1.0 - device_us * len(staged) / (1e6 * profiled_s),
+               host_us_per_step=sum(us for _, us, _ in host))
     emit(f"{phase}_profile", device_us_per_step=device_us,
          launches_per_step=sum(n for _, _, n in kernels),
          profiled_epoch_s=profiled_s, unprofiled_epoch_s=epoch_s,
-         idle_share=1.0 - device_us * len(staged) / (1e6 * profiled_s),
+         idle_share=out["idle_share"],
          kernels=[dict(name=name[:90], us_per_step=us, per_step=n)
                   for name, us, n in kernels[:15]],
-         host_us_per_step=sum(us for _, us, _ in host),
+         host_us_per_step=out["host_us_per_step"],
          host_ops=[dict(name=name[:60], self_us_per_step=us, per_step=n)
-                   for name, us, n in host[:12]])
+                   for name, us, n in host[:12]],
+         **({"beside": beside} if beside else {}))
+    return out
 
 
 def store_dataset() -> tuple:
@@ -2309,37 +2377,57 @@ def plain_hstu_ops():
         S.sampled_softmax_loss, H.stacked_rel_bias = saved
 
 
-def store_runs(name: str, seeds, **flags) -> tuple:
-    """The toy store's protocol for the slice ``name`` (tools/seed_sweep.py's
-    arguments for the model, and ``flags``) for each of ``seeds``: (best
-    NDCG@10s, seconds)."""
+def store_run(name: str, data_root: str, store_name: str, seed: int, flags: dict) -> tuple:
+    """One seed of the toy store's protocol for the slice ``name``: (best
+    NDCG@10, seconds). Float32 throughout, as ``main`` sets it."""
+    import torch
+
     from recboard_tpu_torch import run
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     spec = SLICES[name]
-    model, tag = spec.get("model", name), spec["tag"]
+    t0 = time.perf_counter()
+    best = run.main(train_argv(spec.get("model", name), data_root, store_name, seed,
+                               id=f"{spec['tag']}seed{seed}", **spec["protocol"], **flags))
+    return best["NDCG@10"], time.perf_counter() - t0
+
+
+def store_runs(name: str, seeds, concurrent: bool = False, **flags) -> tuple:
+    """The toy store's protocol for the slice ``name`` (tools/seed_sweep.py's
+    arguments for the model, and ``flags``) for each of ``seeds``, one after
+    another or (``concurrent``) each in a process of its own, all started
+    together (the protocol's steps are host-bound, so the card runs them
+    side by side): (best NDCG@10s, seconds)."""
+    import multiprocessing
+
+    spec = SLICES[name]
     data_root, store_name = store_dataset()
-    values, seconds = [], []
-    for seed in seeds:
-        t0 = time.perf_counter()
-        best = run.main(train_argv(model, data_root, store_name, seed, **spec["protocol"],
-                                   **flags))
-        seconds.append(time.perf_counter() - t0)
-        values.append(best["NDCG@10"])
-        emit(f"{tag}quality_seed", model=model, seed=seed, ndcg10=values[-1],
-             seconds=seconds[-1], **flags)
+    jobs = [(name, data_root, store_name, seed, flags) for seed in seeds]
+    if concurrent:
+        with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+            results = pool.starmap(store_run, jobs)
+    else:
+        results = [store_run(*job) for job in jobs]
+    for seed, (value, seconds) in zip(seeds, results):
+        emit(f"{spec['tag']}quality_seed", model=spec.get("model", name), seed=seed,
+             ndcg10=value, seconds=seconds, **flags)
+    values, seconds = (list(x) for x in zip(*results))
     return values, seconds
 
 
 def quality(seeds: int, name: str) -> dict:
     """The toy store's protocol for the slice ``name`` on the card for
-    ``seeds`` seeds; the mean best NDCG@10 must lie in the store's band."""
+    ``seeds`` seeds, each in a process of its own, all at once; the mean
+    best NDCG@10 must lie in the store's band."""
     spec = SLICES[name]
-    values, seconds = store_runs(name, range(seeds))
+    t0 = time.perf_counter()
+    values, seconds = store_runs(name, range(seeds), concurrent=True)
     mean = float(np.mean(values))
     emit(f"{spec['tag']}quality", model=spec.get("model", name), dataset=STORE_DATASET["name"],
          seeds=seeds, ndcg10=values, mean=mean, std=float(np.std(values)),
          store_mean=spec["store"], band=STORE_BAND, protocol=spec["protocol"],
-         seconds=sum(seconds))
+         seconds=sum(seconds), wall_s=time.perf_counter() - t0)
     if not abs(mean - spec["store"]) <= STORE_BAND:
         raise SystemExit(f"{name} quality: mean NDCG@10 {mean} outside {spec['store']} "
                          f"± {STORE_BAND}")
@@ -2405,6 +2493,273 @@ def check_hstu_pp_grads(seed: int, device: str = "cuda") -> dict:
     if not loss_err <= SS_TOL or not errs[worst] <= GRAD_TOL:
         raise SystemExit(f"HSTU per-position step: kernels against plain versions {row}")
     return row
+
+
+# the device-sampled slices; their samplers' checks; the slice resumed
+ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods")
+RESUME_SLICE = "HSTU_pp_ods"
+CARD = "cuda"  # the device the checks below hold against the CPU
+POOL_TOL = 1e-4  # |card - CPU| of a pool-ranking metric (a rank flip moves 1 / rows)
+
+
+def reference_cfg(name: str, seed: int, **extra):
+    """The slice ``name``'s run config as ``run`` compiles it (its reference
+    config and flags, ``extra`` on top), logs and checkpoints under WORK."""
+    from recboard_tpu_torch.parser import Parser
+
+    spec = SLICES[name]
+    model = spec.get("model", name)
+    argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
+                      config=spec["config"], **spec.get("flags", {}), **extra)
+    return Parser().compile(argv + ["--description", model])
+
+
+def expected_windows(seqs, width: int, offset: int = 1) -> np.ndarray:
+    """(users, width): each user's last ``width`` values + offset,
+    right-aligned, 0 elsewhere (numpy, from the dataset's sequences)."""
+    out = np.zeros((len(seqs), width), dtype=np.int64)
+    for u, s in enumerate(seqs):
+        tail = np.asarray(list(s)[-width:], dtype=np.int64)
+        if tail.size:
+            out[u, width - tail.size:] = tail + offset
+    return out
+
+
+def check_device_samplers(seed: int, dataset) -> list:
+    """Each device sampler of the ``_ods`` slices at the SynBeautyXL shape on
+    the card: one epoch drawn under ``torch.cuda.set_sync_debug_mode
+    ("error")``; every row's window the user's train tail (inputs offset,
+    targets shifted by one; HSTU's times rebased and 0 exactly at pads;
+    BERT4Rec's last maxlen items); negatives in [0, N) with their
+    collision share against the window after the retry, beside seen²/N²;
+    the same bits for the same (seed, epoch, step), another user order in
+    another epoch; the card's permutation and raw draws through the CPU
+    sampler's gathers give the same fields int for int. Also printed: the
+    synchronising calls of one whole device-sampled training step,
+    counted under ``"warn"`` (a number, not a gate)."""
+    import warnings
+
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.launcher import Coach
+
+    cuda = torch.device(CARD)
+    seqs = dataset.train().user_seqs()
+    times = dataset.train().user_time_seqs()
+    t0 = min(t[0] for t in times if t)
+    N = dataset.fields["ITEM", "ID"].count
+    rows = []
+    for name in ODS_SLICES:
+        spec = SLICES[name]
+        model, L, B = spec["model"], spec["widths"]["maxlen"], spec["batch"]
+        cfg = reference_cfg(name, seed)
+        net = run.build_model(model, dataset, cfg, cuda)
+        cls = run.DEVICE_SAMPLERS[model]
+        card = cls(dataset, L, B, num_pads=net.NUM_PADS, device=cuda).set_seed(seed)
+        host = cls(dataset, L, B, num_pads=net.NUM_PADS, device="cpu").set_seed(seed)
+        steps = card.steps_per_epoch
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card.set_epoch(0).sample(0)
+            perm = card.prepare()
+            draws = [card.draws(step) for step in range(steps)]
+            batches = [card.sample_prepared(perm, step, d) for step, d in enumerate(draws)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t_start
+
+        same_bits = all(
+            torch.equal(a, b) for step in {0, steps // 2, steps - 1}
+            for a, b in zip(card.sample(step).values(), batches[step].values()))
+        other_order = not torch.equal(card.set_epoch(1).prepare(), perm)
+        card.set_epoch(0)
+        host.set_epoch(0)
+        cpu = [{f: v.cpu() for f, v in b.items()} for b in batches]
+        cpu_equal = all(
+            all(torch.equal(v, cpu[step][f]) for f, v in host.sample_prepared(
+                perm.cpu(), step, {k: d.cpu() for k, d in draws[step].items()}).items())
+            for step in range(steps))
+        users = torch.cat([b[card.User] for b in cpu]).numpy()
+        iseq = torch.cat([b[card.ISeq] for b in cpu]).numpy()
+        row = dict(sampler=cls.__name__, slice=name, steps=steps, batch=B, maxlen=L,
+                   valid_users=int(card._valid_users.shape[0]),
+                   distinct_users=int(np.unique(users).size), draw_s=draw_s,
+                   sync_debug_mode="error", same_bits=same_bits, other_epoch_order=other_order,
+                   cpu_gathers_equal=cpu_equal)
+        ok = same_bits and other_order and cpu_equal and row["distinct_users"] == min(
+            steps * B, row["valid_users"])
+        if model == "BERT4Rec":
+            want = expected_windows(seqs, L)
+            ok &= bool(np.array_equal(iseq, np.where(want != 0, want - 1 + net.NUM_PADS,
+                                                     0)[users]))
+        else:
+            window = expected_windows([s if len(s[-(L + 1):]) >= 2 else () for s in seqs],
+                                      L + 1)
+            want_in = np.where(window[:, :-1] != 0, window[:, :-1] - 1 + net.NUM_PADS, 0)
+            want_pos = np.where(window[:, 1:] != 0, window[:, 1:] - 1, 0)
+            ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()
+            ok &= bool(np.array_equal(iseq, want_in[users]))
+            ok &= bool(np.array_equal(ipos, want_pos[users]))
+        if model == "HSTU":
+            ts = torch.cat([b[card.Time] for b in cpu]).numpy()
+            t_win = expected_windows([t if len(t[-(L + 1):]) >= 2 else () for t in times],
+                                     L + 1, offset=-t0)
+            ok &= bool(np.array_equal(ts, np.where(window[:, :-1] != 0, t_win[:, :-1],
+                                                   0)[users]))
+            ok &= not ts[iseq == 0].any()
+            row["zero_times_at_items"] = int(((ts == 0) & (iseq != 0)).sum())
+        if model == "SASRec":
+            negs = torch.cat([b[card.INeg] for b in cpu]).numpy()
+            packed = card._packed.cpu().numpy()[users]  # (rows, L + 1) raw + 1
+            ok &= bool(negs.min() >= 0 and negs.max() < N)
+            row["collision_share"] = float((negs[..., None] + 1 == packed[:, None, :])
+                                           .any(-1).mean())
+            seen = np.asarray([np.unique(r[r != 0]).size for r in packed])
+            row["seen2_over_N2"] = float(np.mean((seen / N) ** 2))
+
+        coach = Coach(dataset, card, None, None, net, cfg, cuda)
+        coach.train_step(batches[0])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                coach.train_step(card.sample(1))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        row["syncs_per_train_step"] = sum("synchroniz" in str(w.message) for w in caught)
+        row["ok"] = bool(ok)
+        emit("device_samplers", **row)
+        rows.append(row)
+        if not ok:
+            raise SystemExit(f"{cls.__name__} on the card: {row}")
+    return rows
+
+
+def resume_check(seed: int, dataset) -> dict:
+    """Resume at the slice RESUME_SLICE on the card: the checkpoint written
+    after epoch 0 loads back bit for bit into a fresh Coach (parameters,
+    optimizer state on the model's device, generator state, history and
+    best); then ``run`` for 2 epochs straight twice with the same seed, and
+    once as 1 epoch plus ``--resume``: the resumed run's epoch-1 loss and
+    NDCG@10 lie within twice the straight runs' own difference, plus 1e-6,
+    of the first straight run's (PyTorch's embedding backward is not
+    deterministic on CUDA, so bits are asked only on the CPU)."""
+    import copy
+
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.launcher import Coach
+
+    spec = SLICES[RESUME_SLICE]
+    model, cuda = spec["model"], torch.device(CARD)
+    cfg = reference_cfg(RESUME_SLICE, seed, epochs=2,
+                        checkpoint_path=os.path.join(WORK, "infos", "resume_roundtrip"))
+
+    def coach_for(model_seed):
+        net = run.build_model(model, dataset, dict(cfg, seed=model_seed), cuda)
+        return Coach(dataset, *run.build_pipes(net, cfg, cuda), net, cfg, cuda)
+
+    coach = coach_for(seed)
+    coach.train(0)
+    coach.evaluate(0, mode="valid")
+    coach._check_best(coach._flush("valid", 0), 0)
+    coach.save_checkpoint(0)
+    want = (copy.deepcopy(coach.model.state_dict()), copy.deepcopy(coach.optimizer.state_dict()),
+            coach.generator.get_state(), copy.deepcopy(coach.history),
+            (coach._best, coach._best_epoch, coach._stopping_steps))
+    coach._join_checkpoint_writer()
+    fresh = coach_for(seed + 1)
+    epoch = fresh.load_checkpoint()
+    got_opt = fresh.optimizer.state_dict()
+    moments = [v for state in got_opt["state"].values() for k, v in state.items() if k != "step"]
+    reload = dict(
+        epoch=epoch,
+        params=all(torch.equal(v, want[0][k]) for k, v in fresh.model.state_dict().items()),
+        optimizer=got_opt["param_groups"] == want[1]["param_groups"] and all(
+            torch.equal(v, want[1]["state"][i][k]) for i, state in got_opt["state"].items()
+            for k, v in state.items()),
+        moments_on_card=bool(moments) and all(
+            v.device == next(fresh.model.parameters()).device for v in moments),
+        generator=torch.equal(fresh.generator.get_state(), want[2]),
+        history=fresh.history == want[3],
+        best=(fresh._best, fresh._best_epoch, fresh._stopping_steps) == want[4])
+
+    def trained(run_id: str, epochs: int, ckpt: str, *more) -> tuple:
+        """(the last epoch's loss, epoch 1's NDCG@10 or None) of a run to ``epochs``."""
+        log_path = os.path.join(WORK, "resume_logs")
+        run.main(train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
+                            config=spec["config"], epochs=epochs, eval_freq=1,
+                            log_path=log_path, id=run_id,
+                            checkpoint_path=os.path.join(WORK, "infos", ckpt),
+                            **spec["flags"]) + list(more))
+        with open(os.path.join(log_path, model, DATASET["name"], run_id, "monitors.pkl"),
+                  "rb") as fh:
+            history = pickle.load(fh)
+        ndcg = [r["NDCG@10"] for r in history["valid"] if r["epoch"] == 1]
+        return history["train"][-1]["LOSS"], ndcg[0] if ndcg else None
+
+    straight = [trained(f"straight{i}", 2, f"resume_straight{i}") for i in (0, 1)]
+    trained("first", 1, "resume_pair")
+    resumed = trained("resumed", 2, "resume_pair", "--resume")
+    spread = [abs(a - b) for a, b in zip(*straight)]
+    drift = [abs(a - b) for a, b in zip(resumed, straight[0])]
+    row = dict(slice=RESUME_SLICE, reload=reload, straight=straight, resumed=resumed,
+               straight_spread=spread, resumed_drift=drift,
+               within=[d <= 2 * sp + 1e-6 for d, sp in zip(drift, spread)])
+    emit("resume_check", **row)
+    if not (all(v for k, v in reload.items() if k != "epoch") and epoch == 0
+            and all(row["within"])):
+        raise SystemExit(f"resume on the card: {row}")
+    return row
+
+
+def pool_check(dataset, trained: dict) -> list:
+    """Each trained ``_ods`` run evaluated with ``ranking: pool`` (the valid
+    split, 1 + 100 candidates a row) from its best checkpoint, on the card
+    and on the CPU: every metric within POOL_TOL, and the card's kernels
+    launched as ``expected_launches`` says (K1 once per block and batch for
+    SASRec and BERT4Rec, nothing for HSTU)."""
+    import torch
+
+    from recboard_tpu_torch import run, serve
+    from recboard_tpu_torch.launcher import Coach
+
+    rows = []
+    for name, out in trained.items():
+        cfg = serve.load_run_config(out["run_dir"])
+        cfg.ranking = "pool"
+        spec = SLICES[name]
+        results = []
+        for device in (torch.device(CARD), torch.device("cpu")):
+            net = run.build_model(cfg.model, dataset, cfg, device)
+            pipe = net.sure_validpipe(int(cfg.maxlen), ranking="pool")
+            coach = Coach(dataset, None, pipe, None, net, cfg, device)
+            coach.load_best()
+            for fn in counted_kernels():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            coach.evaluate(0, mode="valid")
+            results.append((coach._flush("valid", 0), time.perf_counter() - t0,
+                            {fn.__name__: fn.launches for fn in counted_kernels()}))
+        batches = len(coach._eval_cache["valid"])
+        (card, card_s, launches), (cpu, cpu_s, cpu_launches) = results
+        want = expected_launches(cfg.model, spec["widths"]["num_blocks"], 0, batches)
+        err = max(abs(card[k] - v) for k, v in cpu.items())
+        row = dict(slice=name, batches=batches, metrics=card, cpu_metrics=cpu,
+                   max_abs_diff=err, tol=POOL_TOL, launches=launches, expected_launches=want,
+                   card_s=card_s, cpu_s=cpu_s)
+        emit("pool_check", **row)
+        if (card.keys() != cpu.keys() or not err <= POOL_TOL or launches != want
+                or any(cpu_launches.values())):
+            raise SystemExit(f"{name} pool ranking: {row}")
+        rows.append(row)
+    return rows
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float,
@@ -2507,13 +2862,14 @@ def main(argv=None) -> int:
     slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
     trained = timed("train", train_slice, args.seed, dataset, "SASRec")
-    timed("train_time", time_training, trained["run_dir"], "train")
+    host_times = {"SASRec": timed("train_time", time_training, trained["run_dir"], "train")}
     timed("quality", quality, STORE_SEEDS, "SASRec")
     b_slice = timed("bert4rec_slice", serve_slice, args.seed, dataset, "BERT4Rec")
     timed("bert4rec_profile", profile_bench, b_slice["run_dir"], b_slice["bench"]["p50"],
           "bert4rec_profile")
     b_trained = timed("bert4rec_train", train_slice, args.seed, dataset, "BERT4Rec")
-    timed("bert4rec_train_time", time_training, b_trained["run_dir"], "bert4rec_train")
+    host_times["BERT4Rec"] = timed("bert4rec_train_time", time_training, b_trained["run_dir"],
+                                   "bert4rec_train")
     timed("bert4rec_quality", quality, STORE_SEEDS, "BERT4Rec")
     h_trained = timed("hstu_train", train_slice, args.seed, dataset, "HSTU")
     timed("hstu_profile", profile_bench, h_trained["run_dir"], h_trained["bench"]["p50"],
@@ -2523,9 +2879,21 @@ def main(argv=None) -> int:
     p_trained = timed("hstu_pp_train", train_slice, args.seed, dataset, "HSTU_pp")
     timed("hstu_pp_profile", profile_bench, p_trained["run_dir"], p_trained["bench"]["p50"],
           "hstu_pp_profile")
-    timed("hstu_pp_train_time", time_training, p_trained["run_dir"], "hstu_pp_train")
+    host_times["HSTU_pp"] = timed("hstu_pp_train_time", time_training, p_trained["run_dir"],
+                                  "hstu_pp_train")
     timed("hstu_pp_grads", check_hstu_pp_grads, args.seed)
     timed("hstu_pp_quality", quality, STORE_SEEDS, "HSTU_pp")
+    timed("device_samplers", check_device_samplers, args.seed, dataset)
+    ods = {}
+    for name in ODS_SLICES:
+        tag, host = SLICES[name]["tag"], SLICES[name]["host"]
+        ods[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
+        timed(f"{tag}train_time", time_training, ods[name]["run_dir"], f"{tag}train",
+              dict(host_times[host], slice=host))
+    timed("resume_check", resume_check, args.seed, dataset)
+    timed("pool_check", pool_check, dataset, ods)
+    timed("sasrec_ods_quality", quality, STORE_SEEDS, "SASRec_ods")
+    timed("hstu_pp_ods_quality", quality, STORE_SEEDS, "HSTU_pp_ods")
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
@@ -2586,7 +2954,7 @@ def main(argv=None) -> int:
                           mask_launches, mask_rows[0]["max_abs_err"], mask_rows[0]),
              path="ops.dropout.dropout", model_path_launches=sum(
                  t["launches"]["dropout_mask"] for t in (trained, b_trained, h_trained,
-                                                          p_trained))),
+                                                          p_trained, *ods.values()))),
     ]}))
     emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
     print(smi)

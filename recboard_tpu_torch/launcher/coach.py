@@ -1,23 +1,31 @@
 """Coach — the training loop, evaluation and persistence (counterpart of
 ``recboard_tpu/launcher/coach.py``).
 
-    fit(): per epoch: train(epoch) → valid every eval_freq epochs (best
-    checkpoint, early stop on which4best stalling) → save_last() → valid
-    and test at the last state → load best → test → easy_record_best().
+    fit(): resume() → per epoch: train(epoch) → save_checkpoint every
+    CHECKPOINT_FREQ epochs → valid every eval_freq epochs (best checkpoint,
+    early stop on which4best stalling) → save_last() → valid and test at
+    the last state → load best → test → easy_record_best().
 
-What the port holds of ``recboard_tpu``'s Coach: host generator pipes,
-one eager step per batch (the model's ``fit`` loss, autograd, a
-``torch.optim`` update), full-catalog evaluation with seen items masked,
-and checkpoints in ``recboard_tpu``'s payload (``{"params": <flax-layout
-tree of numpy arrays>}``), so a run trained by either package is served
-by either. Dropout masks are drawn from one ``torch.Generator`` on the
-model's device, seeded from ``cfg.seed``.
+What the port holds of ``recboard_tpu``'s Coach: host generator pipes or
+a device sampler (``data/device.py``, one ``sample`` per step), one eager
+step per batch (the model's ``fit`` loss, autograd, a ``torch.optim``
+update), full-catalog evaluation with seen items masked or pool ranking
+(the target in column 0 of each row's candidates, nothing masked), params
+checkpoints in ``recboard_tpu``'s payload (``{"params": <flax-layout tree
+of numpy arrays>}``), so a run trained by either package is served by
+either, and a resume checkpoint of the port's own (``torch.save``: the
+model's and the optimizer's state, the Coach's generator, the epoch, the
+history and the early-stopping state), written in a background thread.
+Dropout masks are drawn from one ``torch.Generator`` on the model's
+device, seeded from ``cfg.seed``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -48,6 +56,7 @@ class Coach:
         self.cfg = cfg
         self.device = torch.device(device)
         self.remove_seen = not bool(cfg.get("retain_seen", False))
+        self.ranking = cfg.get("ranking", "full")
 
         self._meters: Dict[str, Dict[str, utils.AverageMeter]] = {}
         self.history: Dict[str, List[Dict[str, float]]] = {
@@ -67,6 +76,7 @@ class Coach:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.get("seed", 0)))
         self._eval_cache: Dict[str, List[Tuple]] = {}
+        self._ckpt_thread: Optional[threading.Thread] = None
         self._wanted = [metrics_lib.parse_monitor(n) for n in cfg.get("monitors", [])]
         self.set_optimizer()
 
@@ -140,6 +150,8 @@ class Coach:
         """One pass over the train pipe; returns the number of steps. The
         losses stay on the device until the epoch ends, then reach the
         monitor in one transfer."""
+        if getattr(self.trainpipe, "is_device_sampler", False):
+            return self._device_train_epoch()
         losses, sizes = [], []
         for data in self.trainpipe:
             losses.append(self.train_step(self.to_device(data)))
@@ -149,11 +161,25 @@ class Coach:
                 self.monitor(loss, n=n, mode="train", pool=["LOSS"])
         return len(losses)
 
+    def _device_train_epoch(self) -> int:
+        """The epoch of a device sampler: its ``steps_per_epoch`` steps, each
+        drawing its batch on the device from the epoch's one permutation;
+        the losses are read once at the end, each of a full batch."""
+        sampler = self.trainpipe
+        perm = sampler.prepare()
+        losses = [self.train_step(sampler.sample_prepared(perm, step))
+                  for step in range(sampler.steps_per_epoch)]
+        for loss in torch.stack(losses).cpu().tolist():
+            self.monitor(loss, n=sampler.batch_size, mode="train", pool=["LOSS"])
+        return len(losses)
+
     # ---------------------------------------------------------- evaluate
     def _eval_batches(self, mode: str, pipe) -> List[Tuple]:
         """The eval pipe's batches on the device, densified once and kept:
-        (batch, seen ids padded with SEEN_PAD, target ids padded with -1,
-        rows)."""
+        (batch, seen ids padded with SEEN_PAD, target ids, rows). Full
+        ranking pads the target ids with -1; pool ranking scores each row's
+        candidates (``IUnseen``: the target, then the pool's negatives) and
+        its target is column 0."""
         if mode not in self._eval_cache:
             model = self.model
             pipe.set_seed(int(self.cfg.seed))
@@ -165,18 +191,24 @@ class Coach:
                     seen_ids = torch.from_numpy(
                         metrics_lib.pad_ragged(seen, fill=metrics_lib.SEEN_PAD)
                     ).to(self.device)
-                targets = metrics_lib.pad_ragged(data[model.IUnseen], fill=-1)
-                cached.append((self.to_device(data), seen_ids,
-                               torch.from_numpy(targets).to(self.device),
+                batch = self.to_device(data)
+                if self.ranking == "pool":
+                    candidates = metrics_lib.pad_ragged(data[model.IUnseen], fill=0)
+                    batch[model.IUnseen] = torch.from_numpy(candidates).to(self.device)
+                    targets = np.zeros((len(candidates), 1), dtype=np.int64)
+                else:
+                    targets = metrics_lib.pad_ragged(data[model.IUnseen], fill=-1)
+                cached.append((batch, seen_ids, torch.from_numpy(targets).to(self.device),
                                int(data[Size])))
             self._eval_cache[mode] = cached
         return self._eval_cache[mode]
 
     @torch.inference_mode()
     def evaluate(self, epoch: int, mode: str = "valid") -> None:
-        """Full-catalog ranking over the valid or test pipe: scores,
-        seen items masked unless retain_seen, rank metrics summed per batch
-        on the device and fetched once at the end."""
+        """Ranking over the valid or test pipe: full-catalog scores with seen
+        items masked unless retain_seen, or (``ranking: pool``) scores of
+        each row's candidates with nothing masked; rank metrics summed per
+        batch on the device and fetched once at the end."""
         pipe = self.validpipe if mode == "valid" else self.testpipe
         if pipe is None:
             return
@@ -185,9 +217,12 @@ class Coach:
         pool = [metrics_lib.fmt_metric(b, k) for b, k in wanted]
         buffers = self.model.reset_ranking_buffers()
         pending = []
+        pool_ranking = self.ranking == "pool"
+        recommend = (self.model.recommend_from_pool if pool_ranking
+                     else self.model.recommend_from_full)
         for batch, seen_ids, target_ids, rows in self._eval_batches(mode, pipe):
-            scores = self.model.recommend_from_full(batch, buffers)
-            if self.remove_seen and seen_ids is not None:
+            scores = recommend(batch, buffers)
+            if not pool_ranking and self.remove_seen and seen_ids is not None:
                 scores = metrics_lib.mask_seen(scores, seen_ids)
             valid_rows = torch.ones(rows, device=self.device)
             sums = metrics_lib.rank_metrics(scores, target_ids, wanted, valid_rows)
@@ -242,6 +277,64 @@ class Coach:
     def load_best(self) -> None:
         self.load(filename=self.cfg.BEST_FILENAME)
 
+    def _checkpoint_file(self) -> str:
+        return os.path.join(self.cfg.CHECKPOINT_PATH, self.cfg.CHECKPOINT_FILENAME)
+
+    def save_checkpoint(self, epoch: int) -> None:
+        """The resume checkpoint after ``epoch``: the state is copied to the
+        host here (the next step updates it in place), then ``torch.save``
+        writes it in a background thread to a temporary file renamed into
+        place, so an interrupted write never leaves a truncated file."""
+        utils.mkdirs(self.cfg.CHECKPOINT_PATH)
+        payload = {
+            "epoch": epoch,
+            "history": copy.deepcopy(self.history),
+            "best": (self._best, self._best_epoch, self._stopping_steps),
+            "generator": self.generator.get_state(),
+            "model": _to_host(self.model.state_dict()),
+            "optimizer": _to_host(self.optimizer.state_dict()),
+        }
+        self._join_checkpoint_writer()
+        self._ckpt_thread = threading.Thread(
+            target=_save_atomic, args=(payload, self._checkpoint_file()), daemon=True)
+        self._ckpt_thread.start()
+
+    def _join_checkpoint_writer(self) -> None:
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+
+    def load_checkpoint(self) -> int:
+        """Restores what save_checkpoint wrote; returns its epoch. Raises
+        FileNotFoundError when there is none."""
+        self._join_checkpoint_writer()
+        payload = torch.load(self._checkpoint_file(), map_location="cpu", weights_only=True)
+        self.model.load_state_dict(payload["model"])
+        # moves the moments onto the parameters' device
+        self.optimizer.load_state_dict(payload["optimizer"])
+        state = payload["generator"]
+        if state.shape == self.generator.get_state().shape:
+            self.generator.set_state(state)
+        else:
+            utils.warnLogger("[Coach] >>> checkpoint generator state from another device "
+                             "type; reseeding from cfg.seed")
+            self.generator.manual_seed(int(self.cfg.get("seed", 0)))
+        self.history = payload["history"]
+        self._best, self._best_epoch, self._stopping_steps = payload["best"]
+        return int(payload["epoch"])
+
+    def resume(self) -> int:
+        """The epoch to start at: after the checkpoint's under ``resume``,
+        else (or without a checkpoint) 0."""
+        if self.cfg.get("resume"):
+            try:
+                epoch = self.load_checkpoint() + 1
+                utils.infoLogger(f"[Coach] >>> resume from epoch {epoch}")
+                return epoch
+            except FileNotFoundError:
+                utils.warnLogger("[Coach] >>> no checkpoint found; fresh start")
+        return 0
+
     # ----------------------------------------------------------- summary
     def summary(self) -> Dict[str, Any]:
         return {
@@ -282,12 +375,16 @@ class Coach:
     # --------------------------------------------------------------- fit
     def fit(self) -> Dict[str, float]:
         cfg = self.cfg
+        start_epoch = self.resume()
         eval_freq = max(1, int(cfg.get("eval_freq", 1)))
+        checkpoint_freq = max(1, int(cfg.get("CHECKPOINT_FREQ", 1)))
         t0 = time.monotonic()
-        epoch = 0
+        epoch = start_epoch
         try:
-            for epoch in range(int(cfg.epochs)):
+            for epoch in range(start_epoch, int(cfg.epochs)):
                 self.train(epoch)
+                if (epoch + 1) % checkpoint_freq == 0:
+                    self.save_checkpoint(epoch)
                 if (epoch + 1) % eval_freq == 0:
                     if cfg.get("eval_valid", True):
                         self.evaluate(epoch, mode="valid")
@@ -300,6 +397,7 @@ class Coach:
         except KeyboardInterrupt:
             utils.warnLogger("[Coach] >>> interrupted; saving last state")
 
+        self._join_checkpoint_writer()
         self.save_last()
         # final eval at the last state
         if self.validpipe is not None:
@@ -332,3 +430,21 @@ class Coach:
             f"@ epoch {self._best_epoch}"
         )
         return best_summary
+
+
+def _to_host(obj):
+    """A copy of a state dict's tensors on the CPU (nested dicts and lists
+    walked), which later in-place updates on the device do not reach."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, _to_host(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _save_atomic(payload, file_: str) -> None:
+    target = f"{file_}.tmp{os.getpid()}"
+    torch.save(payload, target)
+    os.replace(target, file_)

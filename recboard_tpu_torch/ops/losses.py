@@ -45,8 +45,10 @@ id one after another, and HSTU's positive ids are mostly the pad id 0,
 which made it 5.2 ms of a training step on an NVIDIA H100 80GB HBM3 at
 700 W (``PERF.md``). Per-position ids are taken as JAX's gather takes
 them: a negative id counts from the end of the table, and every id is
-clamped into it. Weights carry no gradient: they come from integer
-masks.
+clamped into it. The kernels give the weights no gradient: they compute
+the weighted rows alone, so a gradient for a row of weight 0 needs values
+they never make. The autograd functions over them raise before any launch
+when the weights require one; the CPU path (the plain losses) gives it.
 """
 
 from __future__ import annotations
@@ -477,14 +479,26 @@ def sampled_softmax_shared_bwd(
 sampled_softmax_shared_bwd.launches = 0
 
 
+def _refuse_weight_grad(ctx, fn: str) -> None:
+    """Raises when the weights (the fourth input) require a gradient: the
+    kernels compute the weighted rows alone and give the weights none."""
+    if ctx.needs_input_grad[3]:
+        raise ValueError(
+            f"{fn}: the kernel path gives the weights no gradient (it computes the "
+            "rows of weight != 0 alone); pass weights that do not require one, or "
+            "CPU tensors for the plain loss")
+
+
 class SampledSoftmaxShared(torch.autograd.Function):
     """The shared-negative sampled softmax on the card: the forward kernels
     give each weighted row's logsumexp and positive logit (0 on rows of
     weight 0), the weighted mean is taken here, and the backward kernels
-    recompute the logits from the saved logsumexp."""
+    recompute the logits from the saved logsumexp. Weights that require a
+    gradient are refused before any launch."""
 
     @staticmethod
     def forward(ctx, user, pos, neg, weights, temperature):
+        _refuse_weight_grad(ctx, "SampledSoftmaxShared")
         logz, pos_logit = sampled_softmax_shared_fwd(user, pos, neg, weights, temperature)
         W = weights.sum().clamp_min(1.0)
         ctx.save_for_backward(user, pos, neg, weights, logz, pos_logit, W)
@@ -632,10 +646,11 @@ class SampledSoftmaxCandidates(torch.autograd.Function):
     give each weighted row's logsumexp and positive logit (0 on rows of
     weight 0), the weighted mean is taken here, and the backward kernels
     recompute the logits from the saved logsumexp. Gradients flow to user
-    and table."""
+    and table; weights that require one are refused before any launch."""
 
     @staticmethod
     def forward(ctx, user, cand_ids, table, weights, temperature):
+        _refuse_weight_grad(ctx, "SampledSoftmaxCandidates")
         logz, pos_logit = sampled_softmax_cand_fwd(user, cand_ids, table, weights, temperature)
         W = weights.sum().clamp_min(1.0)
         ctx.save_for_backward(user, cand_ids, table, weights, logz, W)

@@ -6,9 +6,9 @@
 ``set_defaults`` over ``CORE_DEFAULTS``; hyphenated flags map to
 snake_case keys and undeclared ``--key value`` pairs pass through as
 YAML-typed keys. ``compile()`` seeds the global generators, makes a
-timestamp run id, derives ``LOG_PATH``/``CHECKPOINT_PATH`` and the file
-names ``recboard_tpu`` uses, and writes the resolved ``config.yaml``
-snapshot that serving reads back.
+timestamp run id, derives ``LOG_PATH``/``CHECKPOINT_PATH``, the file
+names ``recboard_tpu`` uses and the resume checkpoint's, and writes the
+resolved ``config.yaml`` snapshot that serving reads back.
 """
 
 from __future__ import annotations
@@ -23,12 +23,16 @@ import yaml
 
 from . import utils
 
-__all__ = ["BEST_FILENAME", "CORE_DEFAULTS", "Config", "Parser", "SAVED_FILENAME"]
+__all__ = ["BEST_FILENAME", "CHECKPOINT_FILENAME", "CORE_DEFAULTS", "Config", "Parser",
+           "SAVED_FILENAME"]
 
 # the params pickles a run leaves under CHECKPOINT_PATH (pickles despite
 # the suffix; recboard_tpu/parser.py sets the same names)
 SAVED_FILENAME = "model.safetensors"
 BEST_FILENAME = "best.safetensors"
+# recboard_tpu's resume checkpoint is checkpoint.pkl: neither package reads
+# the other's
+CHECKPOINT_FILENAME = "checkpoint.pt"
 
 # recboard_tpu's CORE_DEFAULTS, less its mesh, dtype and PRNG keys; the
 # keys of routes not ported yet stay so that asking for them is refused
@@ -150,6 +154,10 @@ class Parser:
         cfg["CHECKPOINT_PATH"] = os.path.join(
             cfg["checkpoint_path"], cfg["description"], cfg["dataset"], "0"
         )
+        # the resume checkpoint (torch.save, the port's own payload), every
+        # CHECKPOINT_FREQ epochs
+        cfg["CHECKPOINT_FREQ"] = int(cfg.get("checkpoint_freq", 1))
+        cfg["CHECKPOINT_FILENAME"] = CHECKPOINT_FILENAME
         cfg["MONITOR_FILENAME"] = "monitors.pkl"
         cfg["MONITOR_BEST_FILENAME"] = "best.pkl"
         cfg["SAVED_FILENAME"] = SAVED_FILENAME

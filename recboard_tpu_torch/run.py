@@ -5,7 +5,10 @@
         --dataset <name> [--config configs/x.yaml] [--device cpu] ...
 
 Trains on ``cuda`` unless ``--device cpu`` is given, with the host
-generator pipes, and leaves a run directory that ``recommend`` serves.
+generator pipes or (``--on-device-sampling``) batches drawn on the
+device, resumes from the last epoch's checkpoint under ``--resume``,
+ranks the full catalog or (``--ranking pool``) each row's candidate pool,
+and leaves a run directory that ``recommend`` serves.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import yaml
 
 from . import utils
 from .data.datasets import NextItemRecDataSet, RecDataSet
+from .data.device import DeviceFullSeqSampler, DeviceSeqSampler, DeviceTimeSeqSampler
 from .data.tags import TaskTag
 from .launcher import Coach
 from .models.zoo import REGISTRY
@@ -56,12 +60,27 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
     return cls(dataset, generator=generator, **kwargs).to(device)
 
 
-def build_pipes(model, cfg):
-    """The generator-pipe branch of ``recboard_tpu``'s build_pipes, for
-    sequential models."""
+# each ported model's device sampler (recboard_tpu's build_pipes)
+DEVICE_SAMPLERS = {
+    "SASRec": DeviceSeqSampler,
+    "HSTU": DeviceTimeSeqSampler,  # HSTU draws its negatives itself
+    "BERT4Rec": DeviceFullSeqSampler,  # BERT4Rec draws its masks itself
+}
+
+
+def build_pipes(model, cfg, device: torch.device):
+    """``recboard_tpu``'s build_pipes for sequential models: the generator
+    pipes, and under ``on_device_sampling`` the model's device sampler on
+    ``device`` as the train pipe."""
     maxlen = int(cfg.maxlen)
+    if cfg.get("on_device_sampling"):
+        trainpipe = DEVICE_SAMPLERS[type(model).__name__](
+            model.dataset, maxlen=maxlen, batch_size=int(cfg.batch_size),
+            num_pads=model.NUM_PADS, device=device)
+    else:
+        trainpipe = model.sure_trainpipe(maxlen, int(cfg.batch_size))
     return (
-        model.sure_trainpipe(maxlen, int(cfg.batch_size)),
+        trainpipe,
         model.sure_validpipe(maxlen, ranking=cfg.ranking),
         model.sure_testpipe(maxlen, ranking=cfg.ranking),
     )
@@ -69,16 +88,13 @@ def build_pipes(model, cfg):
 
 # options of recboard_tpu's runner this port refuses until they are ported
 _NOT_PORTED = (
-    ("on_device_sampling", lambda v: bool(v),
-     "--on-device-sampling (DeviceSeqSampler, DeviceFullSeqSampler, DeviceTimeSeqSampler)"),
-    ("resume", lambda v: bool(v), "--resume (save_checkpoint/load_checkpoint)"),
+    ("checkpoint_backend", lambda v: str(v) == "orbax", "checkpoint_backend orbax"),
     ("record_benchmark", lambda v: bool(v), "--record-benchmark (the benchmark store writer)"),
     ("gradient_accumulation_steps", lambda v: int(v) > 1, "gradient_accumulation_steps > 1"),
     ("lr_scheduler", lambda v: bool(v), "lr_scheduler"),
     ("profile", lambda v: bool(v), "--profile"),
     ("num_model_shards", lambda v: int(v) > 1, "--num-model-shards > 1"),
     ("compute_dtype", lambda v: str(v) not in ("float32", "f32"), "compute_dtype other than float32"),
-    ("ranking", lambda v: v != "full", "ranking other than full"),
 )
 
 
@@ -113,7 +129,12 @@ def main(argv: Optional[list] = None):
 
     dataset = load_dataset(cfg)
     model = build_model(cfg.model, dataset, cfg, device)
-    trainpipe, validpipe, testpipe = build_pipes(model, cfg)
+    supported = getattr(type(model), "SUPPORTED_RANKINGS", ("full", "pool"))
+    if cfg.ranking not in supported:
+        utils.warnLogger(f"[run] >>> {cfg.model} does not support ranking={cfg.ranking!r}; "
+                         f"using {supported[0]!r}")
+        cfg.ranking = supported[0]
+    trainpipe, validpipe, testpipe = build_pipes(model, cfg, device)
     coach = Coach(dataset=dataset, trainpipe=trainpipe, validpipe=validpipe,
                   testpipe=testpipe, model=model, cfg=cfg, device=device)
     best = coach.fit()

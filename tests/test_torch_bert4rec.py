@@ -266,7 +266,7 @@ def test_yaml_mask_settings_reach_the_model(tiny_dataset, tmp_path):
     with pytest.raises(SystemExit, match="not ported"):
         run.main(["--config", str(config), "--root", tiny_dataset.root,
                   "--dataset", tiny_dataset.dataset, "--device", "cpu",
-                  "--on-device-sampling", "--log2console", "false",
+                  "--profile", str(tmp_path / "prof"), "--log2console", "false",
                   "--log-path", str(tmp_path)])
 
 

@@ -19,7 +19,7 @@
   the bias-less ``uvqk_linear``; flax's truncated-normal init.
 * Runs trained by either package are served by both, tie-tolerantly
   (chip_smoke.compare_topk); the reference mode, per-position negatives,
-  trains through ``run``, and ``--on-device-sampling`` is refused.
+  trains through ``run``, and ``--profile`` is refused.
 """
 
 import pickle
@@ -233,14 +233,14 @@ def _run_argv(tiny_dataset, tmp_path):
 
 def test_per_position_is_refused(tiny_dataset, tmp_path):
     """Per-position negatives train (the test below); what ``run`` still
-    refuses for HSTU is ``--on-device-sampling`` (its device sampler is not
-    ported), per-position as in the other modes."""
+    refuses for HSTU is an option not ported yet (``--profile``),
+    per-position as in the other modes."""
     from recboard_tpu_torch import run
 
     common = _run_argv(tiny_dataset, tmp_path)
     for mode in ([], ["--negs_mode", "shared"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            run.main(common + mode + ["--on-device-sampling"])
+        with pytest.raises(SystemExit, match="--profile is not ported"):
+            run.main(common + mode + ["--profile", str(tmp_path / "prof")])
 
 
 def test_reference_mode_trains_per_position(tiny_dataset, tmp_path):

@@ -148,6 +148,36 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert L.sampled_softmax_shared_bwd.launches == 0
 
 
+@pytest.mark.parametrize("route", ["shared", "candidates"])
+def test_kernel_path_refuses_weights_that_need_a_gradient(route):
+    """K5's and K4's kernels compute the weighted rows alone and give the
+    weights no gradient, where JAX gives one (the shared kernel's VJP,
+    autodiff of the per-position loss). Their autograd functions raise
+    before any launch when the weights require one; the check comes first,
+    so CPU tensors reach it too. The CPU path, autograd of the plain
+    losses, gives the weights JAX's gradient."""
+    rng = np.random.default_rng(4)
+    M, K, D = 24, 5, 8
+    user, pos, neg, w = _dense_inputs(M, K, D, seed=4, zero_rows=True)
+    ids = rng.integers(0, K, size=(M, 3)).astype(np.int32)
+    wt = _t(w, True)
+    if route == "shared":
+        with pytest.raises(ValueError, match="gives the weights no gradient"):
+            L.SampledSoftmaxShared.apply(_t(user), _t(pos), _t(neg), wt, 0.5)
+        loss = L.sampled_softmax_loss_shared_reference(_t(user), _t(pos), _t(neg), wt, 0.5)
+        want = jax.grad(lambda ww: L_jax.sampled_softmax_shared_fused(
+            user, pos, neg, ww, 0.5, True))(jnp.asarray(w))
+    else:
+        with pytest.raises(ValueError, match="gives the weights no gradient"):
+            L.SampledSoftmaxCandidates.apply(_t(user), _t(ids), _t(neg), wt, 0.5)
+        loss = L.sampled_softmax_loss(_t(user), _t(ids), _t(neg), wt, 0.5)
+        want = jax.grad(lambda ww: L_jax.sampled_softmax_loss_reference(
+            user, ids, neg, ww, 0.5))(jnp.asarray(w))
+    loss.backward()
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    assert L.sampled_softmax_shared_fwd.launches == L.sampled_softmax_cand_fwd.launches == 0
+
+
 @pytest.mark.parametrize("tiles,other", [(200, 8), (7, 600), (5, 2), (1, 1), (100, 100)])
 def test_dneg_splits_cover_every_tile_once(tiles, other):
     """K5 backward's split of its dneg loop across blocks: runs of equal

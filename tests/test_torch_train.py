@@ -284,8 +284,8 @@ def test_port_run_served_by_both_packages(port_run):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--on-device-sampling"], ["--resume"], ["--record-benchmark"],
-    ["--gradient-accumulation-steps", "2"], ["--remat", "true"], ["--ranking", "pool"],
+    ["--record-benchmark"], ["--gradient-accumulation-steps", "2"], ["--remat", "true"],
+    ["--profile", "prof"], ["--compute-dtype", "bfloat16"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_run_refuses_unported_options(tiny_dataset, tmp_path, flag):
     from recboard_tpu_torch import run
