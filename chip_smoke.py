@@ -47,9 +47,10 @@ Phases, one JSON line each; any failure exits non-zero:
    step each and the forward kernel twice per evaluated batch, the best
    checkpoint in the flax layout, and the trained run served on the GPU
    with the CPU's lists.
-7. train_time — ms per step, examples/s, an epoch split into host pipe
-   and device steps; then one epoch under torch.profiler: device time
-   by kernel per step and the device's idle share.
+7. train_time — ms per step (the first STAGED_STEPS steps of an epoch,
+   each alone), examples/s of a whole epoch and its host pipe alone; then
+   the first PROFILE_STEPS steps of the next epoch under torch.profiler:
+   device time by kernel per step and the device's idle share.
 8. quality — the toy store's SASRec protocol for 5 seeds on the card;
    the mean best NDCG@10 must lie in the store's band.
 9. kernels_vocab_ce — the full-vocabulary CE kernels (vocab_ce_fwd,
@@ -143,10 +144,28 @@ Phases, one JSON line each; any failure exits non-zero:
    host-pipe run of the same model. A resume checkpoint read back bit for
    bit, and 2 epochs straight (twice) against 1 plus ``--resume``. Pool
    ranking of each trained run on the card against the CPU. The toy
-   store's 5-seed SASRec and per-position HSTU bands with device sampling.
+   store's SASRec and per-position HSTU bands with the device samplers.
+18. bsarec_*, fmlp_*, unisrec_* (train, train_serve, bench, train_time,
+   train_profile, quality) and bsarec_ods_*, fmlp_ods_* — the roll-window
+   models: BSARec and FMLP-Rec at their reference configs as written and
+   UniSRec at its config's widths, single-corpus with the synthesized item
+   features (``data/synthetic.make_item_features``), one epoch each:
+   exact launches (BSARec K2 forward and backward once per block and step,
+   UniSRec twice (two encodes), K1 once per block and evaluated batch;
+   FMLP-Rec none), the trained run served GPU = CPU, its ``--bench`` line,
+   the toy store's 5-seed bands; BSARec and FMLP-Rec also device-sampled
+   (``DeviceRollSeqSampler``: every drawn row one of the dataset's (user,
+   end) windows, none twice in an epoch) beside their host pipes. Phase 3
+   also checks K1 and K2 with BSARec's and UniSRec's additive -1e4 mask, a
+   bias per batch row: rows with a visible key at TOL and GRAD_TOL, rows
+   whose every key carries -1e4 at MASKED_ROW_TOL and there the plain
+   softmax over the raw scores, not zeros; a per-row bias that needs a
+   gradient is refused before any launch.
 
 Each quality phase runs its seeds as processes of their own, all started
-together (the protocol's steps are host-bound). Each phase prints its
+together (the protocol's steps are host-bound), one intra-op thread each:
+``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17 and
+18 (``STORE_BANDS``), 45 processes at once. Each phase prints its
 seconds. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 1 before printing any result. Scratch files go to
@@ -158,6 +177,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -178,12 +198,26 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense (NVIDIA's data sheet)
 
+# BSARec's and UniSRec's additive -1e4 mask as a case's bias: a bias per
+# batch row (B, 1, L, L) from ``additive_causal_mask`` over left pads, batch
+# row 0 all pads. Query rows whose every key carries -1e4 get the plain
+# softmax over their raw scores; there x = s * scale - 1e4 is rounded to a
+# float32 ulp of 2**-10, and two correct implementations whose products
+# differ by 1e-7 can land one ulp apart, moving a probability by about
+# 0.1 %. Those rows are held to MASKED_ROW_TOL of max |v| (outputs) or of the
+# gradient's largest magnitude; every other row to TOL and GRAD_TOL.
+ROW_MASK = "row_mask"
+MASKED_ROW_TOL = 2e-3
+
 # (name, B, L, S, H, hd, causal, key_pad, bias, fully-masked rows)
 ATTN_SHAPES = [
     ("sasrec_serving", 512, 50, 50, 1, 64, True, False, False, False),
     ("long_keypad", 256, 200, 200, 2, 32, False, True, False, False),
     ("bias_masked_rows", 64, 6, 50, 4, 16, False, False, True, True),
     ("bert4rec_serving", 512, 50, 50, 4, 16, False, True, False, False),
+    # BSARec's and UniSRec's serving batches: the mask per row
+    ("bsarec_serving", 512, 50, 50, 1, 64, False, False, ROW_MASK, True),
+    ("unisrec_serving", 512, 50, 50, 2, 32, False, False, ROW_MASK, True),
 ]
 # correctness-only cases for the paths the timed shapes leave out:
 # causal with L != S, causal with pad and bias, rows with no visible key,
@@ -195,6 +229,9 @@ ATTN_EXTRA = [
     # (16-byte copies), and not a multiple of 4 (4-byte copies)
     ("hd20_causal_pad", 16, 45, 45, 3, 20, True, True, False, False),
     ("hd13_bias_masked_rows", 8, 70, 70, 2, 13, False, True, True, True),
+    # the per-row mask over two key tiles
+    ("row_mask_L70_hd64", 8, 70, 70, 1, 64, False, False, ROW_MASK, True),
+    ("row_mask_L70_2x32", 8, 70, 70, 2, 32, False, False, ROW_MASK, True),
 ]
 
 # the training kernels: (name, B, L, S, H, hd, causal, key_pad, bias with
@@ -204,6 +241,9 @@ DROP_SHAPES = [
     ("long_keypad", 256, 200, 200, 2, 32, False, True, False, 0.1),
     ("bias_dbias", 64, 37, 37, 4, 32, True, True, True, 0.1),
     ("bert4rec_train", 512, 50, 50, 4, 16, False, True, False, 0.2),
+    # BSARec's config (attention dropout 0) and UniSRec's (0.6), the mask per row
+    ("bsarec_train", 256, 50, 50, 1, 64, False, False, ROW_MASK, 0.0),
+    ("unisrec_train", 512, 50, 50, 2, 32, False, False, ROW_MASK, 0.6),
 ]
 DROP_EXTRA = [  # correctness only
     ("large_S", 8, 300, 300, 4, 64, True, True, False, 0.1),
@@ -216,6 +256,9 @@ DROP_EXTRA = [  # correctness only
     ("causal_L_gt_S", 16, 70, 40, 3, 24, True, True, False, 0.2),
     ("hd13_bias_masked_rows", 8, 70, 70, 2, 13, False, True, True, 0.3),
     ("hd128_causal_L96", 8, 96, 96, 2, 128, True, False, False, 0.1),
+    # the per-row mask at BSARec's toy-store rate, and over two key tiles
+    ("row_mask_hd64_rate05", 32, 50, 50, 1, 64, False, False, ROW_MASK, 0.5),
+    ("row_mask_L70_2x32_rate06", 8, 70, 70, 2, 32, False, False, ROW_MASK, 0.6),
 ]
 # dq/dk/dv/dbias: max |kernel - plain| over the largest |plain| of that
 # gradient; sums over up to L*S products in other orders (and dbias's
@@ -291,6 +334,43 @@ HSTU_STORE_NDCG10 = 0.3453
 HSTU_PP_STORE_PROTOCOL = dict(epochs=15, lr=0.005, batch_size=128, eval_freq=3, maxlen=20,
                               num_blocks=2)
 HSTU_PP_STORE_NDCG10 = 0.3575
+
+# The roll-window models, each cut to one epoch of training (a roll epoch
+# is every (user, window end) pair: about 133k windows on the dataset above):
+# BSARec at configs/BSARec_Amazon2014Beauty_550_LOU.yaml as written (maxlen
+# 50, D 64, 2 blocks, 1 head, hidden dropout 0.5, attention dropout 0, c 5,
+# alpha 0.7, CE, batch 256, Adam lr 1e-4, weight decay 1e-4); FMLP-Rec at
+# configs/FMLP-Rec_Amazon2014Beauty_550_LOU.yaml as written (maxlen 50, D
+# 64, 4 blocks, dropout 0.2, BPR, batch 512, Adam lr 1e-4); UniSRec at
+# configs/UniSRec_BHCCM.yaml's widths (maxlen 50, D 64, 1 block, 2 heads, 16
+# experts, dropout 0.2, attention dropout 0.6, adaptor dropout 0, T 0.1,
+# mask 0.3, batch 512, AdamW lr 1e-3, weight decay 0.01), cut to one corpus,
+# the dataset above, with the 24-wide synthesized item features
+# (data/synthetic.make_item_features) for its five corpora and their MiniLM
+# table, which cannot be downloaded
+ROLL_EPOCHS = 1
+ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec")
+# the slices whose toy-store band the whole run checks
+STORE_BANDS = ("SASRec", "BERT4Rec", "HSTU", "HSTU_pp") + ROLL_SLICES + ("SASRec_ods",
+                                                                         "HSTU_pp_ods")
+BSAREC = dict(maxlen=50, embedding_dim=64, num_blocks=2, num_heads=1)
+BSAREC_CONFIG = os.path.join(ROOT, "configs", "BSARec_Amazon2014Beauty_550_LOU.yaml")
+BSAREC_BATCH = 256
+FMLP = dict(maxlen=50, embedding_dim=64, num_blocks=4)
+FMLP_CONFIG = os.path.join(ROOT, "configs", "FMLP-Rec_Amazon2014Beauty_550_LOU.yaml")
+FMLP_BATCH = 512
+UNISREC = dict(maxlen=50, embedding_dim=64, num_blocks=1, num_heads=2, num_moe_experts=16)
+UNISREC_CONFIG = os.path.join(ROOT, "configs", "UniSRec_BHCCM.yaml")
+UNISREC_BATCH = 512
+FEATURE_WIDTH = 24  # make_item_features' k
+FEATURES = dict(tfile="sweep_feats.pkl")  # data/synthetic.FEATURE_FILE
+# the toy store's rows (benchmark/SynBeauty_000_LOU/{BSARec,FMLP-Rec,UniSRec}.json,
+# metric best: 5-seed means, std 0.0023 / 0.0114 / 0.0074) with
+# tools/seed_sweep.py's arguments for each (maxlen 20; UniSRec --tfile) and
+# the models' defaults
+BSAREC_STORE_NDCG10 = 0.42635
+FMLP_STORE_NDCG10 = 0.33140
+UNISREC_STORE_NDCG10 = 0.31743
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -504,7 +584,13 @@ def attention_inputs(case, rng):
     if pad is not None:
         pad[0] = True  # one batch row with every key padded
     b = None
-    if bias:
+    if bias == ROW_MASK:
+        from recboard_tpu_torch.ops.attention import additive_causal_mask
+
+        lengths = rng.integers(1, L + 1, size=B)
+        lengths[0] = 0  # a batch row of pads only
+        b = additive_causal_mask(t(np.arange(L)[None, :] < (L - lengths)[:, None]))
+    elif bias:
         b = rng.normal(size=(1, H, L, S)).astype(np.float32)
         if masked_rows:
             b[0, :, 0, :] = -1e30  # query row 0 masked in every head
@@ -512,6 +598,23 @@ def attention_inputs(case, rng):
         b = t(b)
     return dict(q=q, k=k, v=v, num_heads=H, causal=causal,
                 key_padding_mask=pad, bias=b)
+
+
+def masked_rows(inp):
+    """(B, L) True at the query rows whose every key carries the -1e4 mask
+    of a per-row bias, or None for any other case."""
+    from recboard_tpu_torch.ops.attention import per_row_bias
+
+    if not per_row_bias(inp["bias"]):
+        return None
+    return (inp["bias"] <= -5e3).all(-1).any(1)
+
+
+def masked_row_errors(got, want, rows, scale) -> tuple:
+    """(max |got - want| over the rows with a visible key, the same over the
+    fully masked rows divided by ``scale``)."""
+    diff = (got - want).abs()
+    return float(diff[~rows].max()), float(diff[rows].max() / scale)
 
 
 def visible_pairs(inp) -> int:
@@ -604,10 +707,22 @@ def check_attention(rng):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         finite = bool(torch.isfinite(got).all())
+        rows_ok, extra = True, {}
+        masked = masked_rows(inp)
+        if masked is not None:
+            # rows with a visible key at TOL; fully masked rows at MASKED_ROW_TOL,
+            # and there the plain softmax over the raw scores (no mask), not zeros
+            vmax = inp["v"].detach().abs().max()
+            err, masked_err = masked_row_errors(got, want, masked, vmax)
+            no_mask = A.mha_reference(**dict(inp, bias=None))
+            _, plain_softmax_err = masked_row_errors(got, no_mask, masked, vmax)
+            extra = dict(masked_rows=int(masked.sum()), masked_row_err=masked_err,
+                         masked_row_tol=MASKED_ROW_TOL, plain_softmax_err=plain_softmax_err)
+            rows_ok = masked_err <= MASKED_ROW_TOL and plain_softmax_err <= MASKED_ROW_TOL
         worst = max(worst, err)
         row = dict(shape=case[0], B=case[1], L=case[2], S=case[3], H=case[4],
-                   hd=case[5], max_abs_err=err, tol=TOL, finite=finite,
-                   rerun_same_bits=same_bits)
+                   hd=case[5], bias=case[8], max_abs_err=err, tol=TOL, finite=finite,
+                   rerun_same_bits=same_bits, **extra)
         if case is ATTN_SHAPES[0]:
             row.update(ptxas=ptxas_lines("mha_fwd", "attn_fwd_tc_kernel"),
                        library_kernels=library_kernels(library_attention(inp)))
@@ -623,9 +738,9 @@ def check_attention(rng):
                 bound_ms=bound_ms, bound_by=bound_by,
             )
         emit("kernels", kernel="mha_fwd", **row)
-        if not finite or not err <= TOL or not same_bits:
+        if not finite or not err <= TOL or not same_bits or not rows_ok:
             raise SystemExit(f"mha_fwd disagrees with mha_reference at {case[0]}: {err}, "
-                             f"rerun same bits {same_bits}")
+                             f"rerun same bits {same_bits}, {extra}")
         rows.append(row)
     return rows, worst
 
@@ -636,8 +751,9 @@ def dropout_inputs(case, rng):
     import torch
 
     name, B, L, S, H, hd, causal, key_pad, bias, rate = case
-    inp = attention_inputs((name, B, L, S, H, hd, causal, key_pad, False, False), rng)
-    if bias:
+    row_mask = ROW_MASK if bias == ROW_MASK else False  # a constant: no gradient
+    inp = attention_inputs((name, B, L, S, H, hd, causal, key_pad, row_mask, False), rng)
+    if bias is True:
         b = rng.normal(size=(H, L, S)).astype(np.float32)
         if name.endswith("masked_rows"):
             b[:, 0, :] = -1e30  # query row 0 masked in every head
@@ -655,7 +771,8 @@ def _grads(fn, inp, dout):
     """(output, [dq, dk, dv(, dbias)]) of fn(**inp) for the output gradient dout."""
     import torch
 
-    wrt = [inp[k] for k in ("q", "k", "v", "bias") if inp[k] is not None]
+    wrt = [inp[k] for k in ("q", "k", "v", "bias")
+           if inp[k] is not None and inp[k].requires_grad]
     out = fn(**inp)
     return out.detach(), list(torch.autograd.grad(out, wrt, dout))
 
@@ -692,6 +809,8 @@ def library_dropout_attention(inp):
         if causal:  # SDPA takes is_causal only without a mask
             tril = torch.ones((L, S), dtype=torch.bool, device=q.device).tril(S - L)
             mask, causal = mask & tril, False
+    elif masked_rows(inp) is not None:  # the -1e4 mask as a float (B, 1, L, S) mask
+        mask = inp["bias"]
     qh, kh, vh = (heads(t.detach(), n).requires_grad_() for t, n in
                   ((q, L), (k, S), (v, S)))
     g = torch.ones((B, H, L, D // H), device=q.device)
@@ -740,6 +859,7 @@ def check_dropout_attention(rng):
     rows, worst = [], dict(fwd=0.0, bwd=0.0)
     for case in DROP_SHAPES + DROP_EXTRA:
         inp, dout = dropout_inputs(case, rng)
+        with_dbias = case[8] is True
         plain = A.mha_dropout_reference if case[-1] > 0 else (
             lambda dropout_rate, seed, **kw: A.mha_reference(**kw))
         want, want_g = _grads(plain, inp, dout)
@@ -751,7 +871,7 @@ def check_dropout_attention(rng):
         first, again = A.mha_dropout_fwd(*fwd_args), A.mha_dropout_fwd(*fwd_args)
         same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
         # the backward adds no atomics into dq, dk and dv: a rerun is exact
-        bwd_args = (*fwd_args[:3], *first, dout, *fwd_args[3:], case[8])
+        bwd_args = (*fwd_args[:3], *first, dout, *fwd_args[3:], with_dbias)
         bwd_first, bwd_again = A.mha_dropout_bwd(*bwd_args), A.mha_dropout_bwd(*bwd_args)
         bwd_same_bits = all(torch.equal(a, b) for a, b in zip(bwd_first[:3], bwd_again[:3]))
         torch.cuda.synchronize()
@@ -759,14 +879,20 @@ def check_dropout_attention(rng):
         grad_err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
         grad_rel = grad_rel_err(got_g, want_g)
         finite = all(bool(torch.isfinite(t).all()) for t in [got] + got_g)
+        rows_ok, extra = True, {}
+        masked = masked_rows(inp)
+        if masked is not None:
+            out_err, extra = check_masked_rows(A, inp, dout, masked, got, want, got_g, want_g)
+            grad_rel, rows_ok = extra["grad_rel_err_quiet"], extra["ok"]
+            grad_err = extra["grad_max_abs_err_quiet"]
         worst["fwd"] = max(worst["fwd"], out_err)
         worst["bwd"] = max(worst["bwd"], grad_err)
         row = dict(shape=case[0], B=case[1], L=case[2], S=case[3], H=case[4],
-                   hd=case[5], rate=case[-1], dbias=case[8], max_abs_err=out_err,
+                   hd=case[5], rate=case[-1], bias=case[8], max_abs_err=out_err,
                    tol=TOL, grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
                    grad_rel_tol=GRAD_TOL, finite=finite, rerun_same_bits=same_bits,
-                   bwd_rerun_same_bits=bwd_same_bits)
-        if case[8]:
+                   bwd_rerun_same_bits=bwd_same_bits, **extra)
+        if with_dbias:
             row.update(dbias_rerun="not compared: dbias takes atomicAdd")
         if case is DROP_SHAPES[0]:
             row.update(ptxas=ptxas_lines("mha_dropout", "attn_fwd_tc_kernel"),
@@ -775,11 +901,26 @@ def check_dropout_attention(rng):
             row.update(time_dropout(inp, dout))
         emit("kernels", kernel="mha_dropout", **row)
         if (not finite or not out_err <= TOL or not grad_rel <= GRAD_TOL or not same_bits
-                or not bwd_same_bits):
+                or not bwd_same_bits or not rows_ok):
             raise SystemExit(f"mha_dropout disagrees with its plain version at "
                              f"{case[0]}: out {out_err}, grads {grad_rel}, rerun same "
-                             f"bits {same_bits}, backward rerun same bits {bwd_same_bits}")
+                             f"bits {same_bits}, backward rerun same bits {bwd_same_bits}, "
+                             f"{extra}")
         rows.append(row)
+
+    # a bias that differs by batch row takes no gradient: refused before any launch
+    inp, _ = dropout_inputs(DROP_SHAPES[4], rng)
+    launches = (A.mha_dropout_fwd.launches, A.mha_dropout_bwd.launches)
+    try:
+        A.mha_dropout(**dict(inp, bias=inp["bias"].clone().requires_grad_()))
+        refused = False
+    except NotImplementedError:
+        refused = True
+    unlaunched = launches == (A.mha_dropout_fwd.launches, A.mha_dropout_bwd.launches)
+    emit("kernels", check="per_row_bias_gradient_refused", refused=refused,
+         no_launch=unlaunched)
+    if not refused or not unlaunched:
+        raise SystemExit("mha_dropout took a per-row bias that needs a gradient")
 
     name, B, L, S, H, hd, causal, _, _, rate = DROP_SHAPES[0]
     seed = torch.tensor([12345], dtype=torch.int32, device="cuda")
@@ -794,6 +935,40 @@ def check_dropout_attention(rng):
         raise SystemExit(f"dropout mask: kept {share} (want {1 - rate}), "
                          f"identical rows differ: {rows_differ}")
     return rows, worst
+
+
+def check_masked_rows(A, inp, dout, masked, got, want, got_g, want_g) -> tuple:
+    """(the output's max error on rows with a visible key, the per-row mask's
+    figures) of a training case: the fully masked rows' output within
+    MASKED_ROW_TOL of max |v| of the plain version and of the plain softmax
+    over the raw scores (the same keep mask, no bias), not zeros; dq on the
+    rows with a visible key within GRAD_TOL and every gradient within
+    MASKED_ROW_TOL, relative; with the output gradient zeroed on the masked
+    rows, every gradient within GRAD_TOL."""
+    import torch
+
+    vmax = inp["v"].detach().abs().max()
+    out_err, masked_err = masked_row_errors(got, want, masked, vmax)
+    plain = A.mha_dropout_reference if inp["dropout_rate"] > 0 else (
+        lambda dropout_rate, seed, **kw: A.mha_reference(**kw))
+    with torch.no_grad():
+        no_mask = plain(**dict(inp, bias=None))
+    _, plain_softmax_err = masked_row_errors(got, no_mask, masked, vmax)
+    dq_err = float((got_g[0][~masked] - want_g[0][~masked]).abs().max()
+                   / want_g[0].abs().max())
+    grad_masked = grad_rel_err(got_g, want_g)
+    quiet = dout.masked_fill(masked[..., None], 0.0)
+    _, quiet_g = _grads(A.mha_dropout, inp, quiet)
+    _, quiet_want = _grads(plain, inp, quiet)
+    grad_quiet = grad_rel_err(quiet_g, quiet_want)
+    grad_quiet_abs = max(float((a - b).abs().max()) for a, b in zip(quiet_g, quiet_want))
+    extra = dict(masked_rows=int(masked.sum()), masked_row_err=masked_err,
+                 plain_softmax_err=plain_softmax_err, masked_row_tol=MASKED_ROW_TOL,
+                 dq_rel_err_visible_rows=dq_err, grad_rel_err_with_masked_rows=grad_masked,
+                 grad_rel_err_quiet=grad_quiet, grad_max_abs_err_quiet=grad_quiet_abs)
+    extra["ok"] = (masked_err <= MASKED_ROW_TOL and plain_softmax_err <= MASKED_ROW_TOL
+                   and dq_err <= GRAD_TOL and grad_masked <= MASKED_ROW_TOL)
+    return out_err, extra
 
 
 def time_dropout(inp, dout) -> dict:
@@ -811,7 +986,7 @@ def time_dropout(inp, dout) -> dict:
     bias = None if inp["bias"] is None else inp["bias"].detach()
     rest = (inp["num_heads"], inp["causal"], inp["key_padding_mask"], bias, None,
             inp["dropout_rate"], inp["seed"])
-    need_dbias = bias is not None
+    need_dbias = bias is not None and inp["bias"].requires_grad
     out, lse = A.mha_dropout_fwd(*args, *rest)
 
     def bwd():
@@ -1842,6 +2017,72 @@ def hstu_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, num_head
     return params
 
 
+def bsarec_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_):
+    """BSARec params in recboard_tpu's flax layout, made with numpy: the
+    separate query/key/value/dense layers and each block's sqrt_beta."""
+    D = embedding_dim
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    ln = lambda: {"scale": 1.0 + small(D), "bias": small(D)}  # noqa: E731
+    dense = lambda i, o: {"kernel": xavier(rng, i, o), "bias": small(o)}  # noqa: E731
+    params = {
+        "item_embeddings": {"embedding": xavier(rng, num_items + 1, D)},
+        "position_embeddings": {"embedding": xavier(rng, maxlen, D)},
+        "in_ln": ln(),
+    }
+    for i in range(num_blocks):
+        params[f"block_{i}"] = {
+            "FrequencyLayer_0": {"sqrt_beta": rng.normal(size=(1, 1, D)).astype(np.float32),
+                                 "LayerNorm_0": ln()},
+            "BSAAttention_0": {"query": dense(D, D), "key": dense(D, D), "value": dense(D, D),
+                               "dense": dense(D, D), "LayerNorm_0": ln()},
+            "Dense_0": dense(D, 4 * D), "Dense_1": dense(4 * D, D), "LayerNorm_0": ln(),
+        }
+    return params
+
+
+def fmlp_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_):
+    """FMLP-Rec params in recboard_tpu's flax layout, made with numpy: each
+    filter's complex weight as (1, maxlen // 2 + 1, D, 2) real/imag pairs."""
+    D = embedding_dim
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    ln = lambda: {"scale": 1.0 + small(D), "bias": small(D)}  # noqa: E731
+    dense = lambda i, o: {"kernel": small(i, o), "bias": small(o)}  # noqa: E731
+    params = {
+        "item_embeddings": {"embedding": small(num_items + 1, D)},
+        "position_embeddings": {"embedding": small(maxlen, D)},
+        "in_ln": ln(),
+    }
+    for i in range(num_blocks):
+        params[f"filters_{i}"] = {"complex_weight": small(1, maxlen // 2 + 1, D, 2),
+                                  "LayerNorm_0": ln()}
+        params[f"intermediates_{i}"] = {"Dense_0": dense(D, 4 * D), "Dense_1": dense(4 * D, D),
+                                        "LayerNorm_0": ln()}
+    return params
+
+
+def unisrec_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, num_moe_experts,
+                        **_):
+    """UniSRec params in recboard_tpu's flax layout, made with numpy: the
+    adaptor's gates (F, experts), each expert's bare bias and bias-free
+    Dense, the post-LN blocks' separate query/key/value/dense layers."""
+    D, F = embedding_dim, FEATURE_WIDTH
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    ln = lambda: {"scale": 1.0 + small(D), "bias": small(D)}  # noqa: E731
+    dense = lambda i, o: {"kernel": small(i, o), "bias": small(o)}  # noqa: E731
+    adaptor = {"w_gate": small(F, num_moe_experts), "w_noise": small(F, num_moe_experts)}
+    for i in range(num_moe_experts):
+        adaptor[f"expert_{i}"] = {"bias": small(F), "Dense_0": {"kernel": small(F, D)}}
+    params = {"position_embeddings": {"embedding": small(maxlen, D)}, "input_ln": ln(),
+              "moe_adaptor": adaptor}
+    for i in range(num_blocks):
+        params[f"blocks_{i}"] = {
+            "query": dense(D, D), "key": dense(D, D), "value": dense(D, D), "dense": dense(D, D),
+            "LayerNorm_0": ln(), "Dense_0": dense(D, 4 * D), "Dense_1": dense(4 * D, D),
+            "LayerNorm_1": ln(),
+        }
+    return params
+
+
 def layout(tree, path=()) -> dict:
     """{leaf path: shape} of nested params."""
     out = {}
@@ -1883,6 +2124,24 @@ SLICES = {
                         config=HSTU_CONFIG, batch=HSTU_BATCH, flags=ODS,
                         protocol=dict(HSTU_PP_STORE_PROTOCOL, **ODS),
                         store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_ods_", host="HSTU_pp"),
+    # the roll-window models; UniSRec trains on its multiplexed host
+    # pipe only, as recboard_tpu's runner does
+    "BSARec": dict(widths=BSAREC, params=bsarec_flax_params, config=BSAREC_CONFIG,
+                   batch=BSAREC_BATCH, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
+                   store=BSAREC_STORE_NDCG10, tag="bsarec_"),
+    "BSARec_ods": dict(model="BSARec", widths=BSAREC, params=bsarec_flax_params,
+                       config=BSAREC_CONFIG, batch=BSAREC_BATCH, flags=ODS,
+                       epochs=ROLL_EPOCHS, tag="bsarec_ods_", host="BSARec"),
+    "FMLP-Rec": dict(widths=FMLP, params=fmlp_flax_params, config=FMLP_CONFIG,
+                     batch=FMLP_BATCH, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
+                     store=FMLP_STORE_NDCG10, tag="fmlp_"),
+    "FMLP-Rec_ods": dict(model="FMLP-Rec", widths=FMLP, params=fmlp_flax_params,
+                         config=FMLP_CONFIG, batch=FMLP_BATCH, flags=ODS,
+                         epochs=ROLL_EPOCHS, tag="fmlp_ods_", host="FMLP-Rec"),
+    "UniSRec": dict(widths=UNISREC, params=unisrec_flax_params, config=UNISREC_CONFIG,
+                    batch=UNISREC_BATCH, flags=FEATURES, epochs=ROLL_EPOCHS,
+                    protocol=dict(STORE_PROTOCOL, **FEATURES), store=UNISREC_STORE_NDCG10,
+                    tag="unisrec_"),
 }
 
 
@@ -1969,7 +2228,9 @@ def make_dataset():
     data_root = os.path.join(WORK, "data")
     spec = dict(DATASET)
     synthetic.make_synthetic_dataset(data_root, spec.pop("name"), **spec)
-    return NextItemRecDataSet(data_root, DATASET["name"])
+    dataset = NextItemRecDataSet(data_root, DATASET["name"])
+    synthetic.write_item_features(dataset)  # UniSRec's --tfile
+    return dataset
 
 
 def write_run(seed: int, model: str, num_items: int) -> str:
@@ -2128,19 +2389,24 @@ def counted_kernels() -> tuple:
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
                       negs_mode: str = "") -> dict:
     """Each counted kernel's launches for ``trained`` steps and ``evaluated``
-    batches of ``model``: SASRec and BERT4Rec run K2 forward and backward
-    once per block and step and K1 once per block and evaluated batch,
+    batches of ``model``: SASRec, BERT4Rec and BSARec run K2 forward and
+    backward once per block and step and K1 once per block and evaluated
+    batch, UniSRec K2 twice per block and step (two encodes) and K1 once,
     BERT4Rec K3 forward and backward once per step; HSTU runs K6 once per
     step and the forward and backward of its loss's kernel, K5 with shared
     negatives and K4 with per-position ones (no ``negs_mode``), and no
-    kernel in evaluation. No model calls K7."""
+    kernel in evaluation; FMLP-Rec has no attention and runs none. No model
+    calls K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
                     "stacked_rel_bias_bwd": 1}
         per_eval = {}
+    elif model == "FMLP-Rec":
+        per_step, per_eval = {}, {}
     else:
-        per_step = dict(mha_dropout_fwd=blocks, mha_dropout_bwd=blocks)
+        encodes = 2 if model == "UniSRec" else 1
+        per_step = dict(mha_dropout_fwd=encodes * blocks, mha_dropout_bwd=encodes * blocks)
         if model == "BERT4Rec":
             per_step.update(vocab_ce_fwd=1, vocab_ce_bwd=1)
         per_eval = dict(mha_fwd=blocks)
@@ -2168,16 +2434,23 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
                       config=spec["config"], epochs=epochs, eval_freq=1,
                       checkpoint_path=os.path.join(WORK, "infos", name), **flags)
-    counter = run.build_model(model, dataset, dict(widths, seed=seed), "cpu")
+    counter = run.build_model(model, dataset, dict(widths, seed=seed, **flags), "cpu")
     on_device = bool(flags.get("on_device_sampling"))
     if on_device:
-        sampler = run.DEVICE_SAMPLERS[model](dataset, widths["maxlen"], spec["batch"],
-                                             num_pads=counter.NUM_PADS, device="cpu")
+        sampler = run.device_sampler(counter, widths["maxlen"], spec["batch"], "cpu")
         steps = sampler.steps_per_epoch
         sizes = [spec["batch"]] * steps
-        # over the valid users' input windows (each window less its last target)
-        inputs = sampler._packed[sampler._valid_users][:, :widths["maxlen"]]
-        pad_share = float((inputs == 0).double().mean())
+        pad_share = device_pad_share(sampler, widths["maxlen"])
+    elif model in ROLL_SLICES:
+        # the roll pipe's rows, counted from the sequences rather than drawn
+        # (133k windows): one per window end 2..n of a user with n >= 2 items,
+        # min(end - 1, maxlen - 1) input items each
+        items = np.concatenate([np.minimum(np.arange(1, len(seq)), widths["maxlen"] - 1)
+                                for seq in dataset.train().user_seqs() if len(seq) >= 2])
+        B = spec["batch"]
+        sizes = [B] * (len(items) // B) + ([len(items) % B] if len(items) % B else [])
+        steps = len(sizes)
+        pad_share = float(1.0 - items.mean() / widths["maxlen"])
     else:
         batches = list(counter.sure_trainpipe(widths["maxlen"], spec["batch"]))
         sizes = [int(b[Size]) for b in batches]
@@ -2253,21 +2526,62 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     emit(f"{tag}train_serve", users=len(gpu), cpu_agree=True, tie_tol=TIE_TOL,
          float64_arbitrated=arbitrated)
     out = dict(launches=launches, run_dir=run_dir, steps=steps)
-    if model == "HSTU" and not on_device:
+    if model not in ("SASRec", "BERT4Rec") and not on_device:  # no serving phase of its own
         out["bench"] = run_bench(run_dir)
         emit(f"{tag}bench", **out["bench"])
     return out
 
 
+def device_pad_share(sampler, maxlen: int) -> float:
+    """The pad share of a device sampler's inputs: over the valid users'
+    windows less their last target, or for the roll-window sampler over
+    every (user, end) window (min(end - 1, maxlen - 1) items of maxlen)."""
+    if hasattr(sampler, "_pairs"):
+        items = (sampler._pairs[:, 1].double() - 1).clamp(max=maxlen - 1)
+        return float(1.0 - items.mean() / maxlen)
+    inputs = sampler._packed[sampler._valid_users][:, :maxlen]
+    return float((inputs == 0).double().mean())
+
+
+# time_training's cuts: steps timed one by one, and the profiled window (the
+# first steps of an epoch; the roll-window models' epochs are 260-520 steps,
+# whose profiles alone took 2-4 minutes to read back each)
+STAGED_STEPS = 100
+PROFILE_STEPS = 40
+
+
+class FirstSteps:
+    """The first ``n`` batches of a host pipe's epoch, for the Coach: the
+    pipe seeded and its first batch drawn ahead, so a window timed from the
+    first step leaves out building the epoch's rows."""
+
+    def __init__(self, pipe, n: int, seed: int, epoch: int):
+        self.it = iter(pipe.set_seed(seed).set_epoch(epoch))
+        self.first, self.n = next(self.it), n
+
+    def set_seed(self, seed: int) -> "FirstSteps":
+        return self
+
+    def set_epoch(self, epoch: int) -> "FirstSteps":
+        return self
+
+    def __iter__(self):
+        yield self.first
+        yield from itertools.islice(self.it, self.n - 1)
+
+
 def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
     """Per-step and per-epoch times of the trained run's configuration on
     the card: the host pipe alone for one epoch (or, for a device sampler,
-    drawing the epoch's batches on the card, synchronised), each step of
-    that epoch alone on batches already on the card (synchronised), one
-    whole epoch as the Coach runs it, and one more epoch under
+    drawing the epoch's batches on the card, synchronised), each of that
+    epoch's first STAGED_STEPS steps alone on batches already on the card
+    (synchronised), one whole epoch as the Coach runs it, and the first
+    PROFILE_STEPS steps of one more epoch as the Coach runs them (batches
+    made inside the window; the host pipe's first batch and a device
+    sampler's permutation, the epoch's set-up, made ahead of it) under
     torch.profiler for the device time by kernel and the device's idle
-    share. Returns the headline numbers; ``beside`` (another run's) is
-    printed next to them."""
+    share. Returns the headline numbers;
+    ``beside`` (another run's) is printed next to them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2276,7 +2590,7 @@ def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
     from recboard_tpu_torch.launcher import Coach
 
     cfg = serve.load_run_config(run_dir)
-    device = torch.device("cuda")
+    device = torch.device(CARD)
     dataset = run.load_dataset(cfg)
     model = run.build_model(cfg.model, dataset, cfg, device)
     trainpipe, validpipe, testpipe = run.build_pipes(model, cfg, device)
@@ -2296,8 +2610,9 @@ def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
         batches = list(trainpipe)
         examples = sum(int(b[Size]) for b in batches)
     pipe_s = time.perf_counter() - t0
-    if not on_device:
-        staged = [coach.to_device(b) for b in batches]
+    steps = trainpipe.steps_per_epoch if on_device else len(batches)
+    staged = staged[:STAGED_STEPS] if on_device else [
+        coach.to_device(b) for b in batches[:STAGED_STEPS]]
     for batch in staged[:3]:
         coach.train_step(batch)
     step_ms = []
@@ -2314,28 +2629,35 @@ def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     pipe = dict(device_draw_s=pipe_s) if on_device else dict(host_pipe_s=pipe_s)
-    emit(f"{phase}_time", model=cfg.model, steps=len(staged), examples=examples,
-         step_p50_ms=float(np.percentile(step_ms, 50)),
+    emit(f"{phase}_time", model=cfg.model, steps=steps, examples=examples,
+         timed_steps=len(staged), step_p50_ms=float(np.percentile(step_ms, 50)),
          step_p95_ms=float(np.percentile(step_ms, 95)),
-         device_step_s=sum(step_ms) / 1e3, epoch_s=epoch_s,
+         timed_steps_s=sum(step_ms) / 1e3, epoch_s=epoch_s,
          examples_per_s=examples / epoch_s, **pipe,
          **({"beside": beside} if beside else {}))
 
+    window = min(steps, PROFILE_STEPS)
+    if on_device:  # the epoch's permutation made ahead, as FirstSteps draws ahead
+        perm = trainpipe.set_seed(int(cfg.seed)).set_epoch(2).prepare()
+        trainpipe.prepare = lambda: perm
+        trainpipe.steps_per_epoch = window
+    else:
+        coach.trainpipe = FirstSteps(trainpipe, window, int(cfg.seed), 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         coach.train(2)
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
-    kernels = profiled_ops(prof, len(staged), device=True)
-    host = profiled_ops(prof, len(staged), device=False)
+    kernels = profiled_ops(prof, window, device=True)
+    host = profiled_ops(prof, window, device=False)
     device_us = sum(us for _, us, _ in kernels)
     out = dict(examples_per_s=examples / epoch_s, **pipe,
-               idle_share=1.0 - device_us * len(staged) / (1e6 * profiled_s),
+               idle_share=1.0 - device_us * window / (1e6 * profiled_s),
                host_us_per_step=sum(us for _, us, _ in host))
     emit(f"{phase}_profile", device_us_per_step=device_us,
-         launches_per_step=sum(n for _, _, n in kernels),
-         profiled_epoch_s=profiled_s, unprofiled_epoch_s=epoch_s,
+         launches_per_step=sum(n for _, _, n in kernels), profiled_steps=window,
+         profiled_s=profiled_s, unprofiled_epoch_s=epoch_s,
          idle_share=out["idle_share"],
          kernels=[dict(name=name[:90], us_per_step=us, per_step=n)
                   for name, us, n in kernels[:15]],
@@ -2352,10 +2674,14 @@ def store_dataset() -> tuple:
     flags it omits): (root, name)."""
     from recboard_tpu_torch.data import synthetic
 
+    from recboard_tpu_torch.data.datasets import NextItemRecDataSet
+
     data_root = os.path.join(WORK, "store_data")
     data = dict(STORE_DATASET)
     name = data.pop("name")
     synthetic.make_synthetic_dataset(data_root, name, **data)
+    # UniSRec's --tfile, as tools/seed_sweep.py writes it beside the data
+    synthetic.write_item_features(NextItemRecDataSet(data_root, name))
     return data_root, name
 
 
@@ -2388,50 +2714,69 @@ def store_run(name: str, data_root: str, store_name: str, seed: int, flags: dict
     torch.backends.cudnn.allow_tf32 = False
     spec = SLICES[name]
     t0 = time.perf_counter()
+    # a checkpoint tree per slice and seed: runs of one model in other
+    # slices may run beside this one
+    ckpt = os.path.join(WORK, "infos", f"{spec['tag']}{store_name}-s{seed}")
     best = run.main(train_argv(spec.get("model", name), data_root, store_name, seed,
-                               id=f"{spec['tag']}seed{seed}", **spec["protocol"], **flags))
+                               id=f"{spec['tag']}seed{seed}", checkpoint_path=ckpt,
+                               **spec["protocol"], **flags))
     return best["NDCG@10"], time.perf_counter() - t0
 
 
-def store_runs(name: str, seeds, concurrent: bool = False, **flags) -> tuple:
-    """The toy store's protocol for the slice ``name`` (tools/seed_sweep.py's
+def one_thread() -> None:
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
+    """The toy store's protocol for each slice of ``names`` (tools/seed_sweep.py's
     arguments for the model, and ``flags``) for each of ``seeds``, one after
     another or (``concurrent``) each in a process of its own, all started
     together (the protocol's steps are host-bound, so the card runs them
-    side by side): (best NDCG@10s, seconds)."""
+    side by side): {name: (best NDCG@10s, seconds)}."""
     import multiprocessing
 
-    spec = SLICES[name]
     data_root, store_name = store_dataset()
-    jobs = [(name, data_root, store_name, seed, flags) for seed in seeds]
+    jobs = [(name, data_root, store_name, seed, flags) for name in names for seed in seeds]
     if concurrent:
-        with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        # up to 45 processes share the host's cores: one intra-op thread each
+        with multiprocessing.get_context("spawn").Pool(len(jobs), one_thread) as pool:
             results = pool.starmap(store_run, jobs)
     else:
         results = [store_run(*job) for job in jobs]
-    for seed, (value, seconds) in zip(seeds, results):
+    out = {}
+    for (name, _, _, seed, _), (value, seconds) in zip(jobs, results):
+        spec = SLICES[name]
         emit(f"{spec['tag']}quality_seed", model=spec.get("model", name), seed=seed,
              ndcg10=value, seconds=seconds, **flags)
-    values, seconds = (list(x) for x in zip(*results))
-    return values, seconds
+        values, times = out.setdefault(name, ([], []))
+        values.append(value)
+        times.append(seconds)
+    return out
 
 
-def quality(seeds: int, name: str) -> dict:
-    """The toy store's protocol for the slice ``name`` on the card for
-    ``seeds`` seeds, each in a process of its own, all at once; the mean
-    best NDCG@10 must lie in the store's band."""
-    spec = SLICES[name]
+def quality(seeds: int, *names: str) -> dict:
+    """The toy store's protocol for each slice of ``names`` on the card for
+    ``seeds`` seeds, every seed of every slice a process of its own, all at
+    once; each mean best NDCG@10 must lie in its store's band."""
     t0 = time.perf_counter()
-    values, seconds = store_runs(name, range(seeds), concurrent=True)
-    mean = float(np.mean(values))
-    emit(f"{spec['tag']}quality", model=spec.get("model", name), dataset=STORE_DATASET["name"],
-         seeds=seeds, ndcg10=values, mean=mean, std=float(np.std(values)),
-         store_mean=spec["store"], band=STORE_BAND, protocol=spec["protocol"],
-         seconds=sum(seconds), wall_s=time.perf_counter() - t0)
-    if not abs(mean - spec["store"]) <= STORE_BAND:
-        raise SystemExit(f"{name} quality: mean NDCG@10 {mean} outside {spec['store']} "
-                         f"± {STORE_BAND}")
-    return dict(mean=mean, values=values)
+    runs = store_runs(names, range(seeds), concurrent=True)
+    out, outside = {}, []
+    for name, (values, seconds) in runs.items():
+        spec = SLICES[name]
+        mean = float(np.mean(values))
+        emit(f"{spec['tag']}quality", model=spec.get("model", name),
+             dataset=STORE_DATASET["name"], seeds=seeds, ndcg10=values, mean=mean,
+             std=float(np.std(values)), store_mean=spec["store"], band=STORE_BAND,
+             protocol=spec["protocol"], seconds=sum(seconds), processes=len(names) * seeds,
+             wall_s=time.perf_counter() - t0)
+        if not abs(mean - spec["store"]) <= STORE_BAND:
+            outside.append(f"{name}: mean NDCG@10 {mean} outside {spec['store']} ± {STORE_BAND}")
+        out[name] = dict(mean=mean, values=values)
+    if outside:
+        raise SystemExit("quality: " + "; ".join(outside))
+    return out
 
 
 def store_study(first: int, seeds: int, device: str, plain: bool) -> None:
@@ -2440,7 +2785,8 @@ def store_study(first: int, seeds: int, device: str, plain: bool) -> None:
     through K4's and K6's plain versions: each seed's best NDCG@10, then
     their mean, standard deviation and the mean's standard error."""
     with plain_hstu_ops() if plain else contextlib.nullcontext():
-        values, seconds = store_runs("HSTU_pp", range(first, first + seeds), device=device)
+        values, seconds = store_runs(("HSTU_pp",), range(first, first + seeds),
+                                     device=device)["HSTU_pp"]
     std = float(np.std(values, ddof=1)) if len(values) > 1 else 0.0
     emit("hstu_pp_quality_study", device=device, plain=plain, seeds=[first, first + seeds - 1],
          ndcg10=values, mean=float(np.mean(values)), std=std,
@@ -2496,7 +2842,7 @@ def check_hstu_pp_grads(seed: int, device: str = "cuda") -> dict:
 
 
 # the device-sampled slices; their samplers' checks; the slice resumed
-ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods")
+ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods")
 RESUME_SLICE = "HSTU_pp_ods"
 CARD = "cuda"  # the device the checks below hold against the CPU
 POOL_TOL = 1e-4  # |card - CPU| of a pool-ranking metric (a rank flip moves 1 / rows)
@@ -2525,13 +2871,43 @@ def expected_windows(seqs, width: int, offset: int = 1) -> np.ndarray:
     return out
 
 
+def expected_roll_rows(seqs, maxlen: int, num_pads: int) -> np.ndarray:
+    """(windows, 2 + maxlen) rows (user, target, input) of every (user, end)
+    window of the roll protocol, from the dataset's sequences in numpy: the
+    up to maxlen - 1 items before the target, offset and left-padded with 0;
+    a user with one item keeps one window of pads."""
+    rows = []
+    for u, seq in enumerate(seqs):
+        ends = range(2, len(seq) + 1) if len(seq) >= 2 else range(len(seq), len(seq) + 1)
+        for end in ends if seq else ():
+            row = np.zeros(2 + maxlen, dtype=np.int64)
+            items = np.asarray(seq[max(0, end - maxlen):end - 1], dtype=np.int64)
+            row[0], row[1] = u, seq[end - 1]
+            if items.size:
+                row[2 + maxlen - items.size:] = items + num_pads
+            rows.append(row)
+    return np.stack(rows)
+
+
+def rows_within(got: np.ndarray, want: np.ndarray) -> bool:
+    """Whether the rows of ``got`` are a sub-multiset of those of ``want``
+    (every window drawn at most once)."""
+    import collections
+
+    have = collections.Counter(map(bytes, np.ascontiguousarray(want, dtype=np.int64)))
+    have.subtract(map(bytes, np.ascontiguousarray(got, dtype=np.int64)))
+    return min(have.values(), default=0) >= 0
+
+
 def check_device_samplers(seed: int, dataset) -> list:
     """Each device sampler of the ``_ods`` slices at the SynBeautyXL shape on
     the card: one epoch drawn under ``torch.cuda.set_sync_debug_mode
     ("error")``; every row's window the user's train tail (inputs offset,
     targets shifted by one; HSTU's times rebased and 0 exactly at pads;
-    BERT4Rec's last maxlen items); negatives in [0, N) with their
-    collision share against the window after the retry, beside seen²/N²;
+    BERT4Rec's last maxlen items), or for the roll-window sampler one of
+    the dataset's (user, end) windows with its target, none drawn twice;
+    negatives in [0, N) with their collision share against the window (the
+    whole history for roll) after the retry, beside seen²/N²;
     the same bits for the same (seed, epoch, step), another user order in
     another epoch; the card's permutation and raw draws through the CPU
     sampler's gathers give the same fields int for int. Also printed: the
@@ -2555,9 +2931,9 @@ def check_device_samplers(seed: int, dataset) -> list:
         model, L, B = spec["model"], spec["widths"]["maxlen"], spec["batch"]
         cfg = reference_cfg(name, seed)
         net = run.build_model(model, dataset, cfg, cuda)
-        cls = run.DEVICE_SAMPLERS[model]
-        card = cls(dataset, L, B, num_pads=net.NUM_PADS, device=cuda).set_seed(seed)
-        host = cls(dataset, L, B, num_pads=net.NUM_PADS, device="cpu").set_seed(seed)
+        card = run.device_sampler(net, L, B, cuda).set_seed(seed)
+        host = run.device_sampler(net, L, B, "cpu").set_seed(seed)
+        roll = hasattr(card, "_pairs")
         steps = card.steps_per_epoch
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -2585,18 +2961,26 @@ def check_device_samplers(seed: int, dataset) -> list:
             for step in range(steps))
         users = torch.cat([b[card.User] for b in cpu]).numpy()
         iseq = torch.cat([b[card.ISeq] for b in cpu]).numpy()
-        row = dict(sampler=cls.__name__, slice=name, steps=steps, batch=B, maxlen=L,
-                   valid_users=int(card._valid_users.shape[0]),
+        row = dict(sampler=type(card).__name__, slice=name, steps=steps, batch=B, maxlen=L,
                    distinct_users=int(np.unique(users).size), draw_s=draw_s,
                    sync_debug_mode="error", same_bits=same_bits, other_epoch_order=other_order,
                    cpu_gathers_equal=cpu_equal)
-        ok = same_bits and other_order and cpu_equal and row["distinct_users"] == min(
-            steps * B, row["valid_users"])
+        ok = same_bits and other_order and cpu_equal
+        if roll:
+            # every row one of the dataset's (user, end) windows, none twice
+            ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()
+            want = expected_roll_rows(seqs, L, net.NUM_PADS)
+            row.update(windows=card.num_windows, expected_windows=len(want))
+            ok &= card.num_windows == len(want) and steps == max(1, len(want) // B)
+            ok &= rows_within(np.concatenate([users[:, None], ipos, iseq], 1), want)
+        else:
+            row["valid_users"] = int(card._valid_users.shape[0])
+            ok &= row["distinct_users"] == min(steps * B, row["valid_users"])
         if model == "BERT4Rec":
             want = expected_windows(seqs, L)
             ok &= bool(np.array_equal(iseq, np.where(want != 0, want - 1 + net.NUM_PADS,
                                                      0)[users]))
-        else:
+        elif not roll:
             window = expected_windows([s if len(s[-(L + 1):]) >= 2 else () for s in seqs],
                                       L + 1)
             want_in = np.where(window[:, :-1] != 0, window[:, :-1] - 1 + net.NUM_PADS, 0)
@@ -2612,9 +2996,10 @@ def check_device_samplers(seed: int, dataset) -> list:
                                                    0)[users]))
             ok &= not ts[iseq == 0].any()
             row["zero_times_at_items"] = int(((ts == 0) & (iseq != 0)).sum())
-        if model == "SASRec":
+        if card.INeg in batches[0]:
             negs = torch.cat([b[card.INeg] for b in cpu]).numpy()
-            packed = card._packed.cpu().numpy()[users]  # (rows, L + 1) raw + 1
+            # (rows, L + 1) raw + 1: SASRec's window; the whole history for roll
+            packed = card._packed.cpu().numpy()[users]
             ok &= bool(negs.min() >= 0 and negs.max() < N)
             row["collision_share"] = float((negs[..., None] + 1 == packed[:, None, :])
                                            .any(-1).mean())
@@ -2774,6 +3159,36 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, err: floa
     }
 
 
+def row_mask_entries(rows: list, drop_rows: list, trained: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of K1 and K2 with the per-row -1e4
+    mask at BSARec's and UniSRec's shapes (device clock), launches from
+    those models' training runs (K1 in their evaluation)."""
+    serving = {r["shape"]: r for r in rows}
+    training = {r["shape"]: r for r in drop_rows}
+    out = []
+    for model, tag in (("BSARec", "bsarec"), ("UniSRec", "unisrec")):
+        k1 = serving[f"{tag}_serving"]
+        k2 = training[f"{tag}_train"]
+        launches = trained[model]["launches"]
+        k1 = dict(k1, ms=k1["graph_ms"], library_ms=k1["library_graph_ms"])
+        k2 = dict(k2, fwd_ms=k2["fwd_graph_ms"], library_fwd_ms=k2["library_fwd_graph_ms"],
+                  bwd_ms=k2["bwd_graph_ms"])
+        out += [
+            dict(kernel_entry(f"mha_fwd@{tag}_serving", "mha_fwd.cu",
+                              "recboard_tpu/ops/attention.py:143", launches["mha_fwd"],
+                              k1["max_abs_err"], k1), masked_row_err=k1["masked_row_err"]),
+            dict(kernel_entry(f"mha_dropout_fwd@{tag}_train", "mha_dropout.cu",
+                              "recboard_tpu/ops/attention.py:316", launches["mha_dropout_fwd"],
+                              k2["max_abs_err"], k2, "fwd_"),
+                 masked_row_err=k2["masked_row_err"]),
+            dict(kernel_entry(f"mha_dropout_bwd@{tag}_train", "mha_dropout.cu",
+                              "recboard_tpu/ops/attention.py:354", launches["mha_dropout_bwd"],
+                              k2["grad_max_abs_err"], k2, "bwd_"),
+                 grad_rel_err_with_masked_rows=k2["grad_rel_err_with_masked_rows"]),
+        ]
+    return out
+
+
 # the kernels_* phases: name -> (check, offset of its seed from --seed)
 KERNEL_PHASES = {
     "mha_fwd": (check_attention, 0),
@@ -2863,26 +3278,28 @@ def main(argv=None) -> int:
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
     trained = timed("train", train_slice, args.seed, dataset, "SASRec")
     host_times = {"SASRec": timed("train_time", time_training, trained["run_dir"], "train")}
-    timed("quality", quality, STORE_SEEDS, "SASRec")
     b_slice = timed("bert4rec_slice", serve_slice, args.seed, dataset, "BERT4Rec")
     timed("bert4rec_profile", profile_bench, b_slice["run_dir"], b_slice["bench"]["p50"],
           "bert4rec_profile")
     b_trained = timed("bert4rec_train", train_slice, args.seed, dataset, "BERT4Rec")
     host_times["BERT4Rec"] = timed("bert4rec_train_time", time_training, b_trained["run_dir"],
                                    "bert4rec_train")
-    timed("bert4rec_quality", quality, STORE_SEEDS, "BERT4Rec")
     h_trained = timed("hstu_train", train_slice, args.seed, dataset, "HSTU")
     timed("hstu_profile", profile_bench, h_trained["run_dir"], h_trained["bench"]["p50"],
           "hstu_profile")
     timed("hstu_train_time", time_training, h_trained["run_dir"], "hstu_train")
-    timed("hstu_quality", quality, STORE_SEEDS, "HSTU")
     p_trained = timed("hstu_pp_train", train_slice, args.seed, dataset, "HSTU_pp")
     timed("hstu_pp_profile", profile_bench, p_trained["run_dir"], p_trained["bench"]["p50"],
           "hstu_pp_profile")
     host_times["HSTU_pp"] = timed("hstu_pp_train_time", time_training, p_trained["run_dir"],
                                   "hstu_pp_train")
     timed("hstu_pp_grads", check_hstu_pp_grads, args.seed)
-    timed("hstu_pp_quality", quality, STORE_SEEDS, "HSTU_pp")
+    roll_trained = {}
+    for name in ROLL_SLICES:
+        tag = SLICES[name]["tag"]
+        roll_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
+        host_times[name] = timed(f"{tag}train_time", time_training,
+                                 roll_trained[name]["run_dir"], f"{tag}train")
     timed("device_samplers", check_device_samplers, args.seed, dataset)
     ods = {}
     for name in ODS_SLICES:
@@ -2892,8 +3309,8 @@ def main(argv=None) -> int:
               dict(host_times[host], slice=host))
     timed("resume_check", resume_check, args.seed, dataset)
     timed("pool_check", pool_check, dataset, ods)
-    timed("sasrec_ods_quality", quality, STORE_SEEDS, "SASRec_ods")
-    timed("hstu_pp_ods_quality", quality, STORE_SEEDS, "HSTU_pp_ods")
+    # every model's band: 45 processes at once, beside each other on the card
+    timed("store_quality", quality, STORE_SEEDS, *STORE_BANDS)
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
@@ -2954,7 +3371,9 @@ def main(argv=None) -> int:
                           mask_launches, mask_rows[0]["max_abs_err"], mask_rows[0]),
              path="ops.dropout.dropout", model_path_launches=sum(
                  t["launches"]["dropout_mask"] for t in (trained, b_trained, h_trained,
-                                                          p_trained, *ods.values()))),
+                                                          p_trained, *ods.values(),
+                                                          *roll_trained.values()))),
+        *row_mask_entries(rows, drop_rows, roll_trained),
     ]}))
     emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
     print(smi)

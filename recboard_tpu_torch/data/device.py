@@ -22,12 +22,14 @@ Coach calls ``sample`` once per step (``launcher/coach.py``).
 * Nothing here synchronises the host: no ``.item()``, no boolean-mask
   indexing, no ``nonzero``; selections are ``torch.where``.
 
-Protocol notes (as in ``recboard_tpu``): users are drawn in a fresh
-permutation each epoch, ``steps_per_epoch = max(1, n // batch_size)``
-drops the remainder, and step rows are taken modulo n, which holds when
-the batch is larger than n. Negatives are uniform with one resample
-against the user's packed window (the last maxlen + 1 items), so users
-longer than the window lose exclusion for their oldest items.
+Protocol notes (as in ``recboard_tpu``): users (for the roll-window
+sampler, (user, window end) pairs) are drawn in a fresh permutation each
+epoch, ``steps_per_epoch = max(1, n // batch_size)`` drops the
+remainder, and step rows are taken modulo n, which holds when the batch
+is larger than n. Negatives are uniform with one resample against the
+user's packed window (the last maxlen + 1 items), so users longer than
+the window lose exclusion for their oldest items; the roll-window
+sampler resamples against the user's whole train history.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from .. import utils
 from .fields import Field
 from .tags import ID, ITEM, NEGATIVE, POSITIVE, SEQUENCE, TIMESTAMP, USER
 
-__all__ = ["DeviceFullSeqSampler", "DeviceSeqSampler", "DeviceTimeSeqSampler", "stream_seed"]
+__all__ = ["DeviceFullSeqSampler", "DeviceRollSeqSampler", "DeviceSeqSampler",
+           "DeviceTimeSeqSampler", "stream_seed"]
 
 _MASK64 = (1 << 64) - 1
 # the first word of each stream's mix, so permutations and draws never share one
@@ -262,4 +265,86 @@ class DeviceFullSeqSampler(_DeviceSamplerBase):
             batch[self.IPos] = (window.gather(1, slot[:, None]) - 1).to(torch.int32)
         if self.num_negatives:
             batch[self.INeg] = _resample(draws["negs"], draws["retry"], window)
+        return batch
+
+
+class DeviceRollSeqSampler(_DeviceSamplerBase):
+    """The roll-window train pipe on the device (``shuffled_roll_seqs_source``
+    + ``seq_train_yielding_pos_(-1, -1)`` + ``seq_train_sampling_neg_`` +
+    ``lpad_``), in the protocol BSARec and FMLP-Rec train with: one row per
+    (user, window end) pair, so an epoch is every window, not every user.
+    The window, target included, is capped at maxlen items: the input is
+    the up to maxlen - 1 items before the target, left-padded with 0; the
+    target is the window's last item, raw, (B, 1).
+    ``num_negatives`` K > 0 adds uniform negatives, resampled once against
+    the user's whole train history: (B, 1) for one, else (B, 1, K), as
+    the host pipe collates them.
+
+    As ``recboard_tpu``'s sampler (minlen 2, keep_at_least_itself), a user
+    with one train item keeps one row of itself (an all-pad input), which
+    the host pipe's positive yielder drops. Its Caser protocol (``num_positives`` > 1) and the right-padded one of
+    GRU4Rec, NARM and GLINT-RU (``pad_side="right"``,
+    ``window_includes_target=False``) are not ported yet."""
+
+    def __init__(self, dataset, maxlen: int, batch_size: int, num_pads: int = 0,
+                 num_negatives: int = 0, num_positives: int = 1, pad_side: str = "left",
+                 window_includes_target: bool = True,
+                 device: Optional[torch.device] = None):
+        if num_positives != 1:
+            raise NotImplementedError(
+                "DeviceRollSeqSampler: num_positives > 1 (Caser's windows) is not ported "
+                "to recboard_tpu_torch yet")
+        if pad_side != "left" or not window_includes_target:
+            raise NotImplementedError(
+                "DeviceRollSeqSampler: right-padded windows without the target "
+                "(GRU4Rec, NARM, GLINT-RU) are not ported to recboard_tpu_torch yet")
+        super().__init__(dataset, maxlen, batch_size, num_pads, device)
+        self.num_negatives = num_negatives
+        seqs = dataset.train().user_seqs()
+        # raw + 1, 0 = empty: unambiguous for the collision checks
+        packed = np.zeros((len(seqs), max((len(s) for s in seqs), default=1)), dtype=np.int32)
+        pairs = []
+        for u, seq in enumerate(seqs):
+            n = len(seq)
+            packed[u, :n] = np.asarray(seq, dtype=np.int32) + 1
+            if n >= 2:
+                pairs.extend((u, e) for e in range(2, n + 1))
+            elif n == 1:  # the window of itself (keep_at_least_itself)
+                pairs.append((u, n))
+        self._packed = torch.from_numpy(packed).to(self.device)
+        self._pairs = torch.from_numpy(
+            np.asarray(pairs, dtype=np.int32).reshape(-1, 2)).to(self.device)
+        self.num_windows = len(pairs)
+        self.steps_per_epoch = max(1, self.num_windows // batch_size)
+
+    def prepare(self) -> torch.Tensor:
+        """The epoch's permutation of the (user, end) pairs."""
+        generator = self._seeded(_PERM, self.seed, self.epoch)
+        return torch.randperm(self.num_windows, generator=generator, device=self.device)
+
+    def draws(self, step: int) -> Dict[str, torch.Tensor]:
+        if not self.num_negatives:
+            return {}
+        generator = self._seeded(_DRAWS, self.seed, self.epoch, step)
+        shape = (self.batch_size, self.num_negatives)
+        return {"negs": self._randint(generator, self.num_items, shape),
+                "retry": self._randint(generator, self.num_items, shape)}
+
+    def sample_prepared(self, perm, step, draws=None):
+        draws = self.draws(step) if draws is None else draws
+        B, L = self.batch_size, self.maxlen
+        rows = (step * B + torch.arange(B, device=self.device)) % self.num_windows
+        pairs = self._pairs[perm.to(self.device, torch.int64)[rows]].to(torch.int64)
+        users, ends = pairs[:, 0], pairs[:, 1]
+        # the input: the up to L - 1 items before the target, right-aligned
+        idx = ends[:, None] - 1 - L + torch.arange(L, device=self.device)[None, :]
+        valid = (idx >= 0) & (idx >= (ends - L).clamp_min(0)[:, None])
+        gathered = self._packed[users[:, None], idx.clamp_min(0)]
+        iseq = torch.where(valid, gathered - 1 + self.num_pads, 0)
+        ipos = self._packed[users, ends - 1][:, None] - 1  # (B, 1) raw target
+        batch = {self.User: users.to(torch.int32), self.ISeq: iseq.to(torch.int32),
+                 self.IPos: ipos.to(torch.int32)}
+        if self.num_negatives:
+            negs = _resample(draws["negs"], draws["retry"], self._packed[users])
+            batch[self.INeg] = negs if self.num_negatives == 1 else negs[:, None, :]
         return batch

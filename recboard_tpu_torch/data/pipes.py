@@ -6,12 +6,14 @@ Pipes chain functionally from a dataset view — ``view.<source>()`` then
 ``Size`` field, exactly as in ``recboard_tpu``: the same seed gives the
 same host batches in both packages.
 
-This module holds what SASRec's, BERT4Rec's and HSTU's pipes use: the
+This module holds what the ported models' pipes use: the
 shuffled-sequence training source with its shift-by-one positives and
 per-position negatives (drawn by the native sampler, ``native/``), its
-timestamped twin for HSTU, the ordered user source and the valid/test
-samplers (with their timestamped variants), and the offset/left-pad/
-right-pad/prune/batch/collate transforms.
+timestamped twin for HSTU, the rolling-window source with last-item
+targets (BSARec, FMLP-Rec, UniSRec), the ordered user source and the
+valid/test samplers (with their timestamped variants), the weighted
+multiplexer over pipes, and the offset/left-pad/right-pad/prune/mark/
+batch/collate transforms.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from .tags import (
     ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, SIZE, TIMESTAMP, UNSEEN, USER,
 )
 
-__all__ = ["DataPipe", "Size", "functional_datapipe", "VIEW_SOURCES"]
+__all__ = ["DataPipe", "SampleMultiplexer", "Size", "functional_datapipe", "VIEW_SOURCES"]
 
 Size = Field("Size", (SIZE,))
 Row = Dict[Field, Any]
@@ -165,6 +167,74 @@ class ShuffledTimeSeqsSource(_ViewPipe):
         order = self.rng().permutation(len(seqs))
         for u in order:
             yield {User: int(u), ISeq: seqs[u], Time: tuple(int(t - t0) for t in times[u])}
+
+
+@view_source("shuffled_roll_seqs_source")
+class ShuffledRollSeqsSource(_ViewPipe):
+    """Rolling prefix windows over each user sequence: for a sequence s,
+    the rows s[:minlen], s[:minlen + 1], ..., s, each capped at its last
+    ``maxlen`` items; a sequence shorter than ``minlen`` gives itself
+    (when not empty and ``keep_at_least_itself``). All rows of the view,
+    shuffled each epoch: BSARec's, FMLP-Rec's and UniSRec's source."""
+
+    def __init__(self, view, minlen: int = 2, maxlen: Optional[int] = None,
+                 keep_at_least_itself: bool = True):
+        super().__init__(view)
+        self.minlen = minlen
+        self.maxlen = maxlen
+        self.keep_at_least_itself = keep_at_least_itself
+
+    def __iter__(self) -> Iterator[Row]:
+        User, ISeq = self.User, self.Item.fork(SEQUENCE)
+        rows: List[Row] = []
+        for u, seq in enumerate(self.view.user_seqs(None)):
+            if len(seq) >= self.minlen:
+                for end in range(self.minlen, len(seq) + 1):
+                    window = seq[:end]
+                    if self.maxlen is not None:
+                        window = window[-self.maxlen:]
+                    rows.append({User: u, ISeq: window})
+            elif self.keep_at_least_itself and len(seq) > 0:
+                rows.append({User: u, ISeq: seq})
+        for i in self.rng().permutation(len(rows)):
+            yield rows[i]
+
+
+class SampleMultiplexer(DataPipe):
+    """Weighted draws over several pipes, each draw the next row of one,
+    until every pipe is exhausted (UniSRec's multi-dataset train and eval
+    pipes). The pipes are seeded seed + 1, seed + 2, ... in order."""
+
+    def __init__(self, pipes_to_weights: Dict[DataPipe, float]):
+        super().__init__(None)
+        self.pipes = list(pipes_to_weights)
+        self.weights = np.asarray([pipes_to_weights[p] for p in self.pipes], dtype=np.float64)
+
+    def set_seed(self, seed: int) -> "SampleMultiplexer":
+        self._seed = seed
+        for i, p in enumerate(self.pipes):
+            p.set_seed(seed + i + 1)
+        return self
+
+    def set_epoch(self, epoch: int) -> "SampleMultiplexer":
+        self._epoch = epoch
+        for p in self.pipes:
+            p.set_epoch(epoch)
+        return self
+
+    def __iter__(self) -> Iterator[Row]:
+        rng = self.rng()
+        iters: List[Optional[Iterator[Row]]] = [iter(p) for p in self.pipes]
+        while any(it is not None for it in iters):
+            probs = np.where([it is not None for it in iters], self.weights, 0.0)
+            total = probs.sum()
+            if total <= 0:
+                break
+            k = int(rng.choice(len(iters), p=probs / total))
+            try:
+                yield next(iters[k])  # type: ignore[arg-type]
+            except StopIteration:
+                iters[k] = None
 
 
 # ============================================================= samplers
@@ -493,6 +563,22 @@ class LeftPruner(DataPipe):
             row = dict(row)
             for f in self.modified_fields:
                 row[f] = tuple(row[f])[-self.maxlen :]
+            yield row
+
+
+@functional_datapipe("mark_")
+class Marker(DataPipe):
+    """Adds constant entries to every row or batch, keyed by strings (the
+    dataset name of UniSRec's eval batches: ``mark_(dataset=name)``)."""
+
+    def __init__(self, source, **marks):
+        super().__init__(source)
+        self.marks = marks
+
+    def __iter__(self) -> Iterator[Row]:
+        for row in self.source:
+            row = dict(row)
+            row.update(self.marks)
             yield row
 
 

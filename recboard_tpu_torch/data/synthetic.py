@@ -5,15 +5,27 @@ real datasets use: Zipf popularity, user-group affinity and a planted
 item-successor graph. The same arguments give byte-identical
 ``Processed/<name>/`` files in both packages, so the benchmark store's
 ``meta.json`` build commands rebuild the same datasets without JAX.
+
+``make_item_features`` synthesizes the item-feature table that stands in
+for text or image encodings (UniSRec's ``--tfile``), as the benchmark
+sweep does (``tools/seed_sweep.py``, ``prepare_side_inputs``): an SVD of
+the train bigraph plus noise, in numpy; nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from .. import utils
 from . import preprocessing
 
-__all__ = ["generate_interactions", "make_synthetic_dataset"]
+__all__ = ["FEATURE_FILE", "generate_interactions", "make_item_features",
+           "make_synthetic_dataset", "write_item_features"]
+
+# the feature pickle the benchmark sweep writes into a dataset's directory
+FEATURE_FILE = "sweep_feats.pkl"
 
 
 def generate_interactions(
@@ -99,3 +111,39 @@ def make_synthetic_dataset(
         kcore4item=kcore4item,
         splitting=splitting,
     )
+
+
+def make_item_features(dataset, k: int = 24) -> np.ndarray:
+    """(items, k) float32 item features: the top-k right singular vectors
+    of the row-normalised train user x item matrix, scaled by their
+    singular values, scaled to a largest |entry| of 1, plus normal(0.02)
+    noise from seed 0. Real modality features correlate with the
+    interactions; these do too. Above 5e7 matrix entries a randomized
+    range finder (Halko et al., sketch seed 1, k + 8 columns) replaces the
+    dense SVD."""
+    seqs = dataset.train().user_seqs()
+    U, I = len(seqs), dataset.fields["ITEM", "ID"].count
+    M = np.zeros((U, I), np.float32)
+    for u, seq in enumerate(seqs):
+        M[u, list(seq)] = 1.0
+    M /= np.maximum(M.sum(1, keepdims=True), 1.0) ** 0.5
+    if U * I > 50_000_000:
+        omega = np.random.default_rng(1).normal(size=(U, k + 8)).astype(np.float32)
+        Q, _ = np.linalg.qr(M @ (M.T @ omega))  # (U, k + 8) orthonormal
+        _, s, vt = np.linalg.svd(Q.T @ M, full_matrices=False)
+        s, vt = s[:k], vt[:k]
+    else:
+        _, s, vt = np.linalg.svd(M, full_matrices=False)
+    feats = (vt[:k].T * s[:k]).astype(np.float32)
+    feats /= max(np.abs(feats).max(), 1e-9)
+    feats += np.random.default_rng(0).normal(size=feats.shape).astype(np.float32) * 0.02
+    return feats
+
+
+def write_item_features(dataset) -> str:
+    """``make_item_features(dataset)`` pickled into the dataset's
+    directory as FEATURE_FILE, unless that file exists; returns its path."""
+    path = os.path.join(dataset.path, FEATURE_FILE)
+    if not os.path.isfile(path):
+        utils.export_pickle(make_item_features(dataset), path)
+    return path

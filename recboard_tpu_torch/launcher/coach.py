@@ -179,7 +179,8 @@ class Coach:
         (batch, seen ids padded with SEEN_PAD, target ids, rows). Full
         ranking pads the target ids with -1; pool ranking scores each row's
         candidates (``IUnseen``: the target, then the pool's negatives) and
-        its target is column 0."""
+        its target is column 0. A batch keeps its string-keyed marks (the
+        ``dataset`` of UniSRec's batches, ``mark_``)."""
         if mode not in self._eval_cache:
             model = self.model
             pipe.set_seed(int(self.cfg.seed))
@@ -192,6 +193,7 @@ class Coach:
                         metrics_lib.pad_ragged(seen, fill=metrics_lib.SEEN_PAD)
                     ).to(self.device)
                 batch = self.to_device(data)
+                batch.update((k, v) for k, v in data.items() if isinstance(k, str))
                 if self.ranking == "pool":
                     candidates = metrics_lib.pad_ragged(data[model.IUnseen], fill=0)
                     batch[model.IUnseen] = torch.from_numpy(candidates).to(self.device)
@@ -208,7 +210,9 @@ class Coach:
         """Ranking over the valid or test pipe: full-catalog scores with seen
         items masked unless retain_seen, or (``ranking: pool``) scores of
         each row's candidates with nothing masked; rank metrics summed per
-        batch on the device and fetched once at the end."""
+        batch on the device and fetched once at the end. A batch marked
+        with its ``dataset`` also counts under ``"<dataset>$<METRIC>"``
+        (``recboard_tpu``'s per-dataset namespaces)."""
         pipe = self.validpipe if mode == "valid" else self.testpipe
         if pipe is None:
             return
@@ -226,12 +230,17 @@ class Coach:
                 scores = metrics_lib.mask_seen(scores, seen_ids)
             valid_rows = torch.ones(rows, device=self.device)
             sums = metrics_lib.rank_metrics(scores, target_ids, wanted, valid_rows)
-            pending.append((rows, torch.stack([sums[name] for name in pool])))
+            pending.append((rows, batch.get("dataset"),
+                            torch.stack([sums[name] for name in pool])))
         if not pending:
             return
-        fetched = torch.stack([s for _, s in pending]).cpu().tolist()
-        for (rows, _), sums in zip(pending, fetched):
-            self.monitor(*[s / max(rows, 1) for s in sums], n=rows, mode=mode, pool=pool)
+        fetched = torch.stack([s for *_, s in pending]).cpu().tolist()
+        for (rows, dataset, _), sums in zip(pending, fetched):
+            values = [s / max(rows, 1) for s in sums]
+            self.monitor(*values, n=rows, mode=mode, pool=pool)
+            if dataset is not None:
+                self.monitor(*values, n=rows, mode=mode,
+                             pool=[f"{dataset}${name}" for name in pool])
 
     # -------------------------------------------------------- early stop
     def _check_best(self, summary: Dict[str, float], epoch: int) -> None:

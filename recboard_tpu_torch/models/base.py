@@ -7,21 +7,24 @@ in the pipes. Models are ``nn.Module``s; ``recommend_from_full`` and
 ``recommend_from_pool`` take a batch of tensors keyed by Field.
 ``reset_ranking_buffers`` returns the precomputed eval-time state that
 serving threads into ``recommend_from_*`` (nothing for SASRec).
+``LastItemSeqRec`` is what BSARec and FMLP-Rec share: the roll-window
+train pipe, their losses and last-position scoring.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from .. import criterions
 from ..data.datasets import RecDataSet
 from ..data.fields import Field
 from ..data.pipes import Size
 from ..data.tags import ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, UNSEEN, USER
 
-__all__ = ["Batch", "RecSysArch", "SeqRecArch"]
+__all__ = ["Batch", "LastItemSeqRec", "RecSysArch", "SeqRecArch", "last_item_loss"]
 
 Batch = Dict[Field, torch.Tensor]
 
@@ -116,3 +119,69 @@ class SeqRecArch(RecSysArch):
             .batch_(batch_size)
             .tensor_()
         )
+
+
+def last_item_loss(loss: str, q: torch.Tensor, item_embds: torch.Tensor, pos: torch.Tensor,
+                   neg: Optional[torch.Tensor]) -> torch.Tensor:
+    """The roll-window models' loss of queries ``q`` (B, D) for raw targets
+    ``pos`` (B, 1) and negatives ``neg`` (B, 1): BCE or BPR over the
+    sampled pairs, or CE over the full catalog against ``pos[:, 0]``."""
+    if loss in ("BCE", "BPR"):
+        pos_logits = torch.einsum("bd,bkd->bk", q, item_embds[pos])
+        neg_logits = torch.einsum("bd,bkd->bk", q, item_embds[neg])
+        if loss == "BCE":
+            return criterions.bce_with_logits(
+                pos_logits, torch.ones_like(pos_logits)
+            ) + criterions.bce_with_logits(neg_logits, torch.zeros_like(neg_logits))
+        return criterions.bpr_with_logits(pos_logits, neg_logits)
+    return criterions.cross_entropy_with_logits(q @ item_embds.T, pos[:, 0])
+
+
+class LastItemSeqRec(SeqRecArch):
+    """What BSARec and FMLP-Rec share: the roll-window train pipe (one row
+    per (user, window end), the window's last item the target, one
+    negative), the loss of ``last_item_loss`` and scoring of the last
+    position's encoding. Subclasses set ``loss`` and ``encode``."""
+
+    LOSSES = ("BCE", "BPR", "CE")
+    loss: str
+
+    def _check_loss(self, loss: str) -> None:
+        if loss not in self.LOSSES:
+            raise ValueError(f"{type(self).__name__}: unknown loss {loss!r}; one of "
+                             f"{', '.join(self.LOSSES)}")
+
+    def sure_trainpipe(self, maxlen: int, batch_size: int):
+        return (
+            self.dataset.train()
+            .shuffled_roll_seqs_source(minlen=2, maxlen=maxlen, keep_at_least_itself=True)
+            .seq_train_yielding_pos_(start_idx_for_target=-1, end_idx_for_input=-1)
+            .seq_train_sampling_neg_(num_negatives=1)
+            .add_(offset=self.NUM_PADS, modified_fields=(self.ISeq,))
+            .lpad_(maxlen, modified_fields=(self.ISeq,), padding_value=self.PADDING_VALUE)
+            .batch_(batch_size)
+            .tensor_()
+        )
+
+    def encode(self, data: Batch, generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def item_table(self) -> torch.Tensor:
+        return self.item_embeddings.weight[self.NUM_PADS:]
+
+    def fit(self, data: Batch, generator: torch.Generator
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of one batch, dropout drawn from ``generator``."""
+        q, item_embds = self.encode(data, generator)
+        rec_loss = last_item_loss(self.loss, q, item_embds, data[self.IPos],
+                                  data.get(self.INeg))
+        return rec_loss, {"rec_loss": rec_loss}
+
+    def recommend_from_full(self, data: Batch, buffers: Any = None) -> torch.Tensor:
+        q, item_embds = self.encode(data)
+        return q @ item_embds.T
+
+    def recommend_from_pool(self, data: Batch, buffers: Any = None) -> torch.Tensor:
+        q, item_embds = self.encode(data)
+        return torch.einsum("bd,bkd->bk", q, item_embds[data[self.IUnseen]])

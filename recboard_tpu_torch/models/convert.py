@@ -13,8 +13,11 @@ despite the suffix). The port's modules keep flax's submodule names, so
 * an Embed ``embedding`` becomes ``weight``;
 
 and ``bias`` stays ``bias``; a bare parameter that a module declares
-itself (``BARE_LEAVES``, HSTU's ``rel_bias/timestamp_weights`` and
-``position_weights``) keeps its name. ``blocks_0/q_proj/kernel`` becomes
+itself (``BARE_LEAVES``: HSTU's ``rel_bias/timestamp_weights`` and
+``position_weights``, BSARec's ``sqrt_beta`` (1, 1, D), FMLP-Rec's
+``complex_weight`` (1, L // 2 + 1, D, 2) as real/imag pairs, UniSRec's
+gates ``w_gate`` and ``w_noise`` (F, experts) and each expert's ``bias``
+(F,)) keeps its name and its flax shape. ``blocks_0/q_proj/kernel`` becomes
 ``blocks_0.q_proj.weight``. A Dense layer without a bias (HSTU's
 ``uvqk_linear``) has no bias leaf either way. Later slices add rules for
 the leaves their modules bring (BatchNorm stats).
@@ -39,7 +42,8 @@ __all__ = ["from_flax", "to_flax"]
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 # parameters declared bare by a module (flax's self.param), kept by name
-BARE_LEAVES = frozenset({"timestamp_weights", "position_weights"})
+BARE_LEAVES = frozenset({"timestamp_weights", "position_weights", "sqrt_beta",
+                         "complex_weight", "w_gate", "w_noise", "bias"})
 
 
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """The model zoo: the registry the generic runner builds models from.
-SASRec, BERT4Rec and HSTU are ported so far."""
+SASRec, BERT4Rec, HSTU, BSARec, FMLP-Rec and UniSRec are ported so far."""
 
 from typing import Dict, Type
 
@@ -17,7 +17,10 @@ def register(name: str):
     return deco
 
 
-from . import bert4rec, hstu, sasrec  # noqa: F401,E402
+from . import bert4rec, bsarec, fmlp_rec, hstu, sasrec, unisrec  # noqa: F401,E402
 from .bert4rec import BERT4Rec  # noqa: F401,E402
+from .bsarec import BSARec  # noqa: F401,E402
+from .fmlp_rec import FMLPRec  # noqa: F401,E402
 from .hstu import HSTU  # noqa: F401,E402
 from .sasrec import SASRec  # noqa: F401,E402
+from .unisrec import UniSRec  # noqa: F401,E402

@@ -18,6 +18,9 @@
 * ``mha`` — dispatch by the tensors' device: the plain versions on the
   CPU; on the GPU the training kernel when dropout is active or a
   gradient is needed, else the forward kernel, for every shape.
+* ``additive_causal_mask`` — BSARec's and UniSRec's additive -1e4 mask,
+  a bias per batch row (B, 1, L, L) that both kernels take through its
+  strides; the training kernels refuse its gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from . import _build
 __all__ = [
     "NEG_INF",
     "MhaDropout",
+    "additive_causal_mask",
     "dropout_keep_mask",
     "draw_seed",
     "mha",
@@ -42,6 +46,7 @@ __all__ = [
     "mha_dropout_reference",
     "mha_fwd",
     "mha_reference",
+    "per_row_bias",
 ]
 
 NEG_INF = -1e30
@@ -65,6 +70,19 @@ def _merge_masks(
         pad = torch.where(key_padding_mask[:, None, :], NEG_INF, 0.0).to(dtype)
         add = pad if add is None else add + pad
     return add
+
+
+def additive_causal_mask(key_padding_mask: torch.Tensor, value: float = -1.0e4) -> torch.Tensor:
+    """(B, L) True-at-pads → (B, 1, L, L) additive mask in the recbole
+    convention (tril ∧ key-valid → 0, else ``value``), as
+    ``recboard_tpu``'s ``additive_causal_mask``. With the default -1e4 a
+    fully-masked query row degrades to the plain softmax over its raw
+    scores, not zeros (BSARec and UniSRec depend on it). It is
+    data-dependent but the same for every block: build it once per
+    encode."""
+    B, L = key_padding_mask.shape
+    allowed = torch.broadcast_to(~key_padding_mask[:, None, None, :], (B, 1, L, L)).tril()
+    return torch.where(allowed, 0.0, value)
 
 
 def _probs(q, k, v, num_heads, causal, key_padding_mask, bias, scale):
@@ -307,44 +325,55 @@ def _dropout_kernels():
     fwd = lib.mha_dropout_fwd_f32
     fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, key_pad, bias
-        i64, i64, i64,  # bias strides (h, l, s)
+        i64, i64, i64, i64,  # bias strides (b, h, l, s)
         ptr, ptr, ptr,  # seed, out, lse
     ] + tail
     bwd = lib.mha_dropout_bwd_f32
     bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, dout, lse
         ptr, ptr,  # key_pad, bias
-        i64, i64, i64,  # bias strides (h, l, s)
+        i64, i64, i64, i64,  # bias strides (b, h, l, s)
         ptr, ptr, ptr, ptr, ptr,  # seed, dq, dk, dv, dbias
     ] + tail
     fwd.restype = bwd.restype = i32
     return fwd, bwd
 
 
+def per_row_bias(bias: Optional[torch.Tensor]) -> bool:
+    """Whether ``bias`` differs by batch row: 4 dims with more than one row
+    (BSARec's and UniSRec's (B, 1, L, S) mask). Every other bias the
+    training kernels take, (H, L, S) or (1, H, L, S) broadcastable, is
+    shared across the batch."""
+    return bias is not None and bias.dim() == 4 and bias.shape[0] != 1
+
+
 def _dropout_args(fn, q, k, v, num_heads, causal, key_padding_mask, bias, scale,
                   dropout_rate, seed):
-    """Checks the training kernels' inputs; returns what both launch with."""
+    """Checks the training kernels' inputs; returns what both launch with.
+    The bias is shared across the batch, broadcastable to (H, L, S) or
+    (1, H, L, S), or given per batch row, broadcastable to (B, H, L, S);
+    its strides are passed, 0 on every broadcast dimension."""
     B, L, S, H, hd = _check_qkv(fn, q, k, v, num_heads)
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"{fn}: dropout_rate must lie in [0, 1), got {dropout_rate}")
     if (seed.shape != (1,) or seed.dtype != torch.int32 or seed.device != q.device):
         raise ValueError(f"{fn}: seed must be a one-element int32 tensor on q's device")
     key_padding_mask, pad_ptr = _pad_ptr(fn, key_padding_mask, B, S, q.device)
-    bias_ptr, strides = None, (0, 0, 0)
+    bias_ptr, strides = None, (0, 0, 0, 0)
     if bias is not None:
         if bias.dtype != torch.float32 or bias.device != q.device or bias.dim() > 4:
             raise ValueError(
                 f"{fn}: bias must be a float32 tensor of at most 4 dims on q's device"
             )
-        if bias.dim() == 4:
-            if bias.shape[0] != 1:
-                raise ValueError(
-                    f"{fn}: bias must be shared across the batch: (H, L, S) "
-                    f"or (1, H, L, S), got {tuple(bias.shape)}"
-                )
-            bias = bias[0]
-        bias = torch.broadcast_to(bias, (H, L, S))
-        bias_ptr, strides = bias.data_ptr(), bias.stride()
+        if per_row_bias(bias):
+            if bias.shape[0] != B:
+                raise ValueError(f"{fn}: a per-row bias needs {B} rows, got "
+                                 f"{tuple(bias.shape)}")
+            bias = torch.broadcast_to(bias, (B, H, L, S))
+            bias_ptr, strides = bias.data_ptr(), bias.stride()
+        else:
+            bias = torch.broadcast_to(bias[0] if bias.dim() == 4 else bias, (H, L, S))
+            bias_ptr, strides = bias.data_ptr(), (0, *bias.stride())
     scale = scale if scale is not None else 1.0 / (hd**0.5)
     tail = (B, L, S, H, hd, float(scale), int(causal), _threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate))
@@ -366,8 +395,8 @@ def mha_dropout_fwd(
     """The training kernel's forward: what ``mha_dropout_reference``
     computes, plus the per-row logsumexp (B, H, L) that the backward reads
     (+inf for a row with no visible key). CUDA tensors only; bias (H, L, S)
-    or (1, H, L, S), broadcastable. ``mha_dropout_fwd.launches`` counts its
-    launches."""
+    or (1, H, L, S) shared, or (B, 1, L, S) or (B, H, L, S) per batch row,
+    broadcastable. ``mha_dropout_fwd.launches`` counts its launches."""
     pad_ptr, bias_ptr, strides, tail = _dropout_args(
         "mha_dropout_fwd", q, k, v, num_heads, causal, key_padding_mask, bias,
         scale, dropout_rate, seed,
@@ -407,8 +436,11 @@ def mha_dropout_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The training kernel's backward: (dq, dk, dv, dbias) for the output
     gradient ``dout``, given the forward's ``out`` and ``lse``. dbias is
-    (H, L, S), summed over the batch, or None unless ``need_dbias``.
-    ``mha_dropout_bwd.launches`` counts its launches."""
+    (H, L, S), summed over the batch, or None unless ``need_dbias``, which
+    a per-row bias refuses. ``mha_dropout_bwd.launches`` counts its
+    launches."""
+    if need_dbias and per_row_bias(bias):
+        raise NotImplementedError(_PER_ROW_DBIAS)
     pad_ptr, bias_ptr, strides, tail = _dropout_args(
         "mha_dropout_bwd", q, k, v, num_heads, causal, key_padding_mask, bias,
         scale, dropout_rate, seed,
@@ -440,6 +472,12 @@ def mha_dropout_bwd(
 
 
 mha_dropout_bwd.launches = 0
+
+_PER_ROW_DBIAS = (
+    "mha_dropout: a bias that differs by batch row takes no gradient (dbias is "
+    "summed over the batch, as recboard_tpu's fused kernel, which refuses such "
+    "a bias); pass it as a constant"
+)
 
 
 class MhaDropout(torch.autograd.Function):
@@ -489,6 +527,8 @@ def mha_dropout(
         if dropout_rate > 0.0:
             raise ValueError("mha_dropout: active dropout needs a seed")
         seed = torch.zeros(1, dtype=torch.int32, device=q.device)
+    if per_row_bias(bias) and bias.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(_PER_ROW_DBIAS)
     return MhaDropout.apply(q, k, v, bias, seed, key_padding_mask, num_heads,
                             causal, scale, float(dropout_rate))
 

@@ -4,14 +4,17 @@
 // Replaces the TPU kernel recboard_tpu/ops/attention.py:mha_dropout_pallas:
 // _mha_drop_fwd_kernel and _mha_drop_bwd_kernel behind the custom VJP of
 // _mha_dropout_fused. Per (batch row b, head h):
-//   x    = Q K^T * scale + causal/key-pad mask + bias[h]   (masked: x <= NEG_INF/2)
+//   x    = Q K^T * scale + causal/key-pad mask + bias[b, h]   (masked: x <= NEG_INF/2)
 //   P    = softmax(x) over the unmasked keys (a row with none gives zeros)
 //   out  = (P * keep / (1 - rate)) V
 // with keep(l, s) = bits(seed, b*H + h, l*S + s) >= threshold, a counter-based
 // hash evaluated where it is used and never stored. The hash is the one the
 // JAX kernel uses in interpret mode (_keep_mask), keyed by the batch ROW, so
 // at B = 1 the masks agree bit for bit and at B > 1 every row draws its own.
-// The backward returns dq, dk, dv and, when asked, dbias summed over the batch:
+// The bias is shared across the batch or given per batch row (BSARec's and
+// UniSRec's additive -1e4 mask, (B, 1, L, S)), read through its strides. The
+// backward returns dq, dk, dv and, when asked, dbias summed over the batch
+// (for a shared bias only):
 //   Pd    = keep ? P / (1 - rate) : 0
 //   dS    = P * ((keep ? dO V^T / (1 - rate) : 0) - delta),  delta = rowsum(dO * O)
 //   dV    = Pd^T dO,  dK = dS^T Q * scale,  dQ = dS K * scale
@@ -162,6 +165,7 @@ attn_bwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int pid = blockIdx.x;  // b*H + h: keys the dropout hash and lse's rows
   const int b = pid / H, h = pid - b * H;
+  if (sc.bias != nullptr) sc.bias += b * sc.sb;  // the batch row's bias (sb 0 if shared)
   const int64_t D = (int64_t)H * hd, head = (int64_t)h * hd;
   const int kd = (hd + 7) & ~7;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -410,19 +414,19 @@ bool bad_shape(int B, int L, int S, int H, int hd) {
 
 // q (B, L, H*hd), k and v (B, S, H*hd), out (B, L, H*hd): contiguous float32.
 // key_pad: (B, S) bytes, nonzero = masked, or null. bias: null, or a float32
-// (H, L, S) tensor read at h*sh + l*sl + s*ss (strides in elements, 0 on a
-// broadcast dimension). seed: one int32 in device memory. lse: (B, H, L)
+// tensor read at b*sb + h*sh + l*sl + s*ss (strides in elements, 0 on a
+// broadcast dimension; sb 0 where the bias is shared across the batch). seed: one int32 in device memory. lse: (B, H, L)
 // float32, written. Keeps a probability where its hash is >= threshold and
 // scales the kept ones by inv_keep. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int mha_dropout_fwd_f32(const float* q, const float* k, const float* v,
                                    const uint8_t* key_pad, const float* bias,
-                                   long long bias_sh, long long bias_sl,
+                                   long long bias_sb, long long bias_sh, long long bias_sl,
                                    long long bias_ss, const int* seed, float* out,
                                    float* lse, int B, int L, int S, int H, int hd,
                                    float scale, int causal, unsigned threshold,
                                    float inv_keep, void* stream) {
-  const Scores sc{key_pad, bias, bias_sh, bias_sl, bias_ss, scale, causal, S - L};
+  const Scores sc{key_pad, bias, bias_sh, bias_sl, bias_ss, scale, causal, S - L, bias_sb};
   return (int)attn_fwd_tc<true>(q, k, v, sc, seed, out, lse, B, L, S, H, hd, threshold,
                                 inv_keep, (cudaStream_t)stream);
 }
@@ -430,18 +434,20 @@ extern "C" int mha_dropout_fwd_f32(const float* q, const float* k, const float* 
 // The backward of mha_dropout_fwd_f32 for the same inputs, its out and lse,
 // and dout (B, L, H*hd). dq, dk and dv are written, every entry (nothing is
 // written when B or S is 0). dbias: null, or an (H, L, S) float32 tensor
-// holding zeros, to which dS summed over the batch is added.
+// holding zeros, to which dS summed over the batch is added; only for a bias
+// shared across the batch (bias_sb 0).
 extern "C" int mha_dropout_bwd_f32(const float* q, const float* k, const float* v,
                                    const float* out, const float* dout, const float* lse,
                                    const uint8_t* key_pad, const float* bias,
-                                   long long bias_sh, long long bias_sl,
+                                   long long bias_sb, long long bias_sh, long long bias_sl,
                                    long long bias_ss, const int* seed, float* dq,
                                    float* dk, float* dv, float* dbias, int B, int L,
                                    int S, int H, int hd, float scale, int causal,
                                    unsigned threshold, float inv_keep, void* stream) {
   if (bad_shape(B, L, S, H, hd)) return (int)cudaErrorInvalidValue;
+  if (dbias != nullptr && bias_sb != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
-  const Scores sc{key_pad, bias, bias_sh, bias_sl, bias_ss, scale, causal, S - L};
+  const Scores sc{key_pad, bias, bias_sh, bias_sl, bias_ss, scale, causal, S - L, bias_sb};
   const auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
   const int vec = hd % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(dout) &&
                   aligned(dq) && aligned(dk) && aligned(dv);

@@ -13,22 +13,30 @@ and leaves a run directory that ``recommend`` serves.
 
 from __future__ import annotations
 
+import functools
 import inspect
+import os
 import sys
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import yaml
 
 from . import utils
 from .data.datasets import NextItemRecDataSet, RecDataSet
-from .data.device import DeviceFullSeqSampler, DeviceSeqSampler, DeviceTimeSeqSampler
+from .data.device import (
+    DeviceFullSeqSampler,
+    DeviceRollSeqSampler,
+    DeviceSeqSampler,
+    DeviceTimeSeqSampler,
+)
 from .data.tags import TaskTag
 from .launcher import Coach
 from .models.zoo import REGISTRY
 from .parser import Parser
 
-__all__ = ["build_model", "build_pipes", "load_dataset", "main"]
+__all__ = ["build_model", "build_pipes", "device_sampler", "load_dataset", "load_feat", "main"]
 
 
 def load_dataset(cfg) -> RecDataSet:
@@ -42,10 +50,30 @@ def load_dataset(cfg) -> RecDataSet:
     return RecDataSet(cfg.root, cfg.dataset, tasktag=tag)
 
 
+def load_feat(name: str, dataset: RecDataSet, cfg, key: str) -> Optional[np.ndarray]:
+    """The float32 feature pickle that ``cfg[key]`` (``tfile``, ``vfile``)
+    names under the dataset's directory, or None when no file is named."""
+    file_ = cfg.get(key)
+    if not file_:
+        return None
+    path = os.path.join(dataset.path, file_)
+    if not os.path.isfile(path):
+        raise SystemExit(
+            f"model {name!r} needs the modality feature pickle {file_!r} under "
+            f"{dataset.path} (encode it as the reference does: "
+            "encode_amazon2023_context.ipynb / <Model>/encode_textual_features.py, or "
+            f"pass --{key} '' to drop this modality)"
+        )
+    return np.asarray(utils.import_pickle(path), dtype=np.float32)
+
+
 def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: torch.device):
     """The registered model ``name`` with its hyperparameters taken from
     ``cfg`` (keys the constructor does not take are ignored), initialised
-    from ``cfg.seed`` and placed on ``device``."""
+    from ``cfg.seed`` and placed on ``device``. A model over several
+    datasets (UniSRec) runs single-corpus here, as ``recboard_tpu``'s
+    runner runs it: ``datasets`` and ``tfeats`` become one-entry dicts of
+    this dataset and its ``--tfile`` features."""
     if name not in REGISTRY:
         raise SystemExit(
             f"model {name!r} is not ported to recboard_tpu_torch yet; "
@@ -56,16 +84,35 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
         "self", "dataset", "generator"
     }
     kwargs = {k: cfg[k] for k in fields if cfg.get(k) is not None}
+    if "datasets" in fields and kwargs.get("datasets") is None:
+        feats = load_feat(name, dataset, cfg, "tfile")
+        if feats is None:
+            raise SystemExit(
+                f"model {name!r} needs inputs the generic runner was not given:\n  "
+                "datasets: needs a dict of datasets (multi-dataset model — drive via a "
+                "script)\nSee the model's docstring for the full pipeline."
+            )
+        kwargs["datasets"] = {dataset.dataset: dataset}
+        kwargs["tfeats"] = {dataset.dataset: feats}
     generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     return cls(dataset, generator=generator, **kwargs).to(device)
 
 
 # each ported model's device sampler (recboard_tpu's build_pipes)
+_ROLL_ONE_NEGATIVE = functools.partial(DeviceRollSeqSampler, num_negatives=1)
 DEVICE_SAMPLERS = {
     "SASRec": DeviceSeqSampler,
     "HSTU": DeviceTimeSeqSampler,  # HSTU draws its negatives itself
     "BERT4Rec": DeviceFullSeqSampler,  # BERT4Rec draws its masks itself
+    "BSARec": _ROLL_ONE_NEGATIVE,  # left-padded windows that hold their target
+    "FMLP-Rec": _ROLL_ONE_NEGATIVE,
 }
+
+
+def device_sampler(model, maxlen: int, batch_size: int, device):
+    """The device sampler of ``model``'s train pipe on ``device``."""
+    return DEVICE_SAMPLERS[model.ZOO_NAME](model.dataset, maxlen=maxlen, batch_size=batch_size,
+                                           num_pads=model.NUM_PADS, device=device)
 
 
 def build_pipes(model, cfg, device: torch.device):
@@ -73,11 +120,12 @@ def build_pipes(model, cfg, device: torch.device):
     pipes, and under ``on_device_sampling`` the model's device sampler on
     ``device`` as the train pipe."""
     maxlen = int(cfg.maxlen)
-    if cfg.get("on_device_sampling"):
-        trainpipe = DEVICE_SAMPLERS[type(model).__name__](
-            model.dataset, maxlen=maxlen, batch_size=int(cfg.batch_size),
-            num_pads=model.NUM_PADS, device=device)
+    if cfg.get("on_device_sampling") and model.ZOO_NAME in DEVICE_SAMPLERS:
+        trainpipe = device_sampler(model, maxlen, int(cfg.batch_size), device)
     else:
+        if cfg.get("on_device_sampling"):  # as recboard_tpu: UniSRec's multiplexed pipe
+            utils.warnLogger(f"[run] >>> on_device_sampling unsupported for "
+                             f"{model.ZOO_NAME}; using generator pipes")
         trainpipe = model.sure_trainpipe(maxlen, int(cfg.batch_size))
     return (
         trainpipe,

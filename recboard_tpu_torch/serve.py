@@ -134,6 +134,8 @@ def main(argv: Optional[list] = None):
                 for f, v in data.items()
                 if isinstance(v, np.ndarray) and f != Size
             }
+            # string-keyed marks (UniSRec's dataset) go to the model as they are
+            batch.update((k, v) for k, v in data.items() if isinstance(k, str))
             seen = data.get(model.ISeen)
             seen_ids = (
                 pad_ragged(seen, fill=SEEN_PAD)

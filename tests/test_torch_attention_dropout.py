@@ -392,3 +392,152 @@ def test_one_tf32_product_misses_the_backward_tolerance():
                 for a, b in zip(got, want))
     assert worst > BWD_REL_TOL
     _assert_grads_within(*_emulated_grads_at_batch_one("sasrec_1x64"))
+
+
+# ---- BSARec's and UniSRec's additive -1e4 mask: a bias per batch row, and
+# query rows whose every key carries -1e4 (the plain softmax, not zeros)
+
+# On a fully masked row x = s * scale - 1e4 is rounded to a float32 ulp of
+# 2**-10 (about 9.8e-4): two correct implementations whose products differ
+# by 1e-7 can land one ulp apart there, which moves a probability by about
+# 0.1 %. Such rows are held to this share of max |v| (outputs) or of the
+# gradient's largest magnitude; every other row to OUT_TOL and GRAD_TOL.
+MASKED_ROW_TOL = 2e-3
+
+
+def _left_padded(seed, B, L, H, hd):
+    """q, k, v, an output gradient and a (B, L) left-padding mask: row 0
+    all pads, row 1 none, the rest random lengths."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g, _, _ = _inputs(seed, B, L, L, H, hd, False)
+    lengths = rng.integers(1, L + 1, size=B)
+    lengths[0], lengths[1] = 0, L
+    pad = np.arange(L)[None, :] < (L - lengths)[:, None]
+    return q, k, v, g, pad
+
+
+def test_additive_causal_mask_matches_jax():
+    *_, pad = _left_padded(0, 5, 9, 1, 4)
+    for value in (-1.0e4, -7.5):
+        want = np.asarray(A_jax.additive_causal_mask(jnp.asarray(pad), value))
+        got = A.additive_causal_mask(torch.from_numpy(pad), value)
+        assert got.shape == (5, 1, 9, 9) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("heads,hd", [(1, 16), (2, 8)])
+def test_plain_versions_give_the_plain_softmax_on_fully_masked_rows(heads, hd):
+    """With the -1e4 mask as a (B, 1, L, L) bias, ``mha_reference`` and
+    ``mha_dropout_reference`` at rate 0 give JAX's ``mha_reference``: rows
+    with a visible key within OUT_TOL, fully masked rows within
+    MASKED_ROW_TOL of max |v|, and there the plain softmax over the raw
+    scores (no mask at all), not zeros. Gradients likewise: dq on rows
+    with a visible key within GRAD_TOL, everything else within
+    MASKED_ROW_TOL of the gradient's largest magnitude; with the output
+    gradient zeroed on the masked rows, all of dq, dk, dv within GRAD_TOL."""
+    B, L = 6, 12
+    q, k, v, g, pad = _left_padded(3, B, L, heads, hd)
+    bias = A.additive_causal_mask(torch.from_numpy(pad))
+    jbias = jnp.asarray(bias.numpy())
+    masked = pad  # a left pad sees only pads: every key of its row carries the mask
+    vmax = np.abs(v).max()
+
+    def jax_fn(q_, k_, v_):
+        return A_jax.mha_reference(q_, k_, v_, heads, False, bias=jbias)
+
+    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v)))
+    want = np.asarray(want)
+    no_mask = np.asarray(A_jax.mha_reference(*(jnp.asarray(a) for a in (q, k, v)), heads, False))
+    seed = torch.zeros(1, dtype=torch.int32)
+    for fn in (lambda *t: A.mha_reference(*t, heads, False, bias=bias),
+               lambda *t: A.mha_dropout_reference(*t, heads, False, None, bias, None, 0.0, seed)):
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = fn(*ts)
+        got = out.detach().numpy()
+        np.testing.assert_allclose(got[~masked], want[~masked], atol=OUT_TOL, rtol=0)
+        assert np.abs(got[masked] - want[masked]).max() <= MASKED_ROW_TOL * vmax
+        assert np.abs(got[masked] - no_mask[masked]).max() <= MASKED_ROW_TOL * vmax
+        assert np.abs(got[0]).max() > 0.05 * vmax  # batch row 0 is all pads: not zeros
+        for dout, strict in ((g, False), (np.where(masked[..., None], 0.0, g), True)):
+            grads = torch.autograd.grad(out, ts, torch.from_numpy(dout.astype(np.float32)),
+                                        retain_graph=True)
+            wants = vjp(jnp.asarray(dout.astype(np.float32)))
+            for name, a, b in zip(("dq", "dk", "dv"), grads, wants):
+                a, b = a.numpy(), np.asarray(b)
+                if strict:
+                    np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=0, err_msg=name)
+                    continue
+                if name == "dq":
+                    np.testing.assert_allclose(a[~masked], b[~masked], atol=GRAD_TOL, rtol=0)
+                assert np.abs(a - b).max() <= MASKED_ROW_TOL * np.abs(b).max(), name
+
+
+def test_per_row_bias_changes_the_emulated_backward_row_by_row():
+    """The training kernels' arithmetic (the emulated tiles) with the -1e4
+    mask per batch row at rate 0, B > 1: the gradients of JAX's
+    ``mha_reference`` within MASKED_ROW_TOL of each gradient's largest
+    magnitude (BWD_REL_TOL with the masked rows' output gradient zeroed);
+    and each batch row reads its own mask: giving every row row 2's mask
+    changes the other rows' dq, dk and dv."""
+    B, L, H, hd = 4, 50, 1, 64
+    q, k, v, g, pad = _left_padded(5, B, L, H, hd)
+    bias = A.additive_causal_mask(torch.from_numpy(pad))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+
+    def emulated(b, dout):
+        out, lse = emulated_fwd(tq, tk, tv, H, False, None, b)
+        return emulated_bwd(tq, tk, tv, out, lse, torch.from_numpy(dout), H, False, None, b)[:3]
+
+    def jax_fn(q_, k_, v_):
+        return A_jax.mha_reference(q_, k_, v_, H, False, bias=jnp.asarray(bias.numpy()))
+
+    _, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v)))
+    _assert_grads_within(emulated(bias, g), vjp(jnp.asarray(g)), MASKED_ROW_TOL)
+    quiet = np.where(pad[..., None], 0.0, g).astype(np.float32)
+    _assert_grads_within(emulated(bias, quiet), vjp(jnp.asarray(quiet)))
+    shared = emulated(bias[2:3].expand(B, -1, -1, -1), g)
+    for got, other in zip(emulated(bias, g), shared):
+        for b in (0, 1, 3):  # the rows whose own mask differs from row 2's
+            assert not torch.allclose(got[b], other[b])
+        torch.testing.assert_close(got[2], other[2], rtol=0, atol=0)
+
+
+def test_training_kernel_takes_a_per_row_bias_through_its_strides(monkeypatch):
+    """``_dropout_args`` passes (b, h, l, s) strides: 0 on the batch for a
+    shared bias, the row stride for (B, 1, L, S) and (B, H, L, S), 0 on
+    every broadcast dimension; a per-row bias of another batch size is
+    refused (the CUDA checks of q, k and v are stubbed out here)."""
+    B, L, S, H = 3, 5, 7, 2
+    monkeypatch.setattr(A, "_check_qkv", lambda fn, q, k, v, h: (B, L, S, H, 4))
+    q = torch.zeros(B, L, H * 4)
+    seed = torch.zeros(1, dtype=torch.int32)
+
+    def strides(bias):
+        return A._dropout_args("t", q, q, q, H, False, None, bias, None, 0.0, seed)[2]
+
+    assert strides(torch.zeros(H, L, S)) == (0, L * S, S, 1)
+    assert strides(torch.zeros(1, H, L, S)) == (0, L * S, S, 1)
+    assert strides(torch.zeros(1, 1, L, S)) == (0, 0, S, 1)
+    assert strides(torch.zeros(B, 1, L, S)) == (L * S, 0, S, 1)
+    assert strides(torch.zeros(B, H, L, S)) == (H * L * S, L * S, S, 1)
+    assert A.per_row_bias(torch.zeros(B, 1, L, S))
+    assert not A.per_row_bias(torch.zeros(1, H, L, S))
+    with pytest.raises(ValueError, match="per-row bias needs 3 rows"):
+        strides(torch.zeros(2, 1, L, S))
+
+
+def test_per_row_bias_that_needs_a_gradient_is_refused_before_any_launch():
+    """dbias is summed over the batch, so a bias that differs by row and
+    requires a gradient is refused before the forward kernel (as JAX's
+    fused kernel refuses such a bias); a constant one is not refused."""
+    q = torch.zeros(2, 4, 8)
+    bias = torch.zeros(2, 1, 4, 4, requires_grad=True)
+    before = A.mha_dropout_fwd.launches
+    with pytest.raises(NotImplementedError, match="differs by batch row"):
+        A.mha_dropout(q, q, q, bias=bias)
+    with pytest.raises(NotImplementedError, match="differs by batch row"):
+        A.mha_dropout_bwd(q, q, q, q, torch.zeros(2, 1, 4), q, 1, False, None, bias.detach(),
+                          None, 0.0, torch.zeros(1, dtype=torch.int32), need_dbias=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # refused later, for the CPU
+        A.mha_dropout(q, q, q, bias=bias.detach())
+    assert A.mha_dropout_fwd.launches == before

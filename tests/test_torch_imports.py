@@ -31,7 +31,9 @@ def test_port_modules_import_without_jax():
         if not m.name.endswith(".__main__")  # runs the CLI when imported
     )
     for name in ("ops.attention", "ops.vocab_ce", "ops.losses", "ops.rel_bias", "ops.dropout",
-                 "models.zoo.bert4rec", "models.zoo.hstu", "serve", "data.device"):
+                 "models.zoo.bert4rec", "models.zoo.hstu", "models.zoo.bsarec",
+                 "models.zoo.fmlp_rec", "models.zoo.unisrec", "serve", "data.device",
+                 "data.synthetic"):
         assert f"recboard_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
