@@ -161,12 +161,23 @@ Phases, one JSON line each; any failure exits non-zero:
    whose every key carries -1e4 at MASKED_ROW_TOL and there the plain
    softmax over the raw scores, not zeros; a per-row bias that needs a
    gradient is refused before any launch.
+19. gru4rec_*, narm_*, glint_ru_*, stamp_*, fpmc_* (train, train_serve,
+   bench, train_time (not NARM, STAMP, FPMC), train_profile, quality) and
+   gru4rec_ods_* — the
+   recurrent and session models at their reference configs as written,
+   one epoch each: no launch of K1-K7 (their counters read 0; the GRU is
+   cuDNN's, named in the profiles), the trained run served GPU = CPU, its
+   ``--bench`` line, the toy store's 5-seed bands; GRU4Rec also
+   device-sampled (right-padded windows without the target) beside its
+   host pipe. Phase 17's device_samplers also checks GRU4Rec's
+   right-padded sampler and FPMC's left-padded one at NUM_PADS 0 (the pad
+   value is item 0 there).
 
-Each quality phase runs its seeds as processes of their own, all started
-together (the protocol's steps are host-bound), one intra-op thread each:
-``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17 and
-18 (``STORE_BANDS``), 45 processes at once. Each phase prints its
-seconds. Then a ``{"kernels": [...]}`` line, the
+Each quality phase runs its seeds in processes of their own side by side
+(the protocol's steps are host-bound), one intra-op thread each:
+``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18
+and 19 (``STORE_BANDS``), 70 seeds in 40 processes, the longest first.
+Each phase prints its seconds. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 1 before printing any result. Scratch files go to
 build/chip_smoke/.
@@ -349,10 +360,18 @@ HSTU_PP_STORE_NDCG10 = 0.3575
 # (data/synthetic.make_item_features) for its five corpora and their MiniLM
 # table, which cannot be downloaded
 ROLL_EPOCHS = 1
-ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec")
-# the slices whose toy-store band the whole run checks
-STORE_BANDS = ("SASRec", "BERT4Rec", "HSTU", "HSTU_pp") + ROLL_SLICES + ("SASRec_ods",
-                                                                         "HSTU_pp_ods")
+ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC")
+# the slices whose toy-store band the whole run checks, in the order the
+# band pool hands their seeds out: the longest first by a seed's seconds
+# in a whole run on an H100 80GB at 700 W (BERT4Rec's 250 epochs 183 s ...
+# FPMC 30 s; the device-sampled SASRec and per-position HSTU beside their
+# host-pipe twins), so the short ones fill the processes that free up
+STORE_BANDS = ("BERT4Rec", "UniSRec", "BSARec", "FMLP-Rec", "GRU4Rec", "GLINT-RU",
+               "HSTU_pp_ods", "HSTU_pp", "HSTU", "SASRec_ods", "SASRec", "NARM", "STAMP",
+               "FPMC")
+# the band processes at once: 45 fit beside each other on one H100 80GB,
+# 70 did not (cuBLAS could not allocate its handle)
+STORE_PROCESSES = 40
 BSAREC = dict(maxlen=50, embedding_dim=64, num_blocks=2, num_heads=1)
 BSAREC_CONFIG = os.path.join(ROOT, "configs", "BSARec_Amazon2014Beauty_550_LOU.yaml")
 BSAREC_BATCH = 256
@@ -371,6 +390,36 @@ FEATURES = dict(tfile="sweep_feats.pkl")  # data/synthetic.FEATURE_FILE
 BSAREC_STORE_NDCG10 = 0.42635
 FMLP_STORE_NDCG10 = 0.33140
 UNISREC_STORE_NDCG10 = 0.31743
+
+# The recurrent and session models, each at its
+# configs/<M>_Amazon2014Beauty_550_LOU.yaml as written and cut to one epoch
+# like the roll-window models above (same rows: one per (user, window end)):
+# GRU4Rec (D 64, H 128, 1 layer, no dropout, BCE, batch 512, Adam lr 1e-3,
+# weight decay 1e-6; the inputs the last 50 items before the target,
+# right-padded), NARM (D 64, H 64, dropouts 0.2 / 0 / 0.3, BCE, batch 512),
+# GLINT-RU (D = H = 128, 8 heads, dropouts 0.1 / 0.2, BCE, batch 2048, Adam
+# lr 1e-4), STAMP (D 64, CE over the catalog, batch 512, lr 5e-3, weight
+# decay 1e-4; left-padded windows that hold their target, as BSARec's) and
+# FPMC (D 64, BPR, batch 512, AdamW lr 5e-4; the last transition only).
+# No kernel of K1-K7 on these paths; the GRU is cuDNN's.
+GRU4REC = dict(maxlen=50, embedding_dim=64, hidden_size=128, num_blocks=1)
+GRU4REC_CONFIG = os.path.join(ROOT, "configs", "GRU4Rec_Amazon2014Beauty_550_LOU.yaml")
+NARM = dict(maxlen=50, embedding_dim=64, hidden_size=64, num_blocks=1)
+NARM_CONFIG = os.path.join(ROOT, "configs", "NARM_Amazon2014Beauty_550_LOU.yaml")
+GLINT_RU = dict(maxlen=50, embedding_dim=128, hidden_size=128, num_heads=8, num_layers=1)
+GLINT_RU_CONFIG = os.path.join(ROOT, "configs", "GLINT-RU_Amazon2014Beauty_550_LOU.yaml")
+STAMP = dict(maxlen=50, embedding_dim=64, hidden_size=64)
+STAMP_CONFIG = os.path.join(ROOT, "configs", "STAMP_Amazon2014Beauty_550_LOU.yaml")
+FPMC = dict(maxlen=50, embedding_dim=64)
+FPMC_CONFIG = os.path.join(ROOT, "configs", "FPMC_Amazon2014Beauty_550_LOU.yaml")
+# the toy store's rows (benchmark/SynBeauty_000_LOU/<M>.json, metric best:
+# 5-seed means, std 0.0077 / 0.0186 / 0.0066 / 0.0214 / 0.0068) with
+# tools/seed_sweep.py's arguments (maxlen 20) and the models' defaults
+GRU4REC_STORE_NDCG10 = 0.2434
+NARM_STORE_NDCG10 = 0.2537
+GLINT_RU_STORE_NDCG10 = 0.3771
+STAMP_STORE_NDCG10 = 0.4104
+FPMC_STORE_NDCG10 = 0.4277
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -540,7 +589,8 @@ def device_kernels(fn, calls: int) -> list:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return [(name, us / 1e3, n) for name, us, n in profiled_ops(prof, calls, device=True)]
+    return [(name, us / 1e3, n)
+            for name, us, n in profiled_ops(profile_totals(prof), calls, device=True)]
 
 
 # K4's and K5's kernels by part, forward and backward: each
@@ -1996,7 +2046,7 @@ def bert4rec_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_)
 
 
 def hstu_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, num_heads,
-                     linear_hidden_dim, attention_dim, num_buckets):
+                     linear_hidden_dim, attention_dim, num_buckets, **_):
     """HSTU params in recboard_tpu's flax layout, made with numpy: the bare
     rel_bias weights and the bias-less uvqk_linear kernel."""
     D, H = embedding_dim, num_heads
@@ -2083,6 +2133,85 @@ def unisrec_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, num_m
     return params
 
 
+def gru_cell_params(rng, fan_in: int, H: int) -> dict:
+    """A flax GRUCell under nn.RNN, made with numpy: biased input gates,
+    the hidden gates unbiased but for hn."""
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    cell = {f"i{g}": {"kernel": xavier(rng, fan_in, H), "bias": small(H)} for g in "rzn"}
+    cell.update({f"h{g}": {"kernel": xavier(rng, H, H)} for g in "rzn"})
+    cell["hn"]["bias"] = small(H)
+    return {"cell": cell}
+
+
+def gru4rec_flax_params(rng, num_items, maxlen, embedding_dim, hidden_size, num_blocks, **_):
+    """GRU4Rec params in recboard_tpu's flax layout, made with numpy: a
+    GRU cell per layer, the projection to D."""
+    D, H = embedding_dim, hidden_size
+    params = {"item_embeddings": {"embedding": xavier(rng, num_items + 1, D)},
+              "dense": {"kernel": xavier(rng, H, D),
+                        "bias": (rng.normal(size=D) * 0.02).astype(np.float32)}}
+    for i in range(num_blocks):
+        params[f"gru_{i}"] = gru_cell_params(rng, D if i == 0 else H, H)
+    return params
+
+
+def narm_flax_params(rng, num_items, maxlen, embedding_dim, hidden_size, num_blocks, **_):
+    """NARM params in recboard_tpu's flax layout, made with numpy: the GRU
+    cells and the bias-free attention (a_1, a_2, v_t) and projection b."""
+    D, H = embedding_dim, hidden_size
+    params = {"item_embeddings": {"embedding": xavier(rng, num_items + 1, D)},
+              "a_1": {"kernel": xavier(rng, H, H)}, "a_2": {"kernel": xavier(rng, H, H)},
+              "v_t": {"kernel": xavier(rng, H, 1)}, "b": {"kernel": xavier(rng, 2 * H, D)}}
+    for i in range(num_blocks):
+        params[f"gru_{i}"] = gru_cell_params(rng, D if i == 0 else H, H)
+    return params
+
+
+def glint_ru_flax_params(rng, num_items, maxlen, embedding_dim, hidden_size, num_layers, **_):
+    """GLINT-RU params in recboard_tpu's flax layout, made with numpy: the
+    Conv kernels (3, H, H), the GRU cells, the linear attention's layers and
+    LayerNorm, the bare expert ``weights`` (2,)."""
+    D, H = embedding_dim, hidden_size
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    dense = lambda i, o: {"kernel": xavier(rng, i, o), "bias": small(o)}  # noqa: E731
+    ln = lambda n: {"scale": 1.0 + small(n), "bias": small(n)}  # noqa: E731
+    conv = lambda: {"kernel": xavier(rng, 3 * H, H).reshape(3, H, H), "bias": small(H)}  # noqa: E731
+    params = {
+        "item_embeddings": {"embedding": xavier(rng, num_items + 1, D)},
+        "dense1": dense(D, H), "dense2": dense(D, H), "conv1d": conv(), "conv1dforgru": conv(),
+        "linearattention": {"query": dense(D, D), "key": dense(D, D), "value": dense(D, D),
+                            "dense": dense(D, D), "LayerNorm_0": ln(D)},
+        "weights": (0.5 + small(2)).astype(np.float32),
+        "dense_mix": dense(H, H), "dense3": dense(H, H), "dense4": dense(H, H),
+        "denseout": dense(H, D), "ln": ln(H), "proj": dense(H, H),
+        "gate_down": dense(H, H // 2), "gate_up": dense(H // 2, H),
+    }
+    for i in range(num_layers):
+        params[f"gru_{i}"] = gru_cell_params(rng, H, H)
+    return params
+
+
+def stamp_flax_params(rng, num_items, maxlen, embedding_dim, hidden_size, **_):
+    """STAMP params in recboard_tpu's flax layout, made with numpy: the
+    bias-free w0-w3, the bare ``ba`` (1, 1, D), the two MLPs."""
+    D, H = embedding_dim, hidden_size
+    normal = lambda std, *shape: (rng.normal(size=shape) * std).astype(np.float32)  # noqa: E731
+    return {"item_embeddings": {"embedding": normal(0.05, num_items + 1, D)},
+            "w1": {"kernel": normal(0.05, D, D)}, "w2": {"kernel": normal(0.05, D, D)},
+            "w3": {"kernel": normal(0.05, D, D)}, "w0": {"kernel": normal(0.05, D, 1)},
+            "ba": normal(0.05, 1, 1, D),
+            "mlp_a": {"kernel": normal(0.05, D, H), "bias": normal(0.02, H)},
+            "mlp_b": {"kernel": normal(0.05, D, H), "bias": normal(0.02, H)}}
+
+
+def fpmc_flax_params(rng, num_items, maxlen, embedding_dim, num_users, **_):
+    """FPMC params in recboard_tpu's flax layout, made with numpy: the user
+    table and the three item tables, none with a pad row."""
+    D = embedding_dim
+    return {"user_embeddings": {"embedding": xavier(rng, num_users, D)},
+            **{name: {"embedding": xavier(rng, num_items, D)} for name in ("i2u", "i2l", "l2i")}}
+
+
 def layout(tree, path=()) -> dict:
     """{leaf path: shape} of nested params."""
     out = {}
@@ -2096,8 +2225,11 @@ def layout(tree, path=()) -> dict:
 
 # each slice: its model (the key where not given), widths, random weights,
 # training config, flags and epochs (TRAIN_EPOCHS where not given), toy-store
-# protocol and quality anchor, the prefix of its phase names, and for a
-# device-sampled slice the host-pipe slice it is printed beside
+# protocol and quality anchor, the prefix of its phase names, for a
+# device-sampled slice the host-pipe slice it is printed beside, for a
+# roll-window slice its inputs (``train_slice``), and ``timings=False`` where
+# time_training times no step or epoch, only profiles (NARM, STAMP, FPMC:
+# cut since a whole run with them went over its limit)
 ODS = dict(on_device_sampling=True)
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
@@ -2142,6 +2274,26 @@ SLICES = {
                     batch=UNISREC_BATCH, flags=FEATURES, epochs=ROLL_EPOCHS,
                     protocol=dict(STORE_PROTOCOL, **FEATURES), store=UNISREC_STORE_NDCG10,
                     tag="unisrec_"),
+    # the recurrent and session models; GRU4Rec also device-sampled, and
+    # FPMC's sampler (NUM_PADS 0) checked in device_samplers
+    "GRU4Rec": dict(widths=GRU4REC, params=gru4rec_flax_params, config=GRU4REC_CONFIG,
+                    batch=512, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
+                    store=GRU4REC_STORE_NDCG10, tag="gru4rec_", inputs="uncapped"),
+    "GRU4Rec_ods": dict(model="GRU4Rec", widths=GRU4REC, params=gru4rec_flax_params,
+                        config=GRU4REC_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
+                        tag="gru4rec_ods_", host="GRU4Rec"),
+    "NARM": dict(widths=NARM, params=narm_flax_params, config=NARM_CONFIG, batch=512,
+                 epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=NARM_STORE_NDCG10,
+                 tag="narm_", inputs="uncapped", timings=False),
+    "GLINT-RU": dict(widths=GLINT_RU, params=glint_ru_flax_params, config=GLINT_RU_CONFIG,
+                     batch=2048, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
+                     store=GLINT_RU_STORE_NDCG10, tag="glint_ru_", inputs="uncapped"),
+    "STAMP": dict(widths=STAMP, params=stamp_flax_params, config=STAMP_CONFIG, batch=512,
+                  epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=STAMP_STORE_NDCG10,
+                  tag="stamp_", timings=False),
+    "FPMC": dict(widths=FPMC, params=fpmc_flax_params, config=FPMC_CONFIG, batch=512,
+                 epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=FPMC_STORE_NDCG10,
+                 tag="fpmc_", inputs="last", timings=False),
 }
 
 
@@ -2320,20 +2472,73 @@ def run_bench(run_dir: str) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def profiled_ops(prof, per: int, device: bool) -> list:
-    """(name, self µs per unit, calls per unit) of a torch.profiler run,
-    largest first: the device's kernels, or the host's operators. User
-    annotations (ranges such as ``Optimizer.step`` that enclose other
-    work) are left out, so the times add up without counting twice."""
+def profile_totals(prof) -> dict:
+    """{True: the device's, False: the host's} {name: [self µs, calls]} of
+    a torch.profiler run, counted as its ``key_averages()`` counts them but
+    in one pass over the raw events (``key_averages`` first makes a Python
+    object of every event: 3-19 s for a 40-step window): a span's self time
+    is its length less that of the spans nested directly in it on its
+    thread (a device runtime call on the thread of the operator that made
+    it); an operator nested alone in one of its own name is merged into it,
+    as the profiler's tree does; a span that ends on another thread than it
+    began counts no time; user annotations (ranges such as
+    ``Optimizer.step`` that enclose other work) are left out, so the times
+    add up without counting twice."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
 
-    want = DeviceType.CUDA if device else DeviceType.CPU
-    rows = [
-        (e.key, (e.self_device_time_total if device else e.self_cpu_time_total) / per,
-         e.count / per)
-        for e in prof.key_averages()
-        if e.device_type == want and not getattr(e, "is_user_annotation", False)
-    ]
+    spans, op_thread, names = [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if name not in names:
+            names[name] = _rewrite_name(name=name, with_wildcard=True)
+        cpu = e.device_type() == DeviceType.CPU
+        synced = not e.is_async() and e.start_thread_id() == e.end_thread_id()
+        link = e.linked_correlation_id()
+        if cpu and synced and link == 0:
+            op_thread[e.correlation_id()] = e.start_thread_id()
+        spans.append((names[name], cpu, synced,
+                      e.is_user_annotation(), e.start_ns(), e.end_ns(), e.start_thread_id(),
+                      link))
+    totals = {True: {}, False: {}}
+    threads = {}
+    for name, cpu, synced, annotation, start, end, thread, link in spans:
+        if not cpu:
+            if not annotation:
+                row = totals[True].setdefault(name, [0.0, 0])
+                row[0] += (end - start) / 1e3 if synced else 0.0
+                row[1] += 1
+        elif synced:
+            node = [name, start, end, annotation, 0, []]  # nested time, children
+            threads.setdefault(op_thread.get(link, thread) if link else thread, []).append(node)
+    for nodes in threads.values():
+        nodes.sort(key=lambda n: (n[1], -n[2]))
+        stack = []
+        for node in nodes:
+            while stack and (node[1] >= stack[-1][2] or node[2] > stack[-1][2]):
+                stack.pop()
+            if stack:
+                stack[-1][4] += node[2] - node[1]
+                stack[-1][5].append(node)
+            stack.append(node)
+        for node in nodes:
+            if node[3]:
+                continue
+            row = totals[False].setdefault(node[0], [0.0, 0])
+            row[0] += (node[2] - node[1] - node[4]) / 1e3
+            row[1] += 1
+            for child in node[5]:  # merged into its parent: its time stays, its call goes
+                if len(node[5]) == 1 and child[0] == node[0] and not child[3]:
+                    row[1] -= 1
+    return totals
+
+
+def profiled_ops(totals: dict, per: int, device: bool) -> list:
+    """(name, self µs per unit, calls per unit) from ``profile_totals``,
+    largest first: the device's kernels, or the host's operators."""
+    rows = [(name, us / per, n / per) for name, (us, n) in totals[device].items()]
     return sorted(rows, key=lambda row: -row[1])
 
 
@@ -2345,7 +2550,7 @@ def profile_bench(run_dir: str, p50_ms: float, phase: str) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         bench = run_bench(run_dir)
-    kernels = profiled_ops(prof, 2 * bench["batches"], device=True)
+    kernels = profiled_ops(profile_totals(prof), 2 * bench["batches"], device=True)
     device_us = sum(us for _, us, _ in kernels)
     emit(phase, device_us_per_batch=device_us,
          launches_per_batch=sum(n for _, _, n in kernels),
@@ -2386,6 +2591,10 @@ def counted_kernels() -> tuple:
             Dr.dropout_mask)
 
 
+# the ported models whose paths reach none of K1-K7
+KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC")
+
+
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
                       negs_mode: str = "") -> dict:
     """Each counted kernel's launches for ``trained`` steps and ``evaluated``
@@ -2395,14 +2604,14 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
     BERT4Rec K3 forward and backward once per step; HSTU runs K6 once per
     step and the forward and backward of its loss's kernel, K5 with shared
     negatives and K4 with per-position ones (no ``negs_mode``), and no
-    kernel in evaluation; FMLP-Rec has no attention and runs none. No model
-    calls K7."""
+    kernel in evaluation; the models of KERNEL_FREE (FMLP-Rec, GRU4Rec, NARM,
+    GLINT-RU, STAMP, FPMC) run none. No model calls K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
                     "stacked_rel_bias_bwd": 1}
         per_eval = {}
-    elif model == "FMLP-Rec":
+    elif model in KERNEL_FREE:
         per_step, per_eval = {}, {}
     else:
         encodes = 2 if model == "UniSRec" else 1
@@ -2444,13 +2653,18 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     elif model in ROLL_SLICES:
         # the roll pipe's rows, counted from the sequences rather than drawn
         # (133k windows): one per window end 2..n of a user with n >= 2 items,
-        # min(end - 1, maxlen - 1) input items each
-        items = np.concatenate([np.minimum(np.arange(1, len(seq)), widths["maxlen"] - 1)
+        # min(end - 1, cap) input items of ``width`` each: cap maxlen - 1 where
+        # the window holds its target (BSARec's), maxlen where it is uncapped
+        # (GRU4Rec's), one item of one for FPMC's last transition
+        L = widths["maxlen"]
+        cap, width = {"capped": (L - 1, L), "uncapped": (L, L), "last": (1, 1)}[
+            spec.get("inputs", "capped")]
+        items = np.concatenate([np.minimum(np.arange(1, len(seq)), cap)
                                 for seq in dataset.train().user_seqs() if len(seq) >= 2])
         B = spec["batch"]
         sizes = [B] * (len(items) // B) + ([len(items) % B] if len(items) % B else [])
         steps = len(sizes)
-        pad_share = float(1.0 - items.mean() / widths["maxlen"])
+        pad_share = float(1.0 - items.mean() / width)
     else:
         batches = list(counter.sure_trainpipe(widths["maxlen"], spec["batch"]))
         sizes = [int(b[Size]) for b in batches]
@@ -2490,7 +2704,7 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     trained = steps * epochs
     # valid after every epoch and at the end; test at the end and at the best
     evaluated = (epochs + 1) * n_valid + 2 * n_test
-    want = expected_launches(model, widths["num_blocks"], trained, evaluated,
+    want = expected_launches(model, widths.get("num_blocks", 0), trained, evaluated,
                              flags.get("negs_mode", ""))
     emit(f"{tag}train", model=model, config=spec["config"], flags=flags,
          dataset=DATASET["name"], epochs=epochs, steps_per_epoch=steps,
@@ -2507,7 +2721,8 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     with open(os.path.join(cfg.CHECKPOINT_PATH, cfg.BEST_FILENAME), "rb") as fh:
         params = pickle.load(fh)["params"]
     flax_layout = layout(spec["params"](np.random.default_rng(0),
-                                        dataset.fields["ITEM", "ID"].count, **widths))
+                                        dataset.fields["ITEM", "ID"].count,
+                                        num_users=dataset.fields["USER", "ID"].count, **widths))
     if layout(params) != flax_layout:
         raise SystemExit(f"{model} train: the best checkpoint is not in the flax layout")
 
@@ -2535,9 +2750,11 @@ def train_slice(seed: int, dataset, name: str) -> dict:
 def device_pad_share(sampler, maxlen: int) -> float:
     """The pad share of a device sampler's inputs: over the valid users'
     windows less their last target, or for the roll-window sampler over
-    every (user, end) window (min(end - 1, maxlen - 1) items of maxlen)."""
+    every (user, end) window (min(end - 1, maxlen - 1) items of maxlen, or
+    min(end - 1, maxlen) for windows without their target)."""
     if hasattr(sampler, "_pairs"):
-        items = (sampler._pairs[:, 1].double() - 1).clamp(max=maxlen - 1)
+        cap = maxlen - 1 if sampler.window_includes_target else maxlen
+        items = (sampler._pairs[:, 1].double() - 1).clamp(max=cap)
         return float(1.0 - items.mean() / maxlen)
     inputs = sampler._packed[sampler._valid_users][:, :maxlen]
     return float((inputs == 0).double().mean())
@@ -2570,7 +2787,7 @@ class FirstSteps:
         yield from itertools.islice(self.it, self.n - 1)
 
 
-def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
+def time_training(run_dir: str, phase: str, beside: dict = None, timings: bool = True) -> dict:
     """Per-step and per-epoch times of the trained run's configuration on
     the card: the host pipe alone for one epoch (or, for a device sampler,
     drawing the epoch's batches on the card, synchronised), each of that
@@ -2580,8 +2797,9 @@ def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
     made inside the window; the host pipe's first batch and a device
     sampler's permutation, the epoch's set-up, made ahead of it) under
     torch.profiler for the device time by kernel and the device's idle
-    share. Returns the headline numbers;
-    ``beside`` (another run's) is printed next to them."""
+    share. Without ``timings`` no step or epoch is timed: the pipe's epoch
+    and three steps of warm-up, then the profile. Returns the headline
+    numbers; ``beside`` (another run's) is printed next to them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2615,26 +2833,28 @@ def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
         coach.to_device(b) for b in batches[:STAGED_STEPS]]
     for batch in staged[:3]:
         coach.train_step(batch)
-    step_ms = []
-    for batch in staged:
+    out = dict(device_draw_s=pipe_s) if on_device else dict(host_pipe_s=pipe_s)
+    epoch_s = None
+    if timings:
+        step_ms = []
+        for batch in staged:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coach.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        coach.train_step(batch)
+        coach.train(1)
         torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    coach.train(1)
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    pipe = dict(device_draw_s=pipe_s) if on_device else dict(host_pipe_s=pipe_s)
-    emit(f"{phase}_time", model=cfg.model, steps=steps, examples=examples,
-         timed_steps=len(staged), step_p50_ms=float(np.percentile(step_ms, 50)),
-         step_p95_ms=float(np.percentile(step_ms, 95)),
-         timed_steps_s=sum(step_ms) / 1e3, epoch_s=epoch_s,
-         examples_per_s=examples / epoch_s, **pipe,
-         **({"beside": beside} if beside else {}))
+        epoch_s = time.perf_counter() - t0
+        out["examples_per_s"] = examples / epoch_s
+        emit(f"{phase}_time", model=cfg.model, steps=steps, examples=examples,
+             timed_steps=len(staged), step_p50_ms=float(np.percentile(step_ms, 50)),
+             step_p95_ms=float(np.percentile(step_ms, 95)),
+             timed_steps_s=sum(step_ms) / 1e3, epoch_s=epoch_s, **out,
+             **({"beside": beside} if beside else {}))
 
     window = min(steps, PROFILE_STEPS)
     if on_device:  # the epoch's permutation made ahead, as FirstSteps draws ahead
@@ -2649,11 +2869,13 @@ def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
         coach.train(2)
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
-    kernels = profiled_ops(prof, window, device=True)
-    host = profiled_ops(prof, window, device=False)
+    t0 = time.perf_counter()
+    totals = profile_totals(prof)
+    kernels = profiled_ops(totals, window, device=True)
+    host = profiled_ops(totals, window, device=False)
+    parse_s = time.perf_counter() - t0
     device_us = sum(us for _, us, _ in kernels)
-    out = dict(examples_per_s=examples / epoch_s, **pipe,
-               idle_share=1.0 - device_us * window / (1e6 * profiled_s),
+    out.update(idle_share=1.0 - device_us * window / (1e6 * profiled_s),
                host_us_per_step=sum(us for _, us, _ in host))
     emit(f"{phase}_profile", device_us_per_step=device_us,
          launches_per_step=sum(n for _, _, n in kernels), profiled_steps=window,
@@ -2663,7 +2885,7 @@ def time_training(run_dir: str, phase: str, beside: dict = None) -> dict:
                   for name, us, n in kernels[:15]],
          host_us_per_step=out["host_us_per_step"],
          host_ops=[dict(name=name[:60], self_us_per_step=us, per_step=n)
-                   for name, us, n in host[:12]],
+                   for name, us, n in host[:12]], profiler_parse_s=parse_s,
          **({"beside": beside} if beside else {}))
     return out
 
@@ -2732,17 +2954,22 @@ def one_thread() -> None:
 def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
     """The toy store's protocol for each slice of ``names`` (tools/seed_sweep.py's
     arguments for the model, and ``flags``) for each of ``seeds``, one after
-    another or (``concurrent``) each in a process of its own, all started
-    together (the protocol's steps are host-bound, so the card runs them
-    side by side): {name: (best NDCG@10s, seconds)}."""
+    another or (``concurrent``) in up to STORE_PROCESSES processes side by
+    side, each taking the next seed in the order of ``names`` when it is
+    done (the protocol's steps are host-bound, so the card runs them side
+    by side): {name: (best NDCG@10s, seconds)}."""
     import multiprocessing
+
+    import torch
 
     data_root, store_name = store_dataset()
     jobs = [(name, data_root, store_name, seed, flags) for name in names for seed in seeds]
     if concurrent:
-        # up to 45 processes share the host's cores: one intra-op thread each
-        with multiprocessing.get_context("spawn").Pool(len(jobs), one_thread) as pool:
-            results = pool.starmap(store_run, jobs)
+        torch.cuda.empty_cache()  # the card's memory for the processes' contexts
+        # the processes share the host's cores: one intra-op thread each
+        with multiprocessing.get_context("spawn").Pool(min(len(jobs), STORE_PROCESSES),
+                                                       one_thread) as pool:
+            results = pool.starmap(store_run, jobs, chunksize=1)
     else:
         results = [store_run(*job) for job in jobs]
     out = {}
@@ -2758,8 +2985,8 @@ def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
 
 def quality(seeds: int, *names: str) -> dict:
     """The toy store's protocol for each slice of ``names`` on the card for
-    ``seeds`` seeds, every seed of every slice a process of its own, all at
-    once; each mean best NDCG@10 must lie in its store's band."""
+    ``seeds`` seeds, up to STORE_PROCESSES seeds at once; each mean best
+    NDCG@10 must lie in its store's band."""
     t0 = time.perf_counter()
     runs = store_runs(names, range(seeds), concurrent=True)
     out, outside = {}, []
@@ -2769,8 +2996,8 @@ def quality(seeds: int, *names: str) -> dict:
         emit(f"{spec['tag']}quality", model=spec.get("model", name),
              dataset=STORE_DATASET["name"], seeds=seeds, ndcg10=values, mean=mean,
              std=float(np.std(values)), store_mean=spec["store"], band=STORE_BAND,
-             protocol=spec["protocol"], seconds=sum(seconds), processes=len(names) * seeds,
-             wall_s=time.perf_counter() - t0)
+             protocol=spec["protocol"], seconds=sum(seconds),
+             processes=min(len(names) * seeds, STORE_PROCESSES), wall_s=time.perf_counter() - t0)
         if not abs(mean - spec["store"]) <= STORE_BAND:
             outside.append(f"{name}: mean NDCG@10 {mean} outside {spec['store']} ± {STORE_BAND}")
         out[name] = dict(mean=mean, values=values)
@@ -2842,7 +3069,9 @@ def check_hstu_pp_grads(seed: int, device: str = "cuda") -> dict:
 
 
 # the device-sampled slices; their samplers' checks; the slice resumed
-ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods")
+ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods",
+              "GRU4Rec_ods")
+SAMPLER_SLICES = ODS_SLICES + ("FPMC",)
 RESUME_SLICE = "HSTU_pp_ods"
 CARD = "cuda"  # the device the checks below hold against the CPU
 POOL_TOL = 1e-4  # |card - CPU| of a pool-ranking metric (a rank flip moves 1 / rows)
@@ -2871,19 +3100,25 @@ def expected_windows(seqs, width: int, offset: int = 1) -> np.ndarray:
     return out
 
 
-def expected_roll_rows(seqs, maxlen: int, num_pads: int) -> np.ndarray:
+def expected_roll_rows(seqs, maxlen: int, num_pads: int, right_padded: bool = False
+                       ) -> np.ndarray:
     """(windows, 2 + maxlen) rows (user, target, input) of every (user, end)
     window of the roll protocol, from the dataset's sequences in numpy: the
-    up to maxlen - 1 items before the target, offset and left-padded with 0;
-    a user with one item keeps one window of pads."""
+    up to maxlen - 1 items before the target, offset and left-padded with 0
+    (BSARec's), or (``right_padded``) the up to maxlen items before it,
+    offset and right-padded (GRU4Rec's); a user with one item keeps one
+    window of pads."""
     rows = []
     for u, seq in enumerate(seqs):
         ends = range(2, len(seq) + 1) if len(seq) >= 2 else range(len(seq), len(seq) + 1)
         for end in ends if seq else ():
             row = np.zeros(2 + maxlen, dtype=np.int64)
-            items = np.asarray(seq[max(0, end - maxlen):end - 1], dtype=np.int64)
+            first = max(0, end - 1 - maxlen) if right_padded else max(0, end - maxlen)
+            items = np.asarray(seq[first:end - 1], dtype=np.int64)
             row[0], row[1] = u, seq[end - 1]
-            if items.size:
+            if items.size and right_padded:
+                row[2:2 + items.size] = items + num_pads
+            elif items.size:
                 row[2 + maxlen - items.size:] = items + num_pads
             rows.append(row)
     return np.stack(rows)
@@ -2900,9 +3135,10 @@ def rows_within(got: np.ndarray, want: np.ndarray) -> bool:
 
 
 def check_device_samplers(seed: int, dataset) -> list:
-    """Each device sampler of the ``_ods`` slices at the SynBeautyXL shape on
-    the card: one epoch drawn under ``torch.cuda.set_sync_debug_mode
-    ("error")``; every row's window the user's train tail (inputs offset,
+    """Each device sampler of SAMPLER_SLICES (the ``_ods`` slices' and
+    FPMC's, whose NUM_PADS is 0) at the SynBeautyXL shape on the card:
+    one epoch drawn under ``torch.cuda.set_sync_debug_mode ("error")``;
+    every row's window the user's train tail (inputs offset,
     targets shifted by one; HSTU's times rebased and 0 exactly at pads;
     BERT4Rec's last maxlen items), or for the roll-window sampler one of
     the dataset's (user, end) windows with its target, none drawn twice;
@@ -2926,9 +3162,9 @@ def check_device_samplers(seed: int, dataset) -> list:
     t0 = min(t[0] for t in times if t)
     N = dataset.fields["ITEM", "ID"].count
     rows = []
-    for name in ODS_SLICES:
+    for name in SAMPLER_SLICES:
         spec = SLICES[name]
-        model, L, B = spec["model"], spec["widths"]["maxlen"], spec["batch"]
+        model, L, B = spec.get("model", name), spec["widths"]["maxlen"], spec["batch"]
         cfg = reference_cfg(name, seed)
         net = run.build_model(model, dataset, cfg, cuda)
         card = run.device_sampler(net, L, B, cuda).set_seed(seed)
@@ -2969,8 +3205,10 @@ def check_device_samplers(seed: int, dataset) -> list:
         if roll:
             # every row one of the dataset's (user, end) windows, none twice
             ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()
-            want = expected_roll_rows(seqs, L, net.NUM_PADS)
-            row.update(windows=card.num_windows, expected_windows=len(want))
+            want = expected_roll_rows(seqs, L, net.NUM_PADS,
+                                      right_padded=card.pad_side == "right")
+            row.update(windows=card.num_windows, expected_windows=len(want),
+                       pad_side=card.pad_side, num_pads=net.NUM_PADS)
             ok &= card.num_windows == len(want) and steps == max(1, len(want) // B)
             ok &= rows_within(np.concatenate([users[:, None], ipos, iseq], 1), want)
         else:
@@ -3021,7 +3259,7 @@ def check_device_samplers(seed: int, dataset) -> list:
         emit("device_samplers", **row)
         rows.append(row)
         if not ok:
-            raise SystemExit(f"{cls.__name__} on the card: {row}")
+            raise SystemExit(f"{row['sampler']} on the card: {row}")
     return rows
 
 
@@ -3134,7 +3372,7 @@ def pool_check(dataset, trained: dict) -> list:
                             {fn.__name__: fn.launches for fn in counted_kernels()}))
         batches = len(coach._eval_cache["valid"])
         (card, card_s, launches), (cpu, cpu_s, cpu_launches) = results
-        want = expected_launches(cfg.model, spec["widths"]["num_blocks"], 0, batches)
+        want = expected_launches(cfg.model, spec["widths"].get("num_blocks", 0), 0, batches)
         err = max(abs(card[k] - v) for k, v in cpu.items())
         row = dict(slice=name, batches=batches, metrics=card, cpu_metrics=cpu,
                    max_abs_diff=err, tol=POOL_TOL, launches=launches, expected_launches=want,
@@ -3299,7 +3537,8 @@ def main(argv=None) -> int:
         tag = SLICES[name]["tag"]
         roll_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
         host_times[name] = timed(f"{tag}train_time", time_training,
-                                 roll_trained[name]["run_dir"], f"{tag}train")
+                                 roll_trained[name]["run_dir"], f"{tag}train", None,
+                                 SLICES[name].get("timings", True))
     timed("device_samplers", check_device_samplers, args.seed, dataset)
     ods = {}
     for name in ODS_SLICES:
@@ -3309,7 +3548,7 @@ def main(argv=None) -> int:
               dict(host_times[host], slice=host))
     timed("resume_check", resume_check, args.seed, dataset)
     timed("pool_check", pool_check, dataset, ods)
-    # every model's band: 45 processes at once, beside each other on the card
+    # every model's band: 70 seeds, 40 processes at once, beside each other on the card
     timed("store_quality", quality, STORE_SEEDS, *STORE_BANDS)
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]

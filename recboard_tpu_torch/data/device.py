@@ -270,21 +270,29 @@ class DeviceFullSeqSampler(_DeviceSamplerBase):
 
 class DeviceRollSeqSampler(_DeviceSamplerBase):
     """The roll-window train pipe on the device (``shuffled_roll_seqs_source``
-    + ``seq_train_yielding_pos_(-1, -1)`` + ``seq_train_sampling_neg_`` +
-    ``lpad_``), in the protocol BSARec and FMLP-Rec train with: one row per
-    (user, window end) pair, so an epoch is every window, not every user.
-    The window, target included, is capped at maxlen items: the input is
-    the up to maxlen - 1 items before the target, left-padded with 0; the
-    target is the window's last item, raw, (B, 1).
+    + ``seq_train_yielding_pos_(-1[, -1])`` + ``seq_train_sampling_neg_`` +
+    ``lpad_`` / ``rpad_``): one row per (user, window end) pair, so an epoch
+    is every window, not every user. The target is the window's last item,
+    raw, (B, 1); the input is the items before it, offset, in one of two
+    protocols:
+
+    * ``window_includes_target=True`` (BSARec, FMLP-Rec, STAMP, FPMC): the
+      window, target included, is capped at maxlen items, so the input is
+      the up to maxlen - 1 items before the target;
+    * ``window_includes_target=False`` (GRU4Rec, NARM, GLINT-RU): the window
+      is uncapped and the input ``lprune_``'d to the last maxlen items
+      before the target;
+
+    left-padded with 0 (``pad_side="left"``, right-aligned) or right-padded
+    (``pad_side="right"``, left-aligned).
     ``num_negatives`` K > 0 adds uniform negatives, resampled once against
     the user's whole train history: (B, 1) for one, else (B, 1, K), as
     the host pipe collates them.
 
     As ``recboard_tpu``'s sampler (minlen 2, keep_at_least_itself), a user
     with one train item keeps one row of itself (an all-pad input), which
-    the host pipe's positive yielder drops. Its Caser protocol (``num_positives`` > 1) and the right-padded one of
-    GRU4Rec, NARM and GLINT-RU (``pad_side="right"``,
-    ``window_includes_target=False``) are not ported yet."""
+    the host pipe's positive yielder drops. Its Caser protocol
+    (``num_positives`` > 1) is not ported yet."""
 
     def __init__(self, dataset, maxlen: int, batch_size: int, num_pads: int = 0,
                  num_negatives: int = 0, num_positives: int = 1, pad_side: str = "left",
@@ -294,10 +302,10 @@ class DeviceRollSeqSampler(_DeviceSamplerBase):
             raise NotImplementedError(
                 "DeviceRollSeqSampler: num_positives > 1 (Caser's windows) is not ported "
                 "to recboard_tpu_torch yet")
-        if pad_side != "left" or not window_includes_target:
-            raise NotImplementedError(
-                "DeviceRollSeqSampler: right-padded windows without the target "
-                "(GRU4Rec, NARM, GLINT-RU) are not ported to recboard_tpu_torch yet")
+        if pad_side not in ("left", "right"):
+            raise ValueError(f"DeviceRollSeqSampler: pad_side {pad_side!r}, not left or right")
+        self.pad_side = pad_side
+        self.window_includes_target = window_includes_target
         super().__init__(dataset, maxlen, batch_size, num_pads, device)
         self.num_negatives = num_negatives
         seqs = dataset.train().user_seqs()
@@ -336,10 +344,17 @@ class DeviceRollSeqSampler(_DeviceSamplerBase):
         rows = (step * B + torch.arange(B, device=self.device)) % self.num_windows
         pairs = self._pairs[perm.to(self.device, torch.int64)[rows]].to(torch.int64)
         users, ends = pairs[:, 0], pairs[:, 1]
-        # the input: the up to L - 1 items before the target, right-aligned
-        idx = ends[:, None] - 1 - L + torch.arange(L, device=self.device)[None, :]
-        valid = (idx >= 0) & (idx >= (ends - L).clamp_min(0)[:, None])
-        gathered = self._packed[users[:, None], idx.clamp_min(0)]
+        # the input: the up to eff items before the target (index ends - 1)
+        eff = L - 1 if self.window_includes_target else L
+        lo = (ends - 1 - eff).clamp_min(0)  # the first input index
+        slots = torch.arange(L, device=self.device)[None, :]
+        if self.pad_side == "right":  # left-aligned from lo
+            idx = lo[:, None] + slots
+            valid = idx < ends[:, None] - 1
+        else:  # right-aligned, ending before the target
+            idx = ends[:, None] - 1 - L + slots
+            valid = (idx >= 0) & (idx >= lo[:, None])
+        gathered = self._packed[users[:, None], idx.clamp(0, self._packed.shape[1] - 1)]
         iseq = torch.where(valid, gathered - 1 + self.num_pads, 0)
         ipos = self._packed[users, ends - 1][:, None] - 1  # (B, 1) raw target
         batch = {self.User: users.to(torch.int32), self.ISeq: iseq.to(torch.int32),

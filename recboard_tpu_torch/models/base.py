@@ -7,8 +7,10 @@ in the pipes. Models are ``nn.Module``s; ``recommend_from_full`` and
 ``recommend_from_pool`` take a batch of tensors keyed by Field.
 ``reset_ranking_buffers`` returns the precomputed eval-time state that
 serving threads into ``recommend_from_*`` (nothing for SASRec).
-``LastItemSeqRec`` is what BSARec and FMLP-Rec share: the roll-window
-train pipe, their losses and last-position scoring.
+``LastItemSeqRec`` is what BSARec, FMLP-Rec, STAMP and FPMC share: the
+roll-window train pipe, their losses and last-position scoring;
+``RightPaddedSeqRec`` is GRU4Rec's, NARM's and GLINT-RU's variant, on
+right-padded windows without the target.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from ..data.fields import Field
 from ..data.pipes import Size
 from ..data.tags import ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, UNSEEN, USER
 
-__all__ = ["Batch", "LastItemSeqRec", "RecSysArch", "SeqRecArch", "last_item_loss"]
+__all__ = ["Batch", "LastItemSeqRec", "RecSysArch", "RightPaddedSeqRec", "SeqRecArch",
+           "last_item_loss"]
 
 Batch = Dict[Field, torch.Tensor]
 
@@ -138,10 +141,10 @@ def last_item_loss(loss: str, q: torch.Tensor, item_embds: torch.Tensor, pos: to
 
 
 class LastItemSeqRec(SeqRecArch):
-    """What BSARec and FMLP-Rec share: the roll-window train pipe (one row
-    per (user, window end), the window's last item the target, one
-    negative), the loss of ``last_item_loss`` and scoring of the last
-    position's encoding. Subclasses set ``loss`` and ``encode``."""
+    """What BSARec, FMLP-Rec, STAMP and FPMC share: the roll-window train
+    pipe (one row per (user, window end), the window's last item the
+    target, one negative), the loss of ``last_item_loss`` and scoring of
+    the query ``encode`` makes. Subclasses set ``loss`` and ``encode``."""
 
     LOSSES = ("BCE", "BPR", "CE")
     loss: str
@@ -185,3 +188,35 @@ class LastItemSeqRec(SeqRecArch):
     def recommend_from_pool(self, data: Batch, buffers: Any = None) -> torch.Tensor:
         q, item_embds = self.encode(data)
         return torch.einsum("bd,bkd->bk", q, item_embds[data[self.IUnseen]])
+
+
+class RightPaddedSeqRec(LastItemSeqRec):
+    """GRU4Rec's, NARM's and GLINT-RU's pipes: the roll windows uncapped,
+    the target their last item, the input the up to ``maxlen`` items before
+    it (``lprune_``), offset and right-padded; evaluation right-padded too.
+    ``encode`` reads the position ``lengths - 1``
+    (``modules.last_position``)."""
+
+    def _rpad(self, pipe, maxlen: int):
+        return (
+            pipe.lprune_(maxlen, modified_fields=(self.ISeq,))
+            .add_(self.NUM_PADS, modified_fields=(self.ISeq,))
+            .rpad_(maxlen, modified_fields=(self.ISeq,), padding_value=self.PADDING_VALUE)
+        )
+
+    def sure_trainpipe(self, maxlen: int, batch_size: int):
+        pipe = (
+            self.dataset.train()
+            .shuffled_roll_seqs_source(minlen=2, maxlen=None)
+            .seq_train_yielding_pos_(start_idx_for_target=-1)
+            .seq_train_sampling_neg_(num_negatives=1)
+        )
+        return self._rpad(pipe, maxlen).batch_(batch_size).tensor_()
+
+    def sure_validpipe(self, maxlen: int, ranking: str = "full", batch_size: int = 512):
+        pipe = self.dataset.valid().ordered_user_ids_source().valid_sampling_(ranking)
+        return self._rpad(pipe, maxlen).batch_(batch_size).tensor_()
+
+    def sure_testpipe(self, maxlen: int, ranking: str = "full", batch_size: int = 512):
+        pipe = self.dataset.test().ordered_user_ids_source().test_sampling_(ranking)
+        return self._rpad(pipe, maxlen).batch_(batch_size).tensor_()

@@ -7,6 +7,11 @@ onto them by renaming leaves only (``models/convert.py``).
 Dropout is active when a block is called with a ``generator``, whose
 draws make every mask, and off without one (evaluation, serving): the
 counterpart of flax's ``deterministic`` flag and ``"dropout"`` rng.
+
+``GRU`` is one layer of flax's ``nn.RNN(nn.GRUCell)``: the recurrence of
+GRU4Rec, NARM and GLINT-RU, which ``recboard_tpu`` runs as a
+``lax.scan`` outside any Pallas kernel, here ``torch.nn.GRU`` (cuDNN's
+kernels on the card).
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from torch import nn
 
 from ..ops import attention as attn_ops
 
-__all__ = ["DenseGeneral", "PointWiseFFN", "SASRecBlock", "TransformerBlock", "dropout"]
+__all__ = ["DenseGeneral", "GRU", "PointWiseFFN", "SASRecBlock", "TransformerBlock", "dropout",
+           "last_position"]
 
 
 def dropout(
@@ -33,6 +39,45 @@ def dropout(
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def last_position(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, D) rows of a right-padded (B, L, D) ``x`` at position
+    ``lengths - 1`` (position 0 for an empty row)."""
+    last = (lengths.long() - 1).clamp_min(0)
+    return x[torch.arange(x.shape[0], device=x.device), last]
+
+
+class GRU(nn.GRU):
+    """One batch-first GRU layer with flax's ``GRUCell`` parameterization:
+    r = σ(W_ir x + b_ir + W_hr h), z = σ(W_iz x + b_iz + W_hz h),
+    n = tanh(W_in x + b_in + r ⊙ (W_hn h + b_hn)), h' = (1 - z) ⊙ n + z ⊙ h,
+    from h = 0. torch packs the gates [r; z; n] into ``weight_ih_l0``,
+    ``weight_hh_l0``, ``bias_ih_l0`` and ``bias_hh_l0``; flax's cell has no
+    hidden bias for r and z, so the first 2H entries of ``bias_hh_l0`` stay
+    exactly 0: a hook zeroes their gradient, so Adam's moments and weight
+    decay leave them at 0 too (folding them into ``bias_ih_l0`` would give
+    those gates two biases, which Adam moves twice as fast as flax's one).
+    ``forward`` returns torch's (outputs, last hidden); the models run it
+    over the whole padded length and read the outputs, as flax's ``nn.RNN``
+    without ``seq_lengths``."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__(input_size, hidden_size, batch_first=True)
+        self.bias_hh_l0.register_hook(self._pin_rz)
+
+    def _pin_rz(self, grad: torch.Tensor) -> torch.Tensor:
+        return torch.cat((grad.new_zeros(2 * self.hidden_size), grad[2 * self.hidden_size:]))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's init: each gate's kernel xavier-uniform over its own
+        (in, H) block, zero biases."""
+        for weight in (self.weight_ih_l0, self.weight_hh_l0):
+            for block in weight.chunk(3):
+                nn.init.xavier_uniform_(block, generator=generator)
+        nn.init.zeros_(self.bias_ih_l0)
+        nn.init.zeros_(self.bias_hh_l0)
 
 
 class PointWiseFFN(nn.Module):

@@ -100,12 +100,21 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
 
 # each ported model's device sampler (recboard_tpu's build_pipes)
 _ROLL_ONE_NEGATIVE = functools.partial(DeviceRollSeqSampler, num_negatives=1)
+_ROLL_RIGHT_PADDED = functools.partial(DeviceRollSeqSampler, num_negatives=1, pad_side="right",
+                                       window_includes_target=False)
 DEVICE_SAMPLERS = {
     "SASRec": DeviceSeqSampler,
     "HSTU": DeviceTimeSeqSampler,  # HSTU draws its negatives itself
     "BERT4Rec": DeviceFullSeqSampler,  # BERT4Rec draws its masks itself
-    "BSARec": _ROLL_ONE_NEGATIVE,  # left-padded windows that hold their target
+    # left-padded windows that hold their target
+    "BSARec": _ROLL_ONE_NEGATIVE,
     "FMLP-Rec": _ROLL_ONE_NEGATIVE,
+    "STAMP": _ROLL_ONE_NEGATIVE,
+    "FPMC": _ROLL_ONE_NEGATIVE,
+    # right-padded windows without the target
+    "GRU4Rec": _ROLL_RIGHT_PADDED,
+    "NARM": _ROLL_RIGHT_PADDED,
+    "GLINT-RU": _ROLL_RIGHT_PADDED,
 }
 
 
@@ -174,6 +183,7 @@ def main(argv: Optional[list] = None):
     if cfg.get("remat") and "remat" not in takes:
         raise SystemExit(f"remat for {cfg.model} is not ported to recboard_tpu_torch yet")
     device = utils.resolve_device(cfg.get("device"))
+    utils.pin_float32()
 
     dataset = load_dataset(cfg)
     model = build_model(cfg.model, dataset, cfg, device)

@@ -86,6 +86,7 @@ def main(argv: Optional[list] = None):
                 f"recommend {flag} is not ported to recboard_tpu_torch yet"
             )
     device = utils.resolve_device(args.device)
+    utils.pin_float32()
 
     cfg = load_run_config(args.run)
     dataset = run_mod.load_dataset(cfg)

@@ -19,6 +19,7 @@ __all__ = [
     "import_pickle",
     "infoLogger",
     "mkdirs",
+    "pin_float32",
     "resolve_device",
     "set_color",
     "set_logger",
@@ -130,6 +131,15 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def pin_float32() -> None:
+    """Matrix products and cuDNN's convolutions and RNNs in float32 on
+    the card: TF32 off for both (PyTorch's default lets cuDNN use TF32),
+    the precision the JAX package, the CPU tests and the kernels' plain
+    versions compute in."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 class AverageMeter:

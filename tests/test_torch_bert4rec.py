@@ -244,8 +244,11 @@ def test_from_flax_to_flax_round_trip_with_dense_general(tiny_dataset):
     for path, value in flat.items():
         assert got[path].shape == value.shape, path
         np.testing.assert_array_equal(got[path], value)
-    with pytest.raises(ValueError, match="2-D"):  # a 3-D kernel whose bias is not (n, out)
-        from_flax({"o": {"kernel": np.zeros((2, 3, 4)), "bias": np.zeros(4)}})
+    # a 3-D kernel whose bias is neither a DenseGeneral's (n, out) nor a Conv's (out,)
+    with pytest.raises(ValueError, match="2-D"):
+        from_flax({"o": {"kernel": np.zeros((2, 3, 4)), "bias": np.zeros(3)}})
+    with pytest.raises(ValueError, match="2-D"):
+        from_flax({"o": {"kernel": np.zeros((2, 3, 4))}})
 
 
 # ------------------------------------------------------- run and serve

@@ -32,8 +32,9 @@ def test_port_modules_import_without_jax():
     )
     for name in ("ops.attention", "ops.vocab_ce", "ops.losses", "ops.rel_bias", "ops.dropout",
                  "models.zoo.bert4rec", "models.zoo.hstu", "models.zoo.bsarec",
-                 "models.zoo.fmlp_rec", "models.zoo.unisrec", "serve", "data.device",
-                 "data.synthetic"):
+                 "models.zoo.fmlp_rec", "models.zoo.unisrec", "models.zoo.gru4rec",
+                 "models.zoo.narm", "models.zoo.glint_ru", "models.zoo.stamp",
+                 "models.zoo.fpmc", "serve", "data.device", "data.synthetic"):
         assert f"recboard_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -12,7 +12,12 @@ recboard_tpu's (``data/pipes.py``, ``data/device.py``).
   JAX's batch int for int, also where the batch is larger than the window
   count and the gather wraps; every row is a window of the user's train
   sequence and its target; a batch is a function of (seed, epoch, step);
-  Caser's and the right-padded protocols are refused.
+  Caser's protocol is refused.
+* The right-padded protocol (GRU4Rec's, NARM's and GLINT-RU's:
+  ``pad_side="right"``, ``window_includes_target=False``) and each of its
+  two switches alone: JAX's batch int for int for 0, 1 and 3 negatives,
+  also where the gather wraps; GRU4Rec's rows are its windows, the last
+  maxlen items before the target, left-aligned.
 """
 
 import jax
@@ -136,8 +141,8 @@ def test_packed_table_and_windows_match_jax(tiny_dataset, port_dataset):
 @pytest.mark.parametrize("num_negatives", [1, 3, 0])
 @pytest.mark.parametrize("batch_size,step", [(16, 2), (1000, 1)], ids=["step2", "B_gt_n_wraps"])
 def test_sample_prepared_matches_jax(tiny_dataset, port_dataset, batch_size, step,
-                                     num_negatives):
-    sj, st = _pair(tiny_dataset, port_dataset, batch_size, num_negatives=num_negatives)
+                                     num_negatives, **kw):
+    sj, st = _pair(tiny_dataset, port_dataset, batch_size, num_negatives=num_negatives, **kw)
     if batch_size == 1000:
         assert batch_size > st.num_windows
     epoch_key = sj.epoch_key()
@@ -187,9 +192,41 @@ def test_batch_is_a_function_of_seed_epoch_and_step(port_dataset):
     assert not torch.equal(sampler().draws(0)["negs"], sampler().draws(1)["negs"])
 
 
-@pytest.mark.parametrize("kw", [dict(num_positives=2), dict(pad_side="right"),
-                                dict(window_includes_target=False)],
-                         ids=["caser", "right_pad", "window_without_target"])
+@pytest.mark.parametrize("kw", [dict(num_positives=2)], ids=["caser"])
 def test_unported_protocols_are_refused(port_dataset, kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         device.DeviceRollSeqSampler(port_dataset, MAXLEN, 16, device="cpu", **kw)
+
+
+RIGHT_PADDED = dict(pad_side="right", window_includes_target=False)
+
+
+@pytest.mark.parametrize("num_negatives", [0, 1, 3])
+@pytest.mark.parametrize("batch_size,step", [(16, 2), (1000, 1)], ids=["step2", "B_gt_n_wraps"])
+@pytest.mark.parametrize("kw", [RIGHT_PADDED, dict(pad_side="right"),
+                                dict(window_includes_target=False)],
+                         ids=["gru4rec", "right_pad", "window_without_target"])
+def test_right_padded_protocols_match_jax(tiny_dataset, port_dataset, kw, batch_size, step,
+                                          num_negatives):
+    test_sample_prepared_matches_jax(tiny_dataset, port_dataset, batch_size, step,
+                                     num_negatives, **kw)
+
+
+def test_right_padded_rows_are_windows_without_their_targets(port_dataset):
+    st = device.DeviceRollSeqSampler(port_dataset, MAXLEN, 32, num_pads=1, num_negatives=1,
+                                     device="cpu", **RIGHT_PADDED).set_seed(0).set_epoch(0)
+    seqs = port_dataset.train().user_seqs()
+    perm = st.prepare()
+    seen = set()
+    for step in range(st.steps_per_epoch):
+        batch = st.sample_prepared(perm, step)
+        users, iseq, ipos = (batch[f].numpy() for f in (st.User, st.ISeq, st.IPos))
+        for u, row, target in zip(users, iseq, ipos[:, 0]):
+            items = tuple(int(i) - 1 for i in row if i != 0)
+            assert (row[len(items):] == 0).all()  # right pads
+            ends = [e for e in range(1, len(seqs[u]) + 1) if seqs[u][e - 1] == target
+                    and tuple(seqs[u][max(0, e - 1 - MAXLEN):e - 1]) == items]
+            assert ends, (u, items, target)
+            seen.add((int(u), ends[-1]))
+    assert len(seen) == st.steps_per_epoch * 32
+    assert max(len(s) for s in seqs) > MAXLEN + 1  # some windows are cut to maxlen

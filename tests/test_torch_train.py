@@ -230,8 +230,8 @@ def test_to_flax_inverts_from_flax(tiny_dataset):
     assert {p for p, _ in flat} == set(got)
     for path, value in flat:
         np.testing.assert_array_equal(got[path], value)
-    with pytest.raises(ValueError, match="no rule"):
-        to_flax(torch.nn.Sequential(torch.nn.Conv1d(2, 2, 1)))
+    with pytest.raises(ValueError, match="no rule"):  # Conv1d has one (GLINT-RU's), Conv2d not
+        to_flax(torch.nn.Sequential(torch.nn.Conv2d(2, 2, 1)))
 
 
 # ------------------------------------------------------- (h) run and serve
