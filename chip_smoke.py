@@ -172,12 +172,29 @@ Phases, one JSON line each; any failure exits non-zero:
    host pipe. Phase 17's device_samplers also checks GRU4Rec's
    right-padded sampler and FPMC's left-padded one at NUM_PADS 0 (the pad
    value is item 0 there).
+20. mf_bpr_*, neumf_* (train, train_serve), lightgcn_* (train, train_serve,
+   bench, train_profile, train_time), lightgcn_spmm and lightgcn_ods_* —
+   the general CF models at their reference configs as written, one epoch
+   each on the pipe of users drawn with replacement: no launch of K1-K7
+   (LightGCN's product is cuSPARSE's CSR SpMM, named in its profile), the
+   trained run served GPU = CPU with the spread of the listed scores
+   (NeuMF's first 1,024 users scored in-process on the CPU), LightGCN's
+   ``--bench`` line (MF-BPR and NeuMF are neither profiled nor benched:
+   UNTIMED), the toy store's 5-seed bands held to GEN_BAND beside a random
+   ranking's NDCG@10; LightGCN's propagation on the card against the CPU at
+   the XL shape (value and gradient, the bits on a rerun, one product's
+   device time against its HBM and gather-counting byte bounds, beside
+   gather and index_add_); LightGCN also device-sampled
+   (``DeviceGenSampler``, checked in device_samplers: positives from the
+   user's train items, negatives in range, the collision share after the
+   retry) beside its host pipe.
 
 Each quality phase runs its seeds in processes of their own side by side
 (the protocol's steps are host-bound), one intra-op thread each:
-``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18
-and 19 (``STORE_BANDS``), 70 seeds in 40 processes, the longest first.
-Each phase prints its seconds. Then a ``{"kernels": [...]}`` line, the
+``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18,
+19 and 20 (``STORE_BANDS``), 85 seeds in 8 processes, the longest first,
+started beside resume_check and pool_check. Each phase prints its seconds,
+the total the wall time of them all. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 1 before printing any result. Scratch files go to
 build/chip_smoke/.
@@ -186,6 +203,7 @@ build/chip_smoke/.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import itertools
@@ -196,6 +214,7 @@ import pickle
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -365,13 +384,19 @@ ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "
 # band pool hands their seeds out: the longest first by a seed's seconds
 # in a whole run on an H100 80GB at 700 W (BERT4Rec's 250 epochs 183 s ...
 # FPMC 30 s; the device-sampled SASRec and per-position HSTU beside their
-# host-pipe twins), so the short ones fill the processes that free up
-STORE_BANDS = ("BERT4Rec", "UniSRec", "BSARec", "FMLP-Rec", "GRU4Rec", "GLINT-RU",
+# host-pipe twins; MF-BPR's 200 epochs 120 s, LightGCN and NeuMF 17 s),
+# so the short ones fill the processes that free up
+STORE_BANDS = ("BERT4Rec", "UniSRec", "BSARec", "FMLP-Rec", "GRU4Rec", "GLINT-RU", "MF-BPR",
                "HSTU_pp_ods", "HSTU_pp", "HSTU", "SASRec_ods", "SASRec", "NARM", "STAMP",
-               "FPMC")
-# the band processes at once: 45 fit beside each other on one H100 80GB,
-# 70 did not (cuBLAS could not allocate its handle)
-STORE_PROCESSES = 40
+               "FPMC", "LightGCN", "NeuMF")
+# the band processes at once, one a host core: the whole pool (85 seeds,
+# tests/band_pool_probe.py) took 248.7 s in 40 processes, 200.6 in 24, 187.0
+# in 16 (one call), and 130.8 in 12, 119.7 in 8 (another call; H100 80GB,
+# 700 W, 8 host cores):
+# every process beyond the cores adds switching on the host and among the
+# card's contexts. 70 processes did not fit (cuBLAS could not allocate its
+# handle)
+STORE_PROCESSES = 8
 BSAREC = dict(maxlen=50, embedding_dim=64, num_blocks=2, num_heads=1)
 BSAREC_CONFIG = os.path.join(ROOT, "configs", "BSARec_Amazon2014Beauty_550_LOU.yaml")
 BSAREC_BATCH = 256
@@ -420,6 +445,48 @@ NARM_STORE_NDCG10 = 0.2537
 GLINT_RU_STORE_NDCG10 = 0.3771
 STAMP_STORE_NDCG10 = 0.4104
 FPMC_STORE_NDCG10 = 0.4277
+
+# The general CF models (GenRecArch), each at its
+# configs/<M>_Amazon2014Beauty_550_LOU.yaml as written and cut to one epoch
+# (an epoch is #users uniform user draws: 22,363 rows on the dataset above):
+# MF-BPR (D 64, BPR over one unseen negative, batch 2048, Adam lr 1e-3, weight
+# decay 1e-6), NeuMF (D 8, hidden 64,32,16,8, BCE over 4 negatives, batch 1024,
+# Adam lr 1e-4) and LightGCN (D 64, 3 hops over the train split's normalized
+# bipartite adjacency, BPR, batch 2048, Adam lr 1e-3, weight decay 1e-3 folded
+# into the loss and the optimizer's zeroed). No kernel of K1-K7 on these paths:
+# LightGCN's product is cuSPARSE's CSR SpMM (recboard_tpu_torch/graph.py).
+GEN_EPOCHS = 1
+GEN_SLICES = ("MF-BPR", "NeuMF", "LightGCN")
+MF_BPR = dict(embedding_dim=64)
+MF_BPR_CONFIG = os.path.join(ROOT, "configs", "MF-BPR_Amazon2014Beauty_550_LOU.yaml")
+NEUMF = dict(embedding_dim=8, hidden_dims=(64, 32, 16, 8))
+NEUMF_CONFIG = os.path.join(ROOT, "configs", "NeuMF_Amazon2014Beauty_550_LOU.yaml")
+LIGHTGCN = dict(embedding_dim=64, num_layers=3)
+LIGHTGCN_CONFIG = os.path.join(ROOT, "configs", "LightGCN_Amazon2014Beauty_550_LOU.yaml")
+# the toy store's rows (benchmark/SynBeauty_000_LOU/<M>.json, metric best:
+# 5-seed means, std 0.0006 / 0.0026 / 0.0028) with tools/seed_sweep.py's
+# arguments (lr 0.005, batch 128, eval every 3 epochs; MF-BPR 200 epochs,
+# NeuMF and LightGCN 30) and the models' defaults. STORE_BAND (0.03) is wider
+# than these means, and a random ranking of the store's about 286 unseen items
+# scores about 0.016 (``random_ndcg10``), inside every such band: each is held
+# to GEN_BAND, about twice the largest store std, which excludes it.
+MF_BPR_STORE_NDCG10 = 0.0378
+NEUMF_STORE_NDCG10 = 0.0333
+LIGHTGCN_STORE_NDCG10 = 0.0453
+GEN_BAND = 0.006
+# NeuMF's trained run is served on the card for every user; the CPU scores
+# its first test users in-process, whose lists are compared with the served
+# ones: its full ranking runs the MLP over every (user, item) pair, seconds
+# a batch of 512 on the CPU
+NEUMF_CPU_USERS = 1024
+# the general CF slices trained, served and checked but neither profiled nor
+# timed by ``--bench``: cut, in that order, after a whole run took 1,239.7 s
+# of phases on an H100 80GB at 700 W (their profiles and --bench lines had
+# cost about 8 s of it)
+UNTIMED = ("MF-BPR", "NeuMF")
+# LightGCN's propagation, card against CPU: largest error relative to the
+# largest magnitude, of the encoded tables and of their parameters' gradients
+SPMM_TOL = 1e-5
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -517,8 +584,13 @@ DROP_MASK_EXTRA = [("ragged", (1_000_003,), 0.5)]
 DROP_PATH_STEPS = 4
 
 
+_EMIT = threading.Lock()  # the band pool's thread emits beside the main one
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    with _EMIT:
+        print(line, flush=True)
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -2212,6 +2284,39 @@ def fpmc_flax_params(rng, num_items, maxlen, embedding_dim, num_users, **_):
             **{name: {"embedding": xavier(rng, num_items, D)} for name in ("i2u", "i2l", "l2i")}}
 
 
+def table(rng, rows: int, D: int) -> np.ndarray:
+    """An embedding table normal(0, 0.1): its products spread far wider than
+    TIE_TOL (the models' own 1e-4 init would tie every score)."""
+    return (rng.normal(size=(rows, D)) * 0.1).astype(np.float32)
+
+
+def mf_bpr_flax_params(rng, num_items, embedding_dim, num_users, **_):
+    """MF-BPR params in recboard_tpu's flax layout, made with numpy: the
+    user and item tables."""
+    D = embedding_dim
+    return {"user_embeddings": {"embedding": table(rng, num_users, D)},
+            "item_embeddings": {"embedding": table(rng, num_items, D)}}
+
+
+def neumf_flax_params(rng, num_items, embedding_dim, hidden_dims, num_users, **_):
+    """NeuMF params in recboard_tpu's flax layout, made with numpy: the four
+    tables, the MLP's ``linears_i`` and ``fc``."""
+    D = embedding_dim
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    params = {f"{who}_{branch}_embeddings": {"embedding": table(rng, n, D)}
+              for who, n in (("user", num_users), ("item", num_items))
+              for branch in ("mlp", "mf")}
+    widths = (2 * D,) + tuple(hidden_dims)
+    for i, (fan_in, fan_out) in enumerate(zip(widths, widths[1:])):
+        params[f"linears_{i}"] = {"kernel": xavier(rng, fan_in, fan_out), "bias": small(fan_out)}
+    params["fc"] = {"kernel": xavier(rng, widths[-1] + D, 1), "bias": small(1)}
+    return params
+
+
+# LightGCN's params are MF-BPR's two (layer-0) tables; the adjacency is none
+lightgcn_flax_params = mf_bpr_flax_params
+
+
 def layout(tree, path=()) -> dict:
     """{leaf path: shape} of nested params."""
     out = {}
@@ -2227,9 +2332,10 @@ def layout(tree, path=()) -> dict:
 # training config, flags and epochs (TRAIN_EPOCHS where not given), toy-store
 # protocol and quality anchor, the prefix of its phase names, for a
 # device-sampled slice the host-pipe slice it is printed beside, for a
-# roll-window slice its inputs (``train_slice``), and ``timings=False`` where
+# roll-window slice its inputs (``train_slice``), ``timings=False`` where
 # time_training times no step or epoch, only profiles (NARM, STAMP, FPMC:
-# cut since a whole run with them went over its limit)
+# cut since a whole run with them went over its limit), and a band other
+# than STORE_BAND
 ODS = dict(on_device_sampling=True)
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
@@ -2294,6 +2400,21 @@ SLICES = {
     "FPMC": dict(widths=FPMC, params=fpmc_flax_params, config=FPMC_CONFIG, batch=512,
                  epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=FPMC_STORE_NDCG10,
                  tag="fpmc_", inputs="last", timings=False),
+    # the general CF models, each band held to GEN_BAND (MF-BPR and NeuMF
+    # neither profiled nor benched: UNTIMED); LightGCN also device-sampled
+    # (DeviceGenSampler)
+    "MF-BPR": dict(widths=MF_BPR, params=mf_bpr_flax_params, config=MF_BPR_CONFIG, batch=2048,
+                   epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=200),
+                   store=MF_BPR_STORE_NDCG10, band=GEN_BAND, tag="mf_bpr_"),
+    "NeuMF": dict(widths=NEUMF, params=neumf_flax_params, config=NEUMF_CONFIG, batch=1024,
+                  epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                  store=NEUMF_STORE_NDCG10, band=GEN_BAND, tag="neumf_"),
+    "LightGCN": dict(widths=LIGHTGCN, params=lightgcn_flax_params, config=LIGHTGCN_CONFIG,
+                     batch=2048, epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                     store=LIGHTGCN_STORE_NDCG10, band=GEN_BAND, tag="lightgcn_"),
+    "LightGCN_ods": dict(model="LightGCN", widths=LIGHTGCN, params=lightgcn_flax_params,
+                         config=LIGHTGCN_CONFIG, batch=2048, flags=ODS, epochs=GEN_EPOCHS,
+                         tag="lightgcn_ods_", host="LightGCN"),
 }
 
 
@@ -2315,10 +2436,14 @@ def compare_topk(a, b, tol=TIE_TOL):
     """Tie-tolerant agreement of two scored top-K tables: the same users,
     scores equal to ``tol`` position by position, and wherever the i-th
     and (i+1)-th scores differ by more than ``tol`` the first i ids are
-    the same set. Returns a list of disagreements (empty when they agree)."""
+    the same set. Returns a list of disagreements (empty when they agree).
+    Lists of one length are checked as arrays first; only the users that
+    fail there are checked (and reported) one by one."""
     bad = []
     if a.keys() != b.keys():
         return [f"users differ: {len(a)} vs {len(b)}"]
+    if len({len(ids) for ids, _ in (*a.values(), *b.values())}) == 1:
+        a = {u: a[u] for u in suspects(a, b, tol)}
     for user, (ids_a, vals_a) in a.items():
         ids_b, vals_b = b[user]
         if len(ids_a) != len(ids_b) or not np.allclose(vals_a, vals_b, rtol=0, atol=tol):
@@ -2331,22 +2456,40 @@ def compare_topk(a, b, tol=TIE_TOL):
     return bad
 
 
-def serve_float64(argv: list) -> None:
-    """``recommend`` with the model held in float64 on the CPU: the scores
-    that float32 rounding on either device is judged against."""
+def suspects(a, b, tol) -> list:
+    """The users of two scored top-K tables of one list length that
+    ``compare_topk``'s checks might fail, found on the stacked arrays: a
+    score apart by more than ``tol``, or a gap over ``tol`` after position
+    i with other first i ids (as sorted prefixes)."""
+    users = list(a)
+    ids_a, vals_a = (np.stack(x) for x in zip(*(a[u] for u in users)))
+    ids_b, vals_b = (np.stack(x) for x in zip(*(b[u] for u in users)))
+    off = ~np.isclose(vals_a, vals_b, rtol=0, atol=tol).all(axis=1)
+    for i in range(1, ids_a.shape[1]):
+        same = (np.sort(ids_a[:, :i], axis=1) == np.sort(ids_b[:, :i], axis=1)).all(axis=1)
+        off |= (vals_a[:, i - 1] - vals_a[:, i] > tol) & ~same
+    return [u for u, o in zip(users, off) if o]
+
+
+def serve_float64(argv: list, f64_tsv: str) -> dict:
+    """``recommend`` with the model held in float64 on the CPU, its lists
+    written to ``f64_tsv`` and read back: the scores that float32 rounding
+    on either device is judged against."""
     from recboard_tpu_torch import run, serve
 
     build = run.build_model
     run.build_model = lambda *a, **k: build(*a, **k).double()
     try:
-        serve.main(argv + ["--device", "cpu"])
+        serve.main(argv + ["--device", "cpu", "--output", f64_tsv])
     finally:
         run.build_model = build
+    return read_scored_tsv(f64_tsv)
 
 
-def agree_or_float64(gpu: dict, cpu: dict, argv: list, f64_tsv: str) -> tuple:
+def agree_or_float64(gpu: dict, cpu: dict, float64) -> tuple:
     """(disagreements, arbitrated users) of GPU lists against CPU lists.
-    Users whose lists differ beyond TIE_TOL are scored again in float64:
+    Users whose lists differ beyond TIE_TOL are scored again in float64
+    (``float64()`` gives those lists):
     where float32 itself cannot resolve a user's scores to TIE_TOL (a
     trained model can amplify rounding), the GPU's list must agree with
     the float64 list within twice the CPU float32's own distance from it
@@ -2359,8 +2502,7 @@ def agree_or_float64(gpu: dict, cpu: dict, argv: list, f64_tsv: str) -> tuple:
     users = [u for u in gpu if compare_topk({u: gpu[u]}, {u: cpu[u]})]
     if len(users) > max(10, len(gpu) // 1000):  # more than rounding would touch
         return bad, []
-    serve_float64(argv + ["--output", f64_tsv])
-    f64 = read_scored_tsv(f64_tsv)
+    f64 = float64()
     bad, arbitrated = [], []
     for u in users:
         tol = max(TIE_TOL, 2 * float(np.abs(cpu[u][1] - f64[u][1]).max()))
@@ -2592,7 +2734,7 @@ def counted_kernels() -> tuple:
 
 
 # the ported models whose paths reach none of K1-K7
-KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC")
+KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC") + GEN_SLICES
 
 
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
@@ -2605,7 +2747,8 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
     step and the forward and backward of its loss's kernel, K5 with shared
     negatives and K4 with per-position ones (no ``negs_mode``), and no
     kernel in evaluation; the models of KERNEL_FREE (FMLP-Rec, GRU4Rec, NARM,
-    GLINT-RU, STAMP, FPMC) run none. No model calls K7."""
+    GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN) run none. No model calls
+    K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
@@ -2644,19 +2787,19 @@ def train_slice(seed: int, dataset, name: str) -> dict:
                       config=spec["config"], epochs=epochs, eval_freq=1,
                       checkpoint_path=os.path.join(WORK, "infos", name), **flags)
     counter = run.build_model(model, dataset, dict(widths, seed=seed, **flags), "cpu")
+    L = widths.get("maxlen")  # None for the general CF models, whose pipes take none
     on_device = bool(flags.get("on_device_sampling"))
     if on_device:
-        sampler = run.device_sampler(counter, widths["maxlen"], spec["batch"], "cpu")
+        sampler = run.device_sampler(counter, L, spec["batch"], "cpu")
         steps = sampler.steps_per_epoch
         sizes = [spec["batch"]] * steps
-        pad_share = device_pad_share(sampler, widths["maxlen"])
+        pad_share = None if L is None else device_pad_share(sampler, L)
     elif model in ROLL_SLICES:
         # the roll pipe's rows, counted from the sequences rather than drawn
         # (133k windows): one per window end 2..n of a user with n >= 2 items,
         # min(end - 1, cap) input items of ``width`` each: cap maxlen - 1 where
         # the window holds its target (BSARec's), maxlen where it is uncapped
         # (GRU4Rec's), one item of one for FPMC's last transition
-        L = widths["maxlen"]
         cap, width = {"capped": (L - 1, L), "uncapped": (L, L), "last": (1, 1)}[
             spec.get("inputs", "capped")]
         items = np.concatenate([np.minimum(np.arange(1, len(seq)), cap)
@@ -2666,24 +2809,25 @@ def train_slice(seed: int, dataset, name: str) -> dict:
         steps = len(sizes)
         pad_share = float(1.0 - items.mean() / width)
     else:
-        batches = list(counter.sure_trainpipe(widths["maxlen"], spec["batch"]))
+        batches = list(run.train_pipe(counter, L, spec["batch"]))
         sizes = [int(b[Size]) for b in batches]
         steps = len(sizes)
-        pads = sum(int((b[counter.ISeq] == counter.PADDING_VALUE).sum()) for b in batches)
-        pad_share = pads / sum(b[counter.ISeq].size for b in batches)
-    n_valid = len(list(counter.sure_validpipe(widths["maxlen"])))
-    n_test = len(list(counter.sure_testpipe(widths["maxlen"])))
+        seqs = [b[counter.ISeq] for b in batches if counter.ISeq in b]
+        pad_share = (sum(int((s == counter.PADDING_VALUE).sum()) for s in seqs)
+                     / sum(s.size for s in seqs)) if seqs else None
+    n_valid = len(list(run.eval_pipe(counter, "valid", L)))
+    n_test = len(list(run.eval_pipe(counter, "test", L)))
     if model == "HSTU" and on_device:
         # every device-sampled step is full: the kernels' training shape
-        if spec["batch"] * widths["maxlen"] != SSC_SHAPES[0][1] or (
+        if spec["batch"] * L != SSC_SHAPES[0][1] or (
                 counter.rel_bias.active_buckets != HSTU_ACTIVE_K):
-            raise SystemExit(f"HSTU: {spec['batch']} x {widths['maxlen']} rows a step; the "
+            raise SystemExit(f"HSTU: {spec['batch']} x {L} rows a step; the "
                              f"kernel phases checked {SSC_SHAPES[0][1]}")
     elif model == "HSTU":
         # the shapes the kernel phases checked: K6's active buckets, the
         # loss kernel's last batch (K5's and K4's)
         active = counter.rel_bias.active_buckets
-        last_m = sizes[-1] * widths["maxlen"]
+        last_m = sizes[-1] * L
         if active != HSTU_ACTIVE_K or not last_m == SS_EXTRA[0][1] == SSC_EXTRA[0][1]:
             raise SystemExit(f"HSTU: {active} active buckets and a last batch of {last_m} "
                              f"rows; the kernel phases checked {HSTU_ACTIVE_K} and "
@@ -2731,20 +2875,124 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     gpu_tsv = os.path.join(WORK, f"{name}_train_gpu.tsv")
     cpu_tsv = os.path.join(WORK, f"{name}_train_cpu.tsv")
     serve.main(common + ["--output", gpu_tsv])
-    serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
     gpu = read_scored_tsv(gpu_tsv)
-    bad, arbitrated = agree_or_float64(gpu, read_scored_tsv(cpu_tsv), common,
-                                       os.path.join(WORK, f"{name}_train_f64.tsv"))
+    if model == "NeuMF":
+        # seconds a batch on the CPU: its first NEUMF_CPU_USERS users, in-process
+        bad, arbitrated, cpu_users = neumf_cpu_agree(run_dir, dataset, gpu)
+    else:
+        serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
+        cpu = read_scored_tsv(cpu_tsv)
+        cpu_users = len(cpu)
+        bad, arbitrated = agree_or_float64(gpu, cpu, lambda: serve_float64(
+            common, os.path.join(WORK, f"{name}_train_f64.tsv")))
     if bad:
         raise SystemExit(f"{model} trained run: GPU and CPU lists disagree:\n"
                          + "\n".join(bad[:10]))
-    emit(f"{tag}train_serve", users=len(gpu), cpu_agree=True, tie_tol=TIE_TOL,
-         float64_arbitrated=arbitrated)
+    # how far apart the listed scores lie against TIE_TOL (the ids are
+    # compared only across gaps wider than it); a general CF model one epoch
+    # from its 1e-4 init scores every item alike, so its scores are also
+    # checked at random weights of O(0.1)
+    spans = [float(vals[0] - vals[TOPK - 1]) for _, vals in gpu.values()]
+    emit(f"{tag}train_serve", users=len(gpu), cpu_users=cpu_users, cpu_agree=True,
+         tie_tol=TIE_TOL,
+         float64_arbitrated=arbitrated, top_span_p50=float(np.median(spans)),
+         users_with_gaps_over_tie_tol=sum(
+             bool((np.diff(-vals[:TOPK]) > TIE_TOL).any()) for _, vals in gpu.values()),
+         **(random_weight_scores(seed, dataset, name) if model in GEN_SLICES else {}))
     out = dict(launches=launches, run_dir=run_dir, steps=steps)
-    if model not in ("SASRec", "BERT4Rec") and not on_device:  # no serving phase of its own
+    # SASRec and BERT4Rec have a serving phase of their own
+    if model not in ("SASRec", "BERT4Rec") + UNTIMED and not on_device:
         out["bench"] = run_bench(run_dir)
         emit(f"{tag}bench", **out["bench"])
     return out
+
+
+def trained_lists(run_dir: str, dataset, device, users: int, double: bool = False) -> dict:
+    """A trained run's top-(TOPK + 1) lists of the first ``users`` users of
+    its test pipe, made in-process as ``recommend`` makes them (the best
+    params, the ranking buffers once, seen items masked) on ``device``, in
+    float64 with ``double``: {user: (ids, scores)} in the pipe's order."""
+    import torch
+
+    from recboard_tpu_torch import run, serve
+    from recboard_tpu_torch.data.pipes import Size
+    from recboard_tpu_torch.launcher.metrics import SEEN_PAD, mask_seen, pad_ragged
+    from recboard_tpu_torch.models.convert import from_flax
+
+    cfg = serve.load_run_config(run_dir)
+    model = run.build_model(cfg.model, dataset, cfg, device).eval()
+    with open(os.path.join(cfg.CHECKPOINT_PATH, cfg.BEST_FILENAME), "rb") as fh:
+        model.load_state_dict(from_flax(pickle.load(fh)["params"]))
+    if double:
+        model.double()
+    pipe = run.eval_pipe(model, "test", None, batch_size=users)
+    pipe.set_seed(int(cfg.get("seed", 0)))
+    data = next(iter(pipe))
+    batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
+             if isinstance(v, np.ndarray) and f != Size}
+    seen = torch.from_numpy(pad_ragged(data[model.ISeen], fill=SEEN_PAD)).to(device)
+    with torch.inference_mode():
+        scores = model.recommend_from_full(batch, model.reset_ranking_buffers())
+        vals, ids = torch.topk(mask_seen(scores, seen), TOPK + 1)
+    return {int(u): (i.numpy(), v.double().numpy())
+            for u, i, v in zip(data[model.User].reshape(-1), ids.cpu(), vals.cpu())}
+
+
+def neumf_cpu_agree(run_dir: str, dataset, gpu: dict) -> tuple:
+    """NeuMF's served GPU lists (``recommend`` on the card, every user)
+    against its first NEUMF_CPU_USERS users' lists made in-process on the
+    CPU, arbitrated in float64 as ``agree_or_float64`` does: (disagreements,
+    arbitrated users, CPU users). The CPU's users must be exactly the GPU's
+    first NEUMF_CPU_USERS, in order."""
+    cpu = trained_lists(run_dir, dataset, "cpu", NEUMF_CPU_USERS)
+    first = list(gpu)[:NEUMF_CPU_USERS]
+    if list(cpu) != first:
+        raise SystemExit(f"NeuMF trained run: the CPU scored users {list(cpu)[:8]}..., the "
+                         f"GPU served {first[:8]}... first")
+    bad, arbitrated = agree_or_float64(
+        {u: gpu[u] for u in first}, cpu,
+        lambda: trained_lists(run_dir, dataset, "cpu", NEUMF_CPU_USERS, double=True))
+    return bad, arbitrated, len(cpu)
+
+
+def random_weight_scores(seed: int, dataset, name: str, users: int = 128) -> dict:
+    """The slice's full-catalog scores of the first ``users`` test users at
+    random flax-layout weights (O(0.1), from ``seed``) on the card and on the
+    CPU: the largest error relative to max(1, max |CPU|), held to TIE_TOL,
+    and the two top-k lists compared as ``compare_topk`` does, with the
+    median spread of a top-k list beside."""
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.data.pipes import Size
+    from recboard_tpu_torch.models.convert import from_flax
+
+    spec = SLICES[name]
+    widths = spec["widths"]
+    params = from_flax(spec["params"](
+        np.random.default_rng(seed), dataset.fields["ITEM", "ID"].count,
+        num_users=dataset.fields["USER", "ID"].count, **widths))
+    scores = []
+    for device in (torch.device(CARD), torch.device("cpu")):
+        model = run.build_model(spec.get("model", name), dataset, dict(widths, seed=seed), device)
+        model.load_state_dict(params)
+        data = next(iter(run.eval_pipe(model, "test", None, batch_size=users)))
+        batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
+                 if isinstance(v, np.ndarray) and f != Size}
+        with torch.inference_mode():
+            scores.append(model.recommend_from_full(batch, model.reset_ranking_buffers()).cpu())
+    lists = []
+    for got in scores:
+        vals, ids = torch.topk(got, TOPK)
+        lists.append({u: (i.numpy(), v.numpy()) for u, (i, v) in enumerate(zip(ids, vals))})
+    row = dict(random_weights_users=len(scores[1]),
+               random_weights_max_rel_err=rel_err(scores[0], scores[1]),
+               random_weights_top_span_p50=float(np.median(
+                   [vals[0] - vals[-1] for _, vals in lists[1].values()])),
+               random_weights_topk_disagree=len(compare_topk(*lists)))
+    if not row["random_weights_max_rel_err"] <= TIE_TOL or row["random_weights_topk_disagree"]:
+        raise SystemExit(f"{name} at random weights: card and CPU scores differ: {row}")
+    return row
 
 
 def device_pad_share(sampler, maxlen: int) -> float:
@@ -2811,6 +3059,7 @@ def time_training(run_dir: str, phase: str, beside: dict = None, timings: bool =
     device = torch.device(CARD)
     dataset = run.load_dataset(cfg)
     model = run.build_model(cfg.model, dataset, cfg, device)
+    run.zero_folded_decay(model, cfg)  # as run.main: LightGCN's decay is in its loss
     trainpipe, validpipe, testpipe = run.build_pipes(model, cfg, device)
     coach = Coach(dataset, trainpipe, validpipe, testpipe, model, cfg, device)
 
@@ -2983,23 +3232,46 @@ def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
     return out
 
 
+def random_ndcg10(data_root: str, name: str) -> float:
+    """The NDCG@10 a random ranking expects on the dataset's test split,
+    seen items masked: per test row, the sum over ranks r <= 10 of
+    1 / log2(r + 1) over the row's candidates (the catalog less the
+    user's train and valid items), averaged over the rows."""
+    from recboard_tpu_torch.data.datasets import NextItemRecDataSet
+
+    dataset = NextItemRecDataSet(data_root, name)
+    N = dataset.fields["ITEM", "ID"].count
+    gains = np.cumsum(1.0 / np.log2(np.arange(2, 12)))
+    rows = []
+    for train, valid, test in zip(dataset.train().user_seqs(), dataset.valid().user_seqs(),
+                                  dataset.test().user_seqs()):
+        candidates = N - len(set(train) | set(valid))
+        rows += [gains[min(10, candidates) - 1] / candidates] * len(test)
+    return float(np.mean(rows))
+
+
 def quality(seeds: int, *names: str) -> dict:
     """The toy store's protocol for each slice of ``names`` on the card for
     ``seeds`` seeds, up to STORE_PROCESSES seeds at once; each mean best
-    NDCG@10 must lie in its store's band."""
+    NDCG@10 must lie in its store's band (the slice's ``band``, else
+    STORE_BAND), which must exclude a random ranking's expectation."""
     t0 = time.perf_counter()
     runs = store_runs(names, range(seeds), concurrent=True)
+    random = random_ndcg10(os.path.join(WORK, "store_data"), STORE_DATASET["name"])
     out, outside = {}, []
     for name, (values, seconds) in runs.items():
         spec = SLICES[name]
-        mean = float(np.mean(values))
+        mean, band = float(np.mean(values)), spec.get("band", STORE_BAND)
         emit(f"{spec['tag']}quality", model=spec.get("model", name),
              dataset=STORE_DATASET["name"], seeds=seeds, ndcg10=values, mean=mean,
-             std=float(np.std(values)), store_mean=spec["store"], band=STORE_BAND,
-             protocol=spec["protocol"], seconds=sum(seconds),
+             std=float(np.std(values)), store_mean=spec["store"], band=band,
+             random_ranking_ndcg10=random, protocol=spec["protocol"], seconds=sum(seconds),
              processes=min(len(names) * seeds, STORE_PROCESSES), wall_s=time.perf_counter() - t0)
-        if not abs(mean - spec["store"]) <= STORE_BAND:
-            outside.append(f"{name}: mean NDCG@10 {mean} outside {spec['store']} ± {STORE_BAND}")
+        if not abs(mean - spec["store"]) <= band:
+            outside.append(f"{name}: mean NDCG@10 {mean} outside {spec['store']} ± {band}")
+        if abs(random - spec["store"]) <= band:
+            outside.append(f"{name}: the band {spec['store']} ± {band} holds a random "
+                           f"ranking's {random}")
         out[name] = dict(mean=mean, values=values)
     if outside:
         raise SystemExit("quality: " + "; ".join(outside))
@@ -3068,9 +3340,117 @@ def check_hstu_pp_grads(seed: int, device: str = "cuda") -> dict:
     return row
 
 
+def check_lightgcn_spmm(seed: int, dataset) -> dict:
+    """LightGCN's propagation at the SynBeautyXL shape (the train split's
+    normalized bipartite adjacency, 3 hops at D 64) with weights at O(0.1)
+    from ``seed``: ``encode`` and the gradient of a random projection of it
+    on the card against the CPU's (largest relative errors, against
+    SPMM_TOL), both rerun on the card for the same bits (reported, not a
+    gate), and one product and one transposed product rerun alone, also
+    under torch's deterministic mode; then one product ``adj @ x`` and its
+    backward (the transpose's product) on the device clock by torch.profiler,
+    beside two byte bounds at the card's memory rate: ``bound_ms`` the HBM
+    floor (the CSR's row pointers, column indices and values, x read once,
+    the output written once: x, 8.8 MB, fits in L2, so its gathers need not
+    reach HBM) and ``gather_bound_ms`` with every gathered row counted
+    (``nnz`` x (index + value + D x 4 B) + the row pointers + the output),
+    the kernels' names, and the same product as a gather and ``index_add_``
+    (the library's other route; float atomics)."""
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.models.convert import from_flax
+
+    spec = SLICES["LightGCN"]
+    widths = spec["widths"]
+    U, N = dataset.fields["USER", "ID"].count, dataset.fields["ITEM", "ID"].count
+    params = from_flax(spec["params"](np.random.default_rng(seed), N, num_users=U, **widths))
+    rng = np.random.default_rng(seed + 1)
+    cot = [torch.from_numpy(rng.normal(size=(n, widths["embedding_dim"])).astype(np.float32))
+           for n in (U, N)]
+
+    def encoded(device):
+        model = run.build_model("LightGCN", dataset, dict(widths, seed=seed), device)
+        model.load_state_dict(params)
+
+        def once():
+            model.zero_grad(set_to_none=True)
+            out = model.encode()
+            sum((o * c.to(device)).sum() for o, c in zip(out, cot)).backward()
+            return [o.detach() for o in out] + [p.grad for p in model.parameters()]
+        return model, once
+
+    card_model, card = encoded(torch.device(CARD))
+    first, again = card(), card()
+    _, cpu_run = encoded(torch.device("cpu"))
+    want = cpu_run()
+    got = [t.cpu() for t in first]
+    err = max(rel_err(a, b) for a, b in zip(got[:2], want[:2]))
+    grad_err = grad_rel_err(got[2:], want[2:])
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
+
+    adj = card_model.adj
+    D = widths["embedding_dim"]
+    x = torch.from_numpy(rng.normal(size=(adj.shape[1], D)).astype(np.float32)).to(CARD)
+    g = torch.from_numpy(rng.normal(size=(adj.shape[0], D)).astype(np.float32)).to(CARD)
+    rows_t = torch.from_numpy(adj.rows).to(CARD)
+    cols_t = torch.from_numpy(adj.cols).to(CARD)
+    vals_t = torch.from_numpy(adj.vals).to(CARD)
+
+    def index_add():
+        return torch.zeros_like(x).index_add_(0, rows_t, x[cols_t] * vals_t[:, None])
+
+    fwd = device_kernels(lambda: adj @ x, calls=20)
+    bwd = device_kernels(lambda: adj.csr_t @ g, calls=20)
+    lib = device_kernels(index_add, calls=20)
+    index_add_bits = torch.equal(index_add(), index_add())
+    index_add_err = rel_err(index_add().cpu(), (adj @ x).cpu())
+
+    def ms(kernels) -> float:
+        """Device ms of one call whose kernels each launch once: each
+        kernel's time over its recorded launches (the profiler has recorded
+        fewer launches than calls of cuSPARSE's kernels)."""
+        return sum(t / n for _, t, n in kernels)
+
+    # the same product under torch's deterministic mode, which may pick
+    # another cuSPARSE algorithm or refuse the call
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = dict(deterministic_mode_same_bits=torch.equal(adj @ x, adj @ x),
+                   deterministic_mode_fwd_device_ms=ms(device_kernels(lambda: adj @ x, 20)))
+    except RuntimeError as exc:
+        det = dict(deterministic_mode_error=str(exc)[:300])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    csr = adj.nnz * (4 + 4) + (adj.shape[0] + 1) * 4  # column indices, values, row pointers
+    moved = csr + adj.shape[1] * 4 * D + adj.shape[0] * 4 * D
+    gathered = csr + adj.nnz * 4 * D + adj.shape[0] * 4 * D
+    bound_ms, bound_by = bound(moved, 2 * adj.nnz * D)
+    gather_bound_ms, gather_bound_by = bound(gathered, 2 * adj.nnz * D)
+    row = dict(nodes=adj.shape[0], nnz=adj.nnz, D=D, hops=widths["num_layers"],
+               encode_max_rel_err=err, grad_max_rel_err=grad_err, tol=SPMM_TOL,
+               same_bits_on_rerun=same_bits,
+               fwd_same_bits=torch.equal(adj @ x, adj @ x),
+               bwd_same_bits=torch.equal(adj.csr_t @ g, adj.csr_t @ g), **det,
+               fwd_device_ms=ms(fwd),
+               fwd_kernels=[dict(name=n[:90], ms=t, per_call=c) for n, t, c in fwd],
+               bwd_device_ms=ms(bwd),
+               bwd_kernels=[dict(name=n[:90], ms=t, per_call=c) for n, t, c in bwd],
+               bound_ms=bound_ms, bound_by=bound_by, bound_bytes=moved,
+               gather_bound_ms=gather_bound_ms, gather_bound_by=gather_bound_by,
+               gather_bound_bytes=gathered,
+               index_add_device_ms=ms(lib), index_add_same_bits=index_add_bits,
+               index_add_rel_err=index_add_err)
+    emit("lightgcn_spmm", **row)
+    if not (err <= SPMM_TOL and grad_err <= SPMM_TOL):
+        raise SystemExit(f"LightGCN's propagation on the card against the CPU: {row}")
+    return row
+
+
 # the device-sampled slices; their samplers' checks; the slice resumed
 ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods",
-              "GRU4Rec_ods")
+              "GRU4Rec_ods", "LightGCN_ods")
 SAMPLER_SLICES = ODS_SLICES + ("FPMC",)
 RESUME_SLICE = "HSTU_pp_ods"
 CARD = "cuda"  # the device the checks below hold against the CPU
@@ -3141,7 +3521,9 @@ def check_device_samplers(seed: int, dataset) -> list:
     every row's window the user's train tail (inputs offset,
     targets shifted by one; HSTU's times rebased and 0 exactly at pads;
     BERT4Rec's last maxlen items), or for the roll-window sampler one of
-    the dataset's (user, end) windows with its target, none drawn twice;
+    the dataset's (user, end) windows with its target, none drawn twice, or
+    for the general CF sampler (LightGCN's, MF-BPR's and NeuMF's) every
+    positive one of its user's train items and ``max(1, users // B)`` steps;
     negatives in [0, N) with their collision share against the window (the
     whole history for roll) after the retry, beside seen²/N²;
     the same bits for the same (seed, epoch, step), another user order in
@@ -3154,6 +3536,7 @@ def check_device_samplers(seed: int, dataset) -> list:
     import torch
 
     from recboard_tpu_torch import run
+    from recboard_tpu_torch.data.device import DeviceGenSampler
     from recboard_tpu_torch.launcher import Coach
 
     cuda = torch.device(CARD)
@@ -3164,12 +3547,13 @@ def check_device_samplers(seed: int, dataset) -> list:
     rows = []
     for name in SAMPLER_SLICES:
         spec = SLICES[name]
-        model, L, B = spec.get("model", name), spec["widths"]["maxlen"], spec["batch"]
+        model, L, B = spec.get("model", name), spec["widths"].get("maxlen"), spec["batch"]
         cfg = reference_cfg(name, seed)
         net = run.build_model(model, dataset, cfg, cuda)
         card = run.device_sampler(net, L, B, cuda).set_seed(seed)
         host = run.device_sampler(net, L, B, "cpu").set_seed(seed)
         roll = hasattr(card, "_pairs")
+        gen = isinstance(card, DeviceGenSampler)  # users with replacement, no permutation
         steps = card.steps_per_epoch
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -3187,22 +3571,36 @@ def check_device_samplers(seed: int, dataset) -> list:
         same_bits = all(
             torch.equal(a, b) for step in {0, steps // 2, steps - 1}
             for a, b in zip(card.sample(step).values(), batches[step].values()))
-        other_order = not torch.equal(card.set_epoch(1).prepare(), perm)
+        if gen:  # another epoch draws other users
+            other_order = not torch.equal(card.set_epoch(1).sample(0)[card.User],
+                                          batches[0][card.User])
+        else:
+            other_order = not torch.equal(card.set_epoch(1).prepare(), perm)
         card.set_epoch(0)
         host.set_epoch(0)
         cpu = [{f: v.cpu() for f, v in b.items()} for b in batches]
         cpu_equal = all(
             all(torch.equal(v, cpu[step][f]) for f, v in host.sample_prepared(
-                perm.cpu(), step, {k: d.cpu() for k, d in draws[step].items()}).items())
+                None if perm is None else perm.cpu(), step,
+                {k: d.cpu() for k, d in draws[step].items()}).items())
             for step in range(steps))
         users = torch.cat([b[card.User] for b in cpu]).numpy()
-        iseq = torch.cat([b[card.ISeq] for b in cpu]).numpy()
+        iseq = None if gen else torch.cat([b[card.ISeq] for b in cpu]).numpy()
         row = dict(sampler=type(card).__name__, slice=name, steps=steps, batch=B, maxlen=L,
                    distinct_users=int(np.unique(users).size), draw_s=draw_s,
                    sync_debug_mode="error", same_bits=same_bits, other_epoch_order=other_order,
                    cpu_gathers_equal=cpu_equal)
         ok = same_bits and other_order and cpu_equal
-        if roll:
+        if gen:
+            # every positive one of its user's train items
+            ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()[:, 0]
+            train_keys = np.unique(np.concatenate(
+                [u * N + np.asarray(s, dtype=np.int64) for u, s in enumerate(seqs) if s]))
+            row.update(users=int(card.User.count), positives_in_train=float(
+                np.isin(users.astype(np.int64) * N + ipos, train_keys).mean()),
+                negatives_per_row=card.num_negatives, history=int(card._packed.shape[1]))
+            ok &= row["positives_in_train"] == 1.0 and steps == max(1, card.User.count // B)
+        elif roll:
             # every row one of the dataset's (user, end) windows, none twice
             ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()
             want = expected_roll_rows(seqs, L, net.NUM_PADS,
@@ -3218,7 +3616,7 @@ def check_device_samplers(seed: int, dataset) -> list:
             want = expected_windows(seqs, L)
             ok &= bool(np.array_equal(iseq, np.where(want != 0, want - 1 + net.NUM_PADS,
                                                      0)[users]))
-        elif not roll:
+        elif not roll and not gen:
             window = expected_windows([s if len(s[-(L + 1):]) >= 2 else () for s in seqs],
                                       L + 1)
             want_in = np.where(window[:, :-1] != 0, window[:, :-1] - 1 + net.NUM_PADS, 0)
@@ -3236,7 +3634,8 @@ def check_device_samplers(seed: int, dataset) -> list:
             row["zero_times_at_items"] = int(((ts == 0) & (iseq != 0)).sum())
         if card.INeg in batches[0]:
             negs = torch.cat([b[card.INeg] for b in cpu]).numpy()
-            # (rows, L + 1) raw + 1: SASRec's window; the whole history for roll
+            # (rows, L + 1) raw + 1: SASRec's window; the whole history for
+            # roll; the last 128 train items for the general CF sampler
             packed = card._packed.cpu().numpy()[users]
             ok &= bool(negs.min() >= 0 and negs.max() < N)
             row["collision_share"] = float((negs[..., None] + 1 == packed[:, None, :])
@@ -3361,7 +3760,7 @@ def pool_check(dataset, trained: dict) -> list:
         results = []
         for device in (torch.device(CARD), torch.device("cpu")):
             net = run.build_model(cfg.model, dataset, cfg, device)
-            pipe = net.sure_validpipe(int(cfg.maxlen), ranking="pool")
+            pipe = run.eval_pipe(net, "valid", int(cfg.maxlen), ranking="pool")
             coach = Coach(dataset, None, pipe, None, net, cfg, device)
             coach.load_best()
             for fn in counted_kernels():
@@ -3485,6 +3884,7 @@ def main(argv=None) -> int:
         return 0
 
     phase_s = {}
+    run_start = time.perf_counter()
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
@@ -3539,6 +3939,14 @@ def main(argv=None) -> int:
         host_times[name] = timed(f"{tag}train_time", time_training,
                                  roll_trained[name]["run_dir"], f"{tag}train", None,
                                  SLICES[name].get("timings", True))
+    gen_trained = {}
+    for name in GEN_SLICES:
+        tag = SLICES[name]["tag"]
+        gen_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
+        if name not in UNTIMED:
+            host_times[name] = timed(f"{tag}train_time", time_training,
+                                     gen_trained[name]["run_dir"], f"{tag}train")
+    timed("lightgcn_spmm", check_lightgcn_spmm, args.seed, dataset)
     timed("device_samplers", check_device_samplers, args.seed, dataset)
     ods = {}
     for name in ODS_SLICES:
@@ -3546,10 +3954,19 @@ def main(argv=None) -> int:
         ods[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
         timed(f"{tag}train_time", time_training, ods[name]["run_dir"], f"{tag}train",
               dict(host_times[host], slice=host))
-    timed("resume_check", resume_check, args.seed, dataset)
-    timed("pool_check", pool_check, dataset, ods)
-    # every model's band: 70 seeds, 40 processes at once, beside each other on the card
-    timed("store_quality", quality, STORE_SEEDS, *STORE_BANDS)
+    # every model's band: 85 seeds, 8 processes at once beside each other on
+    # the card, started beside the last two checks, which time nothing but
+    # pool_check's card_s (their card and CPU results are compared, not
+    # timed); store_quality is the pool's own wall time
+    with concurrent.futures.ThreadPoolExecutor(1) as beside:
+        bands_start = time.perf_counter()
+        bands = beside.submit(quality, STORE_SEEDS, *STORE_BANDS)
+        timed("resume_check", resume_check, args.seed, dataset)
+        timed("pool_check", pool_check, dataset, ods)
+        bands.result()
+    phase_s["store_quality"] = time.perf_counter() - bands_start
+    emit("phase_seconds", name="store_quality", seconds=phase_s["store_quality"],
+         beside=["resume_check", "pool_check"])
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
@@ -3611,10 +4028,12 @@ def main(argv=None) -> int:
              path="ops.dropout.dropout", model_path_launches=sum(
                  t["launches"]["dropout_mask"] for t in (trained, b_trained, h_trained,
                                                           p_trained, *ods.values(),
-                                                          *roll_trained.values()))),
+                                                          *roll_trained.values(),
+                                                          *gen_trained.values()))),
         *row_mask_entries(rows, drop_rows, roll_trained),
     ]}))
-    emit("phase_seconds", name="total", seconds=sum(phase_s.values()))
+    # the wall time of every phase: the band pool overlaps two of them
+    emit("phase_seconds", name="total", seconds=time.perf_counter() - run_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

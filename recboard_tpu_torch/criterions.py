@@ -1,15 +1,16 @@
 """Loss criterions (counterpart of ``recboard_tpu/criterions.py``): the
-pure functions SASRec's losses use, optionally weighted so padding
-positions are masked without dynamic shapes."""
+pure functions the ported models' losses use, optionally weighted so
+padding positions are masked without dynamic shapes, and the embedding
+regularizer LightGCN folds into its loss."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["bce_with_logits", "bpr_with_logits", "cross_entropy_with_logits"]
+__all__ = ["bce_with_logits", "bpr_with_logits", "cross_entropy_with_logits", "regularize"]
 
 
 def _reduce(values: torch.Tensor, reduction: str, weights: Optional[torch.Tensor]):
@@ -62,3 +63,20 @@ def cross_entropy_with_logits(
         valid = (labels != ignore_index).to(loss.dtype)
         weights = valid if weights is None else weights * valid
     return _reduce(loss, reduction, weights)
+
+
+def regularize(embds: Union[torch.Tensor, Iterable[torch.Tensor]], rtype: str = "l2"
+               ) -> torch.Tensor:
+    """Embedding regularizer (``recboard_tpu``'s ``BaseCriterion.regularize``):
+    the sum over the tensors of 0.5 x² (``l2``) or |x| (``l1``)."""
+    if isinstance(embds, torch.Tensor):
+        embds = [embds]
+    total = 0.0
+    for e in embds:
+        if rtype == "l2":
+            total = total + 0.5 * e.square().sum()
+        elif rtype == "l1":
+            total = total + e.abs().sum()
+        else:
+            raise ValueError(f"unknown rtype {rtype!r}")
+    return total

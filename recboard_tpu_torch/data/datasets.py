@@ -225,6 +225,23 @@ class DataSetView:
         seqs = (values[bounds[u] : bounds[u + 1]] for u in range(User.count))
         return [tuple((seq if maxlen is None else seq[-maxlen:]).tolist()) for seq in seqs]
 
+    # ------------------------------------------------------------- graphs
+    def to_bigraph_edges(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(user_ids, item_ids) interaction edge lists for this split."""
+        cols = self.dataset._splits[self.split]
+        return cols[self.fields[USER, ID]], cols[self.fields[ITEM, ID]]
+
+    def to_normalized_adj(self, normalization: str = "sym", device=None):
+        """The normalized (U+I)x(U+I) bipartite adjacency of this split, a
+        ``graph.SparseAdj`` on ``device``: LightGCN's propagation operator."""
+        from .. import graph
+
+        users, items = self.to_bigraph_edges()
+        return graph.bipartite_normalized_adj(
+            users, items, self.fields[USER, ID].count, self.fields[ITEM, ID].count,
+            normalization=normalization, device=device,
+        )
+
     # Datapipe sources are attached by data.pipes (looked up lazily to
     # avoid an import cycle).
     def __getattr__(self, name: str):

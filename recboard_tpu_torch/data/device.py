@@ -24,12 +24,14 @@ Coach calls ``sample`` once per step (``launcher/coach.py``).
 
 Protocol notes (as in ``recboard_tpu``): users (for the roll-window
 sampler, (user, window end) pairs) are drawn in a fresh permutation each
-epoch, ``steps_per_epoch = max(1, n // batch_size)`` drops the
-remainder, and step rows are taken modulo n, which holds when the batch
-is larger than n. Negatives are uniform with one resample against the
-user's packed window (the last maxlen + 1 items), so users longer than
-the window lose exclusion for their oldest items; the roll-window
-sampler resamples against the user's whole train history.
+epoch (the general CF sampler draws them with replacement every step),
+``steps_per_epoch = max(1, n // batch_size)`` drops the remainder, and
+step rows are taken modulo n, which holds when the batch is larger than
+n. Negatives are uniform with one resample against the user's packed
+window (the last maxlen + 1 items; the general CF sampler's last 128),
+so users longer than the window lose exclusion for their oldest items;
+the roll-window sampler resamples against the user's whole train
+history.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ from .. import utils
 from .fields import Field
 from .tags import ID, ITEM, NEGATIVE, POSITIVE, SEQUENCE, TIMESTAMP, USER
 
-__all__ = ["DeviceFullSeqSampler", "DeviceRollSeqSampler", "DeviceSeqSampler",
-           "DeviceTimeSeqSampler", "stream_seed"]
+__all__ = ["DeviceFullSeqSampler", "DeviceGenSampler", "DeviceRollSeqSampler",
+           "DeviceSeqSampler", "DeviceTimeSeqSampler", "stream_seed"]
 
 _MASK64 = (1 << 64) - 1
 # the first word of each stream's mix, so permutations and draws never share one
@@ -363,3 +365,50 @@ class DeviceRollSeqSampler(_DeviceSamplerBase):
             negs = _resample(draws["negs"], draws["retry"], self._packed[users])
             batch[self.INeg] = negs if self.num_negatives == 1 else negs[:, None, :]
         return batch
+
+
+class DeviceGenSampler(_DeviceSamplerBase):
+    """The general CF train pipe on the device (MF-BPR, NeuMF, LightGCN):
+    per step B users uniform with replacement (no epoch permutation:
+    ``prepare`` makes none), one positive drawn from the user's packed
+    history (the last ``max_history`` train items) by ``randint(0, 2**30) %
+    count``, (B, 1), and ``num_negatives`` K uniform negatives, (B, K),
+    resampled once against that history. ``steps_per_epoch = max(1,
+    users // B)``. A user without train items draws the positive -1, as in
+    ``recboard_tpu``."""
+
+    def __init__(self, dataset, batch_size: int, num_negatives: int = 1,
+                 max_history: int = 128, device: Optional[torch.device] = None):
+        super().__init__(dataset, None, batch_size, 0, device)
+        self.num_negatives = num_negatives
+        seqs = dataset.train().user_seqs()
+        H = min(max_history, max((len(s) for s in seqs), default=1))
+        packed = np.zeros((len(seqs), H), dtype=np.int32)  # raw + 1, left-aligned
+        counts = np.zeros(len(seqs), dtype=np.int64)
+        for u, s in enumerate(seqs):
+            tail = list(s)[-H:]
+            packed[u, :len(tail)] = np.asarray(tail, dtype=np.int32) + 1
+            counts[u] = len(tail)
+        self._packed = torch.from_numpy(packed).to(self.device)
+        self._counts = torch.from_numpy(np.maximum(counts, 1)).to(self.device)
+        self.steps_per_epoch = max(1, self.User.count // batch_size)
+
+    def prepare(self) -> None:
+        return None
+
+    def draws(self, step: int) -> Dict[str, torch.Tensor]:
+        generator = self._seeded(_DRAWS, self.seed, self.epoch, step)
+        B, K = self.batch_size, self.num_negatives
+        return {"users": self._randint(generator, self.User.count, (B,)),
+                "pick": self._randint(generator, 2**30, (B,)),
+                "negs": self._randint(generator, self.num_items, (B, K)),
+                "retry": self._randint(generator, self.num_items, (B, K))}
+
+    def sample_prepared(self, perm, step, draws=None):
+        draws = self.draws(step) if draws is None else draws
+        users = draws["users"].to(self.device)
+        hist = self._packed[users]  # (B, H)
+        pick = draws["pick"].to(self.device) % self._counts[users]
+        pos = hist.gather(1, pick[:, None]) - 1
+        return {self.User: users.to(torch.int32), self.IPos: pos.to(torch.int32),
+                self.INeg: _resample(draws["negs"], draws["retry"], hist)}

@@ -10,7 +10,9 @@ This module holds what the ported models' pipes use: the
 shuffled-sequence training source with its shift-by-one positives and
 per-position negatives (drawn by the native sampler, ``native/``), its
 timestamped twin for HSTU, the rolling-window source with last-item
-targets (BSARec, FMLP-Rec, UniSRec), the ordered user source and the
+targets (BSARec, FMLP-Rec, UniSRec), the general CF models' pipe (users
+drawn with replacement, one train positive and chunked native negatives
+each: MF-BPR, NeuMF, LightGCN), the ordered user source and the
 valid/test samplers (with their timestamped variants), the weighted
 multiplexer over pipes, and the offset/left-pad/right-pad/prune/mark/
 batch/collate transforms.
@@ -18,6 +20,7 @@ batch/collate transforms.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -120,6 +123,16 @@ class _ViewPipe(DataPipe):
 
 
 # ============================================================== sources
+@view_source("choiced_user_ids_source")
+class ChoicedUserIdsSource(_ViewPipe):
+    """One epoch = #users uniform user draws, with replacement."""
+
+    def __iter__(self) -> Iterator[Row]:
+        User = self.User
+        for u in self.rng().integers(0, User.count, size=User.count):
+            yield {User: int(u)}
+
+
 @view_source("ordered_user_ids_source")
 class OrderedUserIdsSource(_ViewPipe):
     """Deterministic user order, for eval and serving."""
@@ -279,13 +292,10 @@ class SeqTrainPositiveYielder(DataPipe):
             yield row
 
 
-@functional_datapipe("seq_train_sampling_neg_")
-class SeqTrainNegativeSampler(DataPipe):
-    """Per-position negatives for sequence targets: for each target
-    position, ``num_negatives`` items the user has not seen in train.
-    With one negative the field follows IPos (length L), else (L, n).
-    Rows are buffered into chunks of CHUNK and sampled in one native call
-    seeded by hash((seed, epoch, chunk id)), as in ``recboard_tpu``."""
+class _ChunkedNegativeSampler(DataPipe):
+    """Rows buffered into chunks of CHUNK, each chunk's negatives drawn in
+    one call seeded by hash((seed, epoch, chunk id)), as in
+    ``recboard_tpu``; ``_draw`` makes a chunk's rows."""
 
     CHUNK = 2048
 
@@ -294,48 +304,93 @@ class SeqTrainNegativeSampler(DataPipe):
         self.num_negatives = num_negatives
         self._seen: Optional[_SeenLookup] = None
 
-    def __iter__(self) -> Iterator[Row]:
+    def _unseen(self, users: np.ndarray, seed: int) -> np.ndarray:
+        """(len(users), num_negatives) items each user has not seen in
+        train, by the native sampler."""
         from .. import native
 
         if self._seen is None:
             self._seen = _SeenLookup(self.dataset.train().user_seqs())
-        User = self.User
+        return native.sample_negatives(users, self.num_negatives, self._seen.indptr,
+                                       self._seen.items, self.Item.count, seed)
+
+    def _draw(self, rows: List[Row], seed: int) -> Iterator[Row]:
+        raise NotImplementedError
+
+    def __iter__(self) -> Iterator[Row]:
+        source = iter(self.source)
+        for chunk_id in itertools.count():
+            rows = list(itertools.islice(source, self.CHUNK))
+            if not rows:
+                return
+            yield from self._draw(rows, hash((self._seed or 0, self._epoch, chunk_id)) & (2**63 - 1))
+
+
+@functional_datapipe("seq_train_sampling_neg_")
+class SeqTrainNegativeSampler(_ChunkedNegativeSampler):
+    """Per-position negatives for sequence targets: for each target
+    position, ``num_negatives`` items the user has not seen in train.
+    With one negative the field follows IPos (length L), else (L, n)."""
+
+    def _draw(self, rows: List[Row], seed: int) -> Iterator[Row]:
         IPos, INeg = self.Item.fork(POSITIVE), self.Item.fork(NEGATIVE)
-        count = self.Item.count
-        buffer: List[Row] = []
-        chunk_id = 0
+        # one draw stream per (user, position)
+        negs = self._unseen(np.concatenate(
+            [np.full(len(row[IPos]), row[self.User], np.int64) for row in rows]), seed)
+        offset = 0
+        for row in rows:
+            L = len(row[IPos])
+            chunk = negs[offset : offset + L]
+            offset += L
+            row = dict(row)
+            if self.num_negatives == 1:
+                row[INeg] = tuple(int(v) for v in chunk[:, 0])
+            else:
+                row[INeg] = tuple(tuple(int(v) for v in r) for r in chunk)
+            yield row
 
-        def flush():
-            nonlocal chunk_id
-            # one draw stream per (user, position)
-            users_flat = np.concatenate(
-                [np.full(len(row[IPos]), row[User], np.int64) for row in buffer]
-            )
-            seed = hash((self._seed or 0, self._epoch, chunk_id)) & (2**63 - 1)
-            chunk_id += 1
-            negs = native.sample_negatives(
-                users_flat, self.num_negatives,
-                self._seen.indptr, self._seen.items, count, seed,
-            )
-            offset = 0
-            for row in buffer:
-                L = len(row[IPos])
-                chunk = negs[offset : offset + L]
-                offset += L
-                row = dict(row)
-                if self.num_negatives == 1:
-                    row[INeg] = tuple(int(v) for v in chunk[:, 0])
-                else:
-                    row[INeg] = tuple(tuple(int(v) for v in r) for r in chunk)
-                yield row
-            buffer.clear()
 
+@functional_datapipe("gen_train_sampling_pos_")
+class GenTrainPositiveSampler(DataPipe):
+    """One positive drawn uniformly from the user's train sequence, as a
+    1-tuple; users with no train items are skipped."""
+
+    def __iter__(self) -> Iterator[Row]:
+        seqs = self.dataset.train().user_seqs()
+        User, IPos = self.User, self.Item.fork(POSITIVE)
+        rng = self.rng()
         for row in self.source:
-            buffer.append(row)
-            if len(buffer) >= self.CHUNK:
-                yield from flush()
-        if buffer:
-            yield from flush()
+            seq = seqs[row[User]]
+            if not seq:
+                continue
+            row = dict(row)
+            row[IPos] = (int(seq[rng.integers(0, len(seq))]),)
+            yield row
+
+
+@functional_datapipe("gen_train_sampling_neg_")
+class GenTrainNegativeSampler(_ChunkedNegativeSampler):
+    """``num_negatives`` uniform negatives per row, as a tuple: items the
+    user has not seen in train (``unseen_only``, by the native sampler),
+    else any item (``np.random.default_rng``)."""
+
+    CHUNK = 4096
+
+    def __init__(self, source: DataPipe, num_negatives: int = 1, unseen_only: bool = True):
+        super().__init__(source, num_negatives)
+        self.unseen_only = unseen_only
+
+    def _draw(self, rows: List[Row], seed: int) -> Iterator[Row]:
+        if self.unseen_only:
+            negs = self._unseen(np.asarray([row[self.User] for row in rows]), seed)
+        else:
+            negs = np.random.default_rng(seed).integers(
+                0, self.Item.count, size=(len(rows), self.num_negatives))
+        INeg = self.Item.fork(NEGATIVE)
+        for row, neg in zip(rows, negs):
+            row = dict(row)
+            row[INeg] = tuple(int(v) for v in neg)
+            yield row
 
 
 @functional_datapipe("time_seq_train_yielding_pos_")

@@ -1,0 +1,158 @@
+"""Sparse-graph utilities (counterpart of ``recboard_tpu/graph.py``):
+the bipartite user-item adjacency that LightGCN propagates over.
+
+The numpy functions that make it (``_coalesce``, ``to_normalized``,
+``bipartite_normalized_adj``) are copies of ``recboard_tpu``'s and give
+its rows, columns and values exactly: duplicate interactions count once,
+and a node of degree 0 gets a normalizer of 0.
+
+``SparseAdj`` holds the edges sorted by destination row, as a torch CSR
+tensor, and the transpose as a second CSR tensor sorted by its own rows,
+both as non-persistent buffers on an explicit device (``module.to`` and
+``.double()`` carry them along; they never enter a ``state_dict``).
+``adj @ x`` runs through ``SpMM``, an autograd function whose forward is
+the CSR product and whose backward is the transpose's product with the
+cotangent: ``recboard_tpu``'s ``spmm_const`` (a fixed adjacency, no
+gradient to its values), which has the same value and gradient as its
+default ``adj @ x`` (a gather and a sorted segment-sum, differentiated by
+JAX), so one product serves both of LightGCN's ``spmm_const`` values.
+
+``recboard_tpu`` computes this product in XLA, outside any Pallas kernel
+(``recboard_tpu/ops/spmm.py``), so here it is the library's CSR product:
+cuSPARSE's SpMM on the card (``csrmm_alg2_kernel`` after a row partition),
+PyTorch's CSR kernel on the CPU. Reruns on the card do not give the same
+bits, in either direction, also under torch's deterministic mode
+(``chip_smoke.py``'s ``lightgcn_spmm``, on an H100; ``PERF.md`` §5): runs
+agree to rounding (about 1e-7 relative), not bit for bit. The CPU's
+product repeats its bits. A product that fails on a CUDA tensor raises;
+there is no other path.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["SparseAdj", "SpMM", "bipartite_normalized_adj", "to_normalized"]
+
+
+def _csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, shape: Tuple[int, int],
+         device) -> torch.Tensor:
+    """A CSR tensor of edges already sorted by row."""
+    crow = np.zeros(shape[0] + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=shape[0]), out=crow[1:])
+    with warnings.catch_warnings():  # torch's note that CSR support is in beta
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(crow.astype(np.int32)), torch.from_numpy(cols.astype(np.int32)),
+            torch.from_numpy(vals.astype(np.float32)), size=shape, check_invariants=False)
+    return csr.to(torch.device(device or "cpu"))
+
+
+class SpMM(torch.autograd.Function):
+    """``adj @ x`` for a fixed adjacency: the forward is the CSR product, the
+    backward the transpose's CSR product with the cotangent; the values get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, csr: torch.Tensor, csr_t: torch.Tensor) -> torch.Tensor:
+        ctx.csr_t = csr_t
+        return csr @ x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.csr_t @ grad.contiguous(), None, None
+
+
+class SparseAdj(nn.Module):
+    """A fixed (M, N) sparse matrix: ``rows``, ``cols`` and ``vals`` (numpy,
+    sorted by row, stably, as ``recboard_tpu`` sorts them) and, on
+    ``device``, the CSR buffers ``csr`` and ``csr_t`` (the transpose sorted
+    by its rows)."""
+
+    def __init__(self, rows, cols, vals, shape: Tuple[int, int],
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        order = np.argsort(np.asarray(rows), kind="stable")
+        self.rows = np.asarray(rows, dtype=np.int64)[order]
+        self.cols = np.asarray(cols, dtype=np.int64)[order]
+        self.vals = np.asarray(vals, dtype=np.float32)[order]
+        self.shape = (int(shape[0]), int(shape[1]))
+        t_order = np.argsort(self.cols, kind="stable")
+        self.register_buffer("csr", _csr(self.rows, self.cols, self.vals, self.shape, device),
+                             persistent=False)
+        self.register_buffer("csr_t", _csr(self.cols[t_order], self.rows[t_order],
+                                           self.vals[t_order], self.shape[::-1], device),
+                             persistent=False)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return SpMM.apply(x, self.csr, self.csr_t)
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self(x)
+
+
+def _coalesce(rows, cols, vals, shape):
+    """Merge duplicate edges by summing values."""
+    key = rows.astype(np.int64) * shape[1] + cols
+    uniq, inverse = np.unique(key, return_inverse=True)
+    merged = np.zeros(len(uniq), dtype=np.float64)
+    np.add.at(merged, inverse, vals)
+    return (
+        (uniq // shape[1]).astype(np.int64),
+        (uniq % shape[1]).astype(np.int64),
+        merged.astype(np.float32),
+    )
+
+
+def to_normalized(adj: SparseAdj, normalization: str = "sym",
+                  device: Optional[torch.device] = None) -> SparseAdj:
+    """Degree-normalize: 'sym' → D^-1/2 A D^-1/2, 'left' → D^-1 A,
+    'right' → A D^-1."""
+    rows, cols, vals = adj.rows, adj.cols, adj.vals
+    deg_out = np.zeros(adj.shape[0], dtype=np.float64)
+    np.add.at(deg_out, rows, vals)
+    deg_in = np.zeros(adj.shape[1], dtype=np.float64)
+    np.add.at(deg_in, cols, vals)
+    with np.errstate(divide="ignore"):
+        inv_out = np.where(deg_out > 0, 1.0 / deg_out, 0.0)
+        inv_in = np.where(deg_in > 0, 1.0 / deg_in, 0.0)
+        inv_sqrt_out = np.sqrt(inv_out)
+        inv_sqrt_in = np.sqrt(inv_in)
+    if normalization == "sym":
+        new_vals = inv_sqrt_out[rows] * vals * inv_sqrt_in[cols]
+    elif normalization == "left":
+        new_vals = inv_out[rows] * vals
+    elif normalization == "right":
+        new_vals = vals * inv_in[cols]
+    else:
+        raise ValueError(f"unknown normalization {normalization!r}")
+    return SparseAdj(rows, cols, new_vals.astype(np.float32), adj.shape, device)
+
+
+def bipartite_normalized_adj(
+    users: np.ndarray,
+    items: np.ndarray,
+    num_users: int,
+    num_items: int,
+    normalization: str = "sym",
+    device: Optional[torch.device] = None,
+) -> SparseAdj:
+    """The (U+I)x(U+I) block adjacency [[0, R], [R^T, 0]], normalized: the
+    LightGCN propagation operator, on ``device``."""
+    users = np.asarray(users, dtype=np.int64)
+    items = np.asarray(items, dtype=np.int64) + num_users
+    n = num_users + num_items
+    rows = np.concatenate([users, items])
+    cols = np.concatenate([items, users])
+    rows, cols, vals = _coalesce(rows, cols, np.ones(len(rows), dtype=np.float32), (n, n))
+    vals = np.minimum(vals, 1.0)  # duplicates count once
+    return to_normalized(SparseAdj(rows, cols, vals, (n, n), "cpu"), normalization, device)

@@ -6,9 +6,12 @@ fields; ``SeqRecArch`` adds the next-item contract: item ids
 in the pipes. Models are ``nn.Module``s; ``recommend_from_full`` and
 ``recommend_from_pool`` take a batch of tensors keyed by Field.
 ``reset_ranking_buffers`` returns the precomputed eval-time state that
-serving threads into ``recommend_from_*`` (nothing for SASRec).
-``LastItemSeqRec`` is what BSARec, FMLP-Rec, STAMP and FPMC share: the
-roll-window train pipe, their losses and last-position scoring;
+serving threads into ``recommend_from_*`` (nothing for SASRec; the
+propagated tables for LightGCN). ``GenRecArch`` is the general CF
+contract (MF-BPR, NeuMF, LightGCN): train and eval pipes over user ids,
+without a maxlen. ``LastItemSeqRec`` is what BSARec, FMLP-Rec, STAMP and
+FPMC share: the roll-window train pipe, their losses and last-position
+scoring;
 ``RightPaddedSeqRec`` is GRU4Rec's, NARM's and GLINT-RU's variant, on
 right-padded windows without the target.
 """
@@ -26,8 +29,8 @@ from ..data.fields import Field
 from ..data.pipes import Size
 from ..data.tags import ID, ITEM, NEGATIVE, POSITIVE, SEEN, SEQUENCE, UNSEEN, USER
 
-__all__ = ["Batch", "LastItemSeqRec", "RecSysArch", "RightPaddedSeqRec", "SeqRecArch",
-           "last_item_loss"]
+__all__ = ["Batch", "GenRecArch", "LastItemSeqRec", "RecSysArch", "RightPaddedSeqRec",
+           "SeqRecArch", "last_item_loss"]
 
 Batch = Dict[Field, torch.Tensor]
 
@@ -86,6 +89,40 @@ class RecSysArch(nn.Module):
     def reset_ranking_buffers(self) -> Any:
         """Precompute eval-time state; default: nothing."""
         return ()
+
+    def encode_queries(self, data: Batch) -> torch.Tensor:
+        """(B, D) queries whose products with ``item_table()`` are the
+        full-catalog scores; only dot-product scorers have them."""
+        raise NotImplementedError
+
+    def item_table(self) -> torch.Tensor:
+        """The (N, D) item matrix paired with ``encode_queries``."""
+        raise NotImplementedError
+
+
+class GenRecArch(RecSysArch):
+    """General CF (MF, graph CF): the eval pipes are the base's, over user
+    ids, and take no maxlen; a model defines ``sure_trainpipe(batch_size)``.
+    Eval rows carry the ragged ``ISeq`` and ``ISeen`` unpadded, which
+    ``collate`` keeps as tuples, as ``recboard_tpu``'s."""
+
+    def sure_validpipe(self, ranking: str = "full", batch_size: int = 512):
+        return (
+            self.dataset.valid()
+            .ordered_user_ids_source()
+            .valid_sampling_(ranking)
+            .batch_(batch_size)
+            .tensor_()
+        )
+
+    def sure_testpipe(self, ranking: str = "full", batch_size: int = 512):
+        return (
+            self.dataset.test()
+            .ordered_user_ids_source()
+            .test_sampling_(ranking)
+            .batch_(batch_size)
+            .tensor_()
+        )
 
 
 class SeqRecArch(RecSysArch):

@@ -1,0 +1,101 @@
+"""LightGCN: K hops over the normalized bipartite adjacency, the mean of
+the K + 1 layers, BPR (counterpart of ``recboard_tpu/models/zoo/lightgcn.py``).
+
+``encode`` propagates the stacked [users; items] table ``num_layers``
+times through ``adj`` (``graph.SparseAdj``, the train split's
+``to_normalized_adj("sym")``, which the runner builds on the run's device)
+and averages: ``x / (K + 1) + Σ adj^k x / (K + 1)``, split at
+``User.count``. ``fit`` propagates at every step; its loss is the BPR of
+the propagated rows plus ``weight_decay`` times the l2 ``regularize`` of
+the raw (layer-0) user, positive and negative rows over the batch size.
+The runner zeroes the optimizer's decay for this model, after the model
+took ``cfg.weight_decay``. Evaluation and serving propagate once
+(``reset_ranking_buffers``). ``spmm_const`` is taken for recboard_tpu's
+configs: both of its values run the same product (``graph.py``). No hand
+kernel: the product is cuSPARSE's on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ... import criterions
+from ...graph import SparseAdj
+from ..base import Batch, GenRecArch
+from . import register
+
+
+@register("LightGCN")
+class LightGCN(GenRecArch):
+    def __init__(
+        self,
+        dataset,
+        embedding_dim: int = 64,
+        num_layers: int = 3,
+        weight_decay: float = 1e-4,  # folded into the loss, not the optimizer
+        adj: Optional[SparseAdj] = None,
+        spmm_const: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(dataset)
+        self.num_layers = num_layers
+        self.weight_decay = float(weight_decay)
+        self.spmm_const = spmm_const
+        self.adj = adj
+        self.user_embeddings = nn.Embedding(self.User.count, embedding_dim)
+        self.item_embeddings = nn.Embedding(self.Item.count, embedding_dim)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """recboard_tpu's init: both tables normal(std 1e-4)."""
+        for table in (self.user_embeddings, self.item_embeddings):
+            nn.init.normal_(table.weight, std=1e-4, generator=generator)
+
+    def sure_trainpipe(self, batch_size: int):
+        return (
+            self.dataset.train()
+            .choiced_user_ids_source()
+            .gen_train_sampling_pos_()
+            .gen_train_sampling_neg_(num_negatives=1)
+            .batch_(batch_size)
+            .tensor_()
+        )
+
+    def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.adj is None:
+            raise ValueError("LightGCN requires adj=dataset.train().to_normalized_adj()")
+        x = torch.cat([self.user_embeddings.weight, self.item_embeddings.weight])
+        avg = x / (self.num_layers + 1)
+        for _ in range(self.num_layers):
+            x = self.adj @ x
+            avg = avg + x / (self.num_layers + 1)
+        return avg[: self.User.count], avg[self.User.count:]
+
+    def fit(self, data: Batch, generator: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        user_embds, item_embds = self.encode()
+        users, positives, negatives = data[self.User], data[self.IPos], data[self.INeg]
+        u = user_embds[users][:, None, :]
+        rec_loss = criterions.bpr_with_logits((u * item_embds[positives]).sum(-1),
+                                              (u * item_embds[negatives]).sum(-1))
+        emb_loss = criterions.regularize(
+            [self.user_embeddings(users), self.item_embeddings(positives),
+             self.item_embeddings(negatives)], rtype="l2") / users.shape[0]
+        loss = rec_loss + self.weight_decay * emb_loss
+        return loss, {"rec_loss": rec_loss, "emb_loss": emb_loss}
+
+    def reset_ranking_buffers(self) -> Any:
+        return self.encode()
+
+    def recommend_from_full(self, data: Batch, buffers: Any = None) -> torch.Tensor:
+        user_embds, item_embds = buffers if buffers else self.encode()
+        return user_embds[data[self.User]] @ item_embds.T
+
+    def recommend_from_pool(self, data: Batch, buffers: Any = None) -> torch.Tensor:
+        user_embds, item_embds = buffers if buffers else self.encode()
+        q = user_embds[data[self.User]]
+        return torch.einsum("bd,bkd->bk", q, item_embds[data[self.IUnseen]])

@@ -8,7 +8,9 @@ Trains on ``cuda`` unless ``--device cpu`` is given, with the host
 generator pipes or (``--on-device-sampling``) batches drawn on the
 device, resumes from the last epoch's checkpoint under ``--resume``,
 ranks the full catalog or (``--ranking pool``) each row's candidate pool,
-and leaves a run directory that ``recommend`` serves.
+and leaves a run directory that ``recommend`` serves. The sequential
+models' pipes take ``--maxlen``; the general CF models' (``GenRecArch``:
+MF-BPR, NeuMF, LightGCN) take none (``train_pipe``, ``eval_pipe``).
 """
 
 from __future__ import annotations
@@ -27,16 +29,19 @@ from . import utils
 from .data.datasets import NextItemRecDataSet, RecDataSet
 from .data.device import (
     DeviceFullSeqSampler,
+    DeviceGenSampler,
     DeviceRollSeqSampler,
     DeviceSeqSampler,
     DeviceTimeSeqSampler,
 )
 from .data.tags import TaskTag
 from .launcher import Coach
+from .models.base import GenRecArch
 from .models.zoo import REGISTRY
 from .parser import Parser
 
-__all__ = ["build_model", "build_pipes", "device_sampler", "load_dataset", "load_feat", "main"]
+__all__ = ["build_model", "build_pipes", "device_sampler", "eval_pipe", "load_dataset",
+           "load_feat", "main", "train_pipe", "zero_folded_decay"]
 
 
 def load_dataset(cfg) -> RecDataSet:
@@ -70,21 +75,35 @@ def load_feat(name: str, dataset: RecDataSet, cfg, key: str) -> Optional[np.ndar
 def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: torch.device):
     """The registered model ``name`` with its hyperparameters taken from
     ``cfg`` (keys the constructor does not take are ignored), initialised
-    from ``cfg.seed`` and placed on ``device``. A model over several
-    datasets (UniSRec) runs single-corpus here, as ``recboard_tpu``'s
-    runner runs it: ``datasets`` and ``tfeats`` become one-entry dicts of
-    this dataset and its ``--tfile`` features."""
+    from ``cfg.seed`` and placed on ``device``. As in ``recboard_tpu``, a
+    comma string for a tuple-valued argument (NeuMF's ``hidden_dims:
+    64,32,16,8``) becomes a tuple of the default's element type (floats
+    where the default is None), and a model that takes an ``adj`` gets the
+    train split's symmetric normalized adjacency on ``device``. A model over several datasets (UniSRec) runs single-corpus
+    here, as ``recboard_tpu``'s runner runs it: ``datasets`` and ``tfeats``
+    become one-entry dicts of this dataset and its ``--tfile`` features."""
     if name not in REGISTRY:
         raise SystemExit(
             f"model {name!r} is not ported to recboard_tpu_torch yet; "
             f"ported: {', '.join(sorted(REGISTRY))}"
         )
     cls = REGISTRY[name]
-    fields = set(inspect.signature(cls.__init__).parameters) - {
-        "self", "dataset", "generator"
-    }
-    kwargs = {k: cfg[k] for k in fields if cfg.get(k) is not None}
-    if "datasets" in fields and kwargs.get("datasets") is None:
+    defaults = {k: p.default for k, p in inspect.signature(cls.__init__).parameters.items()
+                if k not in ("self", "dataset", "generator")}
+    kwargs = {k: cfg[k] for k in defaults if cfg.get(k) is not None}
+    for k, v in list(kwargs.items()):
+        d = defaults[k]
+        if isinstance(v, str) and isinstance(d, (tuple, list)):
+            elem = type(d[0]) if len(d) else float
+            kwargs[k] = tuple(elem(x) for x in v.split(",") if x != "")
+        elif isinstance(v, str) and d is None and "," in v:
+            try:
+                kwargs[k] = tuple(float(x) for x in v.split(",") if x != "")
+            except ValueError:
+                pass  # a string with commas stays a string
+    if "adj" in defaults and "adj" not in kwargs:
+        kwargs["adj"] = dataset.train().to_normalized_adj("sym", device=device)
+    if "datasets" in defaults and kwargs.get("datasets") is None:
         feats = load_feat(name, dataset, cfg, "tfile")
         if feats is None:
             raise SystemExit(
@@ -115,19 +134,45 @@ DEVICE_SAMPLERS = {
     "GRU4Rec": _ROLL_RIGHT_PADDED,
     "NARM": _ROLL_RIGHT_PADDED,
     "GLINT-RU": _ROLL_RIGHT_PADDED,
+    # users with replacement, one positive and, as recboard_tpu's runner
+    # builds it, one negative (NeuMF's num_negs is not passed)
+    "MF-BPR": DeviceGenSampler,
+    "NeuMF": DeviceGenSampler,
+    "LightGCN": DeviceGenSampler,
 }
 
 
 def device_sampler(model, maxlen: int, batch_size: int, device):
-    """The device sampler of ``model``'s train pipe on ``device``."""
-    return DEVICE_SAMPLERS[model.ZOO_NAME](model.dataset, maxlen=maxlen, batch_size=batch_size,
-                                           num_pads=model.NUM_PADS, device=device)
+    """The device sampler of ``model``'s train pipe on ``device`` (no maxlen
+    and no pads for a ``GenRecArch``)."""
+    make = DEVICE_SAMPLERS[model.ZOO_NAME]
+    if isinstance(model, GenRecArch):
+        return make(model.dataset, batch_size=batch_size, device=device)
+    return make(model.dataset, maxlen=maxlen, batch_size=batch_size, num_pads=model.NUM_PADS,
+                device=device)
+
+
+def train_pipe(model, maxlen: int, batch_size: int):
+    """``model``'s host train pipe: ``sure_trainpipe(maxlen, batch_size)``,
+    or ``sure_trainpipe(batch_size)`` for a ``GenRecArch``."""
+    if isinstance(model, GenRecArch):
+        return model.sure_trainpipe(batch_size)
+    return model.sure_trainpipe(maxlen, batch_size)
+
+
+def eval_pipe(model, split: str, maxlen: int, ranking: str = "full", batch_size: int = 512):
+    """``model``'s ``valid`` or ``test`` pipe, without the maxlen for a
+    ``GenRecArch``."""
+    maker = model.sure_validpipe if split == "valid" else model.sure_testpipe
+    if isinstance(model, GenRecArch):
+        return maker(ranking=ranking, batch_size=batch_size)
+    return maker(maxlen, ranking=ranking, batch_size=batch_size)
 
 
 def build_pipes(model, cfg, device: torch.device):
-    """``recboard_tpu``'s build_pipes for sequential models: the generator
-    pipes, and under ``on_device_sampling`` the model's device sampler on
-    ``device`` as the train pipe."""
+    """``recboard_tpu``'s build_pipes: the generator pipes, and under
+    ``on_device_sampling`` the model's device sampler on ``device`` as the
+    train pipe."""
     maxlen = int(cfg.maxlen)
     if cfg.get("on_device_sampling") and model.ZOO_NAME in DEVICE_SAMPLERS:
         trainpipe = device_sampler(model, maxlen, int(cfg.batch_size), device)
@@ -135,12 +180,21 @@ def build_pipes(model, cfg, device: torch.device):
         if cfg.get("on_device_sampling"):  # as recboard_tpu: UniSRec's multiplexed pipe
             utils.warnLogger(f"[run] >>> on_device_sampling unsupported for "
                              f"{model.ZOO_NAME}; using generator pipes")
-        trainpipe = model.sure_trainpipe(maxlen, int(cfg.batch_size))
+        trainpipe = train_pipe(model, maxlen, int(cfg.batch_size))
     return (
         trainpipe,
-        model.sure_validpipe(maxlen, ranking=cfg.ranking),
-        model.sure_testpipe(maxlen, ranking=cfg.ranking),
+        eval_pipe(model, "valid", maxlen, cfg.ranking),
+        eval_pipe(model, "test", maxlen, cfg.ranking),
     )
+
+
+def zero_folded_decay(model, cfg) -> None:
+    """Zero ``cfg.weight_decay`` for a model that takes a ``weight_decay`` of
+    its own and folds it into its loss (LightGCN), as ``recboard_tpu``'s
+    runner does after building the model: the model keeps the value it took,
+    the optimizer decays nothing."""
+    if "weight_decay" in inspect.signature(type(model).__init__).parameters:
+        cfg.weight_decay = 0.0
 
 
 # options of recboard_tpu's runner this port refuses until they are ported
@@ -187,6 +241,7 @@ def main(argv: Optional[list] = None):
 
     dataset = load_dataset(cfg)
     model = build_model(cfg.model, dataset, cfg, device)
+    zero_folded_decay(model, cfg)
     supported = getattr(type(model), "SUPPORTED_RANKINGS", ("full", "pool"))
     if cfg.ranking not in supported:
         utils.warnLogger(f"[run] >>> {cfg.model} does not support ranking={cfg.ranking!r}; "

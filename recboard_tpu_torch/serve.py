@@ -12,9 +12,11 @@ the device. It runs on ``cuda`` unless ``--device cpu`` is given, where
 the kernels' plain PyTorch versions run instead.
 
 The serving view is the model's own test pipe (each user's history up
-to the split point), so the lists are what the system would have
-recommended; a HitRate@k of the held-out item goes to the log (stderr)
-as a sanity check against the run's recorded metrics.
+to the split point; for a general CF model, its user ids without a
+maxlen), so the lists are what the system would have recommended; the
+model's ranking buffers (LightGCN's propagated tables) are made once; a
+HitRate@k of the held-out item goes to the log (stderr) as a sanity check
+against the run's recorded metrics.
 
 Output: TSV ``user \\t item_1 ... item_k`` (processed dense item ids), or
 with ``--with-scores`` ``user \\t item:score ...``. ``--bench`` skips the
@@ -113,10 +115,11 @@ def main(argv: Optional[list] = None):
         )
     model.load_state_dict(from_flax(payload["params"]))
 
-    maker = model.sure_testpipe if args.split == "test" else model.sure_validpipe
-    pipe = maker(int(cfg.maxlen), ranking="full", batch_size=int(args.batch_size))
+    pipe = run_mod.eval_pipe(model, args.split, int(cfg.maxlen), ranking="full",
+                             batch_size=int(args.batch_size))
     pipe.set_seed(int(cfg.get("seed", 0)))
-    buffers = model.reset_ranking_buffers()
+    with torch.inference_mode():  # once: LightGCN propagates here, not per batch
+        buffers = model.reset_ranking_buffers()
 
     k = int(args.topk)
 

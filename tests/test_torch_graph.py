@@ -1,0 +1,139 @@
+"""recboard_tpu_torch's graph.py against recboard_tpu's.
+
+* ``bipartite_normalized_adj``, ``to_normalized`` (sym, left, right) and
+  the datasets' ``to_normalized_adj``: JAX's rows, cols and vals exactly,
+  duplicate interactions counted once, nodes of degree 0 included.
+* ``SparseAdj`` sorts unsorted edges by row, stably, as JAX's does; its
+  transpose buffer is the transpose.
+* The product ``adj @ x``: value and gradient against JAX's ``adj @ x``
+  and ``spmm_const`` within 1e-6, over one and three hops; the same bits
+  on a rerun on the CPU.
+* ``regularize`` against ``BaseCriterion.regularize`` (l2, l1).
+* The adjacency follows ``module.to`` / ``.double()`` and stays out of the
+  ``state_dict``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recboard_tpu import criterions as criterions_jax
+from recboard_tpu import graph as graph_jax
+from recboard_tpu_torch import criterions, graph
+from recboard_tpu_torch.data.datasets import NextItemRecDataSet
+
+TOL = 1e-6
+
+
+def _edges(seed=0, num_users=30, num_items=20, n=120):
+    """Random interactions with duplicates, a user and an item left alone."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, num_users - 1, n)
+    items = rng.integers(0, num_items - 1, n)
+    return np.concatenate([users, users[:10]]), np.concatenate([items, items[:10]])
+
+
+def _jax_adj(tiny_dataset):
+    return tiny_dataset.train().to_normalized_adj("sym")
+
+
+def _port_adj(tiny_dataset):
+    return NextItemRecDataSet(tiny_dataset.root, tiny_dataset.dataset).train().to_normalized_adj(
+        "sym")
+
+
+def _assert_same_edges(got, want):
+    np.testing.assert_array_equal(got.rows, np.asarray(want.rows))
+    np.testing.assert_array_equal(got.cols, np.asarray(want.cols))
+    np.testing.assert_array_equal(got.vals, np.asarray(want.vals))
+    assert got.shape == want.shape
+
+
+@pytest.mark.parametrize("normalization", ["sym", "left", "right"])
+def test_bipartite_normalized_adj_matches_jax_exactly(normalization):
+    users, items = _edges()
+    want = graph_jax.bipartite_normalized_adj(users, items, 30, 20, normalization)
+    got = graph.bipartite_normalized_adj(users, items, 30, 20, normalization)
+    _assert_same_edges(got, want)
+    assert got.nnz < 2 * len(users)  # the duplicates counted once
+    deg = np.bincount(got.rows, minlength=50)
+    assert deg[29] == 0 and deg[30 + 19] == 0  # the nodes left alone
+
+
+def test_dataset_adjacency_matches_jax(tiny_dataset):
+    want, got = _jax_adj(tiny_dataset), _port_adj(tiny_dataset)
+    _assert_same_edges(got, want)
+    users, items = NextItemRecDataSet(tiny_dataset.root,
+                                      tiny_dataset.dataset).train().to_bigraph_edges()
+    users_j, items_j = tiny_dataset.train().to_bigraph_edges()
+    np.testing.assert_array_equal(users, users_j)
+    np.testing.assert_array_equal(items, items_j)
+
+
+def test_unsorted_edges_sort_as_jax_and_transpose():
+    rng = np.random.default_rng(3)
+    rows, cols = rng.integers(0, 13, 90), rng.integers(0, 7, 90)
+    vals = rng.normal(size=90).astype(np.float32)
+    want = graph_jax.SparseAdj(rows, cols, vals, (13, 7))
+    got = graph.SparseAdj(rows, cols, vals, (13, 7))
+    _assert_same_edges(got, want)
+    dense = np.asarray(want.to_dense())
+    np.testing.assert_allclose(got.csr.to_dense().numpy(), dense, atol=TOL, rtol=0)
+    np.testing.assert_allclose(got.csr_t.to_dense().numpy(), dense.T, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("hops", [1, 3])
+@pytest.mark.parametrize("jax_path", ["matmul", "spmm_const"])
+def test_product_value_and_grad_match_jax(tiny_dataset, jax_path, hops):
+    adj_j, adj_t = _jax_adj(tiny_dataset), _port_adj(tiny_dataset)
+    n = adj_t.shape[0]
+    rng = np.random.default_rng(hops)
+    x = rng.normal(size=(n, 8)).astype(np.float32)
+    w = rng.normal(size=(n, 8)).astype(np.float32)
+
+    def hop_j(y):
+        return adj_j @ y if jax_path == "matmul" else adj_j.spmm_const(y)
+
+    def loss_j(y):
+        for _ in range(hops):
+            y = hop_j(y)
+        return jnp.sum(jnp.tanh(y) * w), y
+
+    (_, want), grad_j = jax.value_and_grad(loss_j, has_aux=True)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = xt
+    for _ in range(hops):
+        y = adj_t @ y
+    (torch.tanh(y) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want), atol=TOL, rtol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(grad_j), atol=TOL, rtol=0)
+    assert torch.equal(adj_t @ xt.detach(), adj_t @ xt.detach())  # the CPU repeats its bits
+
+
+def test_adjacency_follows_the_module_and_stays_out_of_the_state_dict(tiny_dataset):
+    holder = torch.nn.Module()
+    holder.adj = _port_adj(tiny_dataset)
+    holder.double()
+    assert holder.adj.csr.dtype == holder.adj.csr_t.dtype == torch.float64
+    assert holder.state_dict() == {}
+    x = torch.randn(holder.adj.shape[0], 4, dtype=torch.float64)
+    want = holder.adj.csr.to_dense() @ x
+    np.testing.assert_allclose((holder.adj @ x).numpy(), want.numpy(), atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("rtype", ["l2", "l1"])
+def test_regularize_matches_jax(rtype):
+    rng = np.random.default_rng(0)
+    tensors = [rng.normal(size=shape).astype(np.float32)
+               for shape in ((5, 8), (5, 1, 8), (5, 3, 8))]
+    want = criterions_jax.BaseCriterion.regularize([jnp.asarray(t) for t in tensors], rtype=rtype)
+    got = criterions.regularize([torch.from_numpy(t) for t in tensors], rtype=rtype)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    single = criterions.regularize(torch.from_numpy(tensors[0]), rtype=rtype)
+    np.testing.assert_allclose(
+        float(single), float(criterions_jax.BaseCriterion.regularize(jnp.asarray(tensors[0]),
+                                                                      rtype=rtype)), rtol=1e-6)
+    with pytest.raises(ValueError, match="rtype"):
+        criterions.regularize(torch.from_numpy(tensors[0]), rtype="l3")
