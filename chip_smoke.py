@@ -155,7 +155,9 @@ Phases, one JSON line each; any failure exits non-zero:
    FMLP-Rec none), the trained run served GPU = CPU, its ``--bench`` line,
    the toy store's 5-seed bands; BSARec and FMLP-Rec also device-sampled
    (``DeviceRollSeqSampler``: every drawn row one of the dataset's (user,
-   end) windows, none twice in an epoch) beside their host pipes. Phase 3
+   end) windows, none twice in an epoch) beside their host pipes; the
+   train_time of these and of phase 19's GRU4Rec and GLINT-RU times the
+   first STAGED_STEPS steps but no whole epoch. Phase 3
    also checks K1 and K2 with BSARec's and UniSRec's additive -1e4 mask, a
    bias per batch row: rows with a visible key at TOL and GRAD_TOL, rows
    whose every key carries -1e4 at MASKED_ROW_TOL and there the plain
@@ -189,10 +191,23 @@ Phases, one JSON line each; any failure exits non-zero:
    user's train items, negatives in range, the collision share after the
    retry) beside its host pipe.
 
+21. stosa_* (train, train_serve, bench, train_time, train_profile), rum_train,
+   rum_recommend_refused, caser_* (train, train_serve), stosa_ods_train and
+   caser_ods_train — STOSA, RUM and Caser at their reference configs as
+   written, one epoch each: no launch of K1-K7 (STOSA's W2 attention is
+   plain PyTorch, named in its profile), STOSA's and Caser's trained runs
+   served GPU = CPU and their scores at random weights card = CPU, STOSA's
+   ``--bench`` line (RUM, Caser and the two device-sampled runs are neither
+   profiled nor benched: UNTIMED); RUM ranks pools only, so ``recommend`` must refuse its run and
+   pool_check evaluates it; STOSA and Caser also device-sampled beside their
+   host pipes (``DeviceSeqSampler``; ``DeviceRollSeqSampler``'s Caser
+   windows, checked in device_samplers with RUM's ``DeviceFullSeqSampler``);
+   the toy store's 5-seed bands.
+
 Each quality phase runs its seeds in processes of their own side by side
 (the protocol's steps are host-bound), one intra-op thread each:
 ``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18,
-19 and 20 (``STORE_BANDS``), 85 seeds in 8 processes, the longest first,
+19, 20 and 21 (``STORE_BANDS``), 100 seeds in 8 processes, the longest first,
 started beside resume_check and pool_check. Each phase prints its seconds,
 the total the wall time of them all. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
@@ -379,16 +394,18 @@ HSTU_PP_STORE_NDCG10 = 0.3575
 # (data/synthetic.make_item_features) for its five corpora and their MiniLM
 # table, which cannot be downloaded
 ROLL_EPOCHS = 1
-ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC")
+ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC",
+               "Caser")
 # the slices whose toy-store band the whole run checks, in the order the
 # band pool hands their seeds out: the longest first by a seed's seconds
-# in a whole run on an H100 80GB at 700 W (BERT4Rec's 250 epochs 183 s ...
-# FPMC 30 s; the device-sampled SASRec and per-position HSTU beside their
-# host-pipe twins; MF-BPR's 200 epochs 120 s, LightGCN and NeuMF 17 s),
-# so the short ones fill the processes that free up
-STORE_BANDS = ("BERT4Rec", "UniSRec", "BSARec", "FMLP-Rec", "GRU4Rec", "GLINT-RU", "MF-BPR",
-               "HSTU_pp_ods", "HSTU_pp", "HSTU", "SASRec_ods", "SASRec", "NARM", "STAMP",
-               "FPMC", "LightGCN", "NeuMF")
+# in a whole run on an H100 80GB at 700 W, the pool beside resume_check and
+# pool_check (BERT4Rec's 250 epochs 57-59 s, UniSRec 51-56, GLINT-RU 44-46,
+# RUM's 200 epochs 23-41, BSARec 31-36, GRU4Rec and FMLP-Rec 23-29, NARM and
+# MF-BPR's 200 epochs 15-21, Caser 15-17, STAMP 13, FPMC 9-10, the others
+# 2-6), so the short ones fill the processes that free up
+STORE_BANDS = ("BERT4Rec", "UniSRec", "GLINT-RU", "RUM", "BSARec", "GRU4Rec", "FMLP-Rec",
+               "NARM", "MF-BPR", "Caser", "STAMP", "FPMC", "HSTU_pp", "STOSA", "HSTU_pp_ods",
+               "HSTU", "SASRec", "SASRec_ods", "LightGCN", "NeuMF")
 # the band processes at once, one a host core: the whole pool (85 seeds,
 # tests/band_pool_probe.py) took 248.7 s in 40 processes, 200.6 in 24, 187.0
 # in 16 (one call), and 130.8 in 12, 119.7 in 8 (another call; H100 80GB,
@@ -479,14 +496,45 @@ GEN_BAND = 0.006
 # ones: its full ranking runs the MLP over every (user, item) pair, seconds
 # a batch of 512 on the CPU
 NEUMF_CPU_USERS = 1024
-# the general CF slices trained, served and checked but neither profiled nor
-# timed by ``--bench``: cut, in that order, after a whole run took 1,239.7 s
-# of phases on an H100 80GB at 700 W (their profiles and --bench lines had
-# cost about 8 s of it)
-UNTIMED = ("MF-BPR", "NeuMF")
+# the slices trained, served and checked but neither profiled nor timed by
+# ``--bench``: MF-BPR's and NeuMF's, cut in that order after a whole run took
+# 1,239.7 s of phases on an H100 80GB at 700 W (their profiles and --bench
+# lines had cost about 8 s of it); RUM (no full ranking to bench), Caser and
+# the device-sampled twins of STOSA and Caser never were, to make room for
+# STOSA's profile and --bench line
+UNTIMED = ("MF-BPR", "NeuMF", "RUM", "Caser", "Caser_ods", "STOSA_ods")
+# the slices whose full-catalog scores are also held card against CPU at
+# random weights (``random_weight_scores``)
+RANDOM_WEIGHT_SLICES = GEN_SLICES + ("STOSA", "Caser")
 # LightGCN's propagation, card against CPU: largest error relative to the
 # largest magnitude, of the encoded tables and of their parameters' gradients
 SPMM_TOL = 1e-5
+
+# STOSA, RUM and Caser, each at its configs/<M>_Amazon2014Beauty_550_LOU.yaml as
+# written and cut to one epoch: STOSA (D 64, 1 block, 4 heads, maxlen 50,
+# attention dropout 0.5, hidden 0.2, PVN 0.001, batch 512, Adam lr 5e-4, weight
+# decay 1e-6; SASRec's whole-sequence pipe, 43 steps), RUM (D 64, maxlen 20,
+# dropout 0, alpha 0.2, batch 512, Adam lr 1e-3; the last 20 items and a
+# positive drawn from the user's train items; pool ranking only, so no
+# ``recommend``) and Caser (D 64, maxlen 5, 4 vertical and 16 horizontal
+# filters, 3 positives and 2 negatives a window, dropout 0.5, batch 512, Adam lr
+# 5e-4; a row per (user, window end), the window's last 3 items the positives).
+# No kernel of K1-K7 on these paths: STOSA's W2 attention is plain PyTorch.
+SEQ_SLICES = ("STOSA", "RUM")
+STOSA = dict(maxlen=50, embedding_dim=64, num_blocks=1, num_heads=4)
+STOSA_CONFIG = os.path.join(ROOT, "configs", "STOSA_Amazon2014Beauty_550_LOU.yaml")
+RUM = dict(maxlen=20, embedding_dim=64)
+RUM_CONFIG = os.path.join(ROOT, "configs", "RUM_Amazon2014Beauty_550_LOU.yaml")
+CASER = dict(maxlen=5, embedding_dim=64, num_vert=4, num_horiz=16, num_poss=3, num_negs=2)
+CASER_CONFIG = os.path.join(ROOT, "configs", "Caser_Amazon2014Beauty_550_LOU.yaml")
+# the toy store's rows (benchmark/SynBeauty_000_LOU/<M>.json, metric best:
+# 5-seed means, std 0.0046 / 0.0073 / 0.0056) with tools/seed_sweep.py's
+# arguments (STOSA maxlen 20, RUM maxlen 20 and 200 epochs, pool ranking;
+# Caser maxlen 5) and the models' defaults; Caser's band lies above a random
+# ranking's 0.0158 by 0.04
+STOSA_STORE_NDCG10 = 0.3970
+RUM_STORE_NDCG10 = 0.2295
+CASER_STORE_NDCG10 = 0.0859
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -2317,6 +2365,62 @@ def neumf_flax_params(rng, num_items, embedding_dim, hidden_dims, num_users, **_
 lightgcn_flax_params = mf_bpr_flax_params
 
 
+def stosa_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_):
+    """STOSA params in recboard_tpu's flax layout, made with numpy: the mean
+    and cov item and position tables, the shared ``embd_ln``, and per layer
+    the attention's eight Dense layers and its one ``ln``, and the two
+    intermediates."""
+    D = embedding_dim
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+
+    def dense(fan_in, fan_out):
+        return {"kernel": xavier(rng, fan_in, fan_out), "bias": small(fan_out)}
+
+    def ln():
+        return {"scale": (1.0 + small(D)).astype(np.float32), "bias": small(D)}
+
+    params = {"item_mean_embds": {"embedding": table(rng, num_items + 1, D)},
+              "item_cov_embds": {"embedding": table(rng, num_items + 1, D)},
+              "pos_mean_embds": {"embedding": table(rng, maxlen, D)},
+              "pos_cov_embds": {"embedding": table(rng, maxlen, D)}, "embd_ln": ln()}
+    for i in range(num_blocks):
+        attention = {f"{stream}_{name}": dense(D, D) for stream in ("mean", "cov")
+                     for name in ("query", "key", "value", "dense")}
+        attention["ln"] = ln()
+        params[f"layer_{i}"] = {"DistSelfAttention_0": attention, **{
+            f"DistIntermediate_{j}": {"Dense_0": dense(D, 4 * D), "Dense_1": dense(4 * D, D),
+                                      "LayerNorm_0": ln()} for j in (0, 1)}}
+    return params
+
+
+def rum_flax_params(rng, num_items, embedding_dim, num_users, **_):
+    """RUM params in recboard_tpu's flax layout, made with numpy: the user
+    table and the item table with its pad row."""
+    D = embedding_dim
+    return {"user_embeddings": {"embedding": table(rng, num_users, D)},
+            "item_embeddings": {"embedding": table(rng, num_items + 1, D)}}
+
+
+def caser_flax_params(rng, num_items, maxlen, embedding_dim, num_vert, num_horiz, num_users,
+                      **_):
+    """Caser params in recboard_tpu's flax layout, made with numpy: the user
+    and item tables, the bare vertical and per-window-size horizontal
+    kernels and biases, ``fc1``, and the raw-id ``W2`` (N, 2D) and ``b2``."""
+    D = embedding_dim
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    params = {"user_embeddings": {"embedding": table(rng, num_users, D)},
+              "item_embeddings": {"embedding": table(rng, num_items + 1, D)},
+              "vert_kernel": xavier(rng, num_vert, maxlen), "vert_bias": small(num_vert),
+              "fc1": {"kernel": xavier(rng, num_vert * D + num_horiz * maxlen, D),
+                      "bias": small(D)},
+              "W2": {"embedding": table(rng, num_items, 2 * D)},
+              "b2": {"embedding": small(num_items, 1)}}
+    for k in range(1, maxlen + 1):
+        params[f"horiz_kernel_{k}"] = xavier(rng, num_horiz, k * D)
+        params[f"horiz_bias_{k}"] = small(num_horiz)
+    return params
+
+
 def layout(tree, path=()) -> dict:
     """{leaf path: shape} of nested params."""
     out = {}
@@ -2332,10 +2436,12 @@ def layout(tree, path=()) -> dict:
 # training config, flags and epochs (TRAIN_EPOCHS where not given), toy-store
 # protocol and quality anchor, the prefix of its phase names, for a
 # device-sampled slice the host-pipe slice it is printed beside, for a
-# roll-window slice its inputs (``train_slice``), ``timings=False`` where
-# time_training times no step or epoch, only profiles (NARM, STAMP, FPMC:
-# cut since a whole run with them went over its limit), and a band other
-# than STORE_BAND
+# roll-window slice its inputs (``train_slice``), ``timings`` where
+# time_training does not time a whole epoch ("steps": BSARec, FMLP-Rec,
+# UniSRec, GRU4Rec, GLINT-RU and their device-sampled twins, cut after a
+# whole run with them took 1,228.4 s on an H100 80GB at 700 W) or no step
+# either (None, only profiles: NARM, STAMP, FPMC, cut since a whole run with
+# them went over its limit), and a band other than STORE_BAND
 ODS = dict(on_device_sampling=True)
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
@@ -2366,40 +2472,44 @@ SLICES = {
     # pipe only, as recboard_tpu's runner does
     "BSARec": dict(widths=BSAREC, params=bsarec_flax_params, config=BSAREC_CONFIG,
                    batch=BSAREC_BATCH, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                   store=BSAREC_STORE_NDCG10, tag="bsarec_"),
+                   store=BSAREC_STORE_NDCG10, tag="bsarec_", timings="steps"),
     "BSARec_ods": dict(model="BSARec", widths=BSAREC, params=bsarec_flax_params,
                        config=BSAREC_CONFIG, batch=BSAREC_BATCH, flags=ODS,
-                       epochs=ROLL_EPOCHS, tag="bsarec_ods_", host="BSARec"),
+                       epochs=ROLL_EPOCHS, tag="bsarec_ods_", host="BSARec",
+                       timings="steps"),
     "FMLP-Rec": dict(widths=FMLP, params=fmlp_flax_params, config=FMLP_CONFIG,
                      batch=FMLP_BATCH, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                     store=FMLP_STORE_NDCG10, tag="fmlp_"),
+                     store=FMLP_STORE_NDCG10, tag="fmlp_", timings="steps"),
     "FMLP-Rec_ods": dict(model="FMLP-Rec", widths=FMLP, params=fmlp_flax_params,
                          config=FMLP_CONFIG, batch=FMLP_BATCH, flags=ODS,
-                         epochs=ROLL_EPOCHS, tag="fmlp_ods_", host="FMLP-Rec"),
+                         epochs=ROLL_EPOCHS, tag="fmlp_ods_", host="FMLP-Rec",
+                         timings="steps"),
     "UniSRec": dict(widths=UNISREC, params=unisrec_flax_params, config=UNISREC_CONFIG,
                     batch=UNISREC_BATCH, flags=FEATURES, epochs=ROLL_EPOCHS,
                     protocol=dict(STORE_PROTOCOL, **FEATURES), store=UNISREC_STORE_NDCG10,
-                    tag="unisrec_"),
+                    tag="unisrec_", timings="steps"),
     # the recurrent and session models; GRU4Rec also device-sampled, and
     # FPMC's sampler (NUM_PADS 0) checked in device_samplers
     "GRU4Rec": dict(widths=GRU4REC, params=gru4rec_flax_params, config=GRU4REC_CONFIG,
                     batch=512, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                    store=GRU4REC_STORE_NDCG10, tag="gru4rec_", inputs="uncapped"),
+                    store=GRU4REC_STORE_NDCG10, tag="gru4rec_", inputs="uncapped",
+                    timings="steps"),
     "GRU4Rec_ods": dict(model="GRU4Rec", widths=GRU4REC, params=gru4rec_flax_params,
                         config=GRU4REC_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
-                        tag="gru4rec_ods_", host="GRU4Rec"),
+                        tag="gru4rec_ods_", host="GRU4Rec", timings="steps"),
     "NARM": dict(widths=NARM, params=narm_flax_params, config=NARM_CONFIG, batch=512,
                  epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=NARM_STORE_NDCG10,
-                 tag="narm_", inputs="uncapped", timings=False),
+                 tag="narm_", inputs="uncapped", timings=None),
     "GLINT-RU": dict(widths=GLINT_RU, params=glint_ru_flax_params, config=GLINT_RU_CONFIG,
                      batch=2048, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                     store=GLINT_RU_STORE_NDCG10, tag="glint_ru_", inputs="uncapped"),
+                     store=GLINT_RU_STORE_NDCG10, tag="glint_ru_", inputs="uncapped",
+                     timings="steps"),
     "STAMP": dict(widths=STAMP, params=stamp_flax_params, config=STAMP_CONFIG, batch=512,
                   epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=STAMP_STORE_NDCG10,
-                  tag="stamp_", timings=False),
+                  tag="stamp_", timings=None),
     "FPMC": dict(widths=FPMC, params=fpmc_flax_params, config=FPMC_CONFIG, batch=512,
                  epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=FPMC_STORE_NDCG10,
-                 tag="fpmc_", inputs="last", timings=False),
+                 tag="fpmc_", inputs="last", timings=None),
     # the general CF models, each band held to GEN_BAND (MF-BPR and NeuMF
     # neither profiled nor benched: UNTIMED); LightGCN also device-sampled
     # (DeviceGenSampler)
@@ -2415,6 +2525,23 @@ SLICES = {
     "LightGCN_ods": dict(model="LightGCN", widths=LIGHTGCN, params=lightgcn_flax_params,
                          config=LIGHTGCN_CONFIG, batch=2048, flags=ODS, epochs=GEN_EPOCHS,
                          tag="lightgcn_ods_", host="LightGCN"),
+    # STOSA and RUM on whole sequences, Caser on its windows; STOSA and Caser
+    # also device-sampled, RUM and Caser neither profiled nor benched (UNTIMED)
+    "STOSA": dict(widths=STOSA, params=stosa_flax_params, config=STOSA_CONFIG, batch=512,
+                  epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=STOSA_STORE_NDCG10,
+                  tag="stosa_"),
+    "STOSA_ods": dict(model="STOSA", widths=STOSA, params=stosa_flax_params,
+                      config=STOSA_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
+                      tag="stosa_ods_", host="STOSA"),
+    "RUM": dict(widths=RUM, params=rum_flax_params, config=RUM_CONFIG, batch=512,
+                epochs=ROLL_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=200),
+                store=RUM_STORE_NDCG10, tag="rum_"),
+    "Caser": dict(widths=CASER, params=caser_flax_params, config=CASER_CONFIG, batch=512,
+                  epochs=ROLL_EPOCHS, protocol=dict(STORE_PROTOCOL, maxlen=5),
+                  store=CASER_STORE_NDCG10, tag="caser_", inputs="caser"),
+    "Caser_ods": dict(model="Caser", widths=CASER, params=caser_flax_params,
+                      config=CASER_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
+                      tag="caser_ods_", host="Caser"),
 }
 
 
@@ -2734,7 +2861,8 @@ def counted_kernels() -> tuple:
 
 
 # the ported models whose paths reach none of K1-K7
-KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC") + GEN_SLICES
+KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC") + GEN_SLICES + (
+    "STOSA", "RUM", "Caser")
 
 
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
@@ -2747,8 +2875,8 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
     step and the forward and backward of its loss's kernel, K5 with shared
     negatives and K4 with per-position ones (no ``negs_mode``), and no
     kernel in evaluation; the models of KERNEL_FREE (FMLP-Rec, GRU4Rec, NARM,
-    GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN) run none. No model calls
-    K7."""
+    GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser) run
+    none. No model calls K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
@@ -2796,14 +2924,15 @@ def train_slice(seed: int, dataset, name: str) -> dict:
         pad_share = None if L is None else device_pad_share(sampler, L)
     elif model in ROLL_SLICES:
         # the roll pipe's rows, counted from the sequences rather than drawn
-        # (133k windows): one per window end 2..n of a user with n >= 2 items,
-        # min(end - 1, cap) input items of ``width`` each: cap maxlen - 1 where
-        # the window holds its target (BSARec's), maxlen where it is uncapped
-        # (GRU4Rec's), one item of one for FPMC's last transition
-        cap, width = {"capped": (L - 1, L), "uncapped": (L, L), "last": (1, 1)}[
-            spec.get("inputs", "capped")]
-        items = np.concatenate([np.minimum(np.arange(1, len(seq)), cap)
-                                for seq in dataset.train().user_seqs() if len(seq) >= 2])
+        # (133k windows): one per window end t + 1..n of a user with n > t
+        # items and t targets, min(end - t, cap) input items of ``width``
+        # each: cap maxlen - 1 where the window holds its target (BSARec's),
+        # maxlen where it is uncapped (GRU4Rec's) or holds Caser's 3 targets
+        # besides, one item of one for FPMC's last transition
+        cap, width, t = {"capped": (L - 1, L, 1), "uncapped": (L, L, 1), "last": (1, 1, 1),
+                         "caser": (L, L, widths.get("num_poss"))}[spec.get("inputs", "capped")]
+        items = np.concatenate([np.minimum(np.arange(1, len(seq) - t + 1), cap)
+                                for seq in dataset.train().user_seqs() if len(seq) > t])
         B = spec["batch"]
         sizes = [B] * (len(items) // B) + ([len(items) % B] if len(items) % B else [])
         steps = len(sizes)
@@ -2815,8 +2944,10 @@ def train_slice(seed: int, dataset, name: str) -> dict:
         seqs = [b[counter.ISeq] for b in batches if counter.ISeq in b]
         pad_share = (sum(int((s == counter.PADDING_VALUE).sum()) for s in seqs)
                      / sum(s.size for s in seqs)) if seqs else None
-    n_valid = len(list(run.eval_pipe(counter, "valid", L)))
-    n_test = len(list(run.eval_pipe(counter, "test", L)))
+    # the evaluated batches, for the kernels' launches in evaluation (none in
+    # KERNEL_FREE)
+    n_valid = 0 if model in KERNEL_FREE else len(list(run.eval_pipe(counter, "valid", L)))
+    n_test = 0 if model in KERNEL_FREE else len(list(run.eval_pipe(counter, "test", L)))
     if model == "HSTU" and on_device:
         # every device-sampled step is full: the kernels' training shape
         if spec["batch"] * L != SSC_SHAPES[0][1] or (
@@ -2874,6 +3005,20 @@ def train_slice(seed: int, dataset, name: str) -> dict:
               "--batch-size", str(BATCH)]
     gpu_tsv = os.path.join(WORK, f"{name}_train_gpu.tsv")
     cpu_tsv = os.path.join(WORK, f"{name}_train_cpu.tsv")
+    out = dict(launches=launches, run_dir=run_dir, steps=steps)
+    if "full" not in counter.SUPPORTED_RANKINGS:
+        # RUM ranks pools only: ``recommend`` refuses the run, as recboard_tpu's
+        # does (pool_check evaluates it)
+        refusal = None
+        try:
+            serve.main(common + ["--output", gpu_tsv])
+        except SystemExit as exc:
+            refusal = str(exc)
+        emit(f"{tag}recommend_refused", message=refusal, wrote=os.path.exists(gpu_tsv))
+        if refusal != f"{model} does not support full-catalog ranking" or os.path.exists(
+                gpu_tsv):
+            raise SystemExit(f"{model} trained run: recommend did not refuse it ({refusal})")
+        return out
     serve.main(common + ["--output", gpu_tsv])
     gpu = read_scored_tsv(gpu_tsv)
     if model == "NeuMF":
@@ -2891,15 +3036,15 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     # how far apart the listed scores lie against TIE_TOL (the ids are
     # compared only across gaps wider than it); a general CF model one epoch
     # from its 1e-4 init scores every item alike, so its scores are also
-    # checked at random weights of O(0.1)
+    # checked at random weights of O(0.1), as STOSA's and Caser's are
     spans = [float(vals[0] - vals[TOPK - 1]) for _, vals in gpu.values()]
     emit(f"{tag}train_serve", users=len(gpu), cpu_users=cpu_users, cpu_agree=True,
          tie_tol=TIE_TOL,
          float64_arbitrated=arbitrated, top_span_p50=float(np.median(spans)),
          users_with_gaps_over_tie_tol=sum(
              bool((np.diff(-vals[:TOPK]) > TIE_TOL).any()) for _, vals in gpu.values()),
-         **(random_weight_scores(seed, dataset, name) if model in GEN_SLICES else {}))
-    out = dict(launches=launches, run_dir=run_dir, steps=steps)
+         **(random_weight_scores(seed, dataset, name) if name in RANDOM_WEIGHT_SLICES
+            else {}))
     # SASRec and BERT4Rec have a serving phase of their own
     if model not in ("SASRec", "BERT4Rec") + UNTIMED and not on_device:
         out["bench"] = run_bench(run_dir)
@@ -2976,7 +3121,7 @@ def random_weight_scores(seed: int, dataset, name: str, users: int = 128) -> dic
     for device in (torch.device(CARD), torch.device("cpu")):
         model = run.build_model(spec.get("model", name), dataset, dict(widths, seed=seed), device)
         model.load_state_dict(params)
-        data = next(iter(run.eval_pipe(model, "test", None, batch_size=users)))
+        data = next(iter(run.eval_pipe(model, "test", widths.get("maxlen"), batch_size=users)))
         batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
                  if isinstance(v, np.ndarray) and f != Size}
         with torch.inference_mode():
@@ -2999,10 +3144,12 @@ def device_pad_share(sampler, maxlen: int) -> float:
     """The pad share of a device sampler's inputs: over the valid users'
     windows less their last target, or for the roll-window sampler over
     every (user, end) window (min(end - 1, maxlen - 1) items of maxlen, or
-    min(end - 1, maxlen) for windows without their target)."""
+    min(end - 1, maxlen) for windows without their target, min(end - P,
+    maxlen) for Caser's of P positives)."""
     if hasattr(sampler, "_pairs"):
-        cap = maxlen - 1 if sampler.window_includes_target else maxlen
-        items = (sampler._pairs[:, 1].double() - 1).clamp(max=cap)
+        P = sampler.num_positives
+        cap = maxlen - 1 if sampler.window_includes_target and P == 1 else maxlen
+        items = (sampler._pairs[:, 1].double() - P).clamp(max=cap)
         return float(1.0 - items.mean() / maxlen)
     inputs = sampler._packed[sampler._valid_users][:, :maxlen]
     return float((inputs == 0).double().mean())
@@ -3018,11 +3165,12 @@ PROFILE_STEPS = 40
 class FirstSteps:
     """The first ``n`` batches of a host pipe's epoch, for the Coach: the
     pipe seeded and its first batch drawn ahead, so a window timed from the
-    first step leaves out building the epoch's rows."""
+    first step leaves out building the epoch's rows; ``yielded`` counts the
+    batches it gave (fewer than ``n`` in a shorter epoch)."""
 
     def __init__(self, pipe, n: int, seed: int, epoch: int):
         self.it = iter(pipe.set_seed(seed).set_epoch(epoch))
-        self.first, self.n = next(self.it), n
+        self.first, self.n, self.yielded = next(self.it), n, 0
 
     def set_seed(self, seed: int) -> "FirstSteps":
         return self
@@ -3031,11 +3179,13 @@ class FirstSteps:
         return self
 
     def __iter__(self):
-        yield self.first
-        yield from itertools.islice(self.it, self.n - 1)
+        for batch in itertools.chain([self.first], itertools.islice(self.it, self.n - 1)):
+            self.yielded += 1
+            yield batch
 
 
-def time_training(run_dir: str, phase: str, beside: dict = None, timings: bool = True) -> dict:
+def time_training(run_dir: str, phase: str, beside: dict = None,
+                  timings: str = "epoch") -> dict:
     """Per-step and per-epoch times of the trained run's configuration on
     the card: the host pipe alone for one epoch (or, for a device sampler,
     drawing the epoch's batches on the card, synchronised), each of that
@@ -3045,9 +3195,11 @@ def time_training(run_dir: str, phase: str, beside: dict = None, timings: bool =
     made inside the window; the host pipe's first batch and a device
     sampler's permutation, the epoch's set-up, made ahead of it) under
     torch.profiler for the device time by kernel and the device's idle
-    share. Without ``timings`` no step or epoch is timed: the pipe's epoch
-    and three steps of warm-up, then the profile. Returns the headline
-    numbers; ``beside`` (another run's) is printed next to them."""
+    share. ``timings="steps"`` times the staged steps but no whole epoch,
+    and lists only the host pipe's first STAGED_STEPS batches
+    (``host_pipe_batches``); ``timings=None`` times no step or epoch: three
+    batches of warm-up, then the profile. Returns the headline numbers;
+    ``beside`` (another run's) is printed next to them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3074,7 +3226,8 @@ def time_training(run_dir: str, phase: str, beside: dict = None, timings: bool =
         torch.cuda.synchronize()
         examples = trainpipe.steps_per_epoch * trainpipe.batch_size
     else:
-        batches = list(trainpipe)
+        listed = {"epoch": None, "steps": STAGED_STEPS, None: 3}[timings]
+        batches = list(itertools.islice(trainpipe, listed))
         examples = sum(int(b[Size]) for b in batches)
     pipe_s = time.perf_counter() - t0
     steps = trainpipe.steps_per_epoch if on_device else len(batches)
@@ -3082,7 +3235,10 @@ def time_training(run_dir: str, phase: str, beside: dict = None, timings: bool =
         coach.to_device(b) for b in batches[:STAGED_STEPS]]
     for batch in staged[:3]:
         coach.train_step(batch)
-    out = dict(device_draw_s=pipe_s) if on_device else dict(host_pipe_s=pipe_s)
+    if on_device:
+        out = dict(device_draw_s=pipe_s)
+    else:
+        out = dict(host_pipe_s=pipe_s, host_pipe_batches=len(batches))
     epoch_s = None
     if timings:
         step_ms = []
@@ -3093,31 +3249,36 @@ def time_training(run_dir: str, phase: str, beside: dict = None, timings: bool =
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        coach.train(1)
-        torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-        out["examples_per_s"] = examples / epoch_s
-        emit(f"{phase}_time", model=cfg.model, steps=steps, examples=examples,
+        if timings == "epoch":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coach.train(1)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            out["examples_per_s"] = examples / epoch_s
+        emit(f"{phase}_time", model=cfg.model, timings=timings,
+             steps=steps if on_device or timings == "epoch" else None,
+             examples=examples if epoch_s else None,
              timed_steps=len(staged), step_p50_ms=float(np.percentile(step_ms, 50)),
              step_p95_ms=float(np.percentile(step_ms, 95)),
              timed_steps_s=sum(step_ms) / 1e3, epoch_s=epoch_s, **out,
              **({"beside": beside} if beside else {}))
 
-    window = min(steps, PROFILE_STEPS)
     if on_device:  # the epoch's permutation made ahead, as FirstSteps draws ahead
+        window = min(steps, PROFILE_STEPS)
         perm = trainpipe.set_seed(int(cfg.seed)).set_epoch(2).prepare()
         trainpipe.prepare = lambda: perm
         trainpipe.steps_per_epoch = window
     else:
-        coach.trainpipe = FirstSteps(trainpipe, window, int(cfg.seed), 2)
+        coach.trainpipe = FirstSteps(trainpipe, PROFILE_STEPS, int(cfg.seed), 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         coach.train(2)
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
+    if not on_device:
+        window = coach.trainpipe.yielded
     t0 = time.perf_counter()
     totals = profile_totals(prof)
     kernels = profiled_ops(totals, window, device=True)
@@ -3450,8 +3611,8 @@ def check_lightgcn_spmm(seed: int, dataset) -> dict:
 
 # the device-sampled slices; their samplers' checks; the slice resumed
 ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods",
-              "GRU4Rec_ods", "LightGCN_ods")
-SAMPLER_SLICES = ODS_SLICES + ("FPMC",)
+              "GRU4Rec_ods", "LightGCN_ods", "STOSA_ods", "Caser_ods")
+SAMPLER_SLICES = ODS_SLICES + ("FPMC", "RUM")
 RESUME_SLICE = "HSTU_pp_ods"
 CARD = "cuda"  # the device the checks below hold against the CPU
 POOL_TOL = 1e-4  # |card - CPU| of a pool-ranking metric (a rank flip moves 1 / rows)
@@ -3480,26 +3641,34 @@ def expected_windows(seqs, width: int, offset: int = 1) -> np.ndarray:
     return out
 
 
-def expected_roll_rows(seqs, maxlen: int, num_pads: int, right_padded: bool = False
-                       ) -> np.ndarray:
-    """(windows, 2 + maxlen) rows (user, target, input) of every (user, end)
-    window of the roll protocol, from the dataset's sequences in numpy: the
-    up to maxlen - 1 items before the target, offset and left-padded with 0
-    (BSARec's), or (``right_padded``) the up to maxlen items before it,
-    offset and right-padded (GRU4Rec's); a user with one item keeps one
-    window of pads."""
-    rows = []
+def expected_roll_rows(seqs, maxlen: int, num_pads: int, right_padded: bool = False,
+                       positives: int = 1) -> np.ndarray:
+    """(windows, 1 + P + maxlen) rows (user, P targets, input) of every
+    (user, end) window of the roll protocol, from the dataset's sequences in
+    numpy: the up to maxlen - 1 items before the target, offset and
+    left-padded with 0 (BSARec's), or (``right_padded``) the up to maxlen
+    items before it, offset and right-padded (GRU4Rec's); a user with one
+    item keeps one window of pads. With P = ``positives`` > 1 (Caser's) the
+    ends run from P + 1, the last P items are the targets and the up to
+    maxlen before them the left-padded input; shorter users have none."""
+    P, rows = positives, []
     for u, seq in enumerate(seqs):
-        ends = range(2, len(seq) + 1) if len(seq) >= 2 else range(len(seq), len(seq) + 1)
+        if P > 1:
+            ends = range(P + 1, len(seq) + 1)
+        else:
+            ends = range(2, len(seq) + 1) if len(seq) >= 2 else range(len(seq), len(seq) + 1)
         for end in ends if seq else ():
-            row = np.zeros(2 + maxlen, dtype=np.int64)
-            first = max(0, end - 1 - maxlen) if right_padded else max(0, end - maxlen)
-            items = np.asarray(seq[first:end - 1], dtype=np.int64)
-            row[0], row[1] = u, seq[end - 1]
+            row = np.zeros(1 + P + maxlen, dtype=np.int64)
+            if P > 1:
+                first = max(0, end - P - maxlen)
+            else:
+                first = max(0, end - 1 - maxlen) if right_padded else max(0, end - maxlen)
+            items = np.asarray(seq[first:end - P], dtype=np.int64)
+            row[0], row[1:1 + P] = u, seq[end - P:end]
             if items.size and right_padded:
-                row[2:2 + items.size] = items + num_pads
+                row[1 + P:1 + P + items.size] = items + num_pads
             elif items.size:
-                row[2 + maxlen - items.size:] = items + num_pads
+                row[1 + P + maxlen - items.size:] = items + num_pads
             rows.append(row)
     return np.stack(rows)
 
@@ -3515,13 +3684,15 @@ def rows_within(got: np.ndarray, want: np.ndarray) -> bool:
 
 
 def check_device_samplers(seed: int, dataset) -> list:
-    """Each device sampler of SAMPLER_SLICES (the ``_ods`` slices' and
-    FPMC's, whose NUM_PADS is 0) at the SynBeautyXL shape on the card:
+    """Each device sampler of SAMPLER_SLICES (the ``_ods`` slices', FPMC's,
+    whose NUM_PADS is 0, and RUM's) at the SynBeautyXL shape on the card:
     one epoch drawn under ``torch.cuda.set_sync_debug_mode ("error")``;
     every row's window the user's train tail (inputs offset,
     targets shifted by one; HSTU's times rebased and 0 exactly at pads;
-    BERT4Rec's last maxlen items), or for the roll-window sampler one of
-    the dataset's (user, end) windows with its target, none drawn twice, or
+    BERT4Rec's and RUM's last maxlen items, RUM's positive one of them), or
+    for the roll-window sampler one of the dataset's (user, end) windows
+    with its target (Caser's: its last 3 items the (B, 3) targets, (B, K)
+    negatives), none drawn twice, or
     for the general CF sampler (LightGCN's, MF-BPR's and NeuMF's) every
     positive one of its user's train items and ``max(1, users // B)`` steps;
     negatives in [0, N) with their collision share against the window (the
@@ -3603,19 +3774,29 @@ def check_device_samplers(seed: int, dataset) -> list:
         elif roll:
             # every row one of the dataset's (user, end) windows, none twice
             ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()
+            P = card.num_positives
             want = expected_roll_rows(seqs, L, net.NUM_PADS,
-                                      right_padded=card.pad_side == "right")
+                                      right_padded=card.pad_side == "right", positives=P)
             row.update(windows=card.num_windows, expected_windows=len(want),
-                       pad_side=card.pad_side, num_pads=net.NUM_PADS)
+                       pad_side=card.pad_side, num_pads=net.NUM_PADS, positives=P)
             ok &= card.num_windows == len(want) and steps == max(1, len(want) // B)
             ok &= rows_within(np.concatenate([users[:, None], ipos, iseq], 1), want)
+            if P > 1:  # Caser's: (B, P) targets, (B, K) negatives
+                negs_shape = tuple(batches[0][card.INeg].shape)
+                row.update(positives_shape=tuple(ipos.shape[1:]), negatives_shape=negs_shape)
+                ok &= ipos.shape[1] == P and negs_shape == (B, card.num_negatives)
         else:
             row["valid_users"] = int(card._valid_users.shape[0])
             ok &= row["distinct_users"] == min(steps * B, row["valid_users"])
-        if model == "BERT4Rec":
+        if model in ("BERT4Rec", "RUM"):  # the last maxlen items
             want = expected_windows(seqs, L)
             ok &= bool(np.array_equal(iseq, np.where(want != 0, want - 1 + net.NUM_PADS,
                                                      0)[users]))
+            if model == "RUM":  # one positive drawn from those items
+                ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()
+                row["positives_in_window"] = float(np.mean(
+                    [p + 1 in want[u] for u, p in zip(users, ipos[:, 0])]))
+                ok &= ipos.shape[1] == 1 and row["positives_in_window"] == 1.0
         elif not roll and not gen:
             window = expected_windows([s if len(s[-(L + 1):]) >= 2 else () for s in seqs],
                                       L + 1)
@@ -3742,7 +3923,7 @@ def resume_check(seed: int, dataset) -> dict:
 
 
 def pool_check(dataset, trained: dict) -> list:
-    """Each trained ``_ods`` run evaluated with ``ranking: pool`` (the valid
+    """Each trained ``_ods`` run, and RUM's, evaluated with ``ranking: pool`` (the valid
     split, 1 + 100 candidates a row) from its best checkpoint, on the card
     and on the CPU: every metric within POOL_TOL, and the card's kernels
     launched as ``expected_launches`` says (K1 once per block and batch for
@@ -3936,9 +4117,10 @@ def main(argv=None) -> int:
     for name in ROLL_SLICES:
         tag = SLICES[name]["tag"]
         roll_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
-        host_times[name] = timed(f"{tag}train_time", time_training,
-                                 roll_trained[name]["run_dir"], f"{tag}train", None,
-                                 SLICES[name].get("timings", True))
+        if name not in UNTIMED:
+            host_times[name] = timed(f"{tag}train_time", time_training,
+                                     roll_trained[name]["run_dir"], f"{tag}train", None,
+                                     SLICES[name].get("timings", "epoch"))
     gen_trained = {}
     for name in GEN_SLICES:
         tag = SLICES[name]["tag"]
@@ -3947,14 +4129,22 @@ def main(argv=None) -> int:
             host_times[name] = timed(f"{tag}train_time", time_training,
                                      gen_trained[name]["run_dir"], f"{tag}train")
     timed("lightgcn_spmm", check_lightgcn_spmm, args.seed, dataset)
+    seq_trained = {}
+    for name in SEQ_SLICES:
+        tag = SLICES[name]["tag"]
+        seq_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
+        if name not in UNTIMED:
+            host_times[name] = timed(f"{tag}train_time", time_training,
+                                     seq_trained[name]["run_dir"], f"{tag}train")
     timed("device_samplers", check_device_samplers, args.seed, dataset)
     ods = {}
     for name in ODS_SLICES:
         tag, host = SLICES[name]["tag"], SLICES[name]["host"]
         ods[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
-        timed(f"{tag}train_time", time_training, ods[name]["run_dir"], f"{tag}train",
-              dict(host_times[host], slice=host))
-    # every model's band: 85 seeds, 8 processes at once beside each other on
+        if name not in UNTIMED:
+            timed(f"{tag}train_time", time_training, ods[name]["run_dir"], f"{tag}train",
+                  dict(host_times[host], slice=host), SLICES[name].get("timings", "epoch"))
+    # every model's band: 100 seeds, 8 processes at once beside each other on
     # the card, started beside the last two checks, which time nothing but
     # pool_check's card_s (their card and CPU results are compared, not
     # timed); store_quality is the pool's own wall time
@@ -3962,7 +4152,8 @@ def main(argv=None) -> int:
         bands_start = time.perf_counter()
         bands = beside.submit(quality, STORE_SEEDS, *STORE_BANDS)
         timed("resume_check", resume_check, args.seed, dataset)
-        timed("pool_check", pool_check, dataset, ods)
+        # RUM ranks pools only: its host-pipe run joins the device-sampled ones
+        timed("pool_check", pool_check, dataset, dict(ods, RUM=seq_trained["RUM"]))
         bands.result()
     phase_s["store_quality"] = time.perf_counter() - bands_start
     emit("phase_seconds", name="store_quality", seconds=phase_s["store_quality"],
@@ -4029,7 +4220,8 @@ def main(argv=None) -> int:
                  t["launches"]["dropout_mask"] for t in (trained, b_trained, h_trained,
                                                           p_trained, *ods.values(),
                                                           *roll_trained.values(),
-                                                          *gen_trained.values()))),
+                                                          *gen_trained.values(),
+                                                          *seq_trained.values()))),
         *row_mask_entries(rows, drop_rows, roll_trained),
     ]}))
     # the wall time of every phase: the band pool overlaps two of them

@@ -272,11 +272,13 @@ class DeviceFullSeqSampler(_DeviceSamplerBase):
 
 class DeviceRollSeqSampler(_DeviceSamplerBase):
     """The roll-window train pipe on the device (``shuffled_roll_seqs_source``
-    + ``seq_train_yielding_pos_(-1[, -1])`` + ``seq_train_sampling_neg_`` +
-    ``lpad_`` / ``rpad_``): one row per (user, window end) pair, so an epoch
-    is every window, not every user. The target is the window's last item,
-    raw, (B, 1); the input is the items before it, offset, in one of two
-    protocols:
+    + ``seq_train_yielding_pos_`` + negatives + ``lpad_`` / ``rpad_``): one
+    row per (user, window end) pair, so an epoch is every window, not every
+    user. A user of n train items has the ends minlen..n (minlen at least
+    2), or with ``keep_at_least_itself`` the one end n when n < minlen.
+    With one positive (``num_positives`` 1) the target is the window's last
+    item, raw, (B, 1); the input is the items before it, offset, in one of
+    two protocols:
 
     * ``window_includes_target=True`` (BSARec, FMLP-Rec, STAMP, FPMC): the
       window, target included, is capped at maxlen items, so the input is
@@ -291,35 +293,44 @@ class DeviceRollSeqSampler(_DeviceSamplerBase):
     the user's whole train history: (B, 1) for one, else (B, 1, K), as
     the host pipe collates them.
 
+    ``num_positives`` P > 1 is Caser's protocol (its ``sure_trainpipe``:
+    ``shuffled_roll_seqs_source(minlen=P + 1, maxlen=maxlen + P,
+    keep_at_least_itself=False)``, ``seq_train_yielding_pos_(-P, -P)``,
+    ``gen_train_sampling_neg_(K)``): the window seq[max(0, e - maxlen -
+    P):e], its last P items the raw positives (B, P), the up to maxlen
+    before them the offset, left-padded input, and the negatives (B, K),
+    as ``gen_train_sampling_neg_`` collates them. Such windows are only
+    left-padded, as in ``recboard_tpu``.
+
     As ``recboard_tpu``'s sampler (minlen 2, keep_at_least_itself), a user
     with one train item keeps one row of itself (an all-pad input), which
-    the host pipe's positive yielder drops. Its Caser protocol
-    (``num_positives`` > 1) is not ported yet."""
+    the host pipe's positive yielder drops."""
 
     def __init__(self, dataset, maxlen: int, batch_size: int, num_pads: int = 0,
                  num_negatives: int = 0, num_positives: int = 1, pad_side: str = "left",
-                 window_includes_target: bool = True,
-                 device: Optional[torch.device] = None):
-        if num_positives != 1:
-            raise NotImplementedError(
-                "DeviceRollSeqSampler: num_positives > 1 (Caser's windows) is not ported "
-                "to recboard_tpu_torch yet")
+                 window_includes_target: bool = True, minlen: int = 2,
+                 keep_at_least_itself: bool = True, device: Optional[torch.device] = None):
         if pad_side not in ("left", "right"):
             raise ValueError(f"DeviceRollSeqSampler: pad_side {pad_side!r}, not left or right")
+        if num_positives > 1 and pad_side != "left":
+            raise ValueError("DeviceRollSeqSampler: windows of several positives (Caser's) "
+                             "are left-padded, as in recboard_tpu")
         self.pad_side = pad_side
         self.window_includes_target = window_includes_target
         super().__init__(dataset, maxlen, batch_size, num_pads, device)
         self.num_negatives = num_negatives
+        self.num_positives = num_positives
         seqs = dataset.train().user_seqs()
         # raw + 1, 0 = empty: unambiguous for the collision checks
         packed = np.zeros((len(seqs), max((len(s) for s in seqs), default=1)), dtype=np.int32)
         pairs = []
+        minlen = max(minlen, 2)
         for u, seq in enumerate(seqs):
             n = len(seq)
             packed[u, :n] = np.asarray(seq, dtype=np.int32) + 1
-            if n >= 2:
-                pairs.extend((u, e) for e in range(2, n + 1))
-            elif n == 1:  # the window of itself (keep_at_least_itself)
+            if n >= minlen:
+                pairs.extend((u, e) for e in range(minlen, n + 1))
+            elif keep_at_least_itself and n >= 1:  # the window of itself
                 pairs.append((u, n))
         self._packed = torch.from_numpy(packed).to(self.device)
         self._pairs = torch.from_numpy(
@@ -342,28 +353,34 @@ class DeviceRollSeqSampler(_DeviceSamplerBase):
 
     def sample_prepared(self, perm, step, draws=None):
         draws = self.draws(step) if draws is None else draws
-        B, L = self.batch_size, self.maxlen
+        B, L, P = self.batch_size, self.maxlen, self.num_positives
         rows = (step * B + torch.arange(B, device=self.device)) % self.num_windows
         pairs = self._pairs[perm.to(self.device, torch.int64)[rows]].to(torch.int64)
         users, ends = pairs[:, 0], pairs[:, 1]
-        # the input: the up to eff items before the target (index ends - 1)
-        eff = L - 1 if self.window_includes_target else L
-        lo = (ends - 1 - eff).clamp_min(0)  # the first input index
         slots = torch.arange(L, device=self.device)[None, :]
-        if self.pad_side == "right":  # left-aligned from lo
-            idx = lo[:, None] + slots
-            valid = idx < ends[:, None] - 1
-        else:  # right-aligned, ending before the target
-            idx = ends[:, None] - 1 - L + slots
-            valid = (idx >= 0) & (idx >= lo[:, None])
+        if P > 1:  # the input: the up to L items before the last P
+            idx = ends[:, None] - P - L + slots
+            valid = idx >= 0
+        else:  # the input: the up to eff items before the target (index ends - 1)
+            eff = L - 1 if self.window_includes_target else L
+            lo = (ends - 1 - eff).clamp_min(0)  # the first input index
+            if self.pad_side == "right":  # left-aligned from lo
+                idx = lo[:, None] + slots
+                valid = idx < ends[:, None] - 1
+            else:  # right-aligned, ending before the target
+                idx = ends[:, None] - 1 - L + slots
+                valid = (idx >= 0) & (idx >= lo[:, None])
         gathered = self._packed[users[:, None], idx.clamp(0, self._packed.shape[1] - 1)]
         iseq = torch.where(valid, gathered - 1 + self.num_pads, 0)
-        ipos = self._packed[users, ends - 1][:, None] - 1  # (B, 1) raw target
+        targets = ends[:, None] - P + torch.arange(P, device=self.device)[None, :]
+        ipos = self._packed[users[:, None], targets] - 1  # (B, P) raw targets
         batch = {self.User: users.to(torch.int32), self.ISeq: iseq.to(torch.int32),
                  self.IPos: ipos.to(torch.int32)}
         if self.num_negatives:
             negs = _resample(draws["negs"], draws["retry"], self._packed[users])
-            batch[self.INeg] = negs if self.num_negatives == 1 else negs[:, None, :]
+            # gen_train_sampling_neg_ collates (B, K); seq_'s (B, 1) or (B, 1, K)
+            flat = P > 1 or self.num_negatives == 1
+            batch[self.INeg] = negs if flat else negs[:, None, :]
         return batch
 
 

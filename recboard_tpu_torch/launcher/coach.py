@@ -139,10 +139,19 @@ class Coach:
         return self._flush("train", epoch)
 
     def train_step(self, batch) -> torch.Tensor:
-        """One update; returns the batch's loss (on the device)."""
+        """One update; returns the batch's loss (on the device). Every
+        parameter takes a step, as every leaf does in ``recboard_tpu``'s
+        optax chain: one the loss leaves out (STOSA's unpropagated mean
+        stream) gets a gradient of zeros, which torch's optimizers would
+        otherwise skip, so its weight decay and Adam moments move it as
+        optax moves it."""
         loss, _ = self.model.fit(batch, self.generator)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         return loss.detach()
 

@@ -36,7 +36,11 @@ Batch = Dict[Field, torch.Tensor]
 
 
 class RecSysArch(nn.Module):
-    """Root contract: holds the dataset schema, exposes canonical fields."""
+    """Root contract: holds the dataset schema, exposes canonical fields.
+    ``SUPPORTED_RANKINGS`` names the rankings the model scores (RUM: pool
+    only)."""
+
+    SUPPORTED_RANKINGS: Tuple[str, ...] = ("full", "pool")
 
     def __init__(self, dataset: RecDataSet):
         super().__init__()

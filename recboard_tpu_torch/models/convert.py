@@ -25,11 +25,14 @@ itself (``BARE_LEAVES``: HSTU's ``rel_bias/timestamp_weights`` and
 ``position_weights``, BSARec's ``sqrt_beta`` (1, 1, D), FMLP-Rec's
 ``complex_weight`` (1, L // 2 + 1, D, 2) as real/imag pairs, UniSRec's
 gates ``w_gate`` and ``w_noise`` (F, experts) and each expert's ``bias``
-(F,), GLINT-RU's expert mix ``weights`` (2,) and STAMP's ``ba`` (1, 1, D))
-keeps its name and its flax shape. ``blocks_0/q_proj/kernel`` becomes
-``blocks_0.q_proj.weight``. A Dense layer without a bias (HSTU's
-``uvqk_linear``, NARM's attention) has no bias leaf either way. Later
-slices add rules for the leaves their modules bring (BatchNorm stats).
+(F,), GLINT-RU's expert mix ``weights`` (2,), STAMP's ``ba`` (1, 1, D),
+Caser's ``vert_kernel`` (num_vert, maxlen) and ``vert_bias``, and its
+family ``horiz_kernel_{k}`` (num_horiz, k·D) and ``horiz_bias_{k}`` for
+k = 1..maxlen, ``BARE_FAMILIES``) keeps its name and its flax shape.
+``blocks_0/q_proj/kernel`` becomes ``blocks_0.q_proj.weight``. A Dense
+layer without a bias (HSTU's ``uvqk_linear``, NARM's attention) has no
+bias leaf either way. Later slices add rules for the leaves their
+modules bring (BatchNorm stats).
 
 ``to_flax`` is the inverse: the port's Coach saves ``{"params":
 to_flax(model)}``, the payload ``recboard_tpu``'s Coach writes, so a run
@@ -38,6 +41,7 @@ trained by either package is served by either.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Dict, Tuple
 
@@ -52,8 +56,16 @@ __all__ = ["from_flax", "to_flax"]
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 # parameters declared bare by a module (flax's self.param), kept by name
 BARE_LEAVES = frozenset({"timestamp_weights", "position_weights", "sqrt_beta",
-                         "complex_weight", "w_gate", "w_noise", "bias", "weights", "ba"})
+                         "complex_weight", "w_gate", "w_noise", "bias", "weights", "ba",
+                         "vert_kernel", "vert_bias"})
+# bare parameters declared once per window size k = 1, 2, ...
+BARE_FAMILIES = re.compile(r"horiz_(kernel|bias)_[1-9][0-9]*")
 _GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
+
+
+def _bare(name: str) -> bool:
+    """Whether ``name`` is a bare parameter kept by its name."""
+    return name in BARE_LEAVES or BARE_FAMILIES.fullmatch(name) is not None
 
 
 def _gru_leaves(cell: Mapping, where: str) -> Dict[str, np.ndarray]:
@@ -112,7 +124,7 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 walk(value, path + (key,))
                 continue
             where = "/".join(path + (key,))
-            if key not in _LEAF_NAMES and key not in BARE_LEAVES:
+            if key not in _LEAF_NAMES and not _bare(key):
                 raise ValueError(f"from_flax: no rule for the leaf {where}")
             arr = np.asarray(value)
             if key == "kernel" and conv:
@@ -140,8 +152,8 @@ def to_flax(model: nn.Module) -> Dict:
     bias features}``, Conv1d → ``{kernel (k, in, out), bias}``, GRU →
     ``{cell: {ir, iz, in, hr, hz, hn}}`` (raises when the r or z hidden
     bias is not 0), LayerNorm → ``{scale, bias}``, Embedding →
-    ``{embedding}``, bare parameters in ``BARE_LEAVES`` by their names,
-    nested by submodule name."""
+    ``{embedding}``, bare parameters (``BARE_LEAVES``, ``BARE_FAMILIES``)
+    by their names, nested by submodule name."""
     tree: Dict = {}
     for name, module in model.named_modules():
         if isinstance(module, nn.GRU):
@@ -163,7 +175,7 @@ def to_flax(model: nn.Module) -> Dict:
             leaves = dict(module.named_parameters(recurse=False))
             if not leaves:
                 continue
-            if not leaves.keys() <= BARE_LEAVES:
+            if not all(_bare(key) for key in leaves):
                 raise ValueError(f"to_flax: no rule for the parameters of {name} "
                                  f"({type(module).__name__})")
         node = tree

@@ -1,6 +1,6 @@
 """The model zoo: the registry the generic runner builds models from.
 SASRec, BERT4Rec, HSTU, BSARec, FMLP-Rec, UniSRec, GRU4Rec, NARM, GLINT-RU,
-STAMP, FPMC, MF-BPR, NeuMF and LightGCN are ported so far."""
+STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM and Caser are ported so far."""
 
 from typing import Dict, Type
 
@@ -18,10 +18,11 @@ def register(name: str):
     return deco
 
 
-from . import (bert4rec, bsarec, fmlp_rec, fpmc, glint_ru, gru4rec, hstu,  # noqa: F401,E402
-               lightgcn, mf_bpr, narm, neumf, sasrec, stamp, unisrec)
+from . import (bert4rec, bsarec, caser, fmlp_rec, fpmc, glint_ru, gru4rec,  # noqa: F401,E402
+               hstu, lightgcn, mf_bpr, narm, neumf, rum, sasrec, stamp, stosa, unisrec)
 from .bert4rec import BERT4Rec  # noqa: F401,E402
 from .bsarec import BSARec  # noqa: F401,E402
+from .caser import Caser  # noqa: F401,E402
 from .fmlp_rec import FMLPRec  # noqa: F401,E402
 from .fpmc import FPMC  # noqa: F401,E402
 from .glint_ru import GLINTRU  # noqa: F401,E402
@@ -31,6 +32,8 @@ from .lightgcn import LightGCN  # noqa: F401,E402
 from .mf_bpr import MFBPR  # noqa: F401,E402
 from .narm import NARM  # noqa: F401,E402
 from .neumf import NeuMF  # noqa: F401,E402
+from .rum import RUM  # noqa: F401,E402
 from .sasrec import SASRec  # noqa: F401,E402
 from .stamp import STAMP  # noqa: F401,E402
+from .stosa import STOSA  # noqa: F401,E402
 from .unisrec import UniSRec  # noqa: F401,E402

@@ -139,15 +139,24 @@ DEVICE_SAMPLERS = {
     "MF-BPR": DeviceGenSampler,
     "NeuMF": DeviceGenSampler,
     "LightGCN": DeviceGenSampler,
+    "STOSA": DeviceSeqSampler,
+    # the last maxlen items, one positive drawn from them and one negative
+    "RUM": functools.partial(DeviceFullSeqSampler, sample_pos=True, num_negatives=1),
+    # windows of num_poss positives and num_negs negatives (device_sampler)
+    "Caser": functools.partial(DeviceRollSeqSampler, keep_at_least_itself=False),
 }
 
 
 def device_sampler(model, maxlen: int, batch_size: int, device):
     """The device sampler of ``model``'s train pipe on ``device`` (no maxlen
-    and no pads for a ``GenRecArch``)."""
+    and no pads for a ``GenRecArch``; Caser's windows sized by its
+    ``num_poss`` and ``num_negs``)."""
     make = DEVICE_SAMPLERS[model.ZOO_NAME]
     if isinstance(model, GenRecArch):
         return make(model.dataset, batch_size=batch_size, device=device)
+    if model.ZOO_NAME == "Caser":
+        make = functools.partial(make, minlen=model.num_poss + 1,
+                                 num_positives=model.num_poss, num_negatives=model.num_negs)
     return make(model.dataset, maxlen=maxlen, batch_size=batch_size, num_pads=model.NUM_PADS,
                 device=device)
 
@@ -242,7 +251,7 @@ def main(argv: Optional[list] = None):
     dataset = load_dataset(cfg)
     model = build_model(cfg.model, dataset, cfg, device)
     zero_folded_decay(model, cfg)
-    supported = getattr(type(model), "SUPPORTED_RANKINGS", ("full", "pool"))
+    supported = model.SUPPORTED_RANKINGS
     if cfg.ranking not in supported:
         utils.warnLogger(f"[run] >>> {cfg.model} does not support ranking={cfg.ranking!r}; "
                          f"using {supported[0]!r}")

@@ -16,7 +16,8 @@ to the split point; for a general CF model, its user ids without a
 maxlen), so the lists are what the system would have recommended; the
 model's ranking buffers (LightGCN's propagated tables) are made once; a
 HitRate@k of the held-out item goes to the log (stderr) as a sanity check
-against the run's recorded metrics.
+against the run's recorded metrics. A model that ranks pools only (RUM)
+is refused, as ``recboard_tpu`` refuses it.
 
 Output: TSV ``user \\t item_1 ... item_k`` (processed dense item ids), or
 with ``--with-scores`` ``user \\t item:score ...``. ``--bench`` skips the
@@ -93,6 +94,8 @@ def main(argv: Optional[list] = None):
     cfg = load_run_config(args.run)
     dataset = run_mod.load_dataset(cfg)
     model = run_mod.build_model(cfg.model, dataset, cfg, device).eval()
+    if "full" not in model.SUPPORTED_RANKINGS:  # as recboard_tpu refuses RUM
+        raise SystemExit(f"{cfg.model} does not support full-catalog ranking")
 
     ckpt_dir = cfg.get("CHECKPOINT_PATH") or args.run
     names = [args.filename] if args.filename else [

@@ -11,8 +11,14 @@ recboard_tpu's (``data/pipes.py``, ``data/device.py``).
   permutation and raw draws (recomputed with its ``fold_in`` keys) gives
   JAX's batch int for int, also where the batch is larger than the window
   count and the gather wraps; every row is a window of the user's train
-  sequence and its target; a batch is a function of (seed, epoch, step);
-  Caser's protocol is refused.
+  sequence and its target; a batch is a function of (seed, epoch, step).
+* Caser's protocol (``num_positives`` 3, minlen 4, no short windows kept):
+  JAX's (user, end) pairs and batches int for int for 2 and 3 negatives,
+  also where the gather wraps; every row a window, its last 3 items the
+  positives (B, 3), the up to maxlen before them the left-padded input,
+  negatives (B, K); right-padded such windows raise, as JAX asserts.
+* ``run.device_sampler`` builds STOSA's, RUM's and Caser's samplers with
+  the arguments and tables of recboard_tpu's ``build_pipes``.
 * The right-padded protocol (GRU4Rec's, NARM's and GLINT-RU's:
   ``pad_side="right"``, ``window_includes_target=False``) and each of its
   two switches alone: JAX's batch int for int for 0, 1 and 3 negatives,
@@ -192,10 +198,87 @@ def test_batch_is_a_function_of_seed_epoch_and_step(port_dataset):
     assert not torch.equal(sampler().draws(0)["negs"], sampler().draws(1)["negs"])
 
 
-@pytest.mark.parametrize("kw", [dict(num_positives=2)], ids=["caser"])
-def test_unported_protocols_are_refused(port_dataset, kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("kw", [dict(num_positives=2, pad_side="right")],
+                         ids=["caser_right_padded"])
+def test_refused_protocols_raise(port_dataset, kw):
+    """Caser's windows right-padded: recboard_tpu asserts against them."""
+    with pytest.raises(ValueError, match="left-padded"):
         device.DeviceRollSeqSampler(port_dataset, MAXLEN, 16, device="cpu", **kw)
+
+
+# Caser's protocol as recboard_tpu's runner builds it (run.py:297-311) at
+# num_poss 3: windows of up to MAXLEN + 3 items from end 4 on, none kept short
+CASER = dict(minlen=4, num_positives=3, keep_at_least_itself=False)
+
+
+@pytest.mark.parametrize("num_negatives", [2, 3])
+@pytest.mark.parametrize("batch_size,step", [(16, 2), (1000, 1)], ids=["step2", "B_gt_n_wraps"])
+def test_caser_windows_match_jax(tiny_dataset, port_dataset, batch_size, step, num_negatives):
+    sj, st = _pair(tiny_dataset, port_dataset, batch_size, **CASER)
+    np.testing.assert_array_equal(st._pairs.numpy(), np.asarray(sj._pairs))
+    assert st.num_windows == sj.num_windows and st.steps_per_epoch == sj.steps_per_epoch
+    test_sample_prepared_matches_jax(tiny_dataset, port_dataset, batch_size, step,
+                                     num_negatives, **CASER)
+
+
+def test_caser_rows_are_windows_with_their_positives(port_dataset):
+    P, K = 3, 2
+    st = device.DeviceRollSeqSampler(port_dataset, MAXLEN, 16, num_pads=1, num_negatives=K,
+                                     device="cpu", **CASER).set_seed(0).set_epoch(0)
+    seqs = port_dataset.train().user_seqs()
+    assert st.num_windows == sum(max(len(s) - P, 0) for s in seqs)
+    perm = st.prepare()
+    seen = set()
+    for step in range(st.steps_per_epoch):
+        batch = st.sample_prepared(perm, step)
+        users, iseq, ipos, ineg = (batch[f].numpy() for f in (st.User, st.ISeq, st.IPos, st.INeg))
+        assert ipos.shape == (16, P) and ineg.shape == (16, K)
+        for u, row, targets in zip(users, iseq, ipos):
+            items = tuple(int(i) - 1 for i in row if i != 0)
+            assert items and (row[:MAXLEN - len(items)] == 0).all()  # left pads
+            ends = [e for e in range(P + 1, len(seqs[u]) + 1)
+                    if tuple(seqs[u][e - P:e]) == tuple(targets)
+                    and tuple(seqs[u][max(0, e - P - MAXLEN):e - P]) == items]
+            assert ends, (u, items, targets)
+            seen.add((int(u), ends[-1]))
+    assert len(seen) == st.steps_per_epoch * 16  # no window twice in an epoch
+    assert max(len(s) for s in seqs) > MAXLEN + P  # some windows are cut to maxlen
+
+
+@pytest.mark.parametrize("name", ["STOSA", "RUM", "Caser"])
+def test_run_builds_the_samplers_recboard_tpu_builds(tiny_dataset, port_dataset, name):
+    """``run.device_sampler`` against recboard_tpu's ``build_pipes`` under
+    ``on_device_sampling`` (run.py:279, :297-311, :360-368): the same
+    sampler class and arguments, and the same packed tables."""
+    from recboard_tpu import run as run_jax
+    from recboard_tpu.models.zoo import REGISTRY as REGISTRY_JAX
+    from recboard_tpu.parser import Config as ConfigJax
+    from recboard_tpu_torch import run
+
+    kw = dict(embedding_dim=16, num_negs=2) if name == "Caser" else dict(embedding_dim=16)
+    maxlen = 5 if name == "Caser" else MAXLEN
+    cfg = ConfigJax(maxlen=maxlen, batch_size=16, ranking="full", on_device_sampling=True)
+    sj = run_jax.build_pipes(REGISTRY_JAX[name](tiny_dataset, maxlen=maxlen, **kw), cfg)[0]
+    model = run.build_model(name, port_dataset, dict(kw, maxlen=maxlen, seed=0), "cpu")
+    st = run.device_sampler(model, maxlen, 16, "cpu")
+    assert type(st).__name__ == type(sj).__name__
+    names = ("maxlen", "batch_size", "num_pads", "num_negatives", "num_positives", "sample_pos",
+             "num_windows", "steps_per_epoch")
+    shared = [attr for attr in names if hasattr(sj, attr) and hasattr(st, attr)]
+    assert {"maxlen", "batch_size", "num_pads", "steps_per_epoch"} <= set(shared)
+    for attr in shared:
+        assert getattr(st, attr) == getattr(sj, attr), attr
+    want = {repr(f): np.asarray(v) for f, v in sj.set_seed(0).sample(sj.epoch_key(), 0).items()}
+    got = {repr(f): v.numpy() for f, v in st.set_seed(0).sample(0).items()}
+    assert {k: (v.shape, v.dtype) for k, v in got.items()} == {
+        k: (v.shape, v.dtype) for k, v in want.items()}
+    for table in ("_packed", "_pairs", "_valid_users"):
+        if hasattr(sj, table):
+            np.testing.assert_array_equal(getattr(st, table).numpy(),
+                                          np.asarray(getattr(sj, table)), err_msg=table)
+    if name == "Caser":
+        assert (st.num_positives, st.num_negatives) == (3, 2)
+        assert st.num_windows == sum(max(len(s) - 3, 0) for s in port_dataset.train().user_seqs())
 
 
 RIGHT_PADDED = dict(pad_side="right", window_includes_target=False)
