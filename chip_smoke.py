@@ -50,7 +50,9 @@ Phases, one JSON line each; any failure exits non-zero:
 7. train_time — ms per step (the first STAGED_STEPS steps of an epoch,
    each alone), examples/s of a whole epoch and its host pipe alone; then
    the first PROFILE_STEPS steps of the next epoch under torch.profiler:
-   device time by kernel per step and the device's idle share.
+   device time by kernel per step and the device's idle share. Every
+   other slice's train_time is its profile alone (three steps of warm-up,
+   no step or epoch timed: ``timings=False``), for the time limit.
 8. quality — the toy store's SASRec protocol for 5 seeds on the card;
    the mean best NDCG@10 must lie in the store's band.
 9. kernels_vocab_ce — the full-vocabulary CE kernels (vocab_ce_fwd,
@@ -155,16 +157,14 @@ Phases, one JSON line each; any failure exits non-zero:
    FMLP-Rec none), the trained run served GPU = CPU, its ``--bench`` line,
    the toy store's 5-seed bands; BSARec and FMLP-Rec also device-sampled
    (``DeviceRollSeqSampler``: every drawn row one of the dataset's (user,
-   end) windows, none twice in an epoch) beside their host pipes; the
-   train_time of these and of phase 19's GRU4Rec and GLINT-RU times the
-   first STAGED_STEPS steps but no whole epoch. Phase 3
+   end) windows, none twice in an epoch) beside their host pipes. Phase 3
    also checks K1 and K2 with BSARec's and UniSRec's additive -1e4 mask, a
    bias per batch row: rows with a visible key at TOL and GRAD_TOL, rows
    whose every key carries -1e4 at MASKED_ROW_TOL and there the plain
    softmax over the raw scores, not zeros; a per-row bias that needs a
    gradient is refused before any launch.
 19. gru4rec_*, narm_*, glint_ru_*, stamp_*, fpmc_* (train, train_serve,
-   bench, train_time (not NARM, STAMP, FPMC), train_profile, quality) and
+   bench, train_profile, quality) and
    gru4rec_ods_* — the
    recurrent and session models at their reference configs as written,
    one epoch each: no launch of K1-K7 (their counters read 0; the GRU is
@@ -204,10 +204,27 @@ Phases, one JSON line each; any failure exits non-zero:
    windows, checked in device_samplers with RUM's ``DeviceFullSeqSampler``);
    the toy store's 5-seed bands.
 
+22. sevo_* (train, train_serve, bench, train_time, train_profile),
+   sevo_optimizer, lessr_* (train, train_serve, bench, train_time,
+   train_profile), lessr_graphs — SEvo and LESSR at their reference configs,
+   one epoch each: SEvo (SASRec trained by ``SEvoCoach``, its config's
+   AdamWSEvo run as ``--optimizer adamw``) with exact K1 and K2 launches, as
+   SASRec, its trained run served GPU = CPU; its optimizer's steps on the
+   card against the CPU's on the same gradients, and against plain AdamW's
+   (the item table's step must differ), one smoother product against its
+   byte bounds; LESSR on batches drawn on the card (its graphs derived in
+   the step) with every K1-K7 counter 0, its served lists against the CPU's
+   for the first CPU_USERS users (two batches of 512), its host pipe's graphs
+   against ``derive_session_graphs`` of the same ISeq on the card with no
+   host synchronisation, its sampler checked in device_samplers; both with
+   ``--bench``, a profile and the toy
+   store's 5-seed bands. The device-sampled twins of earlier slices are no
+   longer served on the CPU (pool_check holds them card = CPU).
+
 Each quality phase runs its seeds in processes of their own side by side
 (the protocol's steps are host-bound), one intra-op thread each:
 ``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18,
-19, 20 and 21 (``STORE_BANDS``), 100 seeds in 8 processes, the longest first,
+19, 20, 21 and 22 (``STORE_BANDS``), 110 seeds in 8 processes, the longest first,
 started beside resume_check and pool_check. Each phase prints its seconds,
 the total the wall time of them all. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
@@ -224,6 +241,7 @@ import io
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import pickle
 import shutil
@@ -399,13 +417,13 @@ ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "
 # the slices whose toy-store band the whole run checks, in the order the
 # band pool hands their seeds out: the longest first by a seed's seconds
 # in a whole run on an H100 80GB at 700 W, the pool beside resume_check and
-# pool_check (BERT4Rec's 250 epochs 57-59 s, UniSRec 51-56, GLINT-RU 44-46,
-# RUM's 200 epochs 23-41, BSARec 31-36, GRU4Rec and FMLP-Rec 23-29, NARM and
-# MF-BPR's 200 epochs 15-21, Caser 15-17, STAMP 13, FPMC 9-10, the others
-# 2-6), so the short ones fill the processes that free up
-STORE_BANDS = ("BERT4Rec", "UniSRec", "GLINT-RU", "RUM", "BSARec", "GRU4Rec", "FMLP-Rec",
-               "NARM", "MF-BPR", "Caser", "STAMP", "FPMC", "HSTU_pp", "STOSA", "HSTU_pp_ods",
-               "HSTU", "SASRec", "SASRec_ods", "LightGCN", "NeuMF")
+# pool_check (LESSR 86-111 s, BERT4Rec's 250 epochs 48-59, UniSRec 46-56,
+# GLINT-RU 27-46, RUM's 200 epochs 19-41, BSARec 23-36, GRU4Rec and FMLP-Rec
+# 15-29, NARM and MF-BPR's 200 epochs 10-21, Caser 13-17, STAMP 13, FPMC 8-10,
+# the others 2-6), so the short ones fill the processes that free up
+STORE_BANDS = ("LESSR", "BERT4Rec", "UniSRec", "GLINT-RU", "RUM", "BSARec", "GRU4Rec",
+               "FMLP-Rec", "NARM", "MF-BPR", "Caser", "STAMP", "FPMC", "HSTU_pp", "STOSA",
+               "HSTU_pp_ods", "HSTU", "SASRec", "SEvo", "SASRec_ods", "LightGCN", "NeuMF")
 # the band processes at once, one a host core: the whole pool (85 seeds,
 # tests/band_pool_probe.py) took 248.7 s in 40 processes, 200.6 in 24, 187.0
 # in 16 (one call), and 130.8 in 12, 119.7 in 8 (another call; H100 80GB,
@@ -491,11 +509,12 @@ MF_BPR_STORE_NDCG10 = 0.0378
 NEUMF_STORE_NDCG10 = 0.0333
 LIGHTGCN_STORE_NDCG10 = 0.0453
 GEN_BAND = 0.006
-# NeuMF's trained run is served on the card for every user; the CPU scores
-# its first test users in-process, whose lists are compared with the served
-# ones: its full ranking runs the MLP over every (user, item) pair, seconds
-# a batch of 512 on the CPU
-NEUMF_CPU_USERS = 1024
+# NeuMF's and LESSR's trained runs are served on the card for every user;
+# the CPU scores their first test users in-process, in the served batches of
+# BATCH, whose lists are compared with the served ones: NeuMF's full ranking
+# runs the MLP over every (user, item) pair, LESSR's its GRUs over every
+# node's in-neighbours, seconds a batch of 512 on the CPU
+CPU_USERS = {"NeuMF": 1024, "LESSR": 1024}
 # the slices trained, served and checked but neither profiled nor timed by
 # ``--bench``: MF-BPR's and NeuMF's, cut in that order after a whole run took
 # 1,239.7 s of phases on an H100 80GB at 700 W (their profiles and --bench
@@ -535,6 +554,38 @@ CASER_CONFIG = os.path.join(ROOT, "configs", "Caser_Amazon2014Beauty_550_LOU.yam
 STOSA_STORE_NDCG10 = 0.3970
 RUM_STORE_NDCG10 = 0.2295
 CASER_STORE_NDCG10 = 0.0859
+
+# SEvo and LESSR, each at its configs/<M>_Amazon2014Beauty_550_LOU.yaml and cut
+# to one epoch: SEvo is SASRec (D 64, 2 blocks, 1 head, maxlen 50, dropout 0.3,
+# BCE, batch 512, lr 1e-3, weight decay 0.1) whose item table's update is
+# smoothed over the item graph (beta 0.99, 3 layers, neumann, hops 2), with
+# one override: the config's optimizer AdamWSEvo, which both packages refuse,
+# runs as adamw, the variant it names (its beta1, beta2, beta3, L, H and
+# maxlen4graph are read by neither package); LESSR (D 64, 3 layers, dropout
+# 0.7, batch 512, AdamW lr 1e-3, weight decay 1e-6) on batches drawn on the
+# card, its session graphs derived in the step, evaluated in its batches of
+# 256. SEvo runs K2 and K1 as SASRec; LESSR reaches no kernel of K1-K7.
+NEW_SLICES = ("SEvo", "LESSR")
+SEVO_CONFIG = os.path.join(ROOT, "configs", "SEvo_Amazon2014Beauty_550_LOU.yaml")
+SEVO_FLAGS = dict(optimizer="adamw")
+LESSR = dict(maxlen=50, embedding_dim=64, num_layers=3)
+LESSR_CONFIG = os.path.join(ROOT, "configs", "LESSR_Amazon2014Beauty_550_LOU.yaml")
+# the toy store's rows (benchmark/SynBeauty_000_LOU/<M>.json, metric best:
+# 5-seed means, std 0.0192 / 0.0149) with tools/seed_sweep.py's arguments
+# (maxlen 20) and the models' defaults (SEvo with adam); SEvo's band lies
+# within 0.033 of SASRec's, so ``check_sevo_optimizer`` is what shows the
+# smoothing
+SEVO_STORE_NDCG10 = 0.2845
+LESSR_STORE_NDCG10 = 0.3976
+# SEvo's optimizer: SEVO_STEPS steps on the card and on the CPU from the same
+# weights on the same gradients, every parameter within SEVO_STEP_TOL (the
+# smoother's cuSPARSE products do not repeat their bits); the item table's
+# step at least SEVO_SMOOTHED away from plain AdamW's
+SEVO_STEPS = 3
+SEVO_STEP_TOL = 1e-6
+SEVO_SMOOTHED = 1e-4
+# LESSR's host pipe batches whose graphs are held against derive_session_graphs
+LESSR_GRAPH_BATCHES = 4
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -2421,6 +2472,35 @@ def caser_flax_params(rng, num_items, maxlen, embedding_dim, num_vert, num_horiz
     return params
 
 
+def lessr_flax_params(rng, num_items, maxlen, embedding_dim, num_layers, **_):
+    """LESSR params in recboard_tpu's flax layout, made with numpy: EOPA
+    layers (a GRU cell, two bias-free Dense, a scalar PReLU slope) and SGAT
+    layers (fc_q with a bias, fc_k and fc_e without) alternating, the
+    readout's four Dense (Dense_1 with a bias) and the bias-free fc_sr."""
+    D = embedding_dim
+    small = lambda *shape: (rng.normal(size=shape) * 0.02).astype(np.float32)  # noqa: E731
+    slope = lambda: {"negative_slope": np.float32(0.01 + 0.1 * rng.random())}  # noqa: E731
+    params = {"item_embeddings": {"embedding": table(rng, num_items + 1, D)}}
+    width = D
+    for i in range(num_layers):
+        if i % 2 == 0:
+            params[f"layers_{i}"] = {"GRUCell_0": gru_cell_params(rng, width, width)["cell"],
+                                     "Dense_0": {"kernel": xavier(rng, width, D)},
+                                     "Dense_1": {"kernel": xavier(rng, width, D)},
+                                     "PReLU_0": slope()}
+        else:
+            params[f"layers_{i}"] = {"fc_q": {"kernel": xavier(rng, width, D), "bias": small(D)},
+                                     "fc_k": {"kernel": xavier(rng, width, D)},
+                                     "fc_e": {"kernel": xavier(rng, D, 1)}, "PReLU_0": slope()}
+        width += D
+    params["readout"] = {"Dense_0": {"kernel": xavier(rng, width, D)},
+                         "Dense_1": {"kernel": xavier(rng, width, D), "bias": small(D)},
+                         "Dense_2": {"kernel": xavier(rng, D, 1)},
+                         "Dense_3": {"kernel": xavier(rng, width, D)}, "PReLU_0": slope()}
+    params["fc_sr"] = {"kernel": xavier(rng, width + D, D)}
+    return params
+
+
 def layout(tree, path=()) -> dict:
     """{leaf path: shape} of nested params."""
     out = {}
@@ -2436,26 +2516,27 @@ def layout(tree, path=()) -> dict:
 # training config, flags and epochs (TRAIN_EPOCHS where not given), toy-store
 # protocol and quality anchor, the prefix of its phase names, for a
 # device-sampled slice the host-pipe slice it is printed beside, for a
-# roll-window slice its inputs (``train_slice``), ``timings`` where
-# time_training does not time a whole epoch ("steps": BSARec, FMLP-Rec,
-# UniSRec, GRU4Rec, GLINT-RU and their device-sampled twins, cut after a
-# whole run with them took 1,228.4 s on an H100 80GB at 700 W) or no step
-# either (None, only profiles: NARM, STAMP, FPMC, cut since a whole run with
-# them went over its limit), and a band other than STORE_BAND
+# roll-window slice its inputs (``train_slice``), ``timings=False`` where
+# time_training times no step or epoch, only the profile (every slice but
+# SASRec's and its device-sampled twin's: NARM's, STAMP's and FPMC's cut after
+# a whole run went over its limit, the whole epochs of the roll slices after
+# one took 1,228.4 s, then their staged steps and every other slice's after
+# one with SEvo's and LESSR's slices took 1,099.6 s, all on an H100 80GB at
+# 700 W), and a band other than STORE_BAND
 ODS = dict(on_device_sampling=True)
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
                    batch=TRAIN_BATCH, protocol=STORE_PROTOCOL, store=STORE_NDCG10, tag=""),
     "BERT4Rec": dict(widths=BERT4REC, params=bert4rec_flax_params, config=B4R_CONFIG,
                      batch=TRAIN_BATCH, protocol=B4R_STORE_PROTOCOL, store=B4R_STORE_NDCG10,
-                     tag="bert4rec_"),
+                     tag="bert4rec_", timings=False),
     "HSTU": dict(widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG, batch=HSTU_BATCH,
                  flags=dict(negs_mode="shared"), epochs=HSTU_SHARED_EPOCHS,
                  protocol=HSTU_STORE_PROTOCOL,
-                 store=HSTU_STORE_NDCG10, tag="hstu_"),
+                 store=HSTU_STORE_NDCG10, tag="hstu_", timings=False),
     "HSTU_pp": dict(model="HSTU", widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG,
                     batch=HSTU_BATCH, protocol=HSTU_PP_STORE_PROTOCOL,
-                    store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_"),
+                    store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_", timings=False),
     # the same runs with every batch drawn on the card (data/device.py)
     "SASRec_ods": dict(model="SASRec", widths=SASREC, params=sasrec_flax_params,
                        config=TRAIN_CONFIG, batch=TRAIN_BATCH, flags=ODS,
@@ -2463,53 +2544,54 @@ SLICES = {
                        tag="sasrec_ods_", host="SASRec"),
     "BERT4Rec_ods": dict(model="BERT4Rec", widths=BERT4REC, params=bert4rec_flax_params,
                          config=B4R_CONFIG, batch=TRAIN_BATCH, flags=ODS,
-                         tag="bert4rec_ods_", host="BERT4Rec"),
+                         tag="bert4rec_ods_", host="BERT4Rec", timings=False),
     "HSTU_pp_ods": dict(model="HSTU", widths=HSTU, params=hstu_flax_params,
                         config=HSTU_CONFIG, batch=HSTU_BATCH, flags=ODS,
                         protocol=dict(HSTU_PP_STORE_PROTOCOL, **ODS),
-                        store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_ods_", host="HSTU_pp"),
+                        store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_ods_", host="HSTU_pp",
+                        timings=False),
     # the roll-window models; UniSRec trains on its multiplexed host
     # pipe only, as recboard_tpu's runner does
     "BSARec": dict(widths=BSAREC, params=bsarec_flax_params, config=BSAREC_CONFIG,
                    batch=BSAREC_BATCH, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                   store=BSAREC_STORE_NDCG10, tag="bsarec_", timings="steps"),
+                   store=BSAREC_STORE_NDCG10, tag="bsarec_", timings=False),
     "BSARec_ods": dict(model="BSARec", widths=BSAREC, params=bsarec_flax_params,
                        config=BSAREC_CONFIG, batch=BSAREC_BATCH, flags=ODS,
                        epochs=ROLL_EPOCHS, tag="bsarec_ods_", host="BSARec",
-                       timings="steps"),
+                       timings=False),
     "FMLP-Rec": dict(widths=FMLP, params=fmlp_flax_params, config=FMLP_CONFIG,
                      batch=FMLP_BATCH, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                     store=FMLP_STORE_NDCG10, tag="fmlp_", timings="steps"),
+                     store=FMLP_STORE_NDCG10, tag="fmlp_", timings=False),
     "FMLP-Rec_ods": dict(model="FMLP-Rec", widths=FMLP, params=fmlp_flax_params,
                          config=FMLP_CONFIG, batch=FMLP_BATCH, flags=ODS,
                          epochs=ROLL_EPOCHS, tag="fmlp_ods_", host="FMLP-Rec",
-                         timings="steps"),
+                         timings=False),
     "UniSRec": dict(widths=UNISREC, params=unisrec_flax_params, config=UNISREC_CONFIG,
                     batch=UNISREC_BATCH, flags=FEATURES, epochs=ROLL_EPOCHS,
                     protocol=dict(STORE_PROTOCOL, **FEATURES), store=UNISREC_STORE_NDCG10,
-                    tag="unisrec_", timings="steps"),
+                    tag="unisrec_", timings=False),
     # the recurrent and session models; GRU4Rec also device-sampled, and
     # FPMC's sampler (NUM_PADS 0) checked in device_samplers
     "GRU4Rec": dict(widths=GRU4REC, params=gru4rec_flax_params, config=GRU4REC_CONFIG,
                     batch=512, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
                     store=GRU4REC_STORE_NDCG10, tag="gru4rec_", inputs="uncapped",
-                    timings="steps"),
+                    timings=False),
     "GRU4Rec_ods": dict(model="GRU4Rec", widths=GRU4REC, params=gru4rec_flax_params,
                         config=GRU4REC_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
-                        tag="gru4rec_ods_", host="GRU4Rec", timings="steps"),
+                        tag="gru4rec_ods_", host="GRU4Rec", timings=False),
     "NARM": dict(widths=NARM, params=narm_flax_params, config=NARM_CONFIG, batch=512,
                  epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=NARM_STORE_NDCG10,
-                 tag="narm_", inputs="uncapped", timings=None),
+                 tag="narm_", inputs="uncapped", timings=False),
     "GLINT-RU": dict(widths=GLINT_RU, params=glint_ru_flax_params, config=GLINT_RU_CONFIG,
                      batch=2048, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
                      store=GLINT_RU_STORE_NDCG10, tag="glint_ru_", inputs="uncapped",
-                     timings="steps"),
+                     timings=False),
     "STAMP": dict(widths=STAMP, params=stamp_flax_params, config=STAMP_CONFIG, batch=512,
                   epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=STAMP_STORE_NDCG10,
-                  tag="stamp_", timings=None),
+                  tag="stamp_", timings=False),
     "FPMC": dict(widths=FPMC, params=fpmc_flax_params, config=FPMC_CONFIG, batch=512,
                  epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=FPMC_STORE_NDCG10,
-                 tag="fpmc_", inputs="last", timings=None),
+                 tag="fpmc_", inputs="last", timings=False),
     # the general CF models, each band held to GEN_BAND (MF-BPR and NeuMF
     # neither profiled nor benched: UNTIMED); LightGCN also device-sampled
     # (DeviceGenSampler)
@@ -2521,15 +2603,16 @@ SLICES = {
                   store=NEUMF_STORE_NDCG10, band=GEN_BAND, tag="neumf_"),
     "LightGCN": dict(widths=LIGHTGCN, params=lightgcn_flax_params, config=LIGHTGCN_CONFIG,
                      batch=2048, epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
-                     store=LIGHTGCN_STORE_NDCG10, band=GEN_BAND, tag="lightgcn_"),
+                     store=LIGHTGCN_STORE_NDCG10, band=GEN_BAND, tag="lightgcn_",
+                     timings=False),
     "LightGCN_ods": dict(model="LightGCN", widths=LIGHTGCN, params=lightgcn_flax_params,
                          config=LIGHTGCN_CONFIG, batch=2048, flags=ODS, epochs=GEN_EPOCHS,
-                         tag="lightgcn_ods_", host="LightGCN"),
+                         tag="lightgcn_ods_", host="LightGCN", timings=False),
     # STOSA and RUM on whole sequences, Caser on its windows; STOSA and Caser
     # also device-sampled, RUM and Caser neither profiled nor benched (UNTIMED)
     "STOSA": dict(widths=STOSA, params=stosa_flax_params, config=STOSA_CONFIG, batch=512,
                   epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=STOSA_STORE_NDCG10,
-                  tag="stosa_"),
+                  tag="stosa_", timings=False),
     "STOSA_ods": dict(model="STOSA", widths=STOSA, params=stosa_flax_params,
                       config=STOSA_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
                       tag="stosa_ods_", host="STOSA"),
@@ -2542,6 +2625,14 @@ SLICES = {
     "Caser_ods": dict(model="Caser", widths=CASER, params=caser_flax_params,
                       config=CASER_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
                       tag="caser_ods_", host="Caser"),
+    # SEvo through adamw on the host pipe; LESSR device-sampled only, with
+    # its own --bench line and profile (no host-pipe twin)
+    "SEvo": dict(widths=SASREC, params=sasrec_flax_params, config=SEVO_CONFIG, batch=512,
+                 flags=SEVO_FLAGS, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
+                 store=SEVO_STORE_NDCG10, tag="sevo_", timings=False),
+    "LESSR": dict(widths=LESSR, params=lessr_flax_params, config=LESSR_CONFIG, batch=512,
+                  flags=ODS, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
+                  store=LESSR_STORE_NDCG10, tag="lessr_", timings=False),
 }
 
 
@@ -2862,21 +2953,21 @@ def counted_kernels() -> tuple:
 
 # the ported models whose paths reach none of K1-K7
 KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC") + GEN_SLICES + (
-    "STOSA", "RUM", "Caser")
+    "STOSA", "RUM", "Caser", "LESSR")
 
 
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
                       negs_mode: str = "") -> dict:
     """Each counted kernel's launches for ``trained`` steps and ``evaluated``
-    batches of ``model``: SASRec, BERT4Rec and BSARec run K2 forward and
+    batches of ``model``: SASRec, SEvo, BERT4Rec and BSARec run K2 forward and
     backward once per block and step and K1 once per block and evaluated
     batch, UniSRec K2 twice per block and step (two encodes) and K1 once,
     BERT4Rec K3 forward and backward once per step; HSTU runs K6 once per
     step and the forward and backward of its loss's kernel, K5 with shared
     negatives and K4 with per-position ones (no ``negs_mode``), and no
     kernel in evaluation; the models of KERNEL_FREE (FMLP-Rec, GRU4Rec, NARM,
-    GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser) run
-    none. No model calls K7."""
+    GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser, LESSR)
+    run none. No model calls K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
@@ -3021,41 +3112,108 @@ def train_slice(seed: int, dataset, name: str) -> dict:
         return out
     serve.main(common + ["--output", gpu_tsv])
     gpu = read_scored_tsv(gpu_tsv)
-    if model == "NeuMF":
-        # seconds a batch on the CPU: its first NEUMF_CPU_USERS users, in-process
-        bad, arbitrated, cpu_users = neumf_cpu_agree(run_dir, dataset, gpu)
-    else:
-        serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
-        cpu = read_scored_tsv(cpu_tsv)
-        cpu_users = len(cpu)
-        bad, arbitrated = agree_or_float64(gpu, cpu, lambda: serve_float64(
-            common, os.path.join(WORK, f"{name}_train_f64.tsv")))
-    if bad:
-        raise SystemExit(f"{model} trained run: GPU and CPU lists disagree:\n"
-                         + "\n".join(bad[:10]))
     # how far apart the listed scores lie against TIE_TOL (the ids are
     # compared only across gaps wider than it); a general CF model one epoch
     # from its 1e-4 init scores every item alike, so its scores are also
     # checked at random weights of O(0.1), as STOSA's and Caser's are
     spans = [float(vals[0] - vals[TOPK - 1]) for _, vals in gpu.values()]
-    emit(f"{tag}train_serve", users=len(gpu), cpu_users=cpu_users, cpu_agree=True,
-         tie_tol=TIE_TOL,
-         float64_arbitrated=arbitrated, top_span_p50=float(np.median(spans)),
-         users_with_gaps_over_tie_tol=sum(
-             bool((np.diff(-vals[:TOPK]) > TIE_TOL).any()) for _, vals in gpu.values()),
-         **(random_weight_scores(seed, dataset, name) if name in RANDOM_WEIGHT_SLICES
-            else {}))
-    # SASRec and BERT4Rec have a serving phase of their own
-    if model not in ("SASRec", "BERT4Rec") + UNTIMED and not on_device:
+    row = dict(users=len(gpu), tie_tol=TIE_TOL, top_span_p50=float(np.median(spans)),
+               users_with_gaps_over_tie_tol=sum(
+                   bool((np.diff(-vals[:TOPK]) > TIE_TOL).any()) for _, vals in gpu.values()),
+               **(random_weight_scores(seed, dataset, name) if name in RANDOM_WEIGHT_SLICES
+                  else {}))
+    check = ServedCheck(name, tag, row, gpu, common)
+    if model in CPU_USERS:
+        # seconds a batch on the CPU: its first CPU_USERS users, in-process
+        check.finish(*first_users_agree(run_dir, dataset, gpu, model))
+    elif "host" in spec:
+        # a device-sampled twin: pool_check holds its run card = CPU, so its
+        # lists are not made again on the CPU for every user
+        check.finish([], 0, 0)
+    elif CPU_SERVING is not None:
+        # every user on the CPU in the serving process, beside the next phases
+        check.pending = CPU_SERVING.submit(cpu_lists, common, cpu_tsv)
+        DEFERRED.append(check)
+    else:
+        check.finish_with(cpu_lists(common, cpu_tsv))
+    # SASRec and BERT4Rec have a serving phase of their own; a device-sampled
+    # twin is served as its host-pipe slice
+    if model not in ("SASRec", "BERT4Rec") + UNTIMED and "host" not in spec:
         out["bench"] = run_bench(run_dir)
         emit(f"{tag}bench", **out["bench"])
     return out
 
 
+# the process that makes the host-pipe slices' CPU lists (``recommend --device
+# cpu`` for every user) beside the main process's next phases, at
+# CPU_SERVE_THREADS threads (of the host's 8, the main process needs about
+# two), and the checks waiting for it, collected before the band pool; None:
+# inline (as ``train_slice`` outside ``main``)
+CPU_SERVE_THREADS = 3
+CPU_SERVING = None
+DEFERRED = []
+
+
+def serving_process() -> None:
+    import torch
+
+    torch.set_num_threads(CPU_SERVE_THREADS)
+
+
+def cpu_lists(common: list, cpu_tsv: str) -> tuple:
+    """``recommend --device cpu`` of a trained run, with ``common``'s
+    arguments: (its lists, seconds)."""
+    from recboard_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
+    return read_scored_tsv(cpu_tsv), time.perf_counter() - t0
+
+
+class ServedCheck:
+    """A trained run's served GPU lists against the CPU's: its
+    ``{tag}train_serve`` line is emitted, and a disagreement raises, once the
+    CPU's lists are known (``finish``), at once or from the serving process
+    (``pending``, ``collect_served_checks``)."""
+
+    def __init__(self, name: str, tag: str, row: dict, gpu: dict, common: list):
+        self.name, self.tag, self.row, self.gpu, self.common = name, tag, row, gpu, common
+        self.pending = None
+
+    def finish_with(self, listed: tuple) -> None:
+        cpu, seconds = listed
+        bad, arbitrated = agree_or_float64(self.gpu, cpu, lambda: serve_float64(
+            self.common, os.path.join(WORK, f"{self.name}_train_f64.tsv")))
+        self.finish(bad, arbitrated, len(cpu), cpu_serve_s=seconds)
+
+    def finish(self, bad: list, arbitrated, cpu_users: int, **more) -> None:
+        emit(f"{self.tag}train_serve", **self.row, cpu_users=cpu_users,
+             cpu_agree=bool(cpu_users), float64_arbitrated=arbitrated, **more)
+        if bad:
+            raise SystemExit(f"{self.name} trained run: GPU and CPU lists disagree:\n"
+                             + "\n".join(bad[:10]))
+
+
+def collect_served_checks() -> int:
+    """Waits for the serving process's lists, finishes every deferred check
+    and shuts the process down; returns the number of checks."""
+    global CPU_SERVING
+    done = 0
+    while DEFERRED:
+        check = DEFERRED.pop(0)
+        check.finish_with(check.pending.result())
+        done += 1
+    if CPU_SERVING is not None:
+        CPU_SERVING.shutdown()
+        CPU_SERVING = None
+    return done
+
+
 def trained_lists(run_dir: str, dataset, device, users: int, double: bool = False) -> dict:
     """A trained run's top-(TOPK + 1) lists of the first ``users`` users of
     its test pipe, made in-process as ``recommend`` makes them (the best
-    params, the ranking buffers once, seen items masked) on ``device``, in
+    params, the ranking buffers once, seen items masked, batches of BATCH
+    rows, which LESSR's batch standardisation reads) on ``device``, in
     float64 with ``double``: {user: (ids, scores)} in the pipe's order."""
     import torch
 
@@ -3070,33 +3228,37 @@ def trained_lists(run_dir: str, dataset, device, users: int, double: bool = Fals
         model.load_state_dict(from_flax(pickle.load(fh)["params"]))
     if double:
         model.double()
-    pipe = run.eval_pipe(model, "test", None, batch_size=users)
+    pipe = run.eval_pipe(model, "test", int(cfg.maxlen), batch_size=BATCH)
     pipe.set_seed(int(cfg.get("seed", 0)))
-    data = next(iter(pipe))
-    batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
-             if isinstance(v, np.ndarray) and f != Size}
-    seen = torch.from_numpy(pad_ragged(data[model.ISeen], fill=SEEN_PAD)).to(device)
+    out = {}
     with torch.inference_mode():
-        scores = model.recommend_from_full(batch, model.reset_ranking_buffers())
-        vals, ids = torch.topk(mask_seen(scores, seen), TOPK + 1)
-    return {int(u): (i.numpy(), v.double().numpy())
-            for u, i, v in zip(data[model.User].reshape(-1), ids.cpu(), vals.cpu())}
+        buffers = model.reset_ranking_buffers()
+        for data in itertools.islice(pipe, -(-users // BATCH)):
+            batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
+                     if isinstance(v, np.ndarray) and f != Size}
+            seen = torch.from_numpy(pad_ragged(data[model.ISeen], fill=SEEN_PAD)).to(device)
+            scores = model.recommend_from_full(batch, buffers)
+            vals, ids = torch.topk(mask_seen(scores, seen), TOPK + 1)
+            out.update((int(u), (i.numpy(), v.double().numpy()))
+                       for u, i, v in zip(data[model.User].reshape(-1), ids.cpu(), vals.cpu()))
+    return dict(itertools.islice(out.items(), users))
 
 
-def neumf_cpu_agree(run_dir: str, dataset, gpu: dict) -> tuple:
-    """NeuMF's served GPU lists (``recommend`` on the card, every user)
-    against its first NEUMF_CPU_USERS users' lists made in-process on the
+def first_users_agree(run_dir: str, dataset, gpu: dict, model: str) -> tuple:
+    """A model's served GPU lists (``recommend`` on the card, every user)
+    against its first CPU_USERS[model] users' lists made in-process on the
     CPU, arbitrated in float64 as ``agree_or_float64`` does: (disagreements,
     arbitrated users, CPU users). The CPU's users must be exactly the GPU's
-    first NEUMF_CPU_USERS, in order."""
-    cpu = trained_lists(run_dir, dataset, "cpu", NEUMF_CPU_USERS)
-    first = list(gpu)[:NEUMF_CPU_USERS]
+    first ones, in order."""
+    users = CPU_USERS[model]
+    cpu = trained_lists(run_dir, dataset, "cpu", users)
+    first = list(gpu)[:users]
     if list(cpu) != first:
-        raise SystemExit(f"NeuMF trained run: the CPU scored users {list(cpu)[:8]}..., the "
+        raise SystemExit(f"{model} trained run: the CPU scored users {list(cpu)[:8]}..., the "
                          f"GPU served {first[:8]}... first")
     bad, arbitrated = agree_or_float64(
         {u: gpu[u] for u in first}, cpu,
-        lambda: trained_lists(run_dir, dataset, "cpu", NEUMF_CPU_USERS, double=True))
+        lambda: trained_lists(run_dir, dataset, "cpu", users, double=True))
     return bad, arbitrated, len(cpu)
 
 
@@ -3185,7 +3347,7 @@ class FirstSteps:
 
 
 def time_training(run_dir: str, phase: str, beside: dict = None,
-                  timings: str = "epoch") -> dict:
+                  timings: bool = True) -> dict:
     """Per-step and per-epoch times of the trained run's configuration on
     the card: the host pipe alone for one epoch (or, for a device sampler,
     drawing the epoch's batches on the card, synchronised), each of that
@@ -3195,10 +3357,8 @@ def time_training(run_dir: str, phase: str, beside: dict = None,
     made inside the window; the host pipe's first batch and a device
     sampler's permutation, the epoch's set-up, made ahead of it) under
     torch.profiler for the device time by kernel and the device's idle
-    share. ``timings="steps"`` times the staged steps but no whole epoch,
-    and lists only the host pipe's first STAGED_STEPS batches
-    (``host_pipe_batches``); ``timings=None`` times no step or epoch: three
-    batches of warm-up, then the profile. Returns the headline numbers;
+    share. Without ``timings`` it times no step or epoch: three batches of
+    warm-up, then the profile. Returns the headline numbers;
     ``beside`` (another run's) is printed next to them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3213,7 +3373,8 @@ def time_training(run_dir: str, phase: str, beside: dict = None,
     model = run.build_model(cfg.model, dataset, cfg, device)
     run.zero_folded_decay(model, cfg)  # as run.main: LightGCN's decay is in its loss
     trainpipe, validpipe, testpipe = run.build_pipes(model, cfg, device)
-    coach = Coach(dataset, trainpipe, validpipe, testpipe, model, cfg, device)
+    coach_cls = getattr(type(model), "COACH", Coach)  # as run.main: SEvo's
+    coach = coach_cls(dataset, trainpipe, validpipe, testpipe, model, cfg, device)
 
     trainpipe.set_seed(int(cfg.seed)).set_epoch(0)
     on_device = getattr(trainpipe, "is_device_sampler", False)
@@ -3226,8 +3387,7 @@ def time_training(run_dir: str, phase: str, beside: dict = None,
         torch.cuda.synchronize()
         examples = trainpipe.steps_per_epoch * trainpipe.batch_size
     else:
-        listed = {"epoch": None, "steps": STAGED_STEPS, None: 3}[timings]
-        batches = list(itertools.islice(trainpipe, listed))
+        batches = list(itertools.islice(trainpipe, None if timings else 3))
         examples = sum(int(b[Size]) for b in batches)
     pipe_s = time.perf_counter() - t0
     steps = trainpipe.steps_per_epoch if on_device else len(batches)
@@ -3249,16 +3409,13 @@ def time_training(run_dir: str, phase: str, beside: dict = None,
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
 
-        if timings == "epoch":
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            coach.train(1)
-            torch.cuda.synchronize()
-            epoch_s = time.perf_counter() - t0
-            out["examples_per_s"] = examples / epoch_s
-        emit(f"{phase}_time", model=cfg.model, timings=timings,
-             steps=steps if on_device or timings == "epoch" else None,
-             examples=examples if epoch_s else None,
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coach.train(1)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        out["examples_per_s"] = examples / epoch_s
+        emit(f"{phase}_time", model=cfg.model, steps=steps, examples=examples,
              timed_steps=len(staged), step_p50_ms=float(np.percentile(step_ms, 50)),
              step_p95_ms=float(np.percentile(step_ms, 95)),
              timed_steps_s=sum(step_ms) / 1e3, epoch_s=epoch_s, **out,
@@ -3368,8 +3525,6 @@ def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
     side, each taking the next seed in the order of ``names`` when it is
     done (the protocol's steps are host-bound, so the card runs them side
     by side): {name: (best NDCG@10s, seconds)}."""
-    import multiprocessing
-
     import torch
 
     data_root, store_name = store_dataset()
@@ -3609,13 +3764,141 @@ def check_lightgcn_spmm(seed: int, dataset) -> dict:
     return row
 
 
+def check_sevo_optimizer(seed: int, dataset) -> dict:
+    """SEvo's optimizer at its reference config (adamw, weight decay 0.1,
+    the item graph of the XL train split): SEVO_STEPS steps of the card's
+    ``SEvoCoach`` optimizer and of the CPU's, from the same weights on the
+    same gradients (the card's, of its first host-pipe batches at dropout
+    0): every parameter within SEVO_STEP_TOL; plain ``torch.optim.AdamW``
+    on the card fed those gradients moves every other parameter as SEvo's
+    does (within SEVO_STEP_TOL) and the item table at least SEVO_SMOOTHED
+    away (the smoothing acted, on the decay term too); one step drawn
+    under sync debug mode "error". Then one smoother product ``adj @ u`` of
+    a table-shaped update on the device clock (torch.profiler) beside its
+    byte bounds at the card's memory rate, as ``check_lightgcn_spmm``'s:
+    ``bound_ms`` (the CSR, u read once, the output written once) and
+    ``gather_bound_ms`` (every gathered row counted)."""
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.models.zoo import SEvoCoach
+
+    spec = SLICES["SEvo"]
+    cuda, cpu = torch.device(CARD), torch.device("cpu")
+    cfg = reference_cfg("SEvo", seed, dropout_rate=0.0)
+    net, cpu_net, plain_net = (run.build_model("SEvo", dataset, cfg, d) for d in (cuda, cpu, cuda))
+    coach, cpu_coach = (SEvoCoach(dataset, None, None, None, m, cfg, d)
+                        for m, d in ((net, cuda), (cpu_net, cpu)))
+    plain = torch.optim.AdamW(plain_net.parameters(), lr=float(cfg.lr), betas=(
+        float(cfg.get("optim_first_moment_decay", 0.9)),
+        float(cfg.get("optim_second_moment_decay", 0.999))),
+        weight_decay=float(cfg.weight_decay))
+    pipe = run.train_pipe(net, spec["widths"]["maxlen"], spec["batch"]).set_seed(seed)
+    generator = torch.Generator(device=cuda).manual_seed(seed)
+    for step, data in enumerate(itertools.islice(pipe, SEVO_STEPS)):
+        net.zero_grad(set_to_none=True)
+        net.fit(coach.to_device(data), generator)[0].backward()
+        grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+        for other in (cpu_net, plain_net):
+            for n, p in other.named_parameters():
+                p.grad = grads[n].to(p.device)
+        if step == SEVO_STEPS - 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            coach.optimizer.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cpu_coach.optimizer.step()
+        plain.step()
+    card = dict(net.named_parameters())
+    card_cpu = max(float((card[n].detach().cpu() - p.detach()).abs().max())
+                   for n, p in cpu_net.named_parameters())
+    vs_adamw = {n: float((card[n] - p).detach().abs().max())
+                for n, p in plain_net.named_parameters()}
+    table = "item_embeddings.weight"
+    others = max(v for n, v in vs_adamw.items() if n != table)
+
+    adj = coach.item_graph
+    D = spec["widths"]["embedding_dim"]
+    u = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(adj.shape[1], D)).astype(np.float32)).to(cuda)
+    product = device_kernels(lambda: adj @ u, calls=20)
+    csr = adj.nnz * (4 + 4) + (adj.shape[0] + 1) * 4
+    moved = csr + 2 * adj.shape[0] * 4 * D
+    gathered = csr + adj.nnz * 4 * D + adj.shape[0] * 4 * D
+    bound_ms, bound_by = bound(moved, 2 * adj.nnz * D)
+    gather_bound_ms, _ = bound(gathered, 2 * adj.nnz * D)
+    row = dict(optimizer=str(cfg.optimizer), weight_decay=float(cfg.weight_decay),
+               nodes=adj.shape[0], nnz=adj.nnz, steps=SEVO_STEPS,
+               card_vs_cpu_max_abs=card_cpu, tol=SEVO_STEP_TOL,
+               table_vs_adamw_max_abs=vs_adamw[table], smoothed_at_least=SEVO_SMOOTHED,
+               others_vs_adamw_max_abs=others, sync_debug_mode="error",
+               product_device_ms=sum(t / n for _, t, n in product),
+               products_per_step=net.smooth_layers,
+               product_kernels=[dict(name=n[:90], ms=t, per_call=c) for n, t, c in product],
+               bound_ms=bound_ms, bound_by=bound_by, bound_bytes=moved,
+               gather_bound_ms=gather_bound_ms, gather_bound_bytes=gathered)
+    emit("sevo_optimizer", **row)
+    if not (card_cpu <= SEVO_STEP_TOL and others <= SEVO_STEP_TOL
+            and vs_adamw[table] >= SEVO_SMOOTHED):
+        raise SystemExit(f"SEvo's optimizer on the card: {row}")
+    return row
+
+
+def check_lessr_graphs(seed: int, dataset) -> dict:
+    """LESSR's host pipe at its reference config: the session graphs of its
+    first LESSR_GRAPH_BATCHES batches (``lessr_graph_``) against
+    ``derive_session_graphs`` of the same ISeq on the card, drawn under sync
+    debug mode "error": every field equal, ``EOPNbr`` on its live slots (a
+    node's first degree slots), as tests/test_lessr_device.py compares them."""
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.models.zoo import lessr
+
+    spec = SLICES["LESSR"]
+    L = spec["widths"]["maxlen"]
+    net = run.build_model("LESSR", dataset, dict(spec["widths"], seed=seed), "cpu")
+    pipe = run.train_pipe(net, L, spec["batch"]).set_seed(seed)
+    fields = ("NodeItems", "NodeMask", "EOPNbr", "EOPDeg", "ShortMask", "LastNode")
+    equal, rows = {f: True for f in fields}, 0
+    for data in itertools.islice(pipe, LESSR_GRAPH_BATCHES):
+        iseq = torch.from_numpy(data[net.ISeq]).to(CARD)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            derived = lessr.derive_session_graphs(iseq, net.PADDING_VALUE)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        live = np.arange(L - 1)[None, None, :] < data[lessr.EOPDeg][..., None]
+        for name in fields:
+            got = derived[getattr(lessr, name)].cpu().numpy()
+            want = data[getattr(lessr, name)]
+            if name in ("NodeMask", "ShortMask"):
+                got, want = got.astype(bool), want.astype(bool)
+            if name == "EOPNbr":
+                got, want = got[live], want[live]
+            equal[name] &= bool(np.array_equal(got, want))
+        rows += len(iseq)
+    row = dict(batches=LESSR_GRAPH_BATCHES, rows=rows, equal=equal, sync_debug_mode="error")
+    emit("lessr_graphs", **row)
+    if not all(equal.values()):
+        raise SystemExit(f"LESSR's graphs derived on the card differ from the host pipe's: {row}")
+    return row
+
+
 # the device-sampled slices; their samplers' checks; the slice resumed
 ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods",
               "GRU4Rec_ods", "LightGCN_ods", "STOSA_ods", "Caser_ods")
-SAMPLER_SLICES = ODS_SLICES + ("FPMC", "RUM")
+SAMPLER_SLICES = ODS_SLICES + ("FPMC", "RUM", "LESSR")
 RESUME_SLICE = "HSTU_pp_ods"
 CARD = "cuda"  # the device the checks below hold against the CPU
 POOL_TOL = 1e-4  # |card - CPU| of a pool-ranking metric (a rank flip moves 1 / rows)
+# pool_check's CPU evaluations run beside the band pool's STORE_PROCESSES
+# processes, one a host core: at one thread, not the host's 8, whose threads
+# beyond the cores slow the pool
+POOL_CPU_THREADS = 1
 
 
 def reference_cfg(name: str, seed: int, **extra):
@@ -3642,27 +3925,32 @@ def expected_windows(seqs, width: int, offset: int = 1) -> np.ndarray:
 
 
 def expected_roll_rows(seqs, maxlen: int, num_pads: int, right_padded: bool = False,
-                       positives: int = 1) -> np.ndarray:
+                       positives: int = 1, uncapped: bool = None,
+                       keep_itself: bool = True) -> np.ndarray:
     """(windows, 1 + P + maxlen) rows (user, P targets, input) of every
     (user, end) window of the roll protocol, from the dataset's sequences in
     numpy: the up to maxlen - 1 items before the target, offset and
-    left-padded with 0 (BSARec's), or (``right_padded``) the up to maxlen
-    items before it, offset and right-padded (GRU4Rec's); a user with one
-    item keeps one window of pads. With P = ``positives`` > 1 (Caser's) the
+    left-padded with 0 (BSARec's), or (``uncapped``, by default
+    ``right_padded``) the up to maxlen items before it, offset and
+    right-padded (GRU4Rec's) or left-padded (LESSR's); a user with one
+    item keeps one window of pads (none without ``keep_itself``: LESSR's).
+    With P = ``positives`` > 1 (Caser's) the
     ends run from P + 1, the last P items are the targets and the up to
     maxlen before them the left-padded input; shorter users have none."""
     P, rows = positives, []
+    uncapped = right_padded if uncapped is None else uncapped
     for u, seq in enumerate(seqs):
         if P > 1:
             ends = range(P + 1, len(seq) + 1)
         else:
-            ends = range(2, len(seq) + 1) if len(seq) >= 2 else range(len(seq), len(seq) + 1)
+            ends = range(2, len(seq) + 1) if len(seq) >= 2 else range(
+                len(seq), len(seq) + int(keep_itself))
         for end in ends if seq else ():
             row = np.zeros(1 + P + maxlen, dtype=np.int64)
             if P > 1:
                 first = max(0, end - P - maxlen)
             else:
-                first = max(0, end - 1 - maxlen) if right_padded else max(0, end - maxlen)
+                first = max(0, end - 1 - maxlen) if uncapped else max(0, end - maxlen)
             items = np.asarray(seq[first:end - P], dtype=np.int64)
             row[0], row[1:1 + P] = u, seq[end - P:end]
             if items.size and right_padded:
@@ -3685,7 +3973,7 @@ def rows_within(got: np.ndarray, want: np.ndarray) -> bool:
 
 def check_device_samplers(seed: int, dataset) -> list:
     """Each device sampler of SAMPLER_SLICES (the ``_ods`` slices', FPMC's,
-    whose NUM_PADS is 0, and RUM's) at the SynBeautyXL shape on the card:
+    whose NUM_PADS is 0, RUM's and LESSR's) at the SynBeautyXL shape on the card:
     one epoch drawn under ``torch.cuda.set_sync_debug_mode ("error")``;
     every row's window the user's train tail (inputs offset,
     targets shifted by one; HSTU's times rebased and 0 exactly at pads;
@@ -3776,7 +4064,9 @@ def check_device_samplers(seed: int, dataset) -> list:
             ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()
             P = card.num_positives
             want = expected_roll_rows(seqs, L, net.NUM_PADS,
-                                      right_padded=card.pad_side == "right", positives=P)
+                                      right_padded=card.pad_side == "right", positives=P,
+                                      uncapped=not card.window_includes_target,
+                                      keep_itself=card.keep_at_least_itself)
             row.update(windows=card.num_windows, expected_windows=len(want),
                        pad_side=card.pad_side, num_pads=net.NUM_PADS, positives=P)
             ok &= card.num_windows == len(want) and steps == max(1, len(want) // B)
@@ -3946,8 +4236,14 @@ def pool_check(dataset, trained: dict) -> list:
             coach.load_best()
             for fn in counted_kernels():
                 fn.launches = 0
+            threads = torch.get_num_threads()
+            if device.type == "cpu":  # beside the band processes, one a host core
+                torch.set_num_threads(POOL_CPU_THREADS)
             t0 = time.perf_counter()
-            coach.evaluate(0, mode="valid")
+            try:
+                coach.evaluate(0, mode="valid")
+            finally:
+                torch.set_num_threads(threads)
             results.append((coach._flush("valid", 0), time.perf_counter() - t0,
                             {fn.__name__: fn.launches for fn in counted_kernels()}))
         batches = len(coach._eval_cache["valid"])
@@ -4092,6 +4388,9 @@ def main(argv=None) -> int:
     rb_rows, rb_worst = checked["rel_bias"]
     ssc_rows, ssc_worst = checked["sampled_softmax_cand"]
     mask_rows, mask_launches = checked["dropout"]
+    global CPU_SERVING
+    CPU_SERVING = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"), initializer=serving_process)
     dataset = timed("dataset", make_dataset)
     slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
@@ -4102,16 +4401,17 @@ def main(argv=None) -> int:
           "bert4rec_profile")
     b_trained = timed("bert4rec_train", train_slice, args.seed, dataset, "BERT4Rec")
     host_times["BERT4Rec"] = timed("bert4rec_train_time", time_training, b_trained["run_dir"],
-                                   "bert4rec_train")
+                                   "bert4rec_train", None, SLICES["BERT4Rec"]["timings"])
     h_trained = timed("hstu_train", train_slice, args.seed, dataset, "HSTU")
     timed("hstu_profile", profile_bench, h_trained["run_dir"], h_trained["bench"]["p50"],
           "hstu_profile")
-    timed("hstu_train_time", time_training, h_trained["run_dir"], "hstu_train")
+    timed("hstu_train_time", time_training, h_trained["run_dir"], "hstu_train", None,
+          SLICES["HSTU"]["timings"])
     p_trained = timed("hstu_pp_train", train_slice, args.seed, dataset, "HSTU_pp")
     timed("hstu_pp_profile", profile_bench, p_trained["run_dir"], p_trained["bench"]["p50"],
           "hstu_pp_profile")
     host_times["HSTU_pp"] = timed("hstu_pp_train_time", time_training, p_trained["run_dir"],
-                                  "hstu_pp_train")
+                                  "hstu_pp_train", None, SLICES["HSTU_pp"]["timings"])
     timed("hstu_pp_grads", check_hstu_pp_grads, args.seed)
     roll_trained = {}
     for name in ROLL_SLICES:
@@ -4120,14 +4420,15 @@ def main(argv=None) -> int:
         if name not in UNTIMED:
             host_times[name] = timed(f"{tag}train_time", time_training,
                                      roll_trained[name]["run_dir"], f"{tag}train", None,
-                                     SLICES[name].get("timings", "epoch"))
+                                     SLICES[name].get("timings", True))
     gen_trained = {}
     for name in GEN_SLICES:
         tag = SLICES[name]["tag"]
         gen_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
         if name not in UNTIMED:
             host_times[name] = timed(f"{tag}train_time", time_training,
-                                     gen_trained[name]["run_dir"], f"{tag}train")
+                                     gen_trained[name]["run_dir"], f"{tag}train", None,
+                                     SLICES[name].get("timings", True))
     timed("lightgcn_spmm", check_lightgcn_spmm, args.seed, dataset)
     seq_trained = {}
     for name in SEQ_SLICES:
@@ -4135,7 +4436,17 @@ def main(argv=None) -> int:
         seq_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
         if name not in UNTIMED:
             host_times[name] = timed(f"{tag}train_time", time_training,
-                                     seq_trained[name]["run_dir"], f"{tag}train")
+                                     seq_trained[name]["run_dir"], f"{tag}train", None,
+                                     SLICES[name].get("timings", True))
+    new_trained = {}
+    for name in NEW_SLICES:
+        tag = SLICES[name]["tag"]
+        new_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
+        host_times[name] = timed(f"{tag}train_time", time_training,
+                                 new_trained[name]["run_dir"], f"{tag}train", None,
+                                 SLICES[name].get("timings", True))
+    timed("sevo_optimizer", check_sevo_optimizer, args.seed, dataset)
+    timed("lessr_graphs", check_lessr_graphs, args.seed, dataset)
     timed("device_samplers", check_device_samplers, args.seed, dataset)
     ods = {}
     for name in ODS_SLICES:
@@ -4143,8 +4454,9 @@ def main(argv=None) -> int:
         ods[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
         if name not in UNTIMED:
             timed(f"{tag}train_time", time_training, ods[name]["run_dir"], f"{tag}train",
-                  dict(host_times[host], slice=host), SLICES[name].get("timings", "epoch"))
-    # every model's band: 100 seeds, 8 processes at once beside each other on
+                  dict(host_times[host], slice=host), SLICES[name].get("timings", True))
+    timed("train_serve_collected", collect_served_checks)
+    # every model's band: 110 seeds, 8 processes at once beside each other on
     # the card, started beside the last two checks, which time nothing but
     # pool_check's card_s (their card and CPU results are compared, not
     # timed); store_quality is the pool's own wall time
@@ -4221,7 +4533,8 @@ def main(argv=None) -> int:
                                                           p_trained, *ods.values(),
                                                           *roll_trained.values(),
                                                           *gen_trained.values(),
-                                                          *seq_trained.values()))),
+                                                          *seq_trained.values(),
+                                                          *new_trained.values()))),
         *row_mask_entries(rows, drop_rows, roll_trained),
     ]}))
     # the wall time of every phase: the band pool overlaps two of them

@@ -320,6 +320,7 @@ class DeviceRollSeqSampler(_DeviceSamplerBase):
         super().__init__(dataset, maxlen, batch_size, num_pads, device)
         self.num_negatives = num_negatives
         self.num_positives = num_positives
+        self.keep_at_least_itself = keep_at_least_itself
         seqs = dataset.train().user_seqs()
         # raw + 1, 0 = empty: unambiguous for the collision checks
         packed = np.zeros((len(seqs), max((len(s) for s in seqs), default=1)), dtype=np.int32)

@@ -34,10 +34,9 @@ import torch
 
 from .. import utils
 from ..data.pipes import Size
-from ..models.convert import from_flax, to_flax
 from . import metrics as metrics_lib
 
-__all__ = ["Coach", "EarlyStopError"]
+__all__ = ["Coach", "EarlyStopError", "bucket", "pad_rows"]
 
 
 class EarlyStopError(Exception):
@@ -189,7 +188,11 @@ class Coach:
         ranking pads the target ids with -1; pool ranking scores each row's
         candidates (``IUnseen``: the target, then the pool's negatives) and
         its target is column 0. A batch keeps its string-keyed marks (the
-        ``dataset`` of UniSRec's batches, ``mark_``)."""
+        ``dataset`` of UniSRec's batches, ``mark_``). As in ``recboard_tpu``,
+        the model's inputs are padded to ``bucket(rows, 32)`` rows by
+        repeating row 0 (``pad_rows``): a model whose encoding couples the
+        rows of a batch (LESSR's batch standardisation) scores the batches
+        ``recboard_tpu`` scores; ``evaluate`` drops the copies' scores."""
         if mode not in self._eval_cache:
             model = self.model
             pipe.set_seed(int(self.cfg.seed))
@@ -201,16 +204,18 @@ class Coach:
                     seen_ids = torch.from_numpy(
                         metrics_lib.pad_ragged(seen, fill=metrics_lib.SEEN_PAD)
                     ).to(self.device)
+                rows = int(data[Size])
                 batch = self.to_device(data)
-                batch.update((k, v) for k, v in data.items() if isinstance(k, str))
                 if self.ranking == "pool":
                     candidates = metrics_lib.pad_ragged(data[model.IUnseen], fill=0)
                     batch[model.IUnseen] = torch.from_numpy(candidates).to(self.device)
                     targets = np.zeros((len(candidates), 1), dtype=np.int64)
                 else:
                     targets = metrics_lib.pad_ragged(data[model.IUnseen], fill=-1)
+                batch = {f: pad_rows(v, bucket(rows, base=32)) for f, v in batch.items()}
+                batch.update((k, v) for k, v in data.items() if isinstance(k, str))
                 cached.append((batch, seen_ids, torch.from_numpy(targets).to(self.device),
-                               int(data[Size])))
+                               rows))
             self._eval_cache[mode] = cached
         return self._eval_cache[mode]
 
@@ -234,7 +239,7 @@ class Coach:
         recommend = (self.model.recommend_from_pool if pool_ranking
                      else self.model.recommend_from_full)
         for batch, seen_ids, target_ids, rows in self._eval_batches(mode, pipe):
-            scores = recommend(batch, buffers)
+            scores = recommend(batch, buffers)[:rows]  # the padding rows' scores dropped
             if not pool_ranking and self.remove_seen and seen_ids is not None:
                 scores = metrics_lib.mask_seen(scores, seen_ids)
             valid_rows = torch.ones(rows, device=self.device)
@@ -275,6 +280,9 @@ class Coach:
     # ------------------------------------------------------- persistence
     def save(self, filename: Optional[str] = None) -> None:
         """The payload ``recboard_tpu``'s Coach.save writes."""
+        # imported here: models.zoo imports this module (SEvo's Coach)
+        from ..models.convert import to_flax
+
         path = self.cfg.CHECKPOINT_PATH
         utils.mkdirs(path)
         filename = filename or self.cfg.SAVED_FILENAME
@@ -287,6 +295,8 @@ class Coach:
         self.save(self.cfg.SAVED_FILENAME)
 
     def load(self, path: Optional[str] = None, filename: Optional[str] = None) -> None:
+        from ..models.convert import from_flax
+
         path = path or self.cfg.CHECKPOINT_PATH
         filename = filename or self.cfg.SAVED_FILENAME
         payload = utils.import_pickle(os.path.join(path, filename))
@@ -448,6 +458,21 @@ class Coach:
             f"@ epoch {self._best_epoch}"
         )
         return best_summary
+
+
+def bucket(n: int, base: int = 16) -> int:
+    """``recboard_tpu``'s ``_bucket``: the first base · 2^k at or above n."""
+    out = base
+    while out < n:
+        out *= 2
+    return out
+
+
+def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with copies of its row 0 appended up to ``rows`` rows."""
+    if t.shape[0] >= rows:
+        return t
+    return torch.cat([t, t[:1].expand(rows - t.shape[0], *t.shape[1:])])
 
 
 def _to_host(obj):

@@ -12,13 +12,16 @@ despite the suffix). The port's modules keep flax's submodule names, so
 * a Conv ``kernel`` (k, in, out) beside a bias (out,), such as GLINT-RU's
   ``conv1d``, becomes ``Conv1d``'s ``weight`` (out, in, k);
 * a GRU cell (``gru_i/cell/{ir,iz,in,hr,hz,hn}``, flax's ``GRUCell``
-  under ``nn.RNN``) becomes ``torch.nn.GRU``'s ``weight_ih_l0``,
+  under ``nn.RNN``, or ``GRUCell_0/{ir,...}``, a cell made inside a compact
+  module, LESSR's) becomes ``torch.nn.GRU``'s ``weight_ih_l0``,
   ``weight_hh_l0``, ``bias_ih_l0`` and ``bias_hh_l0``, the gates stacked
   [r; z; n] (``tests/test_crosscheck_gru.py``'s packing map), with 0 in
   the r and z slices of ``bias_hh_l0``: flax's cell has no hidden bias
   there (``models/modules.GRU`` keeps them 0);
 * a LayerNorm ``scale`` becomes ``weight``;
 * an Embed ``embedding`` becomes ``weight``;
+* a PReLU's scalar ``negative_slope`` (LESSR's) becomes ``torch.nn.PReLU``'s
+  ``weight`` of shape (1,);
 
 and ``bias`` stays ``bias``; a bare parameter that a module declares
 itself (``BARE_LEAVES``: HSTU's ``rel_bias/timestamp_weights`` and
@@ -53,7 +56,8 @@ from .modules import DenseGeneral
 
 __all__ = ["from_flax", "to_flax"]
 
-_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
+               "negative_slope": "weight"}
 # parameters declared bare by a module (flax's self.param), kept by name
 BARE_LEAVES = frozenset({"timestamp_weights", "position_weights", "sqrt_beta",
                          "complex_weight", "w_gate", "w_noise", "bias", "weights", "ba",
@@ -120,6 +124,10 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 for name, arr in _gru_leaves(value, "/".join(path + (key,))).items():
                     put(path + (name,), arr)
                 continue
+            if isinstance(value, Mapping) and set(value) == set(_GRU_GATES):  # GRUCell_0
+                for name, arr in _gru_leaves(value, "/".join(path + (key,))).items():
+                    put(path + (key, name), arr)
+                continue
             if isinstance(value, Mapping):
                 walk(value, path + (key,))
                 continue
@@ -140,6 +148,8 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 arr = arr.reshape(arr.shape[0], -1).T
             elif key == "bias" and general:
                 arr = arr.reshape(-1)
+            elif key == "negative_slope":
+                arr = arr.reshape(1)
             put(path + (_LEAF_NAMES.get(key, key),), arr)
 
     walk(params, ())
@@ -152,12 +162,15 @@ def to_flax(model: nn.Module) -> Dict:
     bias features}``, Conv1d → ``{kernel (k, in, out), bias}``, GRU →
     ``{cell: {ir, iz, in, hr, hz, hn}}`` (raises when the r or z hidden
     bias is not 0), LayerNorm → ``{scale, bias}``, Embedding →
-    ``{embedding}``, bare parameters (``BARE_LEAVES``, ``BARE_FAMILIES``)
+    ``{embedding}``, PReLU → ``{negative_slope}`` (a scalar), bare
+    parameters (``BARE_LEAVES``, ``BARE_FAMILIES``)
     by their names, nested by submodule name."""
     tree: Dict = {}
     for name, module in model.named_modules():
         if isinstance(module, nn.GRU):
             leaves = _gru_cell(module, name)
+            if name.rsplit(".", 1)[-1].startswith("GRUCell_"):  # the cell's own module
+                leaves = leaves["cell"]
         elif isinstance(module, nn.Conv1d):
             leaves = {"kernel": module.weight.permute(2, 1, 0), "bias": module.bias}
         elif isinstance(module, DenseGeneral):
@@ -171,6 +184,8 @@ def to_flax(model: nn.Module) -> Dict:
             leaves = {"scale": module.weight, "bias": module.bias}
         elif isinstance(module, nn.Embedding):
             leaves = {"embedding": module.weight}
+        elif isinstance(module, nn.PReLU):
+            leaves = {"negative_slope": module.weight.reshape(())}
         else:
             leaves = dict(module.named_parameters(recurse=False))
             if not leaves:

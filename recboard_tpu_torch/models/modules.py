@@ -9,9 +9,9 @@ draws make every mask, and off without one (evaluation, serving): the
 counterpart of flax's ``deterministic`` flag and ``"dropout"`` rng.
 
 ``GRU`` is one layer of flax's ``nn.RNN(nn.GRUCell)``: the recurrence of
-GRU4Rec, NARM and GLINT-RU, which ``recboard_tpu`` runs as a
+GRU4Rec, NARM, GLINT-RU and LESSR, which ``recboard_tpu`` runs as a
 ``lax.scan`` outside any Pallas kernel, here ``torch.nn.GRU`` (cuDNN's
-kernels on the card).
+kernels on the card, or PyTorch's own for a batch of many sequences).
 """
 
 from __future__ import annotations
@@ -60,11 +60,32 @@ class GRU(nn.GRU):
     those gates two biases, which Adam moves twice as fast as flax's one).
     ``forward`` returns torch's (outputs, last hidden); the models run it
     over the whole padded length and read the outputs, as flax's ``nn.RNN``
-    without ``seq_lengths``."""
+    without ``seq_lengths``.
+
+    A batch of more than ``CUDNN_MAX_BATCH`` sequences on the card runs
+    through PyTorch's own GRU (a fused cell kernel a step beside cuBLAS's
+    products) with cuDNN off for the call: cuDNN's float32 kernels fall far
+    behind it there (LESSR's 25,600 node sequences of 49 slots at width 192:
+    261.8 against 73.7 ms forward and backward), and lead it at the smaller
+    batches of GRU4Rec, NARM and GLINT-RU (2.2 against 19.6 ms at 512 x 50,
+    width 128) (``tests/gru_backend_probe.py``, an H100 80GB at 700 W). The
+    two compute the same function (outputs within 1e-5)."""
+
+    CUDNN_MAX_BATCH = 4096
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__(input_size, hidden_size, batch_first=True)
         self.bias_hh_l0.register_hook(self._pin_rz)
+
+    def forward(self, x: torch.Tensor, hx: Optional[torch.Tensor] = None):
+        if not (x.is_cuda and x.shape[0] > self.CUDNN_MAX_BATCH):
+            return super().forward(x, hx)
+        enabled = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        try:
+            return super().forward(x, hx)
+        finally:
+            torch.backends.cudnn.enabled = enabled
 
     def _pin_rz(self, grad: torch.Tensor) -> torch.Tensor:
         return torch.cat((grad.new_zeros(2 * self.hidden_size), grad[2 * self.hidden_size:]))

@@ -144,6 +144,16 @@ DEVICE_SAMPLERS = {
     "RUM": functools.partial(DeviceFullSeqSampler, sample_pos=True, num_negatives=1),
     # windows of num_poss positives and num_negs negatives (device_sampler)
     "Caser": functools.partial(DeviceRollSeqSampler, keep_at_least_itself=False),
+    "SEvo": DeviceSeqSampler,
+    # left-padded windows without the target and no negative; the session
+    # graphs are derived in the step (lessr.derive_session_graphs). Unlike
+    # recboard_tpu's sampler, no all-pad window for a user of one train item:
+    # the host pipe has none (its positive yielder drops an empty input), and
+    # one such row makes LESSR's loss NaN (its readout softmaxes no node, and
+    # the batch standardisation spreads the NaN to every row)
+    "LESSR": functools.partial(DeviceRollSeqSampler, pad_side="left",
+                               window_includes_target=False, num_negatives=0,
+                               keep_at_least_itself=False),
 }
 
 
@@ -169,13 +179,16 @@ def train_pipe(model, maxlen: int, batch_size: int):
     return model.sure_trainpipe(maxlen, batch_size)
 
 
-def eval_pipe(model, split: str, maxlen: int, ranking: str = "full", batch_size: int = 512):
+def eval_pipe(model, split: str, maxlen: int, ranking: str = "full",
+              batch_size: Optional[int] = None):
     """``model``'s ``valid`` or ``test`` pipe, without the maxlen for a
-    ``GenRecArch``."""
+    ``GenRecArch``, in batches of ``batch_size`` or, as ``recboard_tpu``'s
+    runner builds them, of the model's own default (512; LESSR's 256)."""
     maker = model.sure_validpipe if split == "valid" else model.sure_testpipe
+    sized = {} if batch_size is None else dict(batch_size=batch_size)
     if isinstance(model, GenRecArch):
-        return maker(ranking=ranking, batch_size=batch_size)
-    return maker(maxlen, ranking=ranking, batch_size=batch_size)
+        return maker(ranking=ranking, **sized)
+    return maker(maxlen, ranking=ranking, **sized)
 
 
 def build_pipes(model, cfg, device: torch.device):
@@ -257,8 +270,11 @@ def main(argv: Optional[list] = None):
                          f"using {supported[0]!r}")
         cfg.ranking = supported[0]
     trainpipe, validpipe, testpipe = build_pipes(model, cfg, device)
-    coach = Coach(dataset=dataset, trainpipe=trainpipe, validpipe=validpipe,
-                  testpipe=testpipe, model=model, cfg=cfg, device=device)
+    # a model whose novelty lives in its trainer (SEvo's smoothing optimizer)
+    # names its Coach
+    coach_cls = getattr(type(model), "COACH", Coach)
+    coach = coach_cls(dataset=dataset, trainpipe=trainpipe, validpipe=validpipe,
+                      testpipe=testpipe, model=model, cfg=cfg, device=device)
     best = coach.fit()
     utils.infoLogger(f"[run] >>> best: {best}")
     return best

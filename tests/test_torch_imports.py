@@ -36,7 +36,8 @@ def test_port_modules_import_without_jax():
                  "models.zoo.narm", "models.zoo.glint_ru", "models.zoo.stamp",
                  "models.zoo.fpmc", "models.zoo.mf_bpr", "models.zoo.neumf",
                  "models.zoo.lightgcn", "models.zoo.stosa", "models.zoo.rum",
-                 "models.zoo.caser", "graph", "serve", "data.device", "data.synthetic"):
+                 "models.zoo.caser", "models.zoo.sevo", "models.zoo.lessr", "optims", "graph",
+                 "serve", "data.device", "data.synthetic"):
         assert f"recboard_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

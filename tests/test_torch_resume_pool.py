@@ -32,6 +32,7 @@ from recboard_tpu.parser import Parser as ParserJax
 from recboard_tpu_torch import run, utils
 from recboard_tpu_torch.data.datasets import NextItemRecDataSet
 from recboard_tpu_torch.launcher import Coach
+from recboard_tpu_torch.launcher.coach import bucket
 from recboard_tpu_torch.models.convert import from_flax
 from recboard_tpu_torch.models.zoo import BERT4Rec, HSTU, SASRec
 from recboard_tpu_torch.parser import Parser
@@ -203,8 +204,11 @@ def test_pool_candidates_put_the_target_first(port_dataset, tmp_path):
     valid = port_dataset.valid().user_seqs()
     rows = 0
     for batch, _, targets, n in coach._eval_batches("valid", pipe):
+        # the Coach pads a batch to 32 * 2^k rows with copies of its row 0
         cand, users = batch[model.IUnseen], batch[model.User]
-        assert cand.dtype == torch.int64 and cand.shape == (n, 101)
+        assert cand.dtype == torch.int64 and cand.shape == (bucket(n, base=32), 101)
+        assert (cand[n:] == cand[:1]).all() and (users[n:] == users[:1]).all()
+        cand, users = cand[:n], users[:n]
         assert torch.equal(targets, torch.zeros((n, 1), dtype=torch.int64))
         assert [int(c) for c in cand[:, 0]] == [valid[int(u)][0] for u in users]
         rows += n
