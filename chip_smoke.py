@@ -180,7 +180,7 @@ Phases, one JSON line each; any failure exits non-zero:
    each on the pipe of users drawn with replacement: no launch of K1-K7
    (LightGCN's product is cuSPARSE's CSR SpMM, named in its profile), the
    trained run served GPU = CPU with the spread of the listed scores
-   (NeuMF's first 1,024 users scored in-process on the CPU), LightGCN's
+   (the first and last served batch on the CPU), LightGCN's
    ``--bench`` line (MF-BPR and NeuMF are neither profiled nor benched:
    UNTIMED), the toy store's 5-seed bands held to GEN_BAND beside a random
    ranking's NDCG@10; LightGCN's propagation on the card against the CPU at
@@ -214,18 +214,39 @@ Phases, one JSON line each; any failure exits non-zero:
    (the item table's step must differ), one smoother product against its
    byte bounds; LESSR on batches drawn on the card (its graphs derived in
    the step) with every K1-K7 counter 0, its served lists against the CPU's
-   for the first CPU_USERS users (two batches of 512), its host pipe's graphs
+   for its first and last served batch, its host pipe's graphs
    against ``derive_session_graphs`` of the same ISeq on the card with no
    host synchronisation, its sampler checked in device_samplers; both with
    ``--bench``, a profile and the toy
    store's 5-seed bands. The device-sampled twins of earlier slices are no
    longer served on the CPU (pool_check holds them card = CPU).
 
+23. simplex_* (train, train_serve, bench, train_profile), ultragcn_* (train,
+   train_serve, train_profile), gte_* (train, train_serve, bench) and
+   ultragcn_side_info — SimpleX and UltraGCN at their reference configs, one
+   epoch each on the interaction pairs drawn on the card
+   (``DevicePairSampler``, checked in device_samplers: every pair at most once
+   in the epoch's rows, negatives in range), and GTE's training-free
+   propagation (3 layers) on its host pipe: every K1-K7 counter 0, each
+   trained run served on the card for every user, the lists of its first and
+   last served batch equal to the CPU's (GTE's path counts exact in float32:
+   its largest score, printed, must lie below 2**24),
+   SimpleX's and UltraGCN's scores at random weights card = CPU; UltraGCN's
+   side information built on the card, timed, and held against numpy's exact
+   counts; the toy store's bands (GTE one seed: deterministic).
+
+Every trained run's CPU lists (its first and last served batch) and pool_check's
+CPU evaluations (started as each run is trained) are made in one serving
+process beside the main phases; the checks are finished before the band pool
+(``train_serve_collected``) and in pool_check.
+
 Each quality phase runs its seeds in processes of their own side by side
 (the protocol's steps are host-bound), one intra-op thread each:
 ``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18,
-19, 20, 21 and 22 (``STORE_BANDS``), 110 seeds in 8 processes, the longest first,
-started beside resume_check and pool_check. Each phase prints its seconds,
+19, 20, 21, 22 and 23 (``STORE_BANDS``), 121 seeds in 8 processes, seed by
+seed, the longest slice first in each round, started beside the
+device-sampled twins' training (profiled before it, from their reference
+configs), resume_check, pool_check and device_samplers. Each phase prints its seconds,
 the total the wall time of them all. Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 1 before printing any result. Scratch files go to
@@ -415,15 +436,17 @@ ROLL_EPOCHS = 1
 ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC",
                "Caser")
 # the slices whose toy-store band the whole run checks, in the order the
-# band pool hands their seeds out: the longest first by a seed's seconds
+# band pool hands out each round of their seeds: the longest first by a seed's seconds
 # in a whole run on an H100 80GB at 700 W, the pool beside resume_check and
 # pool_check (LESSR 86-111 s, BERT4Rec's 250 epochs 48-59, UniSRec 46-56,
 # GLINT-RU 27-46, RUM's 200 epochs 19-41, BSARec 23-36, GRU4Rec and FMLP-Rec
 # 15-29, NARM and MF-BPR's 200 epochs 10-21, Caser 13-17, STAMP 13, FPMC 8-10,
-# the others 2-6), so the short ones fill the processes that free up
+# the others 2-6; SimpleX's and UltraGCN's 30 epochs placed beside MF-BPR's
+# before a measurement), so the short ones fill the processes that free up
 STORE_BANDS = ("LESSR", "BERT4Rec", "UniSRec", "GLINT-RU", "RUM", "BSARec", "GRU4Rec",
-               "FMLP-Rec", "NARM", "MF-BPR", "Caser", "STAMP", "FPMC", "HSTU_pp", "STOSA",
-               "HSTU_pp_ods", "HSTU", "SASRec", "SEvo", "SASRec_ods", "LightGCN", "NeuMF")
+               "FMLP-Rec", "NARM", "MF-BPR", "SimpleX", "UltraGCN", "Caser", "STAMP", "FPMC",
+               "HSTU_pp", "STOSA", "HSTU_pp_ods", "HSTU", "SASRec", "SEvo", "SASRec_ods",
+               "LightGCN", "NeuMF", "GTE")
 # the band processes at once, one a host core: the whole pool (85 seeds,
 # tests/band_pool_probe.py) took 248.7 s in 40 processes, 200.6 in 24, 187.0
 # in 16 (one call), and 130.8 in 12, 119.7 in 8 (another call; H100 80GB,
@@ -509,25 +532,36 @@ MF_BPR_STORE_NDCG10 = 0.0378
 NEUMF_STORE_NDCG10 = 0.0333
 LIGHTGCN_STORE_NDCG10 = 0.0453
 GEN_BAND = 0.006
-# NeuMF's and LESSR's trained runs are served on the card for every user;
-# the CPU scores their first test users in-process, in the served batches of
-# BATCH, whose lists are compared with the served ones: NeuMF's full ranking
-# runs the MLP over every (user, item) pair, LESSR's its GRUs over every
-# node's in-neighbours, seconds a batch of 512 on the CPU
-CPU_USERS = {"NeuMF": 1024, "LESSR": 1024}
-# the slices trained, served and checked but neither profiled nor timed by
-# ``--bench``: MF-BPR's and NeuMF's, cut in that order after a whole run took
-# 1,239.7 s of phases on an H100 80GB at 700 W (their profiles and --bench
-# lines had cost about 8 s of it); RUM (no full ranking to bench), Caser and
-# the device-sampled twins of STOSA and Caser never were, to make room for
-# STOSA's profile and --bench line
-UNTIMED = ("MF-BPR", "NeuMF", "RUM", "Caser", "Caser_ods", "STOSA_ods")
+# every trained run is served on the card for every user; the CPU scores the
+# first and the last of its served test batches of BATCH
+# (``cpu_batch_indices``: the last one partial, 347 of the XL store's 22,363
+# users), in the serving process beside the next phases, and their lists are
+# compared with the served ones' same users (NeuMF's and LESSR's take seconds a batch of 512 on the CPU; a
+# whole run's CPU lists of all 22,363 users took the serving process 2.3-17.2 s
+# a slice beside the main phases, on an H100 80GB at 700 W)
+
+
+def cpu_batch_indices(batches: int) -> list:
+    """Of a run's ``batches`` served batches, the indices of those the CPU
+    scores: the first and the last."""
+    return sorted({0, batches - 1})
+
 # the slices whose full-catalog scores are also held card against CPU at
 # random weights (``random_weight_scores``)
-RANDOM_WEIGHT_SLICES = GEN_SLICES + ("STOSA", "Caser")
+RANDOM_WEIGHT_SLICES = GEN_SLICES + ("STOSA", "Caser", "SimpleX", "UltraGCN")
 # LightGCN's propagation, card against CPU: largest error relative to the
 # largest magnitude, of the encoded tables and of their parameters' gradients
 SPMM_TOL = 1e-5
+
+# time_training's cuts: steps timed one by one, and the profiled window (the
+# first steps of an epoch; the roll-window models' epochs are 260-520 steps,
+# whose profiles alone took 2-4 minutes to read back each): 40 steps for
+# SASRec and the pairs-source slices (``profile_steps``), 20 for every other
+# slice since a whole run with them took 1,041.6 s of phases on an H100 80GB at
+# 700 W (their 40-step profiles 149.3 s, 82 of it the window and its read-back)
+STAGED_STEPS = 100
+PROFILE_STEPS = 20
+FULL_PROFILE_STEPS = 40
 
 # STOSA, RUM and Caser, each at its configs/<M>_Amazon2014Beauty_550_LOU.yaml as
 # written and cut to one epoch: STOSA (D 64, 1 block, 4 heads, maxlen 50,
@@ -586,6 +620,39 @@ SEVO_STEP_TOL = 1e-6
 SEVO_SMOOTHED = 1e-4
 # LESSR's host pipe batches whose graphs are held against derive_session_graphs
 LESSR_GRAPH_BATCHES = 4
+
+# SimpleX, UltraGCN and GTE, each at its configs/<M>_Yelp2018_10104811_ROU.yaml
+# and cut to one epoch: SimpleX (D 64, gamma 0.5, 1,000 negatives over the whole
+# catalog drawn in the step, margin 0.9, negative weight 100, dropout 0.1, batch
+# 512, Adam lr 1e-4, weight decay 1e-8) and UltraGCN (D 64, 800 negatives, neg
+# weight 300, item weight 0.5, 10 neighbours, w1 = w3 = 1e-8, batch 1024, Adam
+# lr 1e-3, weight decay 1e-4) on batches drawn on the card (DevicePairSampler:
+# every train interaction once an epoch, 155,120 with repeats), GTE (3 layers,
+# training-free: a dummy parameter) on its host pipe of users. No kernel of
+# K1-K7 on these paths: the propagations are cuSPARSE's CSR SpMM.
+PAIR_SLICES = ("SimpleX", "UltraGCN", "GTE")
+SIMPLEX = dict(embedding_dim=64, gamma=0.5)
+SIMPLEX_CONFIG = os.path.join(ROOT, "configs", "SimpleX_Yelp2018_10104811_ROU.yaml")
+ULTRAGCN = dict(embedding_dim=64)
+ULTRAGCN_CONFIG = os.path.join(ROOT, "configs", "UltraGCN_Yelp2018_10104811_ROU.yaml")
+GTE = dict(num_layers=3)
+GTE_CONFIG = os.path.join(ROOT, "configs", "GTE_Yelp2018_10104811_ROU.yaml")
+# the toy store's rows (benchmark/SynBeauty_000_LOU/<M>.json, metric best: 5-seed
+# means, std 0.0023 / 0.0007 / 0) with tools/seed_sweep.py's arguments (30
+# epochs; GTE 1) and the models' defaults, held to GEN_BAND; GTE is
+# deterministic, so one seed
+SIMPLEX_STORE_NDCG10 = 0.0272
+ULTRAGCN_STORE_NDCG10 = 0.0251
+GTE_STORE_NDCG10 = 0.0349
+# GTE's scores count paths: integers, exact in float32 below 2**24 (the XL
+# dataset's largest is about 1.03e6), so its lists are compared as every other
+# slice's; a score at or above it fails the run, where summation order would
+# decide the last bits
+EXACT_FLOAT32 = 2**24
+# UltraGCN's side information built on the card, held against numpy's exact
+# co-occurrence counts on this many item rows (and the betas on every row)
+SIDE_INFO_ROWS = 512
+SIDE_INFO_TOL = 1e-6
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -2414,6 +2481,20 @@ def neumf_flax_params(rng, num_items, embedding_dim, hidden_dims, num_users, **_
 
 # LightGCN's params are MF-BPR's two (layer-0) tables; the adjacency is none
 lightgcn_flax_params = mf_bpr_flax_params
+# UltraGCN's are the same two tables; its side information is none
+ultragcn_flax_params = mf_bpr_flax_params
+
+
+def simplex_flax_params(rng, num_items, embedding_dim, num_users, **_):
+    """SimpleX params in recboard_tpu's flax layout, made with numpy: the two
+    tables and ``agg_linear``'s kernel (a Dense without bias)."""
+    return dict(mf_bpr_flax_params(rng, num_items, embedding_dim, num_users),
+                agg_linear={"kernel": xavier(rng, embedding_dim, embedding_dim)})
+
+
+def gte_flax_params(rng, num_items, num_users, **_):
+    """GTE's one parameter in recboard_tpu's flax layout: the (1,) dummy."""
+    return {"dummy": np.zeros(1, dtype=np.float32)}
 
 
 def stosa_flax_params(rng, num_items, maxlen, embedding_dim, num_blocks, **_):
@@ -2522,11 +2603,21 @@ def layout(tree, path=()) -> dict:
 # a whole run went over its limit, the whole epochs of the roll slices after
 # one took 1,228.4 s, then their staged steps and every other slice's after
 # one with SEvo's and LESSR's slices took 1,099.6 s, all on an H100 80GB at
-# 700 W), and a band other than STORE_BAND
+# 700 W), ``profile_steps`` where it is not PROFILE_STEPS (0: time_training
+# does not run), ``bench=False`` where ``--bench`` does not time the run, and
+# a band other than STORE_BAND. Neither profiled nor benched: MF-BPR and
+# NeuMF, cut in that order after a whole run took 1,239.7 s of phases on an
+# H100 80GB at 700 W (their profiles and --bench lines had cost about 8 s of
+# it); RUM (no full ranking to bench), Caser and the device-sampled twins of
+# STOSA and Caser never were, to make room for STOSA's profile and --bench
+# line. GTE is not profiled (its step trains a dummy), UltraGCN not benched
+# (it scores as MF-BPR does).
+UNTIMED = dict(profile_steps=0, bench=False)
 ODS = dict(on_device_sampling=True)
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
-                   batch=TRAIN_BATCH, protocol=STORE_PROTOCOL, store=STORE_NDCG10, tag=""),
+                   batch=TRAIN_BATCH, protocol=STORE_PROTOCOL, store=STORE_NDCG10, tag="",
+                   profile_steps=FULL_PROFILE_STEPS),
     "BERT4Rec": dict(widths=BERT4REC, params=bert4rec_flax_params, config=B4R_CONFIG,
                      batch=TRAIN_BATCH, protocol=B4R_STORE_PROTOCOL, store=B4R_STORE_NDCG10,
                      tag="bert4rec_", timings=False),
@@ -2597,10 +2688,10 @@ SLICES = {
     # (DeviceGenSampler)
     "MF-BPR": dict(widths=MF_BPR, params=mf_bpr_flax_params, config=MF_BPR_CONFIG, batch=2048,
                    epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=200),
-                   store=MF_BPR_STORE_NDCG10, band=GEN_BAND, tag="mf_bpr_"),
+                   store=MF_BPR_STORE_NDCG10, band=GEN_BAND, tag="mf_bpr_", **UNTIMED),
     "NeuMF": dict(widths=NEUMF, params=neumf_flax_params, config=NEUMF_CONFIG, batch=1024,
                   epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
-                  store=NEUMF_STORE_NDCG10, band=GEN_BAND, tag="neumf_"),
+                  store=NEUMF_STORE_NDCG10, band=GEN_BAND, tag="neumf_", **UNTIMED),
     "LightGCN": dict(widths=LIGHTGCN, params=lightgcn_flax_params, config=LIGHTGCN_CONFIG,
                      batch=2048, epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
                      store=LIGHTGCN_STORE_NDCG10, band=GEN_BAND, tag="lightgcn_",
@@ -2615,16 +2706,16 @@ SLICES = {
                   tag="stosa_", timings=False),
     "STOSA_ods": dict(model="STOSA", widths=STOSA, params=stosa_flax_params,
                       config=STOSA_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
-                      tag="stosa_ods_", host="STOSA"),
+                      tag="stosa_ods_", host="STOSA", **UNTIMED),
     "RUM": dict(widths=RUM, params=rum_flax_params, config=RUM_CONFIG, batch=512,
                 epochs=ROLL_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=200),
-                store=RUM_STORE_NDCG10, tag="rum_"),
+                store=RUM_STORE_NDCG10, tag="rum_", **UNTIMED),
     "Caser": dict(widths=CASER, params=caser_flax_params, config=CASER_CONFIG, batch=512,
                   epochs=ROLL_EPOCHS, protocol=dict(STORE_PROTOCOL, maxlen=5),
-                  store=CASER_STORE_NDCG10, tag="caser_", inputs="caser"),
+                  store=CASER_STORE_NDCG10, tag="caser_", inputs="caser", **UNTIMED),
     "Caser_ods": dict(model="Caser", widths=CASER, params=caser_flax_params,
                       config=CASER_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
-                      tag="caser_ods_", host="Caser"),
+                      tag="caser_ods_", host="Caser", **UNTIMED),
     # SEvo through adamw on the host pipe; LESSR device-sampled only, with
     # its own --bench line and profile (no host-pipe twin)
     "SEvo": dict(widths=SASREC, params=sasrec_flax_params, config=SEVO_CONFIG, batch=512,
@@ -2633,6 +2724,21 @@ SLICES = {
     "LESSR": dict(widths=LESSR, params=lessr_flax_params, config=LESSR_CONFIG, batch=512,
                   flags=ODS, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
                   store=LESSR_STORE_NDCG10, tag="lessr_", timings=False),
+    # SimpleX and UltraGCN on the pairs drawn on the card (their host pipe in
+    # the bands), GTE on its host pipe of users with one seed (deterministic)
+    "SimpleX": dict(widths=SIMPLEX, params=simplex_flax_params, config=SIMPLEX_CONFIG,
+                    batch=512, flags=ODS, epochs=GEN_EPOCHS,
+                    protocol=dict(STORE_PROTOCOL, epochs=30), store=SIMPLEX_STORE_NDCG10,
+                    band=GEN_BAND, tag="simplex_", timings=False,
+                    profile_steps=FULL_PROFILE_STEPS),
+    "UltraGCN": dict(widths=ULTRAGCN, params=ultragcn_flax_params, config=ULTRAGCN_CONFIG,
+                     batch=1024, flags=ODS, epochs=GEN_EPOCHS,
+                     protocol=dict(STORE_PROTOCOL, epochs=30), store=ULTRAGCN_STORE_NDCG10,
+                     band=GEN_BAND, tag="ultragcn_", timings=False,
+                     profile_steps=FULL_PROFILE_STEPS, bench=False),
+    "GTE": dict(widths=GTE, params=gte_flax_params, config=GTE_CONFIG, batch=256,
+                epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=1),
+                store=GTE_STORE_NDCG10, band=GEN_BAND, seeds=1, tag="gte_", profile_steps=0),
 }
 
 
@@ -2687,21 +2793,6 @@ def suspects(a, b, tol) -> list:
         same = (np.sort(ids_a[:, :i], axis=1) == np.sort(ids_b[:, :i], axis=1)).all(axis=1)
         off |= (vals_a[:, i - 1] - vals_a[:, i] > tol) & ~same
     return [u for u, o in zip(users, off) if o]
-
-
-def serve_float64(argv: list, f64_tsv: str) -> dict:
-    """``recommend`` with the model held in float64 on the CPU, its lists
-    written to ``f64_tsv`` and read back: the scores that float32 rounding
-    on either device is judged against."""
-    from recboard_tpu_torch import run, serve
-
-    build = run.build_model
-    run.build_model = lambda *a, **k: build(*a, **k).double()
-    try:
-        serve.main(argv + ["--device", "cpu", "--output", f64_tsv])
-    finally:
-        run.build_model = build
-    return read_scored_tsv(f64_tsv)
 
 
 def agree_or_float64(gpu: dict, cpu: dict, float64) -> tuple:
@@ -2953,7 +3044,7 @@ def counted_kernels() -> tuple:
 
 # the ported models whose paths reach none of K1-K7
 KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC") + GEN_SLICES + (
-    "STOSA", "RUM", "Caser", "LESSR")
+    "STOSA", "RUM", "Caser", "LESSR") + PAIR_SLICES
 
 
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
@@ -2966,8 +3057,8 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
     step and the forward and backward of its loss's kernel, K5 with shared
     negatives and K4 with per-position ones (no ``negs_mode``), and no
     kernel in evaluation; the models of KERNEL_FREE (FMLP-Rec, GRU4Rec, NARM,
-    GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser, LESSR)
-    run none. No model calls K7."""
+    GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser, LESSR,
+    SimpleX, UltraGCN, GTE) run none. No model calls K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
@@ -3005,7 +3096,9 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
                       config=spec["config"], epochs=epochs, eval_freq=1,
                       checkpoint_path=os.path.join(WORK, "infos", name), **flags)
-    counter = run.build_model(model, dataset, dict(widths, seed=seed, **flags), "cpu")
+    t_count = time.perf_counter()
+    counter = run.build_model(model, dataset, dict(widths, seed=seed, **flags), "cpu",
+                              training=False)
     L = widths.get("maxlen")  # None for the general CF models, whose pipes take none
     on_device = bool(flags.get("on_device_sampling"))
     if on_device:
@@ -3055,6 +3148,7 @@ def train_slice(seed: int, dataset, name: str) -> dict:
                              f"rows; the kernel phases checked {HSTU_ACTIVE_K} and "
                              f"{SS_EXTRA[0][1]}, {SSC_EXTRA[0][1]}")
 
+    count_s = time.perf_counter() - t_count
     for fn in counted_kernels():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3075,7 +3169,7 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     emit(f"{tag}train", model=model, config=spec["config"], flags=flags,
          dataset=DATASET["name"], epochs=epochs, steps_per_epoch=steps,
          rows_per_epoch=sum(sizes), last_batch=sizes[-1], pad_share=pad_share, losses=losses,
-         best=best, launches=launches, expected_launches=want, run_s=run_s)
+         best=best, launches=launches, expected_launches=want, run_s=run_s, count_s=count_s)
     if len(losses) != epochs or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"{model} train: losses {losses}")
     if launches != want:
@@ -3095,7 +3189,6 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     common = ["--run", run_dir, "--topk", str(TOPK + 1), "--with-scores",
               "--batch-size", str(BATCH)]
     gpu_tsv = os.path.join(WORK, f"{name}_train_gpu.tsv")
-    cpu_tsv = os.path.join(WORK, f"{name}_train_cpu.tsv")
     out = dict(launches=launches, run_dir=run_dir, steps=steps)
     if "full" not in counter.SUPPORTED_RANKINGS:
         # RUM ranks pools only: ``recommend`` refuses the run, as recboard_tpu's
@@ -3110,48 +3203,56 @@ def train_slice(seed: int, dataset, name: str) -> dict:
                 gpu_tsv):
             raise SystemExit(f"{model} trained run: recommend did not refuse it ({refusal})")
         return out
+    t0 = time.perf_counter()
     serve.main(common + ["--output", gpu_tsv])
+    serve_gpu_s = time.perf_counter() - t0
     gpu = read_scored_tsv(gpu_tsv)
     # how far apart the listed scores lie against TIE_TOL (the ids are
     # compared only across gaps wider than it); a general CF model one epoch
     # from its 1e-4 init scores every item alike, so its scores are also
     # checked at random weights of O(0.1), as STOSA's and Caser's are
     spans = [float(vals[0] - vals[TOPK - 1]) for _, vals in gpu.values()]
+    t0 = time.perf_counter()
     row = dict(users=len(gpu), tie_tol=TIE_TOL, top_span_p50=float(np.median(spans)),
                users_with_gaps_over_tie_tol=sum(
                    bool((np.diff(-vals[:TOPK]) > TIE_TOL).any()) for _, vals in gpu.values()),
+               max_score=float(max(vals[0] for _, vals in gpu.values())),
                **(random_weight_scores(seed, dataset, name) if name in RANDOM_WEIGHT_SLICES
                   else {}))
-    check = ServedCheck(name, tag, row, gpu, common)
-    if model in CPU_USERS:
-        # seconds a batch on the CPU: its first CPU_USERS users, in-process
-        check.finish(*first_users_agree(run_dir, dataset, gpu, model))
-    elif "host" in spec:
+    row.update(serve_gpu_s=serve_gpu_s, random_weights_s=time.perf_counter() - t0)
+    if model == "GTE" and not row["max_score"] < EXACT_FLOAT32:
+        raise SystemExit(f"GTE's path counts pass 2**24 (largest {row['max_score']}): float32 "
+                         "no longer counts them exactly")
+    check = ServedCheck(name, tag, row, gpu, run_dir)
+    if "host" in spec:
         # a device-sampled twin: pool_check holds its run card = CPU, so its
-        # lists are not made again on the CPU for every user
+        # lists are not made again on the CPU
         check.finish([], 0, 0)
     elif CPU_SERVING is not None:
-        # every user on the CPU in the serving process, beside the next phases
-        check.pending = CPU_SERVING.submit(cpu_lists, common, cpu_tsv)
+        # its first and last batch on the CPU in the serving process, beside
+        # the next phases
+        check.pending = CPU_SERVING.submit(cpu_lists, run_dir)
         DEFERRED.append(check)
     else:
-        check.finish_with(cpu_lists(common, cpu_tsv))
+        check.finish_with(cpu_lists(run_dir))
     # SASRec and BERT4Rec have a serving phase of their own; a device-sampled
     # twin is served as its host-pipe slice
-    if model not in ("SASRec", "BERT4Rec") + UNTIMED and "host" not in spec:
+    if model not in ("SASRec", "BERT4Rec") and spec.get("bench", True) and "host" not in spec:
+        t0 = time.perf_counter()
         out["bench"] = run_bench(run_dir)
-        emit(f"{tag}bench", **out["bench"])
+        emit(f"{tag}bench", **out["bench"], wall_s=time.perf_counter() - t0)
     return out
 
 
-# the process that makes the host-pipe slices' CPU lists (``recommend --device
-# cpu`` for every user) beside the main process's next phases, at
-# CPU_SERVE_THREADS threads (of the host's 8, the main process needs about
-# two), and the checks waiting for it, collected before the band pool; None:
-# inline (as ``train_slice`` outside ``main``)
+# the process that makes the trained runs' CPU lists (their first and last
+# served batch) and pool_check's CPU evaluations beside the main process's next
+# phases, at CPU_SERVE_THREADS threads (of the host's 8, the main process needs
+# about two), and the checks waiting for it, collected before the band pool;
+# None: inline (as ``train_slice`` outside ``main``)
 CPU_SERVE_THREADS = 3
 CPU_SERVING = None
 DEFERRED = []
+_DATASETS = {}
 
 
 def serving_process() -> None:
@@ -3160,31 +3261,51 @@ def serving_process() -> None:
     torch.set_num_threads(CPU_SERVE_THREADS)
 
 
-def cpu_lists(common: list, cpu_tsv: str) -> tuple:
-    """``recommend --device cpu`` of a trained run, with ``common``'s
-    arguments: (its lists, seconds)."""
+def run_dataset(cfg):
+    """The dataset a run config names, loaded once a process."""
+    from recboard_tpu_torch import run
+
+    key = (cfg.root, cfg.dataset)
+    if key not in _DATASETS:
+        _DATASETS[key] = run.load_dataset(cfg)
+    return _DATASETS[key]
+
+
+def cpu_lists(run_dir: str, double: bool = False) -> tuple:
+    """A trained run's lists of the test users of its first and last
+    served batch on the CPU (``trained_lists``): (the lists, seconds)."""
     from recboard_tpu_torch import serve
 
     t0 = time.perf_counter()
-    serve.main(common + ["--output", cpu_tsv, "--device", "cpu"])
-    return read_scored_tsv(cpu_tsv), time.perf_counter() - t0
+    dataset = run_dataset(serve.load_run_config(run_dir))
+    return trained_lists(run_dir, dataset, "cpu", double), time.perf_counter() - t0
 
 
 class ServedCheck:
-    """A trained run's served GPU lists against the CPU's: its
-    ``{tag}train_serve`` line is emitted, and a disagreement raises, once the
-    CPU's lists are known (``finish``), at once or from the serving process
-    (``pending``, ``collect_served_checks``)."""
+    """A trained run's served GPU lists against the CPU's lists of its first
+    and last served batch (``cpu_lists``): its ``{tag}train_serve`` line is
+    emitted, and a disagreement raises, once the CPU's lists are known
+    (``finish``), at once or from the serving process (``pending``,
+    ``collect_served_checks``). The CPU's users must be exactly the GPU's
+    users of those batches (``cpu_batch_indices``), in order."""
 
-    def __init__(self, name: str, tag: str, row: dict, gpu: dict, common: list):
-        self.name, self.tag, self.row, self.gpu, self.common = name, tag, row, gpu, common
+    def __init__(self, name: str, tag: str, row: dict, gpu: dict, run_dir: str):
+        self.name, self.tag, self.row, self.gpu, self.run_dir = name, tag, row, gpu, run_dir
         self.pending = None
 
     def finish_with(self, listed: tuple) -> None:
         cpu, seconds = listed
-        bad, arbitrated = agree_or_float64(self.gpu, cpu, lambda: serve_float64(
-            self.common, os.path.join(WORK, f"{self.name}_train_f64.tsv")))
-        self.finish(bad, arbitrated, len(cpu), cpu_serve_s=seconds)
+        served = list(self.gpu)
+        last = cpu_batch_indices(-(-len(served) // BATCH))[-1]
+        want = served[:BATCH] + (served[last * BATCH:] if last else [])
+        if list(cpu) != want:
+            raise SystemExit(f"{self.name} trained run: the CPU scored users {list(cpu)[:8]}..., "
+                             f"the GPU served {want[:8]}... in its first and last batch")
+        bad, arbitrated = agree_or_float64(
+            {u: self.gpu[u] for u in want}, cpu,
+            lambda: cpu_lists(self.run_dir, double=True)[0])
+        self.finish(bad, arbitrated, len(cpu), cpu_serve_s=seconds,
+                    last_batch_users=len(served) - last * BATCH)
 
     def finish(self, bad: list, arbitrated, cpu_users: int, **more) -> None:
         emit(f"{self.tag}train_serve", **self.row, cpu_users=cpu_users,
@@ -3195,26 +3316,23 @@ class ServedCheck:
 
 
 def collect_served_checks() -> int:
-    """Waits for the serving process's lists, finishes every deferred check
-    and shuts the process down; returns the number of checks."""
-    global CPU_SERVING
+    """Waits for the serving process's lists and finishes every deferred
+    check; returns the number of checks."""
     done = 0
     while DEFERRED:
         check = DEFERRED.pop(0)
         check.finish_with(check.pending.result())
         done += 1
-    if CPU_SERVING is not None:
-        CPU_SERVING.shutdown()
-        CPU_SERVING = None
     return done
 
 
-def trained_lists(run_dir: str, dataset, device, users: int, double: bool = False) -> dict:
-    """A trained run's top-(TOPK + 1) lists of the first ``users`` users of
-    its test pipe, made in-process as ``recommend`` makes them (the best
-    params, the ranking buffers once, seen items masked, batches of BATCH
-    rows, which LESSR's batch standardisation reads) on ``device``, in
-    float64 with ``double``: {user: (ids, scores)} in the pipe's order."""
+def trained_lists(run_dir: str, dataset, device, double: bool = False) -> dict:
+    """A trained run's top-(TOPK + 1) lists of the users of the first and
+    the last batch of its test pipe (``cpu_batch_indices``), made in-process
+    as ``recommend`` makes them (the best params, the ranking buffers once,
+    seen items masked, batches of BATCH rows, which LESSR's batch
+    standardisation reads) on ``device``, in float64 with ``double``:
+    {user: (ids, scores)} in the pipe's order."""
     import torch
 
     from recboard_tpu_torch import run, serve
@@ -3223,17 +3341,18 @@ def trained_lists(run_dir: str, dataset, device, users: int, double: bool = Fals
     from recboard_tpu_torch.models.convert import from_flax
 
     cfg = serve.load_run_config(run_dir)
-    model = run.build_model(cfg.model, dataset, cfg, device).eval()
+    model = run.build_model(cfg.model, dataset, cfg, device, training=False).eval()
     with open(os.path.join(cfg.CHECKPOINT_PATH, cfg.BEST_FILENAME), "rb") as fh:
         model.load_state_dict(from_flax(pickle.load(fh)["params"]))
     if double:
         model.double()
     pipe = run.eval_pipe(model, "test", int(cfg.maxlen), batch_size=BATCH)
     pipe.set_seed(int(cfg.get("seed", 0)))
+    batches = list(pipe)  # built on the host; only the first and last scored
     out = {}
     with torch.inference_mode():
         buffers = model.reset_ranking_buffers()
-        for data in itertools.islice(pipe, -(-users // BATCH)):
+        for data in (batches[b] for b in cpu_batch_indices(len(batches))):
             batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
                      if isinstance(v, np.ndarray) and f != Size}
             seen = torch.from_numpy(pad_ragged(data[model.ISeen], fill=SEEN_PAD)).to(device)
@@ -3241,25 +3360,7 @@ def trained_lists(run_dir: str, dataset, device, users: int, double: bool = Fals
             vals, ids = torch.topk(mask_seen(scores, seen), TOPK + 1)
             out.update((int(u), (i.numpy(), v.double().numpy()))
                        for u, i, v in zip(data[model.User].reshape(-1), ids.cpu(), vals.cpu()))
-    return dict(itertools.islice(out.items(), users))
-
-
-def first_users_agree(run_dir: str, dataset, gpu: dict, model: str) -> tuple:
-    """A model's served GPU lists (``recommend`` on the card, every user)
-    against its first CPU_USERS[model] users' lists made in-process on the
-    CPU, arbitrated in float64 as ``agree_or_float64`` does: (disagreements,
-    arbitrated users, CPU users). The CPU's users must be exactly the GPU's
-    first ones, in order."""
-    users = CPU_USERS[model]
-    cpu = trained_lists(run_dir, dataset, "cpu", users)
-    first = list(gpu)[:users]
-    if list(cpu) != first:
-        raise SystemExit(f"{model} trained run: the CPU scored users {list(cpu)[:8]}..., the "
-                         f"GPU served {first[:8]}... first")
-    bad, arbitrated = agree_or_float64(
-        {u: gpu[u] for u in first}, cpu,
-        lambda: trained_lists(run_dir, dataset, "cpu", users, double=True))
-    return bad, arbitrated, len(cpu)
+    return out
 
 
 def random_weight_scores(seed: int, dataset, name: str, users: int = 128) -> dict:
@@ -3281,7 +3382,8 @@ def random_weight_scores(seed: int, dataset, name: str, users: int = 128) -> dic
         num_users=dataset.fields["USER", "ID"].count, **widths))
     scores = []
     for device in (torch.device(CARD), torch.device("cpu")):
-        model = run.build_model(spec.get("model", name), dataset, dict(widths, seed=seed), device)
+        model = run.build_model(spec.get("model", name), dataset, dict(widths, seed=seed), device,
+                                training=False)
         model.load_state_dict(params)
         data = next(iter(run.eval_pipe(model, "test", widths.get("maxlen"), batch_size=users)))
         batch = {f: torch.from_numpy(v).to(device) for f, v in data.items()
@@ -3317,12 +3419,6 @@ def device_pad_share(sampler, maxlen: int) -> float:
     return float((inputs == 0).double().mean())
 
 
-# time_training's cuts: steps timed one by one, and the profiled window (the
-# first steps of an epoch; the roll-window models' epochs are 260-520 steps,
-# whose profiles alone took 2-4 minutes to read back each)
-STAGED_STEPS = 100
-PROFILE_STEPS = 40
-
 
 class FirstSteps:
     """The first ``n`` batches of a host pipe's epoch, for the Coach: the
@@ -3346,14 +3442,16 @@ class FirstSteps:
             yield batch
 
 
-def time_training(run_dir: str, phase: str, beside: dict = None,
-                  timings: bool = True) -> dict:
-    """Per-step and per-epoch times of the trained run's configuration on
+def time_training(cfg, phase: str, beside: dict = None,
+                  timings: bool = True, profile_steps: int = PROFILE_STEPS) -> dict:
+    """Per-step and per-epoch times of a run configuration ``cfg`` (a trained
+    run's, ``serve.load_run_config``, or a slice's ``reference_cfg``: the
+    model starts from its seed's initial weights either way) on
     the card: the host pipe alone for one epoch (or, for a device sampler,
     drawing the epoch's batches on the card, synchronised), each of that
     epoch's first STAGED_STEPS steps alone on batches already on the card
     (synchronised), one whole epoch as the Coach runs it, and the first
-    PROFILE_STEPS steps of one more epoch as the Coach runs them (batches
+    ``profile_steps`` steps of one more epoch as the Coach runs them (batches
     made inside the window; the host pipe's first batch and a device
     sampler's permutation, the epoch's set-up, made ahead of it) under
     torch.profiler for the device time by kernel and the device's idle
@@ -3363,11 +3461,10 @@ def time_training(run_dir: str, phase: str, beside: dict = None,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from recboard_tpu_torch import run, serve
+    from recboard_tpu_torch import run
     from recboard_tpu_torch.data.pipes import Size
     from recboard_tpu_torch.launcher import Coach
 
-    cfg = serve.load_run_config(run_dir)
     device = torch.device(CARD)
     dataset = run.load_dataset(cfg)
     model = run.build_model(cfg.model, dataset, cfg, device)
@@ -3422,12 +3519,12 @@ def time_training(run_dir: str, phase: str, beside: dict = None,
              **({"beside": beside} if beside else {}))
 
     if on_device:  # the epoch's permutation made ahead, as FirstSteps draws ahead
-        window = min(steps, PROFILE_STEPS)
+        window = min(steps, profile_steps)
         perm = trainpipe.set_seed(int(cfg.seed)).set_epoch(2).prepare()
         trainpipe.prepare = lambda: perm
         trainpipe.steps_per_epoch = window
     else:
-        coach.trainpipe = FirstSteps(trainpipe, PROFILE_STEPS, int(cfg.seed), 2)
+        coach.trainpipe = FirstSteps(trainpipe, profile_steps, int(cfg.seed), 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3518,30 +3615,44 @@ def one_thread() -> None:
     torch.set_num_threads(1)
 
 
+def started_store_run(*job) -> tuple:
+    """``store_run`` of ``job`` with the wall clock at its start: (start,
+    (best NDCG@10, seconds))."""
+    return time.time(), store_run(*job)
+
+
 def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
     """The toy store's protocol for each slice of ``names`` (tools/seed_sweep.py's
     arguments for the model, and ``flags``) for each of ``seeds``, one after
     another or (``concurrent``) in up to STORE_PROCESSES processes side by
-    side, each taking the next seed in the order of ``names`` when it is
-    done (the protocol's steps are host-bound, so the card runs them side
-    by side): {name: (best NDCG@10s, seconds)}."""
+    side, each taking the next job when it is done (the protocol's steps are
+    host-bound, so the card runs them side by side). The jobs go out seed by
+    seed, each seed's in the order of ``names``: a slice's seeds, which load
+    the card alike, spread over the pool instead of all starting at once
+    (LESSR's five seeds, started together, each took 134 s of the pool's
+    331.5, on an H100 80GB at 700 W). Returns {name: (best NDCG@10s,
+    seconds)}; each seed's line also gives its start within the pool."""
     import torch
 
     data_root, store_name = store_dataset()
-    jobs = [(name, data_root, store_name, seed, flags) for name in names for seed in seeds]
+    # a slice's ``seeds`` caps its seeds (GTE's one: it is deterministic)
+    jobs = [(name, data_root, store_name, seed, flags) for seed in seeds for name in names
+            if seed < SLICES[name].get("seeds", math.inf)]
+    t0 = time.time()
     if concurrent:
         torch.cuda.empty_cache()  # the card's memory for the processes' contexts
         # the processes share the host's cores: one intra-op thread each
         with multiprocessing.get_context("spawn").Pool(min(len(jobs), STORE_PROCESSES),
                                                        one_thread) as pool:
-            results = pool.starmap(store_run, jobs, chunksize=1)
+            results = pool.starmap(started_store_run, jobs, chunksize=1)
     else:
-        results = [store_run(*job) for job in jobs]
+        results = [started_store_run(*job) for job in jobs]
     out = {}
-    for (name, _, _, seed, _), (value, seconds) in zip(jobs, results):
+    for (name, _, _, seed, _), (start, (value, seconds)) in sorted(
+            zip(jobs, results), key=lambda pair: names.index(pair[0][0])):
         spec = SLICES[name]
         emit(f"{spec['tag']}quality_seed", model=spec.get("model", name), seed=seed,
-             ndcg10=value, seconds=seconds, **flags)
+             ndcg10=value, seconds=seconds, started_s=start - t0, **flags)
         values, times = out.setdefault(name, ([], []))
         values.append(value)
         times.append(seconds)
@@ -3579,7 +3690,7 @@ def quality(seeds: int, *names: str) -> dict:
         spec = SLICES[name]
         mean, band = float(np.mean(values)), spec.get("band", STORE_BAND)
         emit(f"{spec['tag']}quality", model=spec.get("model", name),
-             dataset=STORE_DATASET["name"], seeds=seeds, ndcg10=values, mean=mean,
+             dataset=STORE_DATASET["name"], seeds=len(values), ndcg10=values, mean=mean,
              std=float(np.std(values)), store_mean=spec["store"], band=band,
              random_ranking_ndcg10=random, protocol=spec["protocol"], seconds=sum(seconds),
              processes=min(len(names) * seeds, STORE_PROCESSES), wall_s=time.perf_counter() - t0)
@@ -3888,29 +3999,100 @@ def check_lessr_graphs(seed: int, dataset) -> dict:
     return row
 
 
+def check_ultragcn_side_info(seed: int, dataset) -> dict:
+    """UltraGCN's side information at its reference config (10 neighbours)
+    on the XL train split, built on the card (``build_side_info``: a dense R,
+    chunked products, ``torch.topk``), timed; held against numpy on the
+    host: the betas of every user and item, and on SIDE_INFO_ROWS item rows
+    drawn from ``seed`` the exact co-occurrence counts of the row (from the
+    sparse interactions), its normalized weights (each chosen weight within
+    SIDE_INFO_TOL relative of the row's K largest) and its neighbour set
+    wherever no tie straddles the K-th weight."""
+    import torch
+
+    from recboard_tpu_torch.models.zoo import UltraGCN
+
+    K = 10
+    U, N = dataset.fields["USER", "ID"].count, dataset.fields["ITEM", "ID"].count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    user_beta, item_beta, weights, indices = UltraGCN.build_side_info(
+        dataset, num_neighbors=K, device=torch.device(CARD))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    users, items = dataset.train().to_bigraph_edges()
+    user_deg = np.bincount(users, minlength=U).astype(np.float64)
+    item_deg = np.bincount(items, minlength=N).astype(np.float64)
+    with np.errstate(divide="ignore"):
+        want_ub = np.where(user_deg > 0, np.sqrt(user_deg + 1) / user_deg, 0.0)
+    want_ib = (item_deg + 1) ** -0.5
+    beta_err = max(rel_err(user_beta.cpu(), torch.from_numpy(want_ub).float()),
+                   rel_err(item_beta.cpu(), torch.from_numpy(want_ib).float()))
+    # the distinct (user, item) pairs: each user's items once
+    pairs = np.unique(np.asarray(users, np.int64) * N + items)
+    pu, pi = pairs // N, pairs % N
+    user_items = np.split(pi, np.cumsum(np.bincount(pu, minlength=U))[:-1])
+    item_users = np.split(pu[np.argsort(pi, kind="stable")],
+                          np.cumsum(np.bincount(pi, minlength=N))[:-1])
+    # g_i = sum over the users of i of their item counts
+    counts = np.bincount(pu, minlength=U).astype(np.float64)
+    degs = np.asarray([counts[us].sum() for us in item_users])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        row_beta = np.where(degs > 0, np.sqrt(degs + 1) / degs, 0.0)
+    col_beta = 1.0 / np.sqrt(degs + 1)
+    got_w, got_i = weights.cpu().numpy(), indices.cpu().numpy()
+    rows = np.random.default_rng(seed).choice(N, SIDE_INFO_ROWS, replace=False)
+    worst, straddled, sets_equal = 0.0, 0, True
+    for i in rows:
+        G = np.bincount(np.concatenate([user_items[u] for u in item_users[i]] or [[]]).astype(
+            np.int64), minlength=N).astype(np.float64)
+        full = row_beta[i] * G * col_beta
+        ranked = -np.sort(-full)
+        worst = max(worst, float(np.max(np.abs(got_w[i] - ranked[:K])
+                                        / np.maximum(np.abs(ranked[:K]), 1e-30))),
+                    float(np.max(np.abs(full[got_i[i]] - ranked[:K])
+                                 / np.maximum(np.abs(ranked[:K]), 1e-30))))
+        if np.isclose(ranked[K - 1], ranked[K], rtol=SIDE_INFO_TOL, atol=0):
+            straddled += 1
+        else:
+            sets_equal &= set(got_i[i].tolist()) == set(np.argsort(-full, kind="stable")[:K])
+    row = dict(users=U, items=N, nnz=int(len(pairs)), neighbors=K, build_s=build_s,
+               beta_max_rel_err=beta_err, rows_checked=SIDE_INFO_ROWS,
+               rows_with_tie_at_kth=straddled, weights_max_rel_err=worst, tol=SIDE_INFO_TOL,
+               untied_sets_equal=sets_equal)
+    emit("ultragcn_side_info", **row)
+    if not (beta_err <= SIDE_INFO_TOL and worst <= SIDE_INFO_TOL and sets_equal):
+        raise SystemExit(f"UltraGCN's side information on the card: {row}")
+    return row
+
+
 # the device-sampled slices; their samplers' checks; the slice resumed
 ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods",
               "GRU4Rec_ods", "LightGCN_ods", "STOSA_ods", "Caser_ods")
-SAMPLER_SLICES = ODS_SLICES + ("FPMC", "RUM", "LESSR")
+SAMPLER_SLICES = ODS_SLICES + ("FPMC", "RUM", "LESSR", "SimpleX")
+# the slice resume_check trains (four runs of two epochs and one of one):
+# per-position HSTU's device-sampled twin, whose negatives the Coach's
+# generator draws
 RESUME_SLICE = "HSTU_pp_ods"
 CARD = "cuda"  # the device the checks below hold against the CPU
 POOL_TOL = 1e-4  # |card - CPU| of a pool-ranking metric (a rank flip moves 1 / rows)
-# pool_check's CPU evaluations run beside the band pool's STORE_PROCESSES
-# processes, one a host core: at one thread, not the host's 8, whose threads
-# beyond the cores slow the pool
-POOL_CPU_THREADS = 1
+# pool_check's CPU evaluations, made in the serving process once each run has
+# trained (``POOL_PENDING``: slice -> future), beside the main phases (in the
+# main process beside the band pool they took 192.1 s at one thread, on an
+# H100 80GB at 700 W)
+POOL_PENDING = {}
 
 
 def reference_cfg(name: str, seed: int, **extra):
     """The slice ``name``'s run config as ``run`` compiles it (its reference
     config and flags, ``extra`` on top), logs and checkpoints under WORK."""
-    from recboard_tpu_torch.parser import Parser
+    from recboard_tpu_torch import run
 
     spec = SLICES[name]
     model = spec.get("model", name)
     argv = train_argv(model, os.path.join(WORK, "data"), DATASET["name"], seed,
                       config=spec["config"], **spec.get("flags", {}), **extra)
-    return Parser().compile(argv + ["--description", model])
+    return run.build_parser().compile(argv + ["--description", model])
 
 
 def expected_windows(seqs, width: int, offset: int = 1) -> np.ndarray:
@@ -3973,7 +4155,7 @@ def rows_within(got: np.ndarray, want: np.ndarray) -> bool:
 
 def check_device_samplers(seed: int, dataset) -> list:
     """Each device sampler of SAMPLER_SLICES (the ``_ods`` slices', FPMC's,
-    whose NUM_PADS is 0, RUM's and LESSR's) at the SynBeautyXL shape on the card:
+    whose NUM_PADS is 0, RUM's, LESSR's and SimpleX's) at the SynBeautyXL shape on the card:
     one epoch drawn under ``torch.cuda.set_sync_debug_mode ("error")``;
     every row's window the user's train tail (inputs offset,
     targets shifted by one; HSTU's times rebased and 0 exactly at pads;
@@ -3982,7 +4164,12 @@ def check_device_samplers(seed: int, dataset) -> list:
     with its target (Caser's: its last 3 items the (B, 3) targets, (B, K)
     negatives), none drawn twice, or
     for the general CF sampler (LightGCN's, MF-BPR's and NeuMF's) every
-    positive one of its user's train items and ``max(1, users // B)`` steps;
+    positive one of its user's train items and ``max(1, users // B)`` steps,
+    or for the pairs sampler (SimpleX's and UltraGCN's) every train
+    interaction at most once in the epoch's ``⌊E/B⌋·B`` rows, each row one
+    (user, item) train pair, and (SimpleX's config draws its negatives in the
+    step) the same sampler with ``num_negs`` negatives drawn on the card under
+    the same sync mode for their range and collision share;
     negatives in [0, N) with their collision share against the window (the
     whole history for roll) after the retry, beside seen²/N²;
     the same bits for the same (seed, epoch, step), another user order in
@@ -3995,7 +4182,7 @@ def check_device_samplers(seed: int, dataset) -> list:
     import torch
 
     from recboard_tpu_torch import run
-    from recboard_tpu_torch.data.device import DeviceGenSampler
+    from recboard_tpu_torch.data.device import DeviceGenSampler, DevicePairSampler
     from recboard_tpu_torch.launcher import Coach
 
     cuda = torch.device(CARD)
@@ -4013,6 +4200,7 @@ def check_device_samplers(seed: int, dataset) -> list:
         host = run.device_sampler(net, L, B, "cpu").set_seed(seed)
         roll = hasattr(card, "_pairs")
         gen = isinstance(card, DeviceGenSampler)  # users with replacement, no permutation
+        pairs = isinstance(card, DevicePairSampler)
         steps = card.steps_per_epoch
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -4044,13 +4232,40 @@ def check_device_samplers(seed: int, dataset) -> list:
                 {k: d.cpu() for k, d in draws[step].items()}).items())
             for step in range(steps))
         users = torch.cat([b[card.User] for b in cpu]).numpy()
-        iseq = None if gen else torch.cat([b[card.ISeq] for b in cpu]).numpy()
+        iseq = None if gen or pairs else torch.cat([b[card.ISeq] for b in cpu]).numpy()
         row = dict(sampler=type(card).__name__, slice=name, steps=steps, batch=B, maxlen=L,
                    distinct_users=int(np.unique(users).size), draw_s=draw_s,
                    sync_debug_mode="error", same_bits=same_bits, other_epoch_order=other_order,
                    cpu_gathers_equal=cpu_equal)
         ok = same_bits and other_order and cpu_equal
-        if gen:
+        if pairs:
+            # every drawn row one train interaction, none twice in the epoch
+            items = torch.cat([b[card.Item] for b in cpu]).numpy()[:, 0]
+            take = torch.cat([perm[(step * B + torch.arange(B, device=perm.device))
+                                   % card.num_pairs] for step in range(steps)]).cpu().numpy()
+            train_keys = np.unique(np.concatenate(
+                [u * N + np.asarray(s, dtype=np.int64) for u, s in enumerate(seqs) if s]))
+            row.update(pairs=card.num_pairs, rows=len(take), distinct_pairs=int(
+                np.unique(take).size), pairs_in_train=float(
+                np.isin(users.astype(np.int64) * N + items, train_keys).mean()),
+                item_shape=tuple(batches[0][card.Item].shape))
+            ok &= (card.num_pairs == sum(len(q) for q in seqs) and steps == card.num_pairs // B
+                   and row["distinct_pairs"] == len(take) == steps * B
+                   and row["pairs_in_train"] == 1.0 and row["item_shape"] == (B, 1))
+            with_negs = DevicePairSampler(dataset, B, num_negatives=net.num_negs,
+                                          device=cuda).set_seed(seed)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                negs_batch = with_negs.sample(0)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            negs = negs_batch[card.INeg].cpu().numpy()
+            packed = with_negs._packed.cpu().numpy()[negs_batch[card.User].cpu().numpy()]
+            row.update(negatives_shape=tuple(negs.shape), negatives_in_range=bool(
+                negs.min() >= 0 and negs.max() < N), collision_share=float(
+                (negs[..., None] + 1 == packed[:, None, :]).any(-1).mean()))
+            ok &= row["negatives_in_range"] and row["negatives_shape"] == (B, net.num_negs)
+        elif gen:
             # every positive one of its user's train items
             ipos = torch.cat([b[card.IPos] for b in cpu]).numpy()[:, 0]
             train_keys = np.unique(np.concatenate(
@@ -4087,7 +4302,7 @@ def check_device_samplers(seed: int, dataset) -> list:
                 row["positives_in_window"] = float(np.mean(
                     [p + 1 in want[u] for u, p in zip(users, ipos[:, 0])]))
                 ok &= ipos.shape[1] == 1 and row["positives_in_window"] == 1.0
-        elif not roll and not gen:
+        elif not roll and not gen and not pairs:
             window = expected_windows([s if len(s[-(L + 1):]) >= 2 else () for s in seqs],
                                       L + 1)
             want_in = np.where(window[:, :-1] != 0, window[:, :-1] - 1 + net.NUM_PADS, 0)
@@ -4212,50 +4427,66 @@ def resume_check(seed: int, dataset) -> dict:
     return row
 
 
-def pool_check(dataset, trained: dict) -> list:
-    """Each trained ``_ods`` run, and RUM's, evaluated with ``ranking: pool`` (the valid
-    split, 1 + 100 candidates a row) from its best checkpoint, on the card
-    and on the CPU: every metric within POOL_TOL, and the card's kernels
-    launched as ``expected_launches`` says (K1 once per block and batch for
-    SASRec and BERT4Rec, nothing for HSTU)."""
+def pool_metrics(run_dir: str, device: str, dataset=None) -> tuple:
+    """A trained run evaluated with ``ranking: pool`` (the valid split, 1 +
+    100 candidates a row) from its best checkpoint on ``device``: (its
+    metrics, seconds, each counted kernel's launches, batches)."""
     import torch
 
     from recboard_tpu_torch import run, serve
     from recboard_tpu_torch.launcher import Coach
 
+    cfg = serve.load_run_config(run_dir)
+    cfg.ranking = "pool"
+    device = torch.device(device)
+    dataset = dataset if dataset is not None else run_dataset(cfg)
+    net = run.build_model(cfg.model, dataset, cfg, device, training=False)
+    pipe = run.eval_pipe(net, "valid", int(cfg.maxlen), ranking="pool")
+    coach = Coach(dataset, None, pipe, None, net, cfg, device)
+    coach.load_best()
+    for fn in counted_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    coach.evaluate(0, mode="valid")
+    seconds = time.perf_counter() - t0
+    return (coach._flush("valid", 0), seconds,
+            {fn.__name__: fn.launches for fn in counted_kernels()},
+            len(coach._eval_cache["valid"]))
+
+
+def submit_pool_cpu(name: str, run_dir: str) -> None:
+    """Starts the CPU half of ``pool_check`` for a trained run in the serving
+    process (inline without one)."""
+    if CPU_SERVING is None:
+        POOL_PENDING[name] = concurrent.futures.Future()
+        POOL_PENDING[name].set_result(pool_metrics(run_dir, "cpu"))
+    else:
+        POOL_PENDING[name] = CPU_SERVING.submit(pool_metrics, run_dir, "cpu")
+
+
+def pool_check(dataset, trained: dict) -> list:
+    """Each trained ``_ods`` run, and RUM's, evaluated with ``ranking: pool``
+    (``pool_metrics``) on the card and, in the serving process, on the CPU
+    (``submit_pool_cpu``, started once the run had trained): every metric
+    within POOL_TOL, and the card's kernels launched as ``expected_launches``
+    says (K1 once per block and batch for SASRec and BERT4Rec, nothing for
+    HSTU), the CPU's none."""
     rows = []
     for name, out in trained.items():
-        cfg = serve.load_run_config(out["run_dir"])
-        cfg.ranking = "pool"
+        if name not in POOL_PENDING:
+            submit_pool_cpu(name, out["run_dir"])
         spec = SLICES[name]
-        results = []
-        for device in (torch.device(CARD), torch.device("cpu")):
-            net = run.build_model(cfg.model, dataset, cfg, device)
-            pipe = run.eval_pipe(net, "valid", int(cfg.maxlen), ranking="pool")
-            coach = Coach(dataset, None, pipe, None, net, cfg, device)
-            coach.load_best()
-            for fn in counted_kernels():
-                fn.launches = 0
-            threads = torch.get_num_threads()
-            if device.type == "cpu":  # beside the band processes, one a host core
-                torch.set_num_threads(POOL_CPU_THREADS)
-            t0 = time.perf_counter()
-            try:
-                coach.evaluate(0, mode="valid")
-            finally:
-                torch.set_num_threads(threads)
-            results.append((coach._flush("valid", 0), time.perf_counter() - t0,
-                            {fn.__name__: fn.launches for fn in counted_kernels()}))
-        batches = len(coach._eval_cache["valid"])
-        (card, card_s, launches), (cpu, cpu_s, cpu_launches) = results
-        want = expected_launches(cfg.model, spec["widths"].get("num_blocks", 0), 0, batches)
+        card, card_s, launches, batches = pool_metrics(out["run_dir"], CARD, dataset)
+        cpu, cpu_s, cpu_launches, cpu_batches = POOL_PENDING.pop(name).result()
+        model = spec.get("model", name)
+        want = expected_launches(model, spec["widths"].get("num_blocks", 0), 0, batches)
         err = max(abs(card[k] - v) for k, v in cpu.items())
         row = dict(slice=name, batches=batches, metrics=card, cpu_metrics=cpu,
                    max_abs_diff=err, tol=POOL_TOL, launches=launches, expected_launches=want,
                    card_s=card_s, cpu_s=cpu_s)
         emit("pool_check", **row)
         if (card.keys() != cpu.keys() or not err <= POOL_TOL or launches != want
-                or any(cpu_launches.values())):
+                or any(cpu_launches.values()) or cpu_batches != batches):
             raise SystemExit(f"{name} pool ranking: {row}")
         rows.append(row)
     return rows
@@ -4394,82 +4625,85 @@ def main(argv=None) -> int:
     dataset = timed("dataset", make_dataset)
     slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
-    trained = timed("train", train_slice, args.seed, dataset, "SASRec")
-    host_times = {"SASRec": timed("train_time", time_training, trained["run_dir"], "train")}
+    from recboard_tpu_torch.serve import load_run_config
+
+    def profile(name, cfg, beside=None):
+        """The slice's ``time_training`` phase for the run config ``cfg``."""
+        spec = SLICES[name]
+        return timed(f"{spec['tag']}train_time", time_training, cfg, f"{spec['tag']}train",
+                     beside, spec.get("timings", True),
+                     spec.get("profile_steps", PROFILE_STEPS))
+
+    def train_and_profile(names) -> dict:
+        """Each slice of ``names`` trained and served, then profiled (unless
+        its ``profile_steps`` is 0): {name: train_slice's result}."""
+        out = {}
+        for name in names:
+            out[name] = timed(f"{SLICES[name]['tag']}train", train_slice, args.seed, dataset,
+                              name)
+            if SLICES[name].get("profile_steps", PROFILE_STEPS):
+                host_times[name] = profile(name, load_run_config(out[name]["run_dir"]))
+        return out
+
+    host_times = {}
+    trained = train_and_profile(["SASRec"])["SASRec"]
     b_slice = timed("bert4rec_slice", serve_slice, args.seed, dataset, "BERT4Rec")
     timed("bert4rec_profile", profile_bench, b_slice["run_dir"], b_slice["bench"]["p50"],
           "bert4rec_profile")
-    b_trained = timed("bert4rec_train", train_slice, args.seed, dataset, "BERT4Rec")
-    host_times["BERT4Rec"] = timed("bert4rec_train_time", time_training, b_trained["run_dir"],
-                                   "bert4rec_train", None, SLICES["BERT4Rec"]["timings"])
+    b_trained = train_and_profile(["BERT4Rec"])["BERT4Rec"]
     h_trained = timed("hstu_train", train_slice, args.seed, dataset, "HSTU")
     timed("hstu_profile", profile_bench, h_trained["run_dir"], h_trained["bench"]["p50"],
           "hstu_profile")
-    timed("hstu_train_time", time_training, h_trained["run_dir"], "hstu_train", None,
-          SLICES["HSTU"]["timings"])
+    profile("HSTU", load_run_config(h_trained["run_dir"]))
     p_trained = timed("hstu_pp_train", train_slice, args.seed, dataset, "HSTU_pp")
     timed("hstu_pp_profile", profile_bench, p_trained["run_dir"], p_trained["bench"]["p50"],
           "hstu_pp_profile")
-    host_times["HSTU_pp"] = timed("hstu_pp_train_time", time_training, p_trained["run_dir"],
-                                  "hstu_pp_train", None, SLICES["HSTU_pp"]["timings"])
+    host_times["HSTU_pp"] = profile("HSTU_pp", load_run_config(p_trained["run_dir"]))
     timed("hstu_pp_grads", check_hstu_pp_grads, args.seed)
-    roll_trained = {}
-    for name in ROLL_SLICES:
-        tag = SLICES[name]["tag"]
-        roll_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
-        if name not in UNTIMED:
-            host_times[name] = timed(f"{tag}train_time", time_training,
-                                     roll_trained[name]["run_dir"], f"{tag}train", None,
-                                     SLICES[name].get("timings", True))
-    gen_trained = {}
-    for name in GEN_SLICES:
-        tag = SLICES[name]["tag"]
-        gen_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
-        if name not in UNTIMED:
-            host_times[name] = timed(f"{tag}train_time", time_training,
-                                     gen_trained[name]["run_dir"], f"{tag}train", None,
-                                     SLICES[name].get("timings", True))
+    roll_trained = train_and_profile(ROLL_SLICES)
+    gen_trained = train_and_profile(GEN_SLICES)
     timed("lightgcn_spmm", check_lightgcn_spmm, args.seed, dataset)
-    seq_trained = {}
-    for name in SEQ_SLICES:
-        tag = SLICES[name]["tag"]
-        seq_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
-        if name not in UNTIMED:
-            host_times[name] = timed(f"{tag}train_time", time_training,
-                                     seq_trained[name]["run_dir"], f"{tag}train", None,
-                                     SLICES[name].get("timings", True))
-    new_trained = {}
-    for name in NEW_SLICES:
-        tag = SLICES[name]["tag"]
-        new_trained[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
-        host_times[name] = timed(f"{tag}train_time", time_training,
-                                 new_trained[name]["run_dir"], f"{tag}train", None,
-                                 SLICES[name].get("timings", True))
+    seq_trained = train_and_profile(SEQ_SLICES)
+    # RUM ranks pools only: its host-pipe run joins the device-sampled ones in
+    # pool_check, whose CPU evaluations start in the serving process as each
+    # run is trained
+    pooled = {"RUM": seq_trained["RUM"]}
+    submit_pool_cpu("RUM", seq_trained["RUM"]["run_dir"])
+    new_trained = train_and_profile(NEW_SLICES)
     timed("sevo_optimizer", check_sevo_optimizer, args.seed, dataset)
     timed("lessr_graphs", check_lessr_graphs, args.seed, dataset)
-    timed("device_samplers", check_device_samplers, args.seed, dataset)
-    ods = {}
-    for name in ODS_SLICES:
-        tag, host = SLICES[name]["tag"], SLICES[name]["host"]
-        ods[name] = timed(f"{tag}train", train_slice, args.seed, dataset, name)
-        if name not in UNTIMED:
-            timed(f"{tag}train_time", time_training, ods[name]["run_dir"], f"{tag}train",
-                  dict(host_times[host], slice=host), SLICES[name].get("timings", True))
+    pair_trained = train_and_profile(PAIR_SLICES)
+    timed("ultragcn_side_info", check_ultragcn_side_info, args.seed, dataset)
     timed("train_serve_collected", collect_served_checks)
-    # every model's band: 110 seeds, 8 processes at once beside each other on
-    # the card, started beside the last two checks, which time nothing but
-    # pool_check's card_s (their card and CPU results are compared, not
-    # timed); store_quality is the pool's own wall time
+    # the device-sampled twins profiled from their reference configs before
+    # the band pool starts, trained and served beside it
+    for name in ODS_SLICES:
+        if SLICES[name].get("profile_steps", PROFILE_STEPS):
+            host = SLICES[name]["host"]
+            profile(name, reference_cfg(name, args.seed, log_path=os.path.join(WORK, "cfgs")),
+                    dict(host_times[host], slice=host))
+    # every model's band: 121 seeds, 8 processes at once beside each other on
+    # the card, started beside the twins' training and the last three checks,
+    # which time nothing but pool_check's card_s and the samplers' draw_s
+    # (their card and CPU results are compared, not timed); store_quality is
+    # the pool's own wall time
     with concurrent.futures.ThreadPoolExecutor(1) as beside:
         bands_start = time.perf_counter()
         bands = beside.submit(quality, STORE_SEEDS, *STORE_BANDS)
+        for name in ODS_SLICES:
+            pooled[name] = timed(f"{SLICES[name]['tag']}train", train_slice, args.seed,
+                                 dataset, name)
+            submit_pool_cpu(name, pooled[name]["run_dir"])
         timed("resume_check", resume_check, args.seed, dataset)
-        # RUM ranks pools only: its host-pipe run joins the device-sampled ones
-        timed("pool_check", pool_check, dataset, dict(ods, RUM=seq_trained["RUM"]))
+        timed("pool_check", pool_check, dataset, pooled)
+        timed("device_samplers", check_device_samplers, args.seed, dataset)
         bands.result()
+    CPU_SERVING.shutdown()
+    ods = {name: pooled[name] for name in ODS_SLICES}
     phase_s["store_quality"] = time.perf_counter() - bands_start
     emit("phase_seconds", name="store_quality", seconds=phase_s["store_quality"],
-         beside=["resume_check", "pool_check"])
+         beside=[f"{SLICES[name]['tag']}train" for name in ODS_SLICES]
+         + ["resume_check", "pool_check", "device_samplers"])
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
@@ -4534,7 +4768,8 @@ def main(argv=None) -> int:
                                                           *roll_trained.values(),
                                                           *gen_trained.values(),
                                                           *seq_trained.values(),
-                                                          *new_trained.values()))),
+                                                          *new_trained.values(),
+                                                          *pair_trained.values()))),
         *row_mask_entries(rows, drop_rows, roll_trained),
     ]}))
     # the wall time of every phase: the band pool overlaps two of them

@@ -24,7 +24,8 @@ Coach calls ``sample`` once per step (``launcher/coach.py``).
 
 Protocol notes (as in ``recboard_tpu``): users (for the roll-window
 sampler, (user, window end) pairs) are drawn in a fresh permutation each
-epoch (the general CF sampler draws them with replacement every step),
+epoch (the general CF sampler draws them with replacement every step; the
+pairs sampler permutes every train interaction),
 ``steps_per_epoch = max(1, n // batch_size)`` drops the remainder, and
 step rows are taken modulo n, which holds when the batch is larger than
 n. Negatives are uniform with one resample against the user's packed
@@ -45,8 +46,8 @@ from .. import utils
 from .fields import Field
 from .tags import ID, ITEM, NEGATIVE, POSITIVE, SEQUENCE, TIMESTAMP, USER
 
-__all__ = ["DeviceFullSeqSampler", "DeviceGenSampler", "DeviceRollSeqSampler",
-           "DeviceSeqSampler", "DeviceTimeSeqSampler", "stream_seed"]
+__all__ = ["DeviceFullSeqSampler", "DeviceGenSampler", "DevicePairSampler",
+           "DeviceRollSeqSampler", "DeviceSeqSampler", "DeviceTimeSeqSampler", "stream_seed"]
 
 _MASK64 = (1 << 64) - 1
 # the first word of each stream's mix, so permutations and draws never share one
@@ -155,6 +156,17 @@ def _resample(negs, retry, window) -> torch.Tensor:
     negs, retry = negs.to(window.device), retry.to(window.device)
     collides = (negs[..., None] + 1 == window[:, None, :]).any(-1)
     return torch.where(collides, retry, negs).to(torch.int32)
+
+
+def _pack_history(seqs, max_history: int) -> np.ndarray:
+    """(users, H) left-aligned last H = min(max_history, longest) train
+    items + 1 of each user, 0 past them: the general CF samplers' history."""
+    H = min(max_history, max((len(s) for s in seqs), default=1))
+    packed = np.zeros((len(seqs), H), dtype=np.int32)
+    for u, s in enumerate(seqs):
+        tail = list(s)[-H:]
+        packed[u, :len(tail)] = np.asarray(tail, dtype=np.int32) + 1
+    return packed
 
 
 def _pack_tails(seqs, width: int, min_len: int, offset: int = 1) -> np.ndarray:
@@ -400,13 +412,8 @@ class DeviceGenSampler(_DeviceSamplerBase):
         super().__init__(dataset, None, batch_size, 0, device)
         self.num_negatives = num_negatives
         seqs = dataset.train().user_seqs()
-        H = min(max_history, max((len(s) for s in seqs), default=1))
-        packed = np.zeros((len(seqs), H), dtype=np.int32)  # raw + 1, left-aligned
-        counts = np.zeros(len(seqs), dtype=np.int64)
-        for u, s in enumerate(seqs):
-            tail = list(s)[-H:]
-            packed[u, :len(tail)] = np.asarray(tail, dtype=np.int32) + 1
-            counts[u] = len(tail)
+        packed = _pack_history(seqs, max_history)
+        counts = np.minimum([len(s) for s in seqs], packed.shape[1]).astype(np.int64)
         self._packed = torch.from_numpy(packed).to(self.device)
         self._counts = torch.from_numpy(np.maximum(counts, 1)).to(self.device)
         self.steps_per_epoch = max(1, self.User.count // batch_size)
@@ -430,3 +437,57 @@ class DeviceGenSampler(_DeviceSamplerBase):
         pos = hist.gather(1, pick[:, None]) - 1
         return {self.User: users.to(torch.int32), self.IPos: pos.to(torch.int32),
                 self.INeg: _resample(draws["negs"], draws["retry"], hist)}
+
+
+class DevicePairSampler(_DeviceSamplerBase):
+    """The interaction-pairs train pipe on the device (SimpleX, UltraGCN:
+    ``shuffled_pairs_source`` [+ ``gen_train_sampling_neg_``]): per epoch a
+    permutation of every train (user, item) interaction, repeats included,
+    so users are weighted by their activity; ``steps_per_epoch =
+    max(1, pairs // B)`` and step rows ``perm[(step * B + arange(B)) %
+    pairs]``. A batch holds User (B,) and the pair's item under the raw
+    Item field (B, 1), the pairs source's protocol, and with
+    ``num_negatives`` K > 0 INeg (B, K): uniform over the catalog and
+    resampled once against the user's packed history (the last 128 train
+    items; the runner asks for negatives only under the models'
+    ``unseen_only``); a collision after the retry stays, as in
+    ``recboard_tpu``."""
+
+    def __init__(self, dataset, batch_size: int, num_negatives: int = 0,
+                 device: Optional[torch.device] = None):
+        super().__init__(dataset, None, batch_size, 0, device)
+        self.num_negatives = num_negatives
+        seqs = dataset.train().user_seqs()
+        pair_u = np.repeat(np.arange(len(seqs)), [len(s) for s in seqs])
+        pair_i = np.concatenate([np.asarray(s, dtype=np.int64) for s in seqs] or [[]])
+        self._packed = torch.from_numpy(_pack_history(seqs, 128)).to(self.device)
+        self._pair_u = torch.from_numpy(pair_u.astype(np.int64)).to(self.device)
+        self._pair_i = torch.from_numpy(pair_i.astype(np.int64)).to(self.device)
+        self.num_pairs = len(pair_u)
+        self.steps_per_epoch = max(1, self.num_pairs // batch_size)
+
+    def prepare(self) -> torch.Tensor:
+        """The epoch's permutation of the pairs."""
+        generator = self._seeded(_PERM, self.seed, self.epoch)
+        return torch.randperm(self.num_pairs, generator=generator, device=self.device)
+
+    def draws(self, step: int) -> Dict[str, torch.Tensor]:
+        if not self.num_negatives:
+            return {}
+        generator = self._seeded(_DRAWS, self.seed, self.epoch, step)
+        shape = (self.batch_size, self.num_negatives)
+        return {"negs": self._randint(generator, self.num_items, shape),
+                "retry": self._randint(generator, self.num_items, shape)}
+
+    def sample_prepared(self, perm, step, draws=None):
+        draws = self.draws(step) if draws is None else draws
+        B = self.batch_size
+        rows = (step * B + torch.arange(B, device=self.device)) % self.num_pairs
+        take = perm.to(self.device, torch.int64)[rows]
+        users = self._pair_u[take]
+        batch = {self.User: users.to(torch.int32),
+                 self.Item: self._pair_i[take][:, None].to(torch.int32)}
+        if self.num_negatives:
+            negs = _resample(draws["negs"].to(self.device), draws["retry"], self._packed[users])
+            batch[self.INeg] = negs.to(torch.int32)
+        return batch

@@ -12,7 +12,8 @@ per-position negatives (drawn by the native sampler, ``native/``), its
 timestamped twin for HSTU, the rolling-window source with last-item
 targets (BSARec, FMLP-Rec, UniSRec), the general CF models' pipe (users
 drawn with replacement, one train positive and chunked native negatives
-each: MF-BPR, NeuMF, LightGCN), the ordered user source and the
+each: MF-BPR, NeuMF, LightGCN), the shuffled interaction pairs (SimpleX,
+UltraGCN), the ordered user source and the
 valid/test samplers (with their timestamped variants), the weighted
 multiplexer over pipes, and the offset/left-pad/right-pad/prune/mark/
 batch/collate transforms.
@@ -157,6 +158,19 @@ class ShuffledSeqsSource(_ViewPipe):
         order = self.rng().permutation(len(seqs))
         for u in order:
             yield {User: int(u), ISeq: seqs[u]}
+
+
+@view_source("shuffled_pairs_source")
+class ShuffledPairsSource(_ViewPipe):
+    """Every (user, item) interaction of the view once an epoch, shuffled;
+    the item travels as a 1-tuple, so batches collate to (B, 1) under the
+    raw Item field: SimpleX's and UltraGCN's source."""
+
+    def __iter__(self) -> Iterator[Row]:
+        User, Item = self.User, self.Item
+        users, items = self.view.to_bigraph_edges()
+        for i in self.rng().permutation(len(users)):
+            yield {User: int(users[i]), Item: (int(items[i]),)}
 
 
 @view_source("shuffled_time_seqs_source")

@@ -6,16 +6,21 @@ The numpy functions that make it (``_coalesce``, ``to_normalized``,
 its rows, columns and values exactly: duplicate interactions count once,
 and a node of degree 0 gets a normalizer of 0.
 
-``SparseAdj`` holds the edges sorted by destination row, as a torch CSR
-tensor, and the transpose as a second CSR tensor sorted by its own rows,
-both as non-persistent buffers on an explicit device (``module.to`` and
-``.double()`` carry them along; they never enter a ``state_dict``).
+``SparseAdj`` holds an (M, N) matrix as a torch CSR tensor and its
+transpose as a second CSR tensor, both as non-persistent buffers on an
+explicit device (``module.to`` and ``.double()`` carry them along; they
+never enter a ``state_dict``). Their entries are the edges with repeated
+(row, column) pairs summed, sorted by row and then column: the same
+matrix ``recboard_tpu``'s edge list with repeats stands for (GTE's and
+SimpleX's (U, I) incidence keeps a user's repeated item twice).
 ``adj @ x`` runs through ``SpMM``, an autograd function whose forward is
 the CSR product and whose backward is the transpose's product with the
 cotangent: ``recboard_tpu``'s ``spmm_const`` (a fixed adjacency, no
 gradient to its values), which has the same value and gradient as its
 default ``adj @ x`` (a gather and a sorted segment-sum, differentiated by
 JAX), so one product serves both of LightGCN's ``spmm_const`` values.
+``adj.T @ x`` (``recboard_tpu``'s ``SparseAdj.T``, GTE's item update) is
+the same function with the two buffers swapped: no copy of the matrix.
 
 ``recboard_tpu`` computes this product in XLA, outside any Pallas kernel
 (``recboard_tpu/ops/spmm.py``), so here it is the library's CSR product:
@@ -37,12 +42,14 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["SparseAdj", "SpMM", "bipartite_normalized_adj", "to_normalized"]
+__all__ = ["SparseAdj", "SpMM", "TransposedAdj", "bipartite_normalized_adj", "to_normalized"]
 
 
 def _csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, shape: Tuple[int, int],
          device) -> torch.Tensor:
-    """A CSR tensor of edges already sorted by row."""
+    """The CSR tensor of the (M, N) matrix the edges stand for: repeated
+    (row, column) pairs summed, entries sorted by row, then column."""
+    rows, cols, vals = _coalesce(rows, cols, vals, shape)
     crow = np.zeros(shape[0] + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=shape[0]), out=crow[1:])
     with warnings.catch_warnings():  # torch's note that CSR support is in beta
@@ -71,8 +78,8 @@ class SpMM(torch.autograd.Function):
 class SparseAdj(nn.Module):
     """A fixed (M, N) sparse matrix: ``rows``, ``cols`` and ``vals`` (numpy,
     sorted by row, stably, as ``recboard_tpu`` sorts them) and, on
-    ``device``, the CSR buffers ``csr`` and ``csr_t`` (the transpose sorted
-    by its rows)."""
+    ``device``, the CSR buffers ``csr`` and ``csr_t`` (the matrix and its
+    transpose, repeated pairs summed)."""
 
     def __init__(self, rows, cols, vals, shape: Tuple[int, int],
                  device: Optional[torch.device] = None):
@@ -82,12 +89,10 @@ class SparseAdj(nn.Module):
         self.cols = np.asarray(cols, dtype=np.int64)[order]
         self.vals = np.asarray(vals, dtype=np.float32)[order]
         self.shape = (int(shape[0]), int(shape[1]))
-        t_order = np.argsort(self.cols, kind="stable")
         self.register_buffer("csr", _csr(self.rows, self.cols, self.vals, self.shape, device),
                              persistent=False)
-        self.register_buffer("csr_t", _csr(self.cols[t_order], self.rows[t_order],
-                                           self.vals[t_order], self.shape[::-1], device),
-                             persistent=False)
+        self.register_buffer("csr_t", _csr(self.cols, self.rows, self.vals, self.shape[::-1],
+                                           device), persistent=False)
 
     @property
     def nnz(self) -> int:
@@ -98,6 +103,22 @@ class SparseAdj(nn.Module):
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self(x)
+
+    @property
+    def T(self) -> "TransposedAdj":
+        return TransposedAdj(self)
+
+
+class TransposedAdj:
+    """``adj.T``: the (N, M) transpose of a ``SparseAdj``, whose product is
+    ``SpMM`` over the same two CSR buffers in the other order."""
+
+    def __init__(self, adj: SparseAdj):
+        self.adj = adj
+        self.shape = adj.shape[::-1]
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return SpMM.apply(x, self.adj.csr_t, self.adj.csr)
 
 
 def _coalesce(rows, cols, vals, shape):

@@ -31,10 +31,11 @@ gates ``w_gate`` and ``w_noise`` (F, experts) and each expert's ``bias``
 (F,), GLINT-RU's expert mix ``weights`` (2,), STAMP's ``ba`` (1, 1, D),
 Caser's ``vert_kernel`` (num_vert, maxlen) and ``vert_bias``, and its
 family ``horiz_kernel_{k}`` (num_horiz, k·D) and ``horiz_bias_{k}`` for
-k = 1..maxlen, ``BARE_FAMILIES``) keeps its name and its flax shape.
+k = 1..maxlen, ``BARE_FAMILIES``; GTE's ``dummy`` (1,)) keeps its name and
+its flax shape.
 ``blocks_0/q_proj/kernel`` becomes ``blocks_0.q_proj.weight``. A Dense
-layer without a bias (HSTU's ``uvqk_linear``, NARM's attention) has no
-bias leaf either way. Later slices add rules for the leaves their
+layer without a bias (HSTU's ``uvqk_linear``, NARM's attention, SimpleX's
+``agg_linear``) has no bias leaf either way. Later slices add rules for the leaves their
 modules bring (BatchNorm stats).
 
 ``to_flax`` is the inverse: the port's Coach saves ``{"params":
@@ -61,7 +62,7 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bi
 # parameters declared bare by a module (flax's self.param), kept by name
 BARE_LEAVES = frozenset({"timestamp_weights", "position_weights", "sqrt_beta",
                          "complex_weight", "w_gate", "w_noise", "bias", "weights", "ba",
-                         "vert_kernel", "vert_bias"})
+                         "vert_kernel", "vert_bias", "dummy"})
 # bare parameters declared once per window size k = 1, 2, ...
 BARE_FAMILIES = re.compile(r"horiz_(kernel|bias)_[1-9][0-9]*")
 _GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")

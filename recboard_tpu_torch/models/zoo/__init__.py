@@ -1,7 +1,7 @@
 """The model zoo: the registry the generic runner builds models from.
 SASRec, BERT4Rec, HSTU, BSARec, FMLP-Rec, UniSRec, GRU4Rec, NARM, GLINT-RU,
-STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser, SEvo and LESSR are ported
-so far."""
+STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser, SEvo, LESSR, SimpleX,
+UltraGCN and GTE are ported so far."""
 
 from typing import Dict, Type
 
@@ -20,8 +20,8 @@ def register(name: str):
 
 
 from . import (bert4rec, bsarec, caser, fmlp_rec, fpmc, glint_ru, gru4rec,  # noqa: F401,E402
-               hstu, lessr, lightgcn, mf_bpr, narm, neumf, rum, sasrec, sevo, stamp, stosa,
-               unisrec)
+               gte, hstu, lessr, lightgcn, mf_bpr, narm, neumf, rum, sasrec, sevo, simplex,
+               stamp, stosa, ultragcn, unisrec)
 from .bert4rec import BERT4Rec  # noqa: F401,E402
 from .bsarec import BSARec  # noqa: F401,E402
 from .caser import Caser  # noqa: F401,E402
@@ -29,6 +29,7 @@ from .fmlp_rec import FMLPRec  # noqa: F401,E402
 from .fpmc import FPMC  # noqa: F401,E402
 from .glint_ru import GLINTRU  # noqa: F401,E402
 from .gru4rec import GRU4Rec  # noqa: F401,E402
+from .gte import GTE  # noqa: F401,E402
 from .hstu import HSTU  # noqa: F401,E402
 from .lessr import LESSR  # noqa: F401,E402
 from .lightgcn import LightGCN  # noqa: F401,E402
@@ -38,6 +39,8 @@ from .neumf import NeuMF  # noqa: F401,E402
 from .rum import RUM  # noqa: F401,E402
 from .sasrec import SASRec  # noqa: F401,E402
 from .sevo import SEvo, SEvoCoach  # noqa: F401,E402
+from .simplex import SimpleX  # noqa: F401,E402
 from .stamp import STAMP  # noqa: F401,E402
 from .stosa import STOSA  # noqa: F401,E402
+from .ultragcn import UltraGCN  # noqa: F401,E402
 from .unisrec import UniSRec  # noqa: F401,E402

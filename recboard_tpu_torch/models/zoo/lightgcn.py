@@ -10,26 +10,28 @@ the propagated rows plus ``weight_decay`` times the l2 ``regularize`` of
 the raw (layer-0) user, positive and negative rows over the batch size.
 The runner zeroes the optimizer's decay for this model, after the model
 took ``cfg.weight_decay``. Evaluation and serving propagate once
-(``reset_ranking_buffers``). ``spmm_const`` is taken for recboard_tpu's
-configs: both of its values run the same product (``graph.py``). No hand
-kernel: the product is cuSPARSE's on the card.
+(``reset_ranking_buffers``; the pipes and ranking are ``GraphRecBase``'s).
+``spmm_const`` is taken for recboard_tpu's configs: both of its values run
+the same product (``graph.py``). No hand kernel: the product is cuSPARSE's
+on the card.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ... import criterions
 from ...graph import SparseAdj
-from ..base import Batch, GenRecArch
+from ..base import Batch
 from . import register
+from .graph_cf import GraphRecBase, split_ui
 
 
 @register("LightGCN")
-class LightGCN(GenRecArch):
+class LightGCN(GraphRecBase):
     def __init__(
         self,
         dataset,
@@ -55,16 +57,6 @@ class LightGCN(GenRecArch):
         for table in (self.user_embeddings, self.item_embeddings):
             nn.init.normal_(table.weight, std=1e-4, generator=generator)
 
-    def sure_trainpipe(self, batch_size: int):
-        return (
-            self.dataset.train()
-            .choiced_user_ids_source()
-            .gen_train_sampling_pos_()
-            .gen_train_sampling_neg_(num_negatives=1)
-            .batch_(batch_size)
-            .tensor_()
-        )
-
     def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.adj is None:
             raise ValueError("LightGCN requires adj=dataset.train().to_normalized_adj()")
@@ -73,7 +65,7 @@ class LightGCN(GenRecArch):
         for _ in range(self.num_layers):
             x = self.adj @ x
             avg = avg + x / (self.num_layers + 1)
-        return avg[: self.User.count], avg[self.User.count:]
+        return split_ui(avg, self.User.count)
 
     def fit(self, data: Batch, generator: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -87,15 +79,3 @@ class LightGCN(GenRecArch):
              self.item_embeddings(negatives)], rtype="l2") / users.shape[0]
         loss = rec_loss + self.weight_decay * emb_loss
         return loss, {"rec_loss": rec_loss, "emb_loss": emb_loss}
-
-    def reset_ranking_buffers(self) -> Any:
-        return self.encode()
-
-    def recommend_from_full(self, data: Batch, buffers: Any = None) -> torch.Tensor:
-        user_embds, item_embds = buffers if buffers else self.encode()
-        return user_embds[data[self.User]] @ item_embds.T
-
-    def recommend_from_pool(self, data: Batch, buffers: Any = None) -> torch.Tensor:
-        user_embds, item_embds = buffers if buffers else self.encode()
-        q = user_embds[data[self.User]]
-        return torch.einsum("bd,bkd->bk", q, item_embds[data[self.IUnseen]])

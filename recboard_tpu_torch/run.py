@@ -10,7 +10,10 @@ device, resumes from the last epoch's checkpoint under ``--resume``,
 ranks the full catalog or (``--ranking pool``) each row's candidate pool,
 and leaves a run directory that ``recommend`` serves. The sequential
 models' pipes take ``--maxlen``; the general CF models' (``GenRecArch``:
-MF-BPR, NeuMF, LightGCN) take none (``train_pipe``, ``eval_pipe``).
+MF-BPR, NeuMF, LightGCN, SimpleX, UltraGCN, GTE) take none (``train_pipe``,
+``eval_pipe``). Only ``--device`` on the command line (or in ``main``'s
+argv) chooses the device: a config file's ``device`` key is ignored, as
+``recboard_tpu``'s runner ignores it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from .data.datasets import NextItemRecDataSet, RecDataSet
 from .data.device import (
     DeviceFullSeqSampler,
     DeviceGenSampler,
+    DevicePairSampler,
     DeviceRollSeqSampler,
     DeviceSeqSampler,
     DeviceTimeSeqSampler,
@@ -72,16 +76,23 @@ def load_feat(name: str, dataset: RecDataSet, cfg, key: str) -> Optional[np.ndar
     return np.asarray(utils.import_pickle(path), dtype=np.float32)
 
 
-def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: torch.device):
+def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: torch.device,
+                training: bool = True):
     """The registered model ``name`` with its hyperparameters taken from
     ``cfg`` (keys the constructor does not take are ignored), initialised
     from ``cfg.seed`` and placed on ``device``. As in ``recboard_tpu``, a
     comma string for a tuple-valued argument (NeuMF's ``hidden_dims:
     64,32,16,8``) becomes a tuple of the default's element type (floats
-    where the default is None), and a model that takes an ``adj`` gets the
-    train split's symmetric normalized adjacency on ``device``. A model over several datasets (UniSRec) runs single-corpus
-    here, as ``recboard_tpu``'s runner runs it: ``datasets`` and ``tfeats``
-    become one-entry dicts of this dataset and its ``--tfile`` features."""
+    where the default is None), and a model that takes an ``adj`` (a graph
+    model) gets its class's ``build_adj(dataset, device)``: the train
+    split's symmetric normalized adjacency unless the class has its own
+    (SimpleX's and GTE's (U, I) incidences).
+    UltraGCN's side information (``build_side_info`` with ``cfg``'s
+    ``num_neighbors``, 10 by default) is built on ``device`` when
+    ``training``: serving (``training=False``) does not read it. A model
+    over several datasets (UniSRec) runs single-corpus here, as
+    ``recboard_tpu``'s runner runs it: ``datasets`` and ``tfeats`` become
+    one-entry dicts of this dataset and its ``--tfile`` features."""
     if name not in REGISTRY:
         raise SystemExit(
             f"model {name!r} is not ported to recboard_tpu_torch yet; "
@@ -102,7 +113,12 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
             except ValueError:
                 pass  # a string with commas stays a string
     if "adj" in defaults and "adj" not in kwargs:
-        kwargs["adj"] = dataset.train().to_normalized_adj("sym", device=device)
+        kwargs["adj"] = cls.build_adj(dataset, device)
+    if training and hasattr(cls, "build_side_info"):
+        side_info = cls.build_side_info(
+            dataset, num_neighbors=int(cfg.get("num_neighbors", 10) or 10), device=device)
+        for key, value in zip(cls.SIDE_INFO, side_info):
+            kwargs.setdefault(key, value)
     if "datasets" in defaults and kwargs.get("datasets") is None:
         feats = load_feat(name, dataset, cfg, "tfile")
         if feats is None:
@@ -145,6 +161,11 @@ DEVICE_SAMPLERS = {
     # windows of num_poss positives and num_negs negatives (device_sampler)
     "Caser": functools.partial(DeviceRollSeqSampler, keep_at_least_itself=False),
     "SEvo": DeviceSeqSampler,
+    # every train interaction once an epoch; negatives only with unseen_only
+    # (device_sampler), else the model draws them over the catalog
+    "SimpleX": DevicePairSampler,
+    "UltraGCN": DevicePairSampler,
+    "GTE": DeviceGenSampler,
     # left-padded windows without the target and no negative; the session
     # graphs are derived in the step (lessr.derive_session_graphs). Unlike
     # recboard_tpu's sampler, no all-pad window for a user of one train item:
@@ -160,8 +181,12 @@ DEVICE_SAMPLERS = {
 def device_sampler(model, maxlen: int, batch_size: int, device):
     """The device sampler of ``model``'s train pipe on ``device`` (no maxlen
     and no pads for a ``GenRecArch``; Caser's windows sized by its
-    ``num_poss`` and ``num_negs``)."""
+    ``num_poss`` and ``num_negs``; the pairs sampler with the model's
+    ``num_negs`` negatives under ``unseen_only``, else none, as
+    ``recboard_tpu``'s runner builds it)."""
     make = DEVICE_SAMPLERS[model.ZOO_NAME]
+    if make is DevicePairSampler:
+        make = functools.partial(make, num_negatives=model.num_negs if model.unseen_only else 0)
     if isinstance(model, GenRecArch):
         return make(model.dataset, batch_size=batch_size, device=device)
     if model.ZOO_NAME == "Caser":
@@ -231,8 +256,8 @@ _NOT_PORTED = (
 )
 
 
-def main(argv: Optional[list] = None):
-    argv = list(sys.argv[1:] if argv is None else argv)
+def build_parser() -> Parser:
+    """The runner's parser: the common flags and the zoo's own."""
     parser = Parser()
     parser.add_argument("--model", type=str, default="SASRec")
     parser.add_argument("--maxlen", type=int, default=50)
@@ -242,6 +267,12 @@ def main(argv: Optional[list] = None):
     parser.add_argument("--num-blocks", type=int, default=None)
     parser.add_argument("--dropout-rate", type=float, default=None)
     parser.add_argument("--loss", type=str, default=None)
+    return parser
+
+
+def main(argv: Optional[list] = None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
     if not any(a.startswith("--description") for a in argv):
         # the model's name, known before compile derives LOG_PATH from it
         known, _ = parser._parser.parse_known_args(argv)
@@ -258,6 +289,10 @@ def main(argv: Optional[list] = None):
         cfg.model in REGISTRY) else ()
     if cfg.get("remat") and "remat" not in takes:
         raise SystemExit(f"remat for {cfg.model} is not ported to recboard_tpu_torch yet")
+    if cfg.get("device") is not None and not any(a.split("=")[0] == "--device" for a in argv):
+        utils.warnLogger(f"[run] >>> ignoring the config's device {cfg.device!r}: only "
+                         "--device chooses the device")
+        cfg.device = None
     device = utils.resolve_device(cfg.get("device"))
     utils.pin_float32()
 

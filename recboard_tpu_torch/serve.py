@@ -93,7 +93,7 @@ def main(argv: Optional[list] = None):
 
     cfg = load_run_config(args.run)
     dataset = run_mod.load_dataset(cfg)
-    model = run_mod.build_model(cfg.model, dataset, cfg, device).eval()
+    model = run_mod.build_model(cfg.model, dataset, cfg, device, training=False).eval()
     if "full" not in model.SUPPORTED_RANKINGS:  # as recboard_tpu refuses RUM
         raise SystemExit(f"{cfg.model} does not support full-catalog ranking")
 

@@ -36,7 +36,9 @@ def test_port_modules_import_without_jax():
                  "models.zoo.narm", "models.zoo.glint_ru", "models.zoo.stamp",
                  "models.zoo.fpmc", "models.zoo.mf_bpr", "models.zoo.neumf",
                  "models.zoo.lightgcn", "models.zoo.stosa", "models.zoo.rum",
-                 "models.zoo.caser", "models.zoo.sevo", "models.zoo.lessr", "optims", "graph",
+                 "models.zoo.caser", "models.zoo.sevo", "models.zoo.lessr",
+                 "models.zoo.graph_cf", "models.zoo.simplex", "models.zoo.ultragcn",
+                 "models.zoo.gte", "optims", "graph",
                  "serve", "data.device", "data.synthetic"):
         assert f"recboard_tpu_torch.{name}" in modules
     code = (
