@@ -147,14 +147,14 @@ Phases, one JSON line each; any failure exits non-zero:
    bit, and 2 epochs straight (twice) against 1 plus ``--resume``. Pool
    ranking of each trained run on the card against the CPU. The toy
    store's SASRec and per-position HSTU bands with the device samplers.
-18. bsarec_*, fmlp_*, unisrec_* (train, train_serve, bench, train_time,
+18. bsarec_*, fmlp_*, unisrec_* (train, train_serve, train_time,
    train_profile, quality) and bsarec_ods_*, fmlp_ods_* — the roll-window
    models: BSARec and FMLP-Rec at their reference configs as written and
    UniSRec at its config's widths, single-corpus with the synthesized item
    features (``data/synthetic.make_item_features``), one epoch each:
    exact launches (BSARec K2 forward and backward once per block and step,
    UniSRec twice (two encodes), K1 once per block and evaluated batch;
-   FMLP-Rec none), the trained run served GPU = CPU, its ``--bench`` line,
+   FMLP-Rec none), the trained run served GPU = CPU,
    the toy store's 5-seed bands; BSARec and FMLP-Rec also device-sampled
    (``DeviceRollSeqSampler``: every drawn row one of the dataset's (user,
    end) windows, none twice in an epoch) beside their host pipes. Phase 3
@@ -164,25 +164,24 @@ Phases, one JSON line each; any failure exits non-zero:
    softmax over the raw scores, not zeros; a per-row bias that needs a
    gradient is refused before any launch.
 19. gru4rec_*, narm_*, glint_ru_*, stamp_*, fpmc_* (train, train_serve,
-   bench, train_profile, quality) and
+   train_profile, quality) and
    gru4rec_ods_* — the
    recurrent and session models at their reference configs as written,
    one epoch each: no launch of K1-K7 (their counters read 0; the GRU is
-   cuDNN's, named in the profiles), the trained run served GPU = CPU, its
-   ``--bench`` line, the toy store's 5-seed bands; GRU4Rec also
+   cuDNN's, named in the profiles), the trained run served GPU = CPU,
+   the toy store's 5-seed bands; GRU4Rec also
    device-sampled (right-padded windows without the target) beside its
    host pipe. Phase 17's device_samplers also checks GRU4Rec's
    right-padded sampler and FPMC's left-padded one at NUM_PADS 0 (the pad
    value is item 0 there).
 20. mf_bpr_*, neumf_* (train, train_serve), lightgcn_* (train, train_serve,
-   bench, train_profile, train_time), lightgcn_spmm and lightgcn_ods_* —
+   train_profile, train_time), lightgcn_spmm and lightgcn_ods_* —
    the general CF models at their reference configs as written, one epoch
    each on the pipe of users drawn with replacement: no launch of K1-K7
    (LightGCN's product is cuSPARSE's CSR SpMM, named in its profile), the
    trained run served GPU = CPU with the spread of the listed scores
-   (the first and last served batch on the CPU), LightGCN's
-   ``--bench`` line (MF-BPR and NeuMF are neither profiled nor benched:
-   UNTIMED), the toy store's 5-seed bands held to GEN_BAND beside a random
+   (the first and last served batch on the CPU; MF-BPR and NeuMF are not
+   profiled: UNTIMED), the toy store's 5-seed bands held to GEN_BAND beside a random
    ranking's NDCG@10; LightGCN's propagation on the card against the CPU at
    the XL shape (value and gradient, the bits on a rerun, one product's
    device time against its HBM and gather-counting byte bounds, beside
@@ -191,21 +190,21 @@ Phases, one JSON line each; any failure exits non-zero:
    user's train items, negatives in range, the collision share after the
    retry) beside its host pipe.
 
-21. stosa_* (train, train_serve, bench, train_time, train_profile), rum_train,
+21. stosa_* (train, train_serve, train_time, train_profile), rum_train,
    rum_recommend_refused, caser_* (train, train_serve), stosa_ods_train and
    caser_ods_train — STOSA, RUM and Caser at their reference configs as
    written, one epoch each: no launch of K1-K7 (STOSA's W2 attention is
    plain PyTorch, named in its profile), STOSA's and Caser's trained runs
-   served GPU = CPU and their scores at random weights card = CPU, STOSA's
-   ``--bench`` line (RUM, Caser and the two device-sampled runs are neither
-   profiled nor benched: UNTIMED); RUM ranks pools only, so ``recommend`` must refuse its run and
+   served GPU = CPU and their scores at random weights card = CPU (RUM,
+   Caser and the two device-sampled runs are not profiled: UNTIMED); RUM
+   ranks pools only, so ``recommend`` must refuse its run and
    pool_check evaluates it; STOSA and Caser also device-sampled beside their
    host pipes (``DeviceSeqSampler``; ``DeviceRollSeqSampler``'s Caser
    windows, checked in device_samplers with RUM's ``DeviceFullSeqSampler``);
    the toy store's 5-seed bands.
 
-22. sevo_* (train, train_serve, bench, train_time, train_profile),
-   sevo_optimizer, lessr_* (train, train_serve, bench, train_time,
+22. sevo_* (train, train_serve, train_time, train_profile),
+   sevo_optimizer, lessr_* (train, train_serve, train_time,
    train_profile), lessr_graphs — SEvo and LESSR at their reference configs,
    one epoch each: SEvo (SASRec trained by ``SEvoCoach``, its config's
    AdamWSEvo run as ``--optimizer adamw``) with exact K1 and K2 launches, as
@@ -217,12 +216,11 @@ Phases, one JSON line each; any failure exits non-zero:
    for its first and last served batch, its host pipe's graphs
    against ``derive_session_graphs`` of the same ISeq on the card with no
    host synchronisation, its sampler checked in device_samplers; both with
-   ``--bench``, a profile and the toy
-   store's 5-seed bands. The device-sampled twins of earlier slices are no
+   a profile and the toy store's 5-seed bands. The device-sampled twins of earlier slices are no
    longer served on the CPU (pool_check holds them card = CPU).
 
-23. simplex_* (train, train_serve, bench, train_profile), ultragcn_* (train,
-   train_serve, train_profile), gte_* (train, train_serve, bench) and
+23. simplex_* (train, train_serve, train_profile), ultragcn_* (train,
+   train_serve, train_profile), gte_* (train, train_serve) and
    ultragcn_side_info — SimpleX and UltraGCN at their reference configs, one
    epoch each on the interaction pairs drawn on the card
    (``DevicePairSampler``, checked in device_samplers: every pair at most once
@@ -235,6 +233,25 @@ Phases, one JSON line each; any failure exits non-zero:
    side information built on the card, timed, and held against numpy's exact
    counts; the toy store's bands (GTE one seed: deterministic).
 
+24. gcn_* (train, train_serve), ngcf_* (train, train_serve, bench),
+   simgcl_* (train, train_serve, train_profile), sgl_* (train, train_serve,
+   train_profile) and, inside lightgcn_spmm, sgl_view — GCN, NGCF and SimGCL at
+   their reference configs, one epoch each on the host pipe of users, SGL on
+   users drawn on the card (``DeviceGenSampler``) with its two views a step
+   reweighted and renormalized there: every K1-K7 counter 0, each trained run
+   served on the card for every user with its first and last served batch
+   equal to the CPU's, GCN's and NGCF's scores at random weights card = CPU;
+   SGL's views for ``ed``, ``nd`` and ``rw`` from keep masks drawn on the CPU,
+   their values card = CPU (SGL_VIEW_TOL) with the same zero pattern, one
+   product and its backward through a view card = CPU (SPMM_TOL), a view drawn
+   and built on the card with no host synchronisation, and its build's time;
+   the toy store's bands over GRAPH_SEEDS seeds against recboard_tpu's mean
+   over the same seeds (SGL's held to SGL_BAND). Since this slice the
+   trained runs of phases 18-23 print no ``--bench`` line (the HSTU slices'
+   and NGCF's do), profiles cover 10 steps (SASRec's, SimpleX's and
+   UltraGCN's 20), and the slices neither profiled nor benched (MF-BPR,
+   NeuMF, RUM, Caser, GTE, GCN) train beside the band pool.
+
 Every trained run's CPU lists (its first and last served batch) and pool_check's
 CPU evaluations (started as each run is trained) are made in one serving
 process beside the main phases; the checks are finished before the band pool
@@ -243,7 +260,7 @@ process beside the main phases; the checks are finished before the band pool
 Each quality phase runs its seeds in processes of their own side by side
 (the protocol's steps are host-bound), one intra-op thread each:
 ``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18,
-19, 20, 21, 22 and 23 (``STORE_BANDS``), 121 seeds in 8 processes, seed by
+19, 20, 21, 22, 23 and 24 (``STORE_BANDS``), 181 seeds in 8 processes, seed by
 seed, the longest slice first in each round, started beside the
 device-sampled twins' training (profiled before it, from their reference
 configs), resume_check, pool_check and device_samplers. Each phase prints its seconds,
@@ -442,11 +459,12 @@ ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "
 # GLINT-RU 27-46, RUM's 200 epochs 19-41, BSARec 23-36, GRU4Rec and FMLP-Rec
 # 15-29, NARM and MF-BPR's 200 epochs 10-21, Caser 13-17, STAMP 13, FPMC 8-10,
 # the others 2-6; SimpleX's and UltraGCN's 30 epochs placed beside MF-BPR's
-# before a measurement), so the short ones fill the processes that free up
+# before a measurement, and SGL's, SimGCL's, NGCF's and GCN's after them), so
+# the short ones fill the processes that free up
 STORE_BANDS = ("LESSR", "BERT4Rec", "UniSRec", "GLINT-RU", "RUM", "BSARec", "GRU4Rec",
-               "FMLP-Rec", "NARM", "MF-BPR", "SimpleX", "UltraGCN", "Caser", "STAMP", "FPMC",
-               "HSTU_pp", "STOSA", "HSTU_pp_ods", "HSTU", "SASRec", "SEvo", "SASRec_ods",
-               "LightGCN", "NeuMF", "GTE")
+               "FMLP-Rec", "NARM", "MF-BPR", "SimpleX", "UltraGCN", "SGL", "SimGCL", "NGCF",
+               "GCN", "Caser", "STAMP", "FPMC", "HSTU_pp", "STOSA", "HSTU_pp_ods", "HSTU",
+               "SASRec", "SEvo", "SASRec_ods", "LightGCN", "NeuMF", "GTE")
 # the band processes at once, one a host core: the whole pool (85 seeds,
 # tests/band_pool_probe.py) took 248.7 s in 40 processes, 200.6 in 24, 187.0
 # in 16 (one call), and 130.8 in 12, 119.7 in 8 (another call; H100 80GB,
@@ -548,20 +566,22 @@ def cpu_batch_indices(batches: int) -> list:
 
 # the slices whose full-catalog scores are also held card against CPU at
 # random weights (``random_weight_scores``)
-RANDOM_WEIGHT_SLICES = GEN_SLICES + ("STOSA", "Caser", "SimpleX", "UltraGCN")
+RANDOM_WEIGHT_SLICES = GEN_SLICES + ("STOSA", "Caser", "SimpleX", "UltraGCN", "GCN", "NGCF")
 # LightGCN's propagation, card against CPU: largest error relative to the
 # largest magnitude, of the encoded tables and of their parameters' gradients
 SPMM_TOL = 1e-5
 
 # time_training's cuts: steps timed one by one, and the profiled window (the
 # first steps of an epoch; the roll-window models' epochs are 260-520 steps,
-# whose profiles alone took 2-4 minutes to read back each): 40 steps for
-# SASRec and the pairs-source slices (``profile_steps``), 20 for every other
-# slice since a whole run with them took 1,041.6 s of phases on an H100 80GB at
-# 700 W (their 40-step profiles 149.3 s, 82 of it the window and its read-back)
+# whose profiles alone took 2-4 minutes to read back each): 20 steps for
+# SASRec and the pairs-source slices (``profile_steps``), 10 for every other
+# slice, halved (from 40 and 20) since a whole run with the graph slices took
+# 999.0 s of phases on an H100 80GB at 700 W (its profiles 103.3 s, 52.9 of it
+# the windows and their read-back); before, from 40 for all, since one took
+# 1,041.6 s (its 40-step profiles 149.3 s)
 STAGED_STEPS = 100
-PROFILE_STEPS = 20
-FULL_PROFILE_STEPS = 40
+PROFILE_STEPS = 10
+FULL_PROFILE_STEPS = 20
 
 # STOSA, RUM and Caser, each at its configs/<M>_Amazon2014Beauty_550_LOU.yaml as
 # written and cut to one epoch: STOSA (D 64, 1 block, 4 heads, maxlen 50,
@@ -653,6 +673,51 @@ EXACT_FLOAT32 = 2**24
 # co-occurrence counts on this many item rows (and the betas on every row)
 SIDE_INFO_ROWS = 512
 SIDE_INFO_TOL = 1e-6
+
+# GCN, NGCF, SimGCL and SGL, each at its configs/<M>_Yelp2018_*_ROU.yaml and cut
+# to one epoch of 22,363 user draws with replacement: GCN (D 64, 4 layers, batch
+# 4,096, Adam lr 1e-3, weight decay 1e-6 folded into the loss: 6 steps), NGCF (D
+# 64, 4 layers, dropout 0, batch 2,048, lr 1e-4, weight decay 1e-6: 11 steps; its
+# own left-normalized operator with self loops and repeated interactions kept) and
+# SimGCL (D 64, 3 layers, eps 0.1, temperature 0.2, ssl 0.3, batch 2,048, lr 1e-3,
+# weight decay 1e-3: 11 steps) on the host pipe, SGL (D 64, 3 layers, ed, drop 0.2,
+# ssl 0.1, temperature 0.2, batch 2,048, lr 1e-3, weight decay 1e-4) on
+# DeviceGenSampler (10 steps), its two views a step built on the card. No kernel of
+# K1-K7 on these paths: the products are cuSPARSE's CSR SpMM.
+GRAPH_SLICES = ("GCN", "NGCF", "SimGCL", "SGL")
+GCN = dict(embedding_dim=64, num_layers=4)
+GCN_CONFIG = os.path.join(ROOT, "configs", "GCN_Yelp2018_554311_ROU.yaml")
+NGCF = dict(embedding_dim=64, num_layers=4)
+NGCF_CONFIG = os.path.join(ROOT, "configs", "NGCF_Yelp2018_10104811_ROU.yaml")
+SIMGCL = dict(embedding_dim=64, num_layers=3)
+SIMGCL_CONFIG = os.path.join(ROOT, "configs", "SimGCL_Yelp2018_10104811_ROU.yaml")
+SGL = dict(embedding_dim=64, num_layers=3)
+SGL_CONFIG = os.path.join(ROOT, "configs", "SGL_Yelp2018_10104811_ROU.yaml")
+# Their bands compare means over GRAPH_SEEDS seeds (0-14), the port's on the
+# card against recboard_tpu's on the CPU with tools/seed_sweep.py's arguments (30
+# epochs) and the models' defaults (``python3 tests/graph_cf_band_probe.py jax
+# <M> 0 15``: mean, sample std 0.0061 / 0.0051 / 0.0036 / 0.0032): the store's
+# 5-seed rows (benchmark/SynBeauty_000_LOU/<M>.json: 0.0299, 0.0433, 0.0332,
+# 0.0198) carry a standard error of 0.0013-0.0024 of their own, and on the
+# card the port's 5-seed SGL mean (0.02499) lay 2.6 of the difference's
+# standard errors above its row (the probe's seeds 0-4 reproduce the SGL and
+# SimGCL rows exactly, seeds 5-14 average 0.02273 for SGL). GCN's, NGCF's and
+# SimGCL's are held to GEN_BAND. SGL's lies 0.0059 above a random ranking's
+# 0.0158 (``random_ndcg10``), so GEN_BAND around it would hold a random
+# ranking, which ``quality`` refuses: SGL_BAND, about 3 standard errors of the
+# difference of two 15-seed means at its std, excludes it by 0.0024
+GRAPH_SEEDS = 15
+GCN_JAX_NDCG10 = 0.030112
+NGCF_JAX_NDCG10 = 0.040955
+SIMGCL_JAX_NDCG10 = 0.032544
+SGL_JAX_NDCG10 = 0.021747
+SGL_BAND = 0.0035
+# SGL's views at the XL shape (``check_sgl_views``): keep masks drawn on the CPU
+# at its config's drop rate, the card's values against the CPU's within
+# SGL_VIEW_TOL (a value is a product of two reciprocal square roots of integer
+# degrees and a 0/1 weight)
+SGL_DROP_RATE = 0.2
+SGL_VIEW_TOL = 1e-6
 
 # K3 (full-vocabulary CE): (name, M, D, V, large logits); the first is
 # BERT4Rec's training shape (512 rows x a budget of ceil(50 * 0.2 * 2) = 20
@@ -2492,6 +2557,33 @@ def simplex_flax_params(rng, num_items, embedding_dim, num_users, **_):
                 agg_linear={"kernel": xavier(rng, embedding_dim, embedding_dim)})
 
 
+def gcn_flax_params(rng, num_items, embedding_dim, num_layers, num_users, **_):
+    """GCN params in recboard_tpu's flax layout, made with numpy: the two
+    tables and the layers ``linears_i`` (Dense with a bias)."""
+    D = embedding_dim
+    params = mf_bpr_flax_params(rng, num_items, D, num_users)
+    for i in range(num_layers):
+        params[f"linears_{i}"] = {"kernel": xavier(rng, D, D),
+                                  "bias": (rng.normal(size=D) * 0.02).astype(np.float32)}
+    return params
+
+
+def ngcf_flax_params(rng, num_items, embedding_dim, num_layers, num_users, **_):
+    """NGCF params in recboard_tpu's flax layout, made with numpy: the two
+    tables and each layer's ``w1_i`` and ``w2_i`` (Dense with a bias)."""
+    D = embedding_dim
+    params = mf_bpr_flax_params(rng, num_items, D, num_users)
+    for i in range(num_layers):
+        for name in ("w1", "w2"):
+            params[f"{name}_{i}"] = {"kernel": xavier(rng, D, D),
+                                     "bias": (rng.normal(size=D) * 0.02).astype(np.float32)}
+    return params
+
+
+# SimGCL's and SGL's params are the two tables; SGL's views hold none
+simgcl_flax_params = sgl_flax_params = mf_bpr_flax_params
+
+
 def gte_flax_params(rng, num_items, num_users, **_):
     """GTE's one parameter in recboard_tpu's flax layout: the (1,) dummy."""
     return {"dummy": np.zeros(1, dtype=np.float32)}
@@ -2604,15 +2696,18 @@ def layout(tree, path=()) -> dict:
 # one took 1,228.4 s, then their staged steps and every other slice's after
 # one with SEvo's and LESSR's slices took 1,099.6 s, all on an H100 80GB at
 # 700 W), ``profile_steps`` where it is not PROFILE_STEPS (0: time_training
-# does not run), ``bench=False`` where ``--bench`` does not time the run, and
-# a band other than STORE_BAND. Neither profiled nor benched: MF-BPR and
-# NeuMF, cut in that order after a whole run took 1,239.7 s of phases on an
-# H100 80GB at 700 W (their profiles and --bench lines had cost about 8 s of
-# it); RUM (no full ranking to bench), Caser and the device-sampled twins of
-# STOSA and Caser never were, to make room for STOSA's profile and --bench
-# line. GTE is not profiled (its step trains a dummy), UltraGCN not benched
-# (it scores as MF-BPR does).
-UNTIMED = dict(profile_steps=0, bench=False)
+# does not run), ``bench=True`` where ``--bench`` times the trained run (SASRec
+# and BERT4Rec are benched in their serving phases), ``seeds`` where its band
+# runs other than STORE_SEEDS seeds, and a band other than STORE_BAND. Benched
+# are the HSTU slices (their serving profiles read the bench's p50) and NGCF
+# (its 320-wide scoring, new in its slice); every other trained run's --bench
+# line was cut after a whole run with the graph slices took 999.0 s of phases
+# on an H100 80GB at 700 W (those 14 lines 30.3 s of it; their last numbers in
+# PERF.md). Not profiled: MF-BPR and NeuMF, cut after a whole run took 1,239.7 s;
+# RUM, Caser, GCN and the device-sampled twins of STOSA and Caser never were;
+# GTE's step trains a dummy. A slice neither profiled nor benched trains beside
+# the band pool (``main``), where no time it takes is read.
+UNTIMED = dict(profile_steps=0)
 ODS = dict(on_device_sampling=True)
 SLICES = {
     "SASRec": dict(widths=SASREC, params=sasrec_flax_params, config=TRAIN_CONFIG,
@@ -2624,10 +2719,10 @@ SLICES = {
     "HSTU": dict(widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG, batch=HSTU_BATCH,
                  flags=dict(negs_mode="shared"), epochs=HSTU_SHARED_EPOCHS,
                  protocol=HSTU_STORE_PROTOCOL,
-                 store=HSTU_STORE_NDCG10, tag="hstu_", timings=False),
+                 store=HSTU_STORE_NDCG10, tag="hstu_", timings=False, bench=True),
     "HSTU_pp": dict(model="HSTU", widths=HSTU, params=hstu_flax_params, config=HSTU_CONFIG,
                     batch=HSTU_BATCH, protocol=HSTU_PP_STORE_PROTOCOL,
-                    store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_", timings=False),
+                    store=HSTU_PP_STORE_NDCG10, tag="hstu_pp_", timings=False, bench=True),
     # the same runs with every batch drawn on the card (data/device.py)
     "SASRec_ods": dict(model="SASRec", widths=SASREC, params=sasrec_flax_params,
                        config=TRAIN_CONFIG, batch=TRAIN_BATCH, flags=ODS,
@@ -2735,10 +2830,29 @@ SLICES = {
                      batch=1024, flags=ODS, epochs=GEN_EPOCHS,
                      protocol=dict(STORE_PROTOCOL, epochs=30), store=ULTRAGCN_STORE_NDCG10,
                      band=GEN_BAND, tag="ultragcn_", timings=False,
-                     profile_steps=FULL_PROFILE_STEPS, bench=False),
+                     profile_steps=FULL_PROFILE_STEPS),
     "GTE": dict(widths=GTE, params=gte_flax_params, config=GTE_CONFIG, batch=256,
                 epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=1),
                 store=GTE_STORE_NDCG10, band=GEN_BAND, seeds=1, tag="gte_", profile_steps=0),
+    # GCN, NGCF and SimGCL on the host pipe of users, SGL on the users drawn on
+    # the card (its host pipe in the bands); SimGCL and SGL profiled, NGCF
+    # benched (its 320-wide scoring), GCN neither (UNTIMED)
+    "GCN": dict(widths=GCN, params=gcn_flax_params, config=GCN_CONFIG, batch=4096,
+                epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                store=GCN_JAX_NDCG10, band=GEN_BAND, seeds=GRAPH_SEEDS,
+                tag="gcn_", **UNTIMED),
+    "NGCF": dict(widths=NGCF, params=ngcf_flax_params, config=NGCF_CONFIG, batch=2048,
+                 epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                 store=NGCF_JAX_NDCG10, band=GEN_BAND, seeds=GRAPH_SEEDS,
+                 tag="ngcf_", profile_steps=0, bench=True),
+    "SimGCL": dict(widths=SIMGCL, params=simgcl_flax_params, config=SIMGCL_CONFIG,
+                   batch=2048, epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                   store=SIMGCL_JAX_NDCG10, band=GEN_BAND, seeds=GRAPH_SEEDS,
+                   tag="simgcl_", timings=False),
+    "SGL": dict(widths=SGL, params=sgl_flax_params, config=SGL_CONFIG, batch=2048, flags=ODS,
+                epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                store=SGL_JAX_NDCG10, band=SGL_BAND, seeds=GRAPH_SEEDS, tag="sgl_",
+                timings=False),
 }
 
 
@@ -3044,7 +3158,7 @@ def counted_kernels() -> tuple:
 
 # the ported models whose paths reach none of K1-K7
 KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC") + GEN_SLICES + (
-    "STOSA", "RUM", "Caser", "LESSR") + PAIR_SLICES
+    "STOSA", "RUM", "Caser", "LESSR") + PAIR_SLICES + GRAPH_SLICES
 
 
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
@@ -3058,7 +3172,7 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
     negatives and K4 with per-position ones (no ``negs_mode``), and no
     kernel in evaluation; the models of KERNEL_FREE (FMLP-Rec, GRU4Rec, NARM,
     GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser, LESSR,
-    SimpleX, UltraGCN, GTE) run none. No model calls K7."""
+    SimpleX, UltraGCN, GTE, GCN, NGCF, SimGCL, SGL) run none. No model calls K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
@@ -3166,10 +3280,15 @@ def train_slice(seed: int, dataset, name: str) -> dict:
     evaluated = (epochs + 1) * n_valid + 2 * n_test
     want = expected_launches(model, widths.get("num_blocks", 0), trained, evaluated,
                              flags.get("negs_mode", ""))
+    # a graph model's operator: its stored entries and its CSR's nonzeros
+    # (repeated pairs summed: NGCF's repeated interactions)
+    adj = getattr(counter, "adj", None)
+    operator = {} if adj is None else dict(adj_entries=adj.nnz, adj_nonzeros=adj.csr._nnz())
     emit(f"{tag}train", model=model, config=spec["config"], flags=flags,
          dataset=DATASET["name"], epochs=epochs, steps_per_epoch=steps,
          rows_per_epoch=sum(sizes), last_batch=sizes[-1], pad_share=pad_share, losses=losses,
-         best=best, launches=launches, expected_launches=want, run_s=run_s, count_s=count_s)
+         best=best, launches=launches, expected_launches=want, run_s=run_s, count_s=count_s,
+         **operator)
     if len(losses) != epochs or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"{model} train: losses {losses}")
     if launches != want:
@@ -3237,7 +3356,7 @@ def train_slice(seed: int, dataset, name: str) -> dict:
         check.finish_with(cpu_lists(run_dir))
     # SASRec and BERT4Rec have a serving phase of their own; a device-sampled
     # twin is served as its host-pipe slice
-    if model not in ("SASRec", "BERT4Rec") and spec.get("bench", True) and "host" not in spec:
+    if spec.get("bench"):
         t0 = time.perf_counter()
         out["bench"] = run_bench(run_dir)
         emit(f"{tag}bench", **out["bench"], wall_s=time.perf_counter() - t0)
@@ -3621,7 +3740,7 @@ def started_store_run(*job) -> tuple:
     return time.time(), store_run(*job)
 
 
-def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
+def store_runs(names, seeds, concurrent: bool = False, counts: dict = None, **flags) -> dict:
     """The toy store's protocol for each slice of ``names`` (tools/seed_sweep.py's
     arguments for the model, and ``flags``) for each of ``seeds``, one after
     another or (``concurrent``) in up to STORE_PROCESSES processes side by
@@ -3631,13 +3750,14 @@ def store_runs(names, seeds, concurrent: bool = False, **flags) -> dict:
     the card alike, spread over the pool instead of all starting at once
     (LESSR's five seeds, started together, each took 134 s of the pool's
     331.5, on an H100 80GB at 700 W). Returns {name: (best NDCG@10s,
-    seconds)}; each seed's line also gives its start within the pool."""
+    seconds)}; each seed's line also gives its start within the pool. A
+    slice of ``counts`` runs only the first seeds of ``seeds``, that many."""
     import torch
 
     data_root, store_name = store_dataset()
-    # a slice's ``seeds`` caps its seeds (GTE's one: it is deterministic)
-    jobs = [(name, data_root, store_name, seed, flags) for seed in seeds for name in names
-            if seed < SLICES[name].get("seeds", math.inf)]
+    counts = counts or {}
+    jobs = [(name, data_root, store_name, seed, flags) for i, seed in enumerate(seeds)
+            for name in names if i < counts.get(name, math.inf)]
     t0 = time.time()
     if concurrent:
         torch.cuda.empty_cache()  # the card's memory for the processes' contexts
@@ -3679,11 +3799,14 @@ def random_ndcg10(data_root: str, name: str) -> float:
 
 def quality(seeds: int, *names: str) -> dict:
     """The toy store's protocol for each slice of ``names`` on the card for
-    ``seeds`` seeds, up to STORE_PROCESSES seeds at once; each mean best
-    NDCG@10 must lie in its store's band (the slice's ``band``, else
-    STORE_BAND), which must exclude a random ranking's expectation."""
+    ``seeds`` seeds (a slice's own ``seeds`` where it has them: GTE's one,
+    as it is deterministic; GRAPH_SEEDS for the slices of GRAPH_SLICES), up
+    to STORE_PROCESSES seeds at once; each mean best NDCG@10 must lie in its
+    store's band (the slice's ``band``, else STORE_BAND), which must exclude
+    a random ranking's expectation."""
     t0 = time.perf_counter()
-    runs = store_runs(names, range(seeds), concurrent=True)
+    counts = {name: SLICES[name].get("seeds", seeds) for name in names}
+    runs = store_runs(names, range(max(counts.values())), concurrent=True, counts=counts)
     random = random_ndcg10(os.path.join(WORK, "store_data"), STORE_DATASET["name"])
     out, outside = {}, []
     for name, (values, seconds) in runs.items():
@@ -3693,7 +3816,8 @@ def quality(seeds: int, *names: str) -> dict:
              dataset=STORE_DATASET["name"], seeds=len(values), ndcg10=values, mean=mean,
              std=float(np.std(values)), store_mean=spec["store"], band=band,
              random_ranking_ndcg10=random, protocol=spec["protocol"], seconds=sum(seconds),
-             processes=min(len(names) * seeds, STORE_PROCESSES), wall_s=time.perf_counter() - t0)
+             processes=min(sum(counts.values()), STORE_PROCESSES),
+             wall_s=time.perf_counter() - t0)
         if not abs(mean - spec["store"]) <= band:
             outside.append(f"{name}: mean NDCG@10 {mean} outside {spec['store']} ± {band}")
         if abs(random - spec["store"]) <= band:
@@ -3782,7 +3906,8 @@ def check_lightgcn_spmm(seed: int, dataset) -> dict:
     reach HBM) and ``gather_bound_ms`` with every gathered row counted
     (``nnz`` x (index + value + D x 4 B) + the row pointers + the output),
     the kernels' names, and the same product as a gather and ``index_add_``
-    (the library's other route; float atomics)."""
+    (the library's other route; float atomics). Then SGL's views of the same
+    adjacency (``check_sgl_views``)."""
     import torch
 
     from recboard_tpu_torch import run
@@ -3872,7 +3997,78 @@ def check_lightgcn_spmm(seed: int, dataset) -> dict:
     emit("lightgcn_spmm", **row)
     if not (err <= SPMM_TOL and grad_err <= SPMM_TOL):
         raise SystemExit(f"LightGCN's propagation on the card against the CPU: {row}")
+    # SGL's views reweight the structure of this same adjacency
+    row["sgl_views"] = check_sgl_views(seed, dataset)
     return row
+
+
+def check_sgl_views(seed: int, dataset) -> list:
+    """SGL's views at the XL shape (the train split's sym-normalized
+    adjacency, whose structure LightGCN's phase above propagates over), one
+    row each of ``ed``, ``nd`` and ``rw``: keep masks drawn once on the CPU
+    at SGL_DROP_RATE (one a hop for ``rw``), each view's values built on the
+    card against the CPU's within SGL_VIEW_TOL with the same zeros, one
+    product through the (first) view and its backward against the CPU's
+    within SPMM_TOL of the largest magnitude; then a view drawn and built on
+    the card from a generator there under ``torch.cuda.set_sync_debug_mode
+    ("error")``, and the build's time by CUDA events (µs a view: the draw,
+    the two degree sums, the values, both CSR tensors)."""
+    import torch
+
+    from recboard_tpu_torch import run
+    from recboard_tpu_torch.models.zoo.sgl import AUG_TYPES
+
+    widths = SLICES["SGL"]["widths"]
+    models = {device: run.build_model("SGL", dataset, dict(widths, seed=seed,
+                                                            ssl_drop_rate=SGL_DROP_RATE),
+                                      torch.device(device), training=False)
+              for device in (CARD, "cpu")}
+    n, nnz = models["cpu"].structure.shape[0], models["cpu"].structure.nnz
+    rng = np.random.default_rng(seed + 2)
+    x = torch.from_numpy(rng.normal(size=(n, widths["embedding_dim"])).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    card = models[CARD]
+    generator = torch.Generator(device=CARD).manual_seed(seed)
+    rows = []
+    for aug in AUG_TYPES:
+        hops = widths["num_layers"] if aug == "rw" else 1
+        keeps = [torch.from_numpy(rng.random(n if aug == "nd" else nnz) > SGL_DROP_RATE)
+                 for _ in range(hops)]
+        got = {}
+        for device, model in models.items():
+            model.aug_type = aug
+            views = [model.dropped_view(keep=keep.to(device)) for keep in keeps]
+            xd = x.detach().to(device).requires_grad_()
+            out = views[0] @ xd
+            out.backward(g.to(device))
+            got[device] = ([view.csr.values().cpu() for view in views],
+                           [out.detach().cpu(), xd.grad.cpu()])
+        (card_vals, card_out), (cpu_vals, cpu_out) = got[CARD], got["cpu"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card.dropped_view(generator)
+            sync_error = None
+        except RuntimeError as exc:
+            sync_error = str(exc)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row = dict(aug_type=aug, nodes=n, nnz=nnz, views_checked=hops,
+                   kept_share=float(np.mean([float((v != 0).double().mean()) for v in cpu_vals])),
+                   values_max_abs_err=max(float((a - b).abs().max())
+                                          for a, b in zip(card_vals, cpu_vals)),
+                   tol=SGL_VIEW_TOL,
+                   same_zeros=all(torch.equal(a == 0, b == 0)
+                                  for a, b in zip(card_vals, cpu_vals)),
+                   product_max_rel_err=grad_rel_err(card_out, cpu_out), spmm_tol=SPMM_TOL,
+                   sync_debug_mode="error", host_sync=sync_error,
+                   build_us=1e3 * cuda_ms(lambda: card.dropped_view(generator), 50, 5))
+        emit("sgl_view", **row)
+        rows.append(row)
+        if not (row["values_max_abs_err"] <= SGL_VIEW_TOL and row["same_zeros"]
+                and row["product_max_rel_err"] <= SPMM_TOL and sync_error is None):
+            raise SystemExit(f"SGL's {aug} view on the card against the CPU: {row}")
+    return rows
 
 
 def check_sevo_optimizer(seed: int, dataset) -> dict:
@@ -4636,16 +4832,21 @@ def main(argv=None) -> int:
 
     def train_and_profile(names) -> dict:
         """Each slice of ``names`` trained and served, then profiled (unless
-        its ``profile_steps`` is 0): {name: train_slice's result}."""
+        its ``profile_steps`` is 0): {name: train_slice's result}. A slice
+        neither profiled nor benched is left in ``quiet``, to train beside
+        the band pool."""
         out = {}
         for name in names:
-            out[name] = timed(f"{SLICES[name]['tag']}train", train_slice, args.seed, dataset,
-                              name)
-            if SLICES[name].get("profile_steps", PROFILE_STEPS):
+            spec = SLICES[name]
+            if not spec.get("profile_steps", PROFILE_STEPS) and not spec.get("bench"):
+                quiet.append(name)
+                continue
+            out[name] = timed(f"{spec['tag']}train", train_slice, args.seed, dataset, name)
+            if spec.get("profile_steps", PROFILE_STEPS):
                 host_times[name] = profile(name, load_run_config(out[name]["run_dir"]))
         return out
 
-    host_times = {}
+    host_times, quiet = {}, []
     trained = train_and_profile(["SASRec"])["SASRec"]
     b_slice = timed("bert4rec_slice", serve_slice, args.seed, dataset, "BERT4Rec")
     timed("bert4rec_profile", profile_bench, b_slice["run_dir"], b_slice["bench"]["p50"],
@@ -4664,16 +4865,12 @@ def main(argv=None) -> int:
     gen_trained = train_and_profile(GEN_SLICES)
     timed("lightgcn_spmm", check_lightgcn_spmm, args.seed, dataset)
     seq_trained = train_and_profile(SEQ_SLICES)
-    # RUM ranks pools only: its host-pipe run joins the device-sampled ones in
-    # pool_check, whose CPU evaluations start in the serving process as each
-    # run is trained
-    pooled = {"RUM": seq_trained["RUM"]}
-    submit_pool_cpu("RUM", seq_trained["RUM"]["run_dir"])
     new_trained = train_and_profile(NEW_SLICES)
     timed("sevo_optimizer", check_sevo_optimizer, args.seed, dataset)
     timed("lessr_graphs", check_lessr_graphs, args.seed, dataset)
     pair_trained = train_and_profile(PAIR_SLICES)
     timed("ultragcn_side_info", check_ultragcn_side_info, args.seed, dataset)
+    graph_trained = train_and_profile(GRAPH_SLICES)
     timed("train_serve_collected", collect_served_checks)
     # the device-sampled twins profiled from their reference configs before
     # the band pool starts, trained and served beside it
@@ -4682,14 +4879,21 @@ def main(argv=None) -> int:
             host = SLICES[name]["host"]
             profile(name, reference_cfg(name, args.seed, log_path=os.path.join(WORK, "cfgs")),
                     dict(host_times[host], slice=host))
-    # every model's band: 121 seeds, 8 processes at once beside each other on
-    # the card, started beside the twins' training and the last three checks,
-    # which time nothing but pool_check's card_s and the samplers' draw_s
-    # (their card and CPU results are compared, not timed); store_quality is
-    # the pool's own wall time
+    # every model's band: 181 seeds, 8 processes at once beside each other on
+    # the card, started beside the quiet slices' and the twins' training and
+    # the last three checks, which time nothing but pool_check's card_s and the
+    # samplers' draw_s (their card and CPU results are compared, not timed);
+    # store_quality is the pool's own wall time
     with concurrent.futures.ThreadPoolExecutor(1) as beside:
         bands_start = time.perf_counter()
         bands = beside.submit(quality, STORE_SEEDS, *STORE_BANDS)
+        quiet_trained = {name: timed(f"{SLICES[name]['tag']}train", train_slice, args.seed,
+                                     dataset, name) for name in quiet}
+        # RUM ranks pools only: its host-pipe run joins the device-sampled ones
+        # in pool_check, whose CPU evaluations start in the serving process as
+        # each run is trained
+        pooled = {"RUM": quiet_trained["RUM"]}
+        submit_pool_cpu("RUM", pooled["RUM"]["run_dir"])
         for name in ODS_SLICES:
             pooled[name] = timed(f"{SLICES[name]['tag']}train", train_slice, args.seed,
                                  dataset, name)
@@ -4697,13 +4901,14 @@ def main(argv=None) -> int:
         timed("resume_check", resume_check, args.seed, dataset)
         timed("pool_check", pool_check, dataset, pooled)
         timed("device_samplers", check_device_samplers, args.seed, dataset)
+        timed("quiet_serve_collected", collect_served_checks)
         bands.result()
     CPU_SERVING.shutdown()
     ods = {name: pooled[name] for name in ODS_SLICES}
     phase_s["store_quality"] = time.perf_counter() - bands_start
     emit("phase_seconds", name="store_quality", seconds=phase_s["store_quality"],
-         beside=[f"{SLICES[name]['tag']}train" for name in ODS_SLICES]
-         + ["resume_check", "pool_check", "device_samplers"])
+         beside=[f"{SLICES[name]['tag']}train" for name in quiet + list(ODS_SLICES)]
+         + ["resume_check", "pool_check", "device_samplers", "quiet_serve_collected"])
 
     serving, training, ce = rows[0], drop_rows[0], ce_rows[0]
     # K1 and K2 run near or below their wrappers' host time: their entries,
@@ -4769,7 +4974,9 @@ def main(argv=None) -> int:
                                                           *gen_trained.values(),
                                                           *seq_trained.values(),
                                                           *new_trained.values(),
-                                                          *pair_trained.values()))),
+                                                          *pair_trained.values(),
+                                                          *graph_trained.values(),
+                                                          *quiet_trained.values()))),
         *row_mask_entries(rows, drop_rows, roll_trained),
     ]}))
     # the wall time of every phase: the band pool overlaps two of them

@@ -1,5 +1,5 @@
 """Sparse-graph utilities (counterpart of ``recboard_tpu/graph.py``):
-the bipartite user-item adjacency that LightGCN propagates over.
+the bipartite user-item adjacencies that the graph CF models propagate over.
 
 The numpy functions that make it (``_coalesce``, ``to_normalized``,
 ``bipartite_normalized_adj``) are copies of ``recboard_tpu``'s and give
@@ -31,6 +31,18 @@ bits, in either direction, also under torch's deterministic mode
 agree to rounding (about 1e-7 relative), not bit for bit. The CPU's
 product repeats its bits. A product that fails on a CUDA tensor raises;
 there is no other path.
+
+``add_self_loops`` (NGCF's operator: the interactions both ways, repeats
+kept as separate unit entries, then the diagonal, then ``"left"``) is
+``recboard_tpu``'s too. ``ReweightedAdj`` is a ``SparseAdj``'s structure
+with values given in the step (SGL's subgraph views, ``recboard_tpu``'s
+``_dropped_adj``): it keeps, once and on the adjacency's device, the row and
+column indices in CSR order and the permutation from CSR order to the
+transpose's, and shares the adjacency's CSR index buffers. ``view(vals)``
+builds the two CSR tensors around a ``(nnz,)`` value tensor (the
+transpose's values permuted) without reading anything back to the host,
+and its product is ``SpMM``: the values get no gradient, as JAX's
+``_spmm_fixed`` gives ``vals`` none.
 """
 
 from __future__ import annotations
@@ -42,7 +54,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["SparseAdj", "SpMM", "TransposedAdj", "bipartite_normalized_adj", "to_normalized"]
+__all__ = ["AdjView", "ReweightedAdj", "SparseAdj", "SpMM", "TransposedAdj", "add_self_loops",
+           "bipartite_normalized_adj", "to_normalized"]
 
 
 def _csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, shape: Tuple[int, int],
@@ -52,12 +65,19 @@ def _csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, shape: Tuple[int,
     rows, cols, vals = _coalesce(rows, cols, vals, shape)
     crow = np.zeros(shape[0] + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=shape[0]), out=crow[1:])
+    csr = _csr_tensor(torch.from_numpy(crow.astype(np.int32)),
+                      torch.from_numpy(cols.astype(np.int32)),
+                      torch.from_numpy(vals.astype(np.float32)), shape)
+    return csr.to(torch.device(device or "cpu"))
+
+
+def _csr_tensor(crow: torch.Tensor, col: torch.Tensor, vals: torch.Tensor,
+                shape: Tuple[int, int]) -> torch.Tensor:
+    """A CSR tensor over these buffers, unchecked and of the given size: no
+    read of the indices, so no host synchronisation on the card."""
     with warnings.catch_warnings():  # torch's note that CSR support is in beta
         warnings.simplefilter("ignore", UserWarning)
-        csr = torch.sparse_csr_tensor(
-            torch.from_numpy(crow.astype(np.int32)), torch.from_numpy(cols.astype(np.int32)),
-            torch.from_numpy(vals.astype(np.float32)), size=shape, check_invariants=False)
-    return csr.to(torch.device(device or "cpu"))
+        return torch.sparse_csr_tensor(crow, col, vals, size=shape, check_invariants=False)
 
 
 class SpMM(torch.autograd.Function):
@@ -121,6 +141,63 @@ class TransposedAdj:
         return SpMM.apply(x, self.adj.csr_t, self.adj.csr)
 
 
+class ReweightedAdj(nn.Module):
+    """The structure of a ``SparseAdj`` whose values are given in the step:
+    ``rows`` and ``cols`` (int64, CSR order), the adjacency's CSR index
+    buffers (``crow``, ``col`` and the transpose's ``crow_t``, ``col_t``)
+    and ``perm_t``, the CSR position of each of the transpose's nonzeros,
+    all non-persistent buffers on the adjacency's device. The adjacency's
+    entries must be its CSR's nonzeros in order: sorted by row, then
+    column, no (row, column) pair twice (``bipartite_normalized_adj``'s)."""
+
+    def __init__(self, adj: SparseAdj):
+        super().__init__()
+        keys = adj.rows * adj.shape[1] + adj.cols
+        if not (np.diff(keys) > 0).all():
+            raise ValueError("ReweightedAdj needs entries sorted by row and column with no "
+                             "(row, column) pair twice: one value a CSR nonzero")
+        self.shape = adj.shape
+        device = adj.csr.device
+        for name, value in (
+                ("rows", torch.from_numpy(adj.rows)), ("cols", torch.from_numpy(adj.cols)),
+                ("perm_t", torch.from_numpy(np.lexsort((adj.rows, adj.cols)))),
+                ("crow", adj.csr.crow_indices()), ("col", adj.csr.col_indices()),
+                ("crow_t", adj.csr_t.crow_indices()), ("col_t", adj.csr_t.col_indices())):
+            self.register_buffer(name, value.to(device), persistent=False)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    def sym_normalized(self, w: torch.Tensor) -> torch.Tensor:
+        """The values ``D^-1/2 w D_in^-1/2`` of entry weights ``w`` (nnz,):
+        the degrees are the row and column sums of ``w``, and an entry of a
+        row or column of degree 0 gets 0."""
+        n_out, n_in = self.shape
+        deg = torch.zeros(n_out, dtype=w.dtype, device=w.device).index_add_(0, self.rows, w)
+        deg_in = torch.zeros(n_in, dtype=w.dtype, device=w.device).index_add_(0, self.cols, w)
+        inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)), 0.0)
+        inv_sqrt_in = torch.where(deg_in > 0, torch.rsqrt(deg_in.clamp_min(1e-12)), 0.0)
+        return inv_sqrt[self.rows] * w * inv_sqrt_in[self.cols]
+
+    def view(self, vals: torch.Tensor) -> "AdjView":
+        """The matrix of this structure with values ``vals`` (nnz,), in CSR
+        order."""
+        return AdjView(_csr_tensor(self.crow, self.col, vals, self.shape),
+                       _csr_tensor(self.crow_t, self.col_t, vals[self.perm_t], self.shape[::-1]))
+
+
+class AdjView:
+    """A matrix built in the step (``ReweightedAdj.view``): ``csr`` and its
+    transpose ``csr_t``, whose product is ``SpMM``."""
+
+    def __init__(self, csr: torch.Tensor, csr_t: torch.Tensor):
+        self.csr, self.csr_t = csr, csr_t
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return SpMM.apply(x, self.csr, self.csr_t)
+
+
 def _coalesce(rows, cols, vals, shape):
     """Merge duplicate edges by summing values."""
     key = rows.astype(np.int64) * shape[1] + cols
@@ -132,6 +209,17 @@ def _coalesce(rows, cols, vals, shape):
         (uniq % shape[1]).astype(np.int64),
         merged.astype(np.float32),
     )
+
+
+def add_self_loops(adj: SparseAdj, fill_value: float = 1.0,
+                   device: Optional[torch.device] = None) -> SparseAdj:
+    """``adj`` with ``n`` diagonal entries of ``fill_value`` appended (a node
+    that already has a loop gets a second entry), on ``device``."""
+    n = adj.shape[0]
+    rows = np.concatenate([adj.rows, np.arange(n)])
+    cols = np.concatenate([adj.cols, np.arange(n)])
+    vals = np.concatenate([adj.vals, np.full(n, fill_value, dtype=np.float32)])
+    return SparseAdj(rows, cols, vals, adj.shape, device)
 
 
 def to_normalized(adj: SparseAdj, normalization: str = "sym",

@@ -26,7 +26,7 @@ from torch import nn
 from ..ops import attention as attn_ops
 
 __all__ = ["DenseGeneral", "GRU", "PointWiseFFN", "SASRecBlock", "TransformerBlock", "dropout",
-           "last_position"]
+           "last_position", "xavier_normal_"]
 
 
 def dropout(
@@ -39,6 +39,15 @@ def dropout(
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+@torch.no_grad()
+def xavier_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``xavier_normal`` on a 2-D ``w``: a standard normal cut at ±2,
+    scaled by sqrt(2 / (fan_in + fan_out)) / 0.8796 so its draws have that
+    std (torch's ``xavier_normal_`` draws an uncut normal)."""
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w.mul_(math.sqrt(2.0 / (w.shape[0] + w.shape[1])) / 0.87962566103423978)
 
 
 def last_position(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """What the graph collaborative-filtering models share (counterpart of
-``recboard_tpu/models/zoo/graph_cf.py``'s ``_split_ui``, ``_l2norm`` and
-``_GraphRecBase``): LightGCN, SimpleX, UltraGCN and GTE.
+``recboard_tpu/models/zoo/graph_cf.py``'s ``_split_ui``, ``_l2norm``,
+``_GraphRecBase`` and ``_bpr_and_reg``): LightGCN, GCN, NGCF, SimGCL, SGL,
+SimpleX, UltraGCN and GTE.
 
 ``GraphRecBase.build_adj(dataset, device)`` is the propagation operator
 ``run.build_model`` hands a model that takes an ``adj`` (the train split's
@@ -13,6 +14,9 @@ the product with each row's ``IUnseen`` candidates. ``PairGraphRec``
 (SimpleX, UltraGCN) trains on every train (user, item) interaction once an
 epoch instead, with ``num_negs`` negatives: the pipe's unseen items under
 ``unseen_only``, else uniform over the catalog drawn in the step.
+``bpr_and_reg`` is the loss of the models trained on users (the BPR of the
+propagated rows, the l2 ``regularize`` of the raw rows over the batch size),
+``info_nce`` SimGCL's and SGL's contrastive term between two views.
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ... import criterions
 from ...graph import SparseAdj
 from ..base import Batch, GenRecArch
 
-__all__ = ["GraphRecBase", "PairGraphRec", "l2norm", "split_ui"]
+__all__ = ["GraphRecBase", "PairGraphRec", "bpr_and_reg", "info_nce", "l2norm", "split_ui"]
 
 
 def split_ui(embds: torch.Tensor, num_users: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,6 +41,35 @@ def split_ui(embds: torch.Tensor, num_users: int) -> Tuple[torch.Tensor, torch.T
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Each row scaled to unit length: ``x · rsqrt(Σ x² + eps)``."""
     return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + eps)
+
+
+def bpr_and_reg(model, user_embds: torch.Tensor, item_embds: torch.Tensor, data: Batch
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rec loss, emb loss) of a batch of users, positives and negatives:
+    the BPR of the propagated rows' scores, and the l2 ``regularize`` of the
+    raw (layer-0) user, positive and negative rows over the batch size."""
+    users, positives, negatives = data[model.User], data[model.IPos], data[model.INeg]
+    u = user_embds[users][:, None, :]
+    rec_loss = criterions.bpr_with_logits((u * item_embds[positives]).sum(-1),
+                                          (u * item_embds[negatives]).sum(-1))
+    emb_loss = criterions.regularize(
+        [model.user_embeddings(users), model.item_embeddings(positives),
+         model.item_embeddings(negatives)], rtype="l2") / users.shape[0]
+    return rec_loss, emb_loss
+
+
+def info_nce(view1: Tuple[torch.Tensor, torch.Tensor], view2: Tuple[torch.Tensor, torch.Tensor],
+             users: torch.Tensor, items: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The InfoNCE between two (users, items) views over a batch: the
+    (B, B) logits of the batch's users in view 1 against view 2 over
+    ``temperature``, the diagonal the target, mean cross entropy; plus the
+    same over ``items``. Repeated ids in the batch stay repeated."""
+    targets = torch.arange(users.shape[0], device=users.device)
+    loss = 0.0
+    for (table1, table2), ids in zip(zip(view1, view2), (users, items)):
+        logits = F.embedding(ids, table1) @ F.embedding(ids, table2).T / temperature
+        loss = loss + criterions.cross_entropy_with_logits(logits, targets)
+    return loss
 
 
 class GraphRecBase(GenRecArch):

@@ -5,10 +5,10 @@ the K + 1 layers, BPR (counterpart of ``recboard_tpu/models/zoo/lightgcn.py``).
 times through ``adj`` (``graph.SparseAdj``, the train split's
 ``to_normalized_adj("sym")``, which the runner builds on the run's device)
 and averages: ``x / (K + 1) + Σ adj^k x / (K + 1)``, split at
-``User.count``. ``fit`` propagates at every step; its loss is the BPR of
-the propagated rows plus ``weight_decay`` times the l2 ``regularize`` of
-the raw (layer-0) user, positive and negative rows over the batch size.
-The runner zeroes the optimizer's decay for this model, after the model
+``User.count``. ``fit`` propagates at every step; its loss is
+``graph_cf.bpr_and_reg``'s: the BPR of the propagated rows plus
+``weight_decay`` times the l2 ``regularize`` of the raw (layer-0) user,
+positive and negative rows over the batch size. The runner zeroes the optimizer's decay for this model, after the model
 took ``cfg.weight_decay``. Evaluation and serving propagate once
 (``reset_ranking_buffers``; the pipes and ranking are ``GraphRecBase``'s).
 ``spmm_const`` is taken for recboard_tpu's configs: both of its values run
@@ -23,11 +23,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ... import criterions
 from ...graph import SparseAdj
 from ..base import Batch
 from . import register
-from .graph_cf import GraphRecBase, split_ui
+from .graph_cf import GraphRecBase, bpr_and_reg, split_ui
 
 
 @register("LightGCN")
@@ -69,13 +68,6 @@ class LightGCN(GraphRecBase):
 
     def fit(self, data: Batch, generator: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        user_embds, item_embds = self.encode()
-        users, positives, negatives = data[self.User], data[self.IPos], data[self.INeg]
-        u = user_embds[users][:, None, :]
-        rec_loss = criterions.bpr_with_logits((u * item_embds[positives]).sum(-1),
-                                              (u * item_embds[negatives]).sum(-1))
-        emb_loss = criterions.regularize(
-            [self.user_embeddings(users), self.item_embeddings(positives),
-             self.item_embeddings(negatives)], rtype="l2") / users.shape[0]
+        rec_loss, emb_loss = bpr_and_reg(self, *self.encode(), data)
         loss = rec_loss + self.weight_decay * emb_loss
         return loss, {"rec_loss": rec_loss, "emb_loss": emb_loss}

@@ -10,8 +10,8 @@ device, resumes from the last epoch's checkpoint under ``--resume``,
 ranks the full catalog or (``--ranking pool``) each row's candidate pool,
 and leaves a run directory that ``recommend`` serves. The sequential
 models' pipes take ``--maxlen``; the general CF models' (``GenRecArch``:
-MF-BPR, NeuMF, LightGCN, SimpleX, UltraGCN, GTE) take none (``train_pipe``,
-``eval_pipe``). Only ``--device`` on the command line (or in ``main``'s
+MF-BPR, NeuMF, LightGCN, GCN, NGCF, SimGCL, SGL, SimpleX, UltraGCN, GTE)
+take none (``train_pipe``, ``eval_pipe``). Only ``--device`` on the command line (or in ``main``'s
 argv) chooses the device: a config file's ``device`` key is ignored, as
 ``recboard_tpu``'s runner ignores it.
 """
@@ -86,7 +86,8 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
     where the default is None), and a model that takes an ``adj`` (a graph
     model) gets its class's ``build_adj(dataset, device)``: the train
     split's symmetric normalized adjacency unless the class has its own
-    (SimpleX's and GTE's (U, I) incidences).
+    (SimpleX's and GTE's (U, I) incidences, NGCF's left-normalized operator
+    with self loops).
     UltraGCN's side information (``build_side_info`` with ``cfg``'s
     ``num_neighbors``, 10 by default) is built on ``device`` when
     ``training``: serving (``training=False``) does not read it. A model
@@ -155,6 +156,10 @@ DEVICE_SAMPLERS = {
     "MF-BPR": DeviceGenSampler,
     "NeuMF": DeviceGenSampler,
     "LightGCN": DeviceGenSampler,
+    "GCN": DeviceGenSampler,
+    "NGCF": DeviceGenSampler,
+    "SimGCL": DeviceGenSampler,
+    "SGL": DeviceGenSampler,
     "STOSA": DeviceSeqSampler,
     # the last maxlen items, one positive drawn from them and one negative
     "RUM": functools.partial(DeviceFullSeqSampler, sample_pos=True, num_negatives=1),
@@ -237,9 +242,9 @@ def build_pipes(model, cfg, device: torch.device):
 
 def zero_folded_decay(model, cfg) -> None:
     """Zero ``cfg.weight_decay`` for a model that takes a ``weight_decay`` of
-    its own and folds it into its loss (LightGCN), as ``recboard_tpu``'s
-    runner does after building the model: the model keeps the value it took,
-    the optimizer decays nothing."""
+    its own and folds it into its loss (LightGCN, GCN, NGCF, SimGCL, SGL),
+    as ``recboard_tpu``'s runner does after building the model: the model
+    keeps the value it took, the optimizer decays nothing."""
     if "weight_decay" in inspect.signature(type(model).__init__).parameters:
         cfg.weight_decay = 0.0
 

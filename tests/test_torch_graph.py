@@ -15,6 +15,14 @@
   value and gradient against JAX's ``SparseAdj.T @ x`` within 1e-6, on a
   (U, I) matrix with repeated edges, which both count twice; no dense
   copy (the transpose reuses the adjacency's two CSR buffers).
+* ``add_self_loops`` (also on a node that has a loop) and then
+  ``to_normalized("left")``: JAX's rows, cols and vals exactly, repeated
+  edges kept as entries of their own.
+* ``ReweightedAdj`` (SGL's views): 0/1 weights sym-renormalized as numpy
+  does it, the product and its gradient through a view with values that are
+  not symmetric against a dense float64 reference within 1e-6, the view's
+  CSR tensors on the adjacency's own index buffers, no gradient to the
+  values; a structure with a repeated pair is refused.
 """
 
 import jax
@@ -170,3 +178,58 @@ def test_regularize_matches_jax(rtype):
                                                                       rtype=rtype)), rtol=1e-6)
     with pytest.raises(ValueError, match="rtype"):
         criterions.regularize(torch.from_numpy(tensors[0]), rtype="l3")
+
+
+@pytest.mark.parametrize("fill_value", [1.0, 2.5])
+def test_self_loops_and_left_normalization_match_jax(fill_value):
+    users, items = _edges(seed=6)
+    n = 50
+    rows = np.concatenate([users, items + 30, [7]])  # node 7 has a loop already
+    cols = np.concatenate([items + 30, users, [7]])
+    ones = np.ones(len(rows), dtype=np.float32)
+    want = graph_jax.to_normalized(
+        graph_jax.add_self_loops(graph_jax.SparseAdj(rows, cols, ones, (n, n)), fill_value),
+        "left")
+    got = graph.to_normalized(
+        graph.add_self_loops(graph.SparseAdj(rows, cols, ones, (n, n)), fill_value), "left")
+    _assert_same_edges(got, want)
+    assert got.nnz == len(rows) + n  # repeats and both loops of node 7 kept
+    np.testing.assert_allclose(got.csr.to_dense().numpy(), np.asarray(want.to_dense()),
+                               atol=TOL, rtol=0)
+
+
+def test_reweighted_view_product_and_grad_match_dense():
+    users, items = _edges(seed=7)
+    adj = graph.bipartite_normalized_adj(users, items, 30, 20)
+    structure = graph.ReweightedAdj(adj)
+    assert structure.nnz == adj.nnz
+    rng = np.random.default_rng(8)
+    w = (rng.random(adj.nnz) > 0.3).astype(np.float32)
+    # numpy's renormalization of the kept weights over their own degrees
+    deg = np.bincount(adj.rows, weights=w, minlength=50)
+    deg_in = np.bincount(adj.cols, weights=w, minlength=50)
+    with np.errstate(divide="ignore"):
+        inv, inv_in = np.where(deg > 0, deg ** -0.5, 0), np.where(deg_in > 0, deg_in ** -0.5, 0)
+    np.testing.assert_allclose(structure.sym_normalized(torch.from_numpy(w)).numpy(),
+                               inv[adj.rows] * w * inv_in[adj.cols], atol=TOL, rtol=0)
+    vals = torch.from_numpy(rng.normal(size=adj.nnz)).requires_grad_()
+    view = structure.view(vals)
+    dense = np.zeros((50, 50))
+    dense[adj.rows, adj.cols] = vals.detach().numpy()
+    assert view.csr.crow_indices().data_ptr() == adj.csr.crow_indices().data_ptr()
+    assert view.csr_t.col_indices().data_ptr() == adj.csr_t.col_indices().data_ptr()
+    np.testing.assert_array_equal(view.csr_t.detach().to_dense().numpy(), dense.T)
+    x = torch.from_numpy(rng.normal(size=(50, 6))).requires_grad_()
+    g = rng.normal(size=(50, 6))
+    out = view @ x
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), dense @ x.detach().numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(x.grad.numpy(), dense.T @ g, atol=TOL, rtol=0)
+    assert vals.grad is None  # the values take no gradient
+
+
+def test_reweighted_adj_refuses_repeated_pairs():
+    rows, cols = np.array([0, 0, 1, 1]), np.array([1, 1, 0, 2])
+    adj = graph.SparseAdj(rows, cols, np.ones(4, dtype=np.float32), (3, 3))
+    with pytest.raises(ValueError, match="no .row, column. pair twice"):
+        graph.ReweightedAdj(adj)
