@@ -17,7 +17,9 @@ the quality band on the card, or on the CPU (--device cpu).
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi).
-2. build   — compiles every CUDA source in recboard_tpu_torch/ops/csrc.
+2. build   — compiles every CUDA source in recboard_tpu_torch/ops/csrc,
+   while the dataset is made and the slices of EARLY_SLICES (phase 25's
+   JGCF, PairNorm and CAGCN: no kernel, no time read) train.
 3. kernels — each kernel against its plain PyTorch version on the card
    (float32, TF32 off), with its max |error| against a stated tolerance
    and CUDA-event times beside the plain version and a library call:
@@ -252,6 +254,25 @@ Phases, one JSON line each; any failure exits non-zero:
    UltraGCN's 20), and the slices neither profiled nor benched (MF-BPR,
    NeuMF, RUM, Caser, GTE, GCN) train beside the band pool.
 
+25. jgcf_* (train, train_serve), pairnorm_* (train, train_serve), cagcn_* (train,
+   train_serve), alpharec_* (train, train_serve, train_profile), cagcn_adj and
+   alpharec_features — JGCF, PairNorm and CAGCN at their configs, one epoch each
+   on the host pipe of users, trained while the kernels compile; AlphaRec at its
+   config (``--tasktag NEXTITEM``: both packages refuse its ``Matching``) over
+   ALPHAREC_WIDTH-wide frozen item features, profiled: every K1-K7 counter 0,
+   each trained run served on the card for every user with its first and last
+   served batch equal to the CPU's, the scores at random weights card = CPU;
+   CAGCN's trend-reweighted operator built on the card with no host
+   synchronisation against the port's CPU build (the same entries, values within
+   CAGCN_ADJ_TOL, one product at SPMM_TOL), with the build's time and the
+   similarity triples it forms; AlphaRec's user features on the card against the
+   CPU's; the toy store's bands (JGCF's 5 seeds against its store row, the other
+   three's 15 against recboard_tpu's mean over the same seeds). Since this slice
+   the Coach's generator is seeded apart from the init's (every band drawn
+   again), the bands of BSARec, UniSRec, GRU4Rec, GLINT-RU and RUM run CUT_SEEDS
+   seeds, resume_check resumes SASRec's device-sampled twin, and the kernels
+   compile beside the first slices.
+
 Every trained run's CPU lists (its first and last served batch) and pool_check's
 CPU evaluations (started as each run is trained) are made in one serving
 process beside the main phases; the checks are finished before the band pool
@@ -260,7 +281,7 @@ process beside the main phases; the checks are finished before the band pool
 Each quality phase runs its seeds in processes of their own side by side
 (the protocol's steps are host-bound), one intra-op thread each:
 ``store_quality``, last, runs every band of phases 8, 12, 14, 16, 17, 18,
-19, 20, 21, 22, 23 and 24 (``STORE_BANDS``), 181 seeds in 8 processes, seed by
+19, 20, 21, 22, 23, 24 and 25 (``STORE_BANDS``), 221 seeds in 8 processes, seed by
 seed, the longest slice first in each round, started beside the
 device-sampled twins' training (profiled before it, from their reference
 configs), resume_check, pool_check and device_samplers. Each phase prints its seconds,
@@ -398,6 +419,17 @@ STORE_NDCG10 = 0.3176
 # gradient or a mask shared across rows lands far below the band
 STORE_BAND = 0.03
 STORE_SEEDS = 5
+# Bands cut to CUT_SEEDS seeds (0-2) for the time limit, once a whole run with
+# JGCF's, PairNorm's, CAGCN's and AlphaRec's bands was predicted at about 1,000 s
+# on the slowest host measured before (PERF.md §6): the longest bands by a seed's seconds
+# where STORE_BAND stays over 4 standard errors of the difference of a 3-seed card
+# mean and its 5-seed store row (sqrt(1/3 + 1/5) x the store's std) beyond the
+# largest offset of the card's 5-seed means in the earlier whole runs: BSARec 0.0017 (std
+# 0.0023, offset 0.0044: 15 of them), GLINT-RU 0.0048 (0.0066, 0.0035: 5.5),
+# UniSRec 0.0054 (0.0074, 0.0081: 4.1), RUM 0.0053 (0.0073, 0.0004: 5.6), GRU4Rec
+# 0.0056 (0.0077, 0.0032: 4.8). Not LESSR's (3.6 at its std 0.0149), BERT4Rec's
+# (3.3 at its card std 0.0147) or FMLP-Rec's (its offset 0.0131: 3.1)
+CUT_SEEDS = 3
 
 # BERT4Rec at the reference widths (configs/BERT4Rec_Amazon2014Beauty_550_LOU.yaml:
 # maxlen 50, D 64, 2 blocks, 4 heads, dropout 0.2, mask_ratio 0.2, batch
@@ -459,12 +491,14 @@ ROLL_SLICES = ("BSARec", "FMLP-Rec", "UniSRec", "GRU4Rec", "NARM", "GLINT-RU", "
 # GLINT-RU 27-46, RUM's 200 epochs 19-41, BSARec 23-36, GRU4Rec and FMLP-Rec
 # 15-29, NARM and MF-BPR's 200 epochs 10-21, Caser 13-17, STAMP 13, FPMC 8-10,
 # the others 2-6; SimpleX's and UltraGCN's 30 epochs placed beside MF-BPR's
-# before a measurement, and SGL's, SimGCL's, NGCF's and GCN's after them), so
-# the short ones fill the processes that free up
+# before a measurement, SGL's, SimGCL's, NGCF's and GCN's after them (4.0-5.8 s
+# a seed), and AlphaRec's, PairNorm's, CAGCN's and JGCF's after those before a
+# measurement), so the short ones fill the processes that free up
 STORE_BANDS = ("LESSR", "BERT4Rec", "UniSRec", "GLINT-RU", "RUM", "BSARec", "GRU4Rec",
                "FMLP-Rec", "NARM", "MF-BPR", "SimpleX", "UltraGCN", "SGL", "SimGCL", "NGCF",
-               "GCN", "Caser", "STAMP", "FPMC", "HSTU_pp", "STOSA", "HSTU_pp_ods", "HSTU",
-               "SASRec", "SEvo", "SASRec_ods", "LightGCN", "NeuMF", "GTE")
+               "GCN", "AlphaRec", "PairNorm", "CAGCN", "JGCF", "Caser", "STAMP", "FPMC",
+               "HSTU_pp", "STOSA", "HSTU_pp_ods", "HSTU", "SASRec", "SEvo", "SASRec_ods",
+               "LightGCN", "NeuMF", "GTE")
 # the band processes at once, one a host core: the whole pool (85 seeds,
 # tests/band_pool_probe.py) took 248.7 s in 40 processes, 200.6 in 24, 187.0
 # in 16 (one call), and 130.8 in 12, 119.7 in 8 (another call; H100 80GB,
@@ -566,7 +600,8 @@ def cpu_batch_indices(batches: int) -> list:
 
 # the slices whose full-catalog scores are also held card against CPU at
 # random weights (``random_weight_scores``)
-RANDOM_WEIGHT_SLICES = GEN_SLICES + ("STOSA", "Caser", "SimpleX", "UltraGCN", "GCN", "NGCF")
+RANDOM_WEIGHT_SLICES = GEN_SLICES + ("STOSA", "Caser", "SimpleX", "UltraGCN", "GCN", "NGCF",
+                                     "JGCF", "PairNorm", "CAGCN", "AlphaRec")
 # LightGCN's propagation, card against CPU: largest error relative to the
 # largest magnitude, of the encoded tables and of their parameters' gradients
 SPMM_TOL = 1e-5
@@ -712,6 +747,64 @@ NGCF_JAX_NDCG10 = 0.040955
 SIMGCL_JAX_NDCG10 = 0.032544
 SGL_JAX_NDCG10 = 0.021747
 SGL_BAND = 0.0035
+# JGCF, PairNorm, CAGCN and AlphaRec (graph_cf2.py's), each at its config and cut
+# to one epoch of 22,363 user draws with replacement on the host pipe: JGCF (its
+# Yelp config: D 64, 3 layers, alpha 1.5, beta 0.5, s 5, weight4mid 0, batch 2,048,
+# Adam lr 1e-3, weight decay 1e-3 folded into the loss: 11 steps; 128-wide
+# scores), PairNorm (its Baby config: D 64, 3 layers, PN, scale 1, dropout 0.1 from
+# the Coach's generator, batch 2,048, lr 1e-3; the config's weight decay 0.01 taken
+# and used by neither package: 11 steps), CAGCN (its Yelp config: D 64, 3 layers,
+# weight decay 1e-3 folded; its trend-reweighted operator built on the card with
+# build_adj's defaults, jc and fusion, as recboard_tpu's runner builds it: 11
+# steps) and AlphaRec (its Movies config: D 64, 2 layers, tau 0.15, the mlp
+# projector, 256 unseen negatives a row, batch 4,096, lr 5e-4, weight decay 1e-6
+# kept by the optimizer: 6 steps) over ALPHAREC_WIDTH-wide frozen item features.
+# No kernel of K1-K7 on these paths: the products are cuSPARSE's CSR SpMM and
+# cuBLAS's GEMMs.
+CF2_SLICES = ("JGCF", "PairNorm", "CAGCN", "AlphaRec")
+JGCF = dict(embedding_dim=64, num_layers=3)
+JGCF_CONFIG = os.path.join(ROOT, "configs", "JGCF_Yelp2018_10104811_ROU.yaml")
+PAIRNORM = dict(embedding_dim=64, num_layers=3)
+PAIRNORM_CONFIG = os.path.join(ROOT, "configs", "PairNorm_Amazon2014Baby_550_MMRec.yaml")
+CAGCN = dict(embedding_dim=64, num_layers=3)
+CAGCN_CONFIG = os.path.join(ROOT, "configs", "CAGCN_Yelp2018_10104811_ROU.yaml")
+ALPHAREC = dict(embedding_dim=64, num_layers=2)
+ALPHAREC_CONFIG = os.path.join(ROOT, "configs", "AlphaRec_AmazonMovies_Alpha.yaml")
+# AlphaRec's XL features: the width of the text embeddings its paper projects
+# (OpenAI's text-embedding-3-large), made from the dataset's 24-wide SVD features
+# (``synthetic.write_wide_item_features``); its toy-store band keeps the 24-wide
+# --tfile, as tools/seed_sweep.py runs it
+ALPHAREC_WIDTH = 3072
+ALPHAREC_FEATURES = dict(tfile="wide_feats.pkl")
+# its config's ``tasktag: Matching`` names no TaskTag of either package (both
+# runners refuse the config as written), so it runs as the store's NEXTITEM
+# datasets, a general CF model's pipes either way
+ALPHAREC_FLAGS = dict(ALPHAREC_FEATURES, tasktag="NEXTITEM")
+# Their bands. recboard_tpu's own protocol (``python3 tests/graph_cf_band_probe.py
+# jax <M> 0 15``, tools/seed_sweep.py's arguments: 30 epochs, AlphaRec --tfile the
+# store's 24-wide features) reproduces each store row on seeds 0-4 to the printed
+# digits (benchmark/SynBeauty_000_LOU/<M>.json: JGCF 0.04572, PairNorm 0.04307,
+# CAGCN 0.04300, AlphaRec 0.04208) and gives over seeds 0-14 JGCF 0.046328 (sample
+# std 0.0021), PairNorm 0.043712 (0.0037), CAGCN 0.044241 (0.0041), AlphaRec
+# 0.040305 (0.0045). JGCF: its 5-seed row against the port's 5 seeds: the
+# difference of two 5-seed means has a standard error of sqrt(2 / 5) x 0.0021 =
+# 0.0013 (the store's 0.0016: 0.0010), so GEN_BAND is 4.5 of them. The other three
+# compare 15-seed means (seeds 0-14): sqrt(2 / 15) x std = 0.0014 / 0.0015 /
+# 0.0016, so GEN_BAND is 4.4 / 4.0 / 3.7 of them, and it excludes a random ranking
+# (0.0158, ``random_ndcg10``) by 0.018 or more; a 5-seed comparison at these stds
+# would leave GEN_BAND at 2.1-2.6 standard errors.
+JGCF_STORE_NDCG10 = 0.04572
+PAIRNORM_JAX_NDCG10 = 0.043712
+CAGCN_JAX_NDCG10 = 0.044241
+ALPHAREC_JAX_NDCG10 = 0.040305
+# CAGCN's operator built on the card against the port's CPU build
+# (``check_cagcn_adj``): each float32 value from the same float64 arithmetic on
+# the same exact counts, so within a few ulps of values of O(1)
+CAGCN_ADJ_TOL = 1e-6
+# AlphaRec's user features on the card against the CPU's: means of up to 20
+# feature rows of O(1), largest error relative to the largest magnitude
+ALPHAREC_FEATURE_TOL = 1e-6
+
 # SGL's views at the XL shape (``check_sgl_views``): keep masks drawn on the CPU
 # at its config's drop rate, the card's values against the CPU's within
 # SGL_VIEW_TOL (a value is a product of two reciprocal square roots of integer
@@ -2584,6 +2677,29 @@ def ngcf_flax_params(rng, num_items, embedding_dim, num_layers, num_users, **_):
 simgcl_flax_params = sgl_flax_params = mf_bpr_flax_params
 
 
+# JGCF's and CAGCN's params are the two tables; CAGCN's operator holds none
+jgcf_flax_params = cagcn_flax_params = mf_bpr_flax_params
+
+
+def pairnorm_flax_params(rng, num_items, embedding_dim, num_users, **_):
+    """PairNorm params in recboard_tpu's flax layout, made with numpy: the two
+    tables and ``linear`` (a Dense with a bias)."""
+    D = embedding_dim
+    return dict(mf_bpr_flax_params(rng, num_items, D, num_users),
+                linear={"kernel": xavier(rng, D, D),
+                        "bias": (rng.normal(size=D) * 0.02).astype(np.float32)})
+
+
+def alpharec_flax_params(rng, num_items, embedding_dim, **_):
+    """AlphaRec params in recboard_tpu's flax layout, made with numpy: the mlp
+    projector's ``proj_0`` (ALPHAREC_WIDTH → half) and ``proj_1`` (→ D), Dense
+    layers with biases; its frozen features are none."""
+    widths = (ALPHAREC_WIDTH, ALPHAREC_WIDTH // 2, embedding_dim)
+    return {f"proj_{i}": {"kernel": xavier(rng, fan_in, fan_out),
+                          "bias": (rng.normal(size=fan_out) * 0.02).astype(np.float32)}
+            for i, (fan_in, fan_out) in enumerate(zip(widths, widths[1:]))}
+
+
 def gte_flax_params(rng, num_items, num_users, **_):
     """GTE's one parameter in recboard_tpu's flax layout: the (1,) dummy."""
     return {"dummy": np.zeros(1, dtype=np.float32)}
@@ -2740,7 +2856,7 @@ SLICES = {
     # pipe only, as recboard_tpu's runner does
     "BSARec": dict(widths=BSAREC, params=bsarec_flax_params, config=BSAREC_CONFIG,
                    batch=BSAREC_BATCH, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                   store=BSAREC_STORE_NDCG10, tag="bsarec_", timings=False),
+                   store=BSAREC_STORE_NDCG10, seeds=CUT_SEEDS, tag="bsarec_", timings=False),
     "BSARec_ods": dict(model="BSARec", widths=BSAREC, params=bsarec_flax_params,
                        config=BSAREC_CONFIG, batch=BSAREC_BATCH, flags=ODS,
                        epochs=ROLL_EPOCHS, tag="bsarec_ods_", host="BSARec",
@@ -2755,13 +2871,13 @@ SLICES = {
     "UniSRec": dict(widths=UNISREC, params=unisrec_flax_params, config=UNISREC_CONFIG,
                     batch=UNISREC_BATCH, flags=FEATURES, epochs=ROLL_EPOCHS,
                     protocol=dict(STORE_PROTOCOL, **FEATURES), store=UNISREC_STORE_NDCG10,
-                    tag="unisrec_", timings=False),
+                    seeds=CUT_SEEDS, tag="unisrec_", timings=False),
     # the recurrent and session models; GRU4Rec also device-sampled, and
     # FPMC's sampler (NUM_PADS 0) checked in device_samplers
     "GRU4Rec": dict(widths=GRU4REC, params=gru4rec_flax_params, config=GRU4REC_CONFIG,
                     batch=512, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                    store=GRU4REC_STORE_NDCG10, tag="gru4rec_", inputs="uncapped",
-                    timings=False),
+                    store=GRU4REC_STORE_NDCG10, seeds=CUT_SEEDS, tag="gru4rec_",
+                    inputs="uncapped", timings=False),
     "GRU4Rec_ods": dict(model="GRU4Rec", widths=GRU4REC, params=gru4rec_flax_params,
                         config=GRU4REC_CONFIG, batch=512, flags=ODS, epochs=ROLL_EPOCHS,
                         tag="gru4rec_ods_", host="GRU4Rec", timings=False),
@@ -2770,8 +2886,8 @@ SLICES = {
                  tag="narm_", inputs="uncapped", timings=False),
     "GLINT-RU": dict(widths=GLINT_RU, params=glint_ru_flax_params, config=GLINT_RU_CONFIG,
                      batch=2048, epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL,
-                     store=GLINT_RU_STORE_NDCG10, tag="glint_ru_", inputs="uncapped",
-                     timings=False),
+                     store=GLINT_RU_STORE_NDCG10, seeds=CUT_SEEDS, tag="glint_ru_",
+                     inputs="uncapped", timings=False),
     "STAMP": dict(widths=STAMP, params=stamp_flax_params, config=STAMP_CONFIG, batch=512,
                   epochs=ROLL_EPOCHS, protocol=STORE_PROTOCOL, store=STAMP_STORE_NDCG10,
                   tag="stamp_", timings=False),
@@ -2804,7 +2920,7 @@ SLICES = {
                       tag="stosa_ods_", host="STOSA", **UNTIMED),
     "RUM": dict(widths=RUM, params=rum_flax_params, config=RUM_CONFIG, batch=512,
                 epochs=ROLL_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=200),
-                store=RUM_STORE_NDCG10, tag="rum_", **UNTIMED),
+                store=RUM_STORE_NDCG10, seeds=CUT_SEEDS, tag="rum_", **UNTIMED),
     "Caser": dict(widths=CASER, params=caser_flax_params, config=CASER_CONFIG, batch=512,
                   epochs=ROLL_EPOCHS, protocol=dict(STORE_PROTOCOL, maxlen=5),
                   store=CASER_STORE_NDCG10, tag="caser_", inputs="caser", **UNTIMED),
@@ -2853,6 +2969,27 @@ SLICES = {
                 epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
                 store=SGL_JAX_NDCG10, band=SGL_BAND, seeds=GRAPH_SEEDS, tag="sgl_",
                 timings=False),
+    # JGCF, PairNorm and CAGCN on the host pipe of users, neither profiled nor
+    # benched (UNTIMED: they train while the kernels compile, EARLY_SLICES);
+    # AlphaRec on its host pipe
+    # of 256 unseen negatives a row over the wide features, profiled (its
+    # projector, new in its slice); its band over the store's 24-wide features
+    "JGCF": dict(widths=JGCF, params=jgcf_flax_params, config=JGCF_CONFIG, batch=2048,
+                 epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                 store=JGCF_STORE_NDCG10, band=GEN_BAND, tag="jgcf_", **UNTIMED),
+    "PairNorm": dict(widths=PAIRNORM, params=pairnorm_flax_params, config=PAIRNORM_CONFIG,
+                     batch=2048, epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                     store=PAIRNORM_JAX_NDCG10, band=GEN_BAND, seeds=GRAPH_SEEDS,
+                     tag="pairnorm_", **UNTIMED),
+    "CAGCN": dict(widths=CAGCN, params=cagcn_flax_params, config=CAGCN_CONFIG, batch=2048,
+                  epochs=GEN_EPOCHS, protocol=dict(STORE_PROTOCOL, epochs=30),
+                  store=CAGCN_JAX_NDCG10, band=GEN_BAND, seeds=GRAPH_SEEDS, tag="cagcn_",
+                  **UNTIMED),
+    "AlphaRec": dict(widths=ALPHAREC, params=alpharec_flax_params, config=ALPHAREC_CONFIG,
+                     batch=4096, flags=ALPHAREC_FLAGS, epochs=GEN_EPOCHS,
+                     protocol=dict(STORE_PROTOCOL, epochs=30, **FEATURES),
+                     store=ALPHAREC_JAX_NDCG10, band=GEN_BAND, seeds=GRAPH_SEEDS,
+                     tag="alpharec_", timings=False),
 }
 
 
@@ -2947,6 +3084,8 @@ def make_dataset():
     synthetic.make_synthetic_dataset(data_root, spec.pop("name"), **spec)
     dataset = NextItemRecDataSet(data_root, DATASET["name"])
     synthetic.write_item_features(dataset)  # UniSRec's --tfile
+    synthetic.write_wide_item_features(dataset, ALPHAREC_WIDTH,  # AlphaRec's
+                                       ALPHAREC_FEATURES["tfile"])
     return dataset
 
 
@@ -3158,7 +3297,7 @@ def counted_kernels() -> tuple:
 
 # the ported models whose paths reach none of K1-K7
 KERNEL_FREE = ("FMLP-Rec", "GRU4Rec", "NARM", "GLINT-RU", "STAMP", "FPMC") + GEN_SLICES + (
-    "STOSA", "RUM", "Caser", "LESSR") + PAIR_SLICES + GRAPH_SLICES
+    "STOSA", "RUM", "Caser", "LESSR") + PAIR_SLICES + GRAPH_SLICES + CF2_SLICES
 
 
 def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
@@ -3172,7 +3311,8 @@ def expected_launches(model: str, blocks: int, trained: int, evaluated: int,
     negatives and K4 with per-position ones (no ``negs_mode``), and no
     kernel in evaluation; the models of KERNEL_FREE (FMLP-Rec, GRU4Rec, NARM,
     GLINT-RU, STAMP, FPMC, MF-BPR, NeuMF, LightGCN, STOSA, RUM, Caser, LESSR,
-    SimpleX, UltraGCN, GTE, GCN, NGCF, SimGCL, SGL) run none. No model calls K7."""
+    SimpleX, UltraGCN, GTE, GCN, NGCF, SimGCL, SGL, JGCF, PairNorm, CAGCN,
+    AlphaRec) run none. No model calls K7."""
     if model == "HSTU":
         loss = "shared" if negs_mode == "shared" else "cand"
         per_step = {f"sampled_softmax_{loss}_fwd": 1, f"sampled_softmax_{loss}_bwd": 1,
@@ -3501,7 +3641,9 @@ def random_weight_scores(seed: int, dataset, name: str, users: int = 128) -> dic
         num_users=dataset.fields["USER", "ID"].count, **widths))
     scores = []
     for device in (torch.device(CARD), torch.device("cpu")):
-        model = run.build_model(spec.get("model", name), dataset, dict(widths, seed=seed), device,
+        # the slice's flags: AlphaRec's --tfile
+        model = run.build_model(spec.get("model", name), dataset,
+                                dict(widths, seed=seed, **spec.get("flags", {})), device,
                                 training=False)
         model.load_state_dict(params)
         data = next(iter(run.eval_pipe(model, "test", widths.get("maxlen"), batch_size=users)))
@@ -4262,14 +4404,112 @@ def check_ultragcn_side_info(seed: int, dataset) -> dict:
     return row
 
 
+def check_cagcn_adj(seed: int, dataset) -> dict:
+    """CAGCN's trend-reweighted operator at the XL shape as the runner builds it
+    (``CAGCN.build_adj``'s defaults: jc, fusion), built on the card under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
+    inside the build), against the port's CPU build: the same entries (rows,
+    columns, count), every value within CAGCN_ADJ_TOL, and one product and its
+    backward within SPMM_TOL of the largest magnitude; the build's time by CUDA
+    events (the host's structure work included) and the similarity triples it
+    forms (Σ d_u² + Σ d_i² over the binary incidence)."""
+    import torch
+
+    from recboard_tpu_torch.models.zoo import CAGCN
+
+    card = torch.device(CARD)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, sync_error = CAGCN.build_adj(dataset, card), None
+    except RuntimeError as exc:
+        got, sync_error = None, str(exc)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if got is None:
+        raise SystemExit(f"CAGCN's operator on the card synchronised the host: {sync_error}")
+    t0 = time.perf_counter()
+    want = CAGCN.build_adj(dataset, "cpu")
+    cpu_s = time.perf_counter() - t0
+    build_ms = cuda_ms(lambda: CAGCN.build_adj(dataset, card), iters=5, warmup=1)
+    users, items = CAGCN.edges(dataset)
+    vals, want_vals = got.csr.values().cpu(), want.csr.values()
+    same_entries = bool(np.array_equal(got.rows, want.rows) and np.array_equal(got.cols, want.cols)
+                        and torch.equal(got.csr.crow_indices().cpu(), want.csr.crow_indices())
+                        and torch.equal(got.csr.col_indices().cpu(), want.csr.col_indices())
+                        and torch.equal(got.csr_t.col_indices().cpu(),
+                                        want.csr_t.col_indices()))
+    rng = np.random.default_rng(seed + 3)
+    n = got.shape[0]
+    x = torch.from_numpy(rng.normal(size=(n, SLICES["CAGCN"]["widths"]["embedding_dim"]))
+                         .astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    products = []
+    for adj, device in ((got, card), (want, torch.device("cpu"))):
+        xd = x.to(device).requires_grad_()
+        out = adj @ xd
+        out.backward(g.to(device))
+        products.append([out.detach().cpu(), xd.grad.cpu()])
+    row = dict(nodes=n, nnz=got.nnz, interactions=len(users),
+               triples=sum(int((np.bincount(ids).astype(np.int64) ** 2).sum())
+                           for ids in (users, items)), same_entries=same_entries,
+               values_max_abs_err=float((vals - want_vals).abs().max()),
+               max_value=float(want_vals.abs().max()), tol=CAGCN_ADJ_TOL,
+               transpose_values_max_abs_err=float(
+                   (got.csr_t.values().cpu() - want.csr_t.values()).abs().max()),
+               product_max_rel_err=grad_rel_err(*products), spmm_tol=SPMM_TOL,
+               sync_debug_mode="error", host_sync=sync_error, build_ms=build_ms,
+               cpu_build_s=cpu_s)
+    emit("cagcn_adj", **row)
+    if not (same_entries and row["values_max_abs_err"] <= CAGCN_ADJ_TOL
+            and row["transpose_values_max_abs_err"] <= CAGCN_ADJ_TOL
+            and row["product_max_rel_err"] <= SPMM_TOL):
+        raise SystemExit(f"CAGCN's operator on the card against the CPU: {row}")
+    return row
+
+
+def check_alpharec_features(seed: int, dataset) -> dict:
+    """AlphaRec's frozen features at the XL shape (``AlphaRec.build_features``
+    over the ALPHAREC_WIDTH-wide item features): the user features (each the
+    mean of its train items' rows, a repeat counted twice) made on the card
+    against the CPU's, the largest error relative to the largest magnitude
+    within ALPHAREC_FEATURE_TOL, the item features placed bit for bit; the
+    build's time by CUDA events."""
+    import torch
+
+    from recboard_tpu_torch import utils
+    from recboard_tpu_torch.models.zoo import AlphaRec
+
+    feats = utils.import_pickle(os.path.join(dataset.path, ALPHAREC_FEATURES["tfile"]))
+    card = torch.device(CARD)
+    item_c, user_c = AlphaRec.build_features(dataset, feats, card)
+    t0 = time.perf_counter()
+    item_h, user_h = AlphaRec.build_features(dataset, feats, "cpu")
+    cpu_s = time.perf_counter() - t0
+    row = dict(users=user_h.shape[0], items=item_h.shape[0], width=item_h.shape[1],
+               item_mb=item_h.numel() * 4 / 1e6, user_mb=user_h.numel() * 4 / 1e6,
+               items_equal=torch.equal(item_c.cpu(), item_h),
+               user_max_rel_err=rel_err(user_c.cpu(), user_h),
+               user_max_abs=float(user_h.abs().max()), tol=ALPHAREC_FEATURE_TOL,
+               build_ms=cuda_ms(lambda: AlphaRec.build_features(dataset, feats, card), 3, 1),
+               cpu_build_s=cpu_s)
+    emit("alpharec_features", **row)
+    if not (row["items_equal"] and row["user_max_rel_err"] <= ALPHAREC_FEATURE_TOL):
+        raise SystemExit(f"AlphaRec's features on the card against the CPU: {row}")
+    return row
+
+
 # the device-sampled slices; their samplers' checks; the slice resumed
 ODS_SLICES = ("SASRec_ods", "BERT4Rec_ods", "HSTU_pp_ods", "BSARec_ods", "FMLP-Rec_ods",
               "GRU4Rec_ods", "LightGCN_ods", "STOSA_ods", "Caser_ods")
 SAMPLER_SLICES = ODS_SLICES + ("FPMC", "RUM", "LESSR", "SimpleX")
 # the slice resume_check trains (four runs of two epochs and one of one):
-# per-position HSTU's device-sampled twin, whose negatives the Coach's
-# generator draws
-RESUME_SLICE = "HSTU_pp_ods"
+# SASRec's device-sampled twin, whose dropout seeds the Coach's generator draws
+# (per-position HSTU's twin, whose negatives it draws, until a whole run with
+# JGCF's, PairNorm's, CAGCN's and AlphaRec's slices was predicted over 950 s on the
+# slowest host measured: its resume_check took 82.1 s there beside the band pool, an
+# epoch of SASRec's twin about a third of one of HSTU's)
+RESUME_SLICE = "SASRec_ods"
 CARD = "cuda"  # the device the checks below hold against the CPU
 POOL_TOL = 1e-4  # |card - CPU| of a pool-ranking metric (a rank flip moves 1 / rows)
 # pool_check's CPU evaluations, made in the serving process once each run has
@@ -4742,6 +4982,14 @@ KERNEL_PHASES = {
 }
 
 
+# kernel-free slices neither profiled nor benched that train while the kernels
+# compile, before the kernel phases (their phases read no time): JGCF's,
+# PairNorm's and CAGCN's, after the first whole run with them (on an H100 80GB
+# at 700 W: what ran beside the band pool, their training among it, took 369.4 s
+# against the pool's own 318.2, the build 33.1 s)
+EARLY_SLICES = ("JGCF", "PairNorm", "CAGCN")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4797,7 +5045,21 @@ def main(argv=None) -> int:
         emit("phase_seconds", name=name, seconds=phase_s[name])
         return out
 
-    logs = timed("build", _build.build)
+    global CPU_SERVING
+    early = {}
+    if only:
+        logs = timed("build", _build.build)
+    else:
+        CPU_SERVING = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"), initializer=serving_process)
+        # the kernels compile while the dataset is made and EARLY_SLICES train
+        with concurrent.futures.ThreadPoolExecutor(1) as compiling:
+            building = compiling.submit(timed, "build", _build.build)
+            dataset = timed("dataset", make_dataset)
+            early = {name: timed(f"{SLICES[name]['tag']}train", train_slice, args.seed, dataset,
+                                 name) for name in EARLY_SLICES}
+            logs = building.result()
+        timed("early_serve_collected", collect_served_checks)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", sources=list(_build.SOURCES), seconds=phase_s["build"], ptxas=ptxas)
@@ -4815,10 +5077,6 @@ def main(argv=None) -> int:
     rb_rows, rb_worst = checked["rel_bias"]
     ssc_rows, ssc_worst = checked["sampled_softmax_cand"]
     mask_rows, mask_launches = checked["dropout"]
-    global CPU_SERVING
-    CPU_SERVING = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"), initializer=serving_process)
-    dataset = timed("dataset", make_dataset)
     slice_ = timed("slice", serve_slice, args.seed, dataset, "SASRec")
     timed("profile", profile_bench, slice_["run_dir"], slice_["bench"]["p50"], "profile")
     from recboard_tpu_torch.serve import load_run_config
@@ -4838,6 +5096,8 @@ def main(argv=None) -> int:
         out = {}
         for name in names:
             spec = SLICES[name]
+            if name in early:
+                continue
             if not spec.get("profile_steps", PROFILE_STEPS) and not spec.get("bench"):
                 quiet.append(name)
                 continue
@@ -4871,6 +5131,9 @@ def main(argv=None) -> int:
     pair_trained = train_and_profile(PAIR_SLICES)
     timed("ultragcn_side_info", check_ultragcn_side_info, args.seed, dataset)
     graph_trained = train_and_profile(GRAPH_SLICES)
+    cf2_trained = train_and_profile(CF2_SLICES)
+    timed("cagcn_adj", check_cagcn_adj, args.seed, dataset)
+    timed("alpharec_features", check_alpharec_features, args.seed, dataset)
     timed("train_serve_collected", collect_served_checks)
     # the device-sampled twins profiled from their reference configs before
     # the band pool starts, trained and served beside it
@@ -4879,7 +5142,7 @@ def main(argv=None) -> int:
             host = SLICES[name]["host"]
             profile(name, reference_cfg(name, args.seed, log_path=os.path.join(WORK, "cfgs")),
                     dict(host_times[host], slice=host))
-    # every model's band: 181 seeds, 8 processes at once beside each other on
+    # every model's band: 221 seeds, 8 processes at once beside each other on
     # the card, started beside the quiet slices' and the twins' training and
     # the last three checks, which time nothing but pool_check's card_s and the
     # samplers' draw_s (their card and CPU results are compared, not timed);
@@ -4976,6 +5239,8 @@ def main(argv=None) -> int:
                                                           *new_trained.values(),
                                                           *pair_trained.values(),
                                                           *graph_trained.values(),
+                                                          *cf2_trained.values(),
+                                                          *early.values(),
                                                           *quiet_trained.values()))),
         *row_mask_entries(rows, drop_rows, roll_trained),
     ]}))

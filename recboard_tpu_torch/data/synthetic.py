@@ -10,6 +10,8 @@ item-successor graph. The same arguments give byte-identical
 for text or image encodings (UniSRec's ``--tfile``), as the benchmark
 sweep does (``tools/seed_sweep.py``, ``prepare_side_inputs``): an SVD of
 the train bigraph plus noise, in numpy; nothing is downloaded.
+``write_wide_item_features`` widens them to a text encoder's width
+(AlphaRec's frozen features at their published width).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from .. import utils
 from . import preprocessing
 
 __all__ = ["FEATURE_FILE", "generate_interactions", "make_item_features",
-           "make_synthetic_dataset", "write_item_features"]
+           "make_synthetic_dataset", "write_item_features", "write_wide_item_features"]
 
 # the feature pickle the benchmark sweep writes into a dataset's directory
 FEATURE_FILE = "sweep_feats.pkl"
@@ -146,4 +148,22 @@ def write_item_features(dataset) -> str:
     path = os.path.join(dataset.path, FEATURE_FILE)
     if not os.path.isfile(path):
         utils.export_pickle(make_item_features(dataset), path)
+    return path
+
+
+def write_wide_item_features(dataset, width: int, file_: str, seed: int = 0) -> str:
+    """An (items, ``width``) float32 feature pickle ``file_`` in the dataset's
+    directory, unless that file exists; returns its path. The features are
+    ``make_item_features``' 24-wide ones times a fixed (24, ``width``)
+    normal(0, 1/24) matrix from ``seed``, plus normal(0.02) noise from it:
+    features as wide as a text encoder's whose geometry is the narrow ones'
+    (AlphaRec's projector at its published width on a synthetic store)."""
+    path = os.path.join(dataset.path, file_)
+    if not os.path.isfile(path):
+        narrow = make_item_features(dataset)
+        rng = np.random.default_rng(seed)
+        mix = rng.normal(size=(narrow.shape[1], width)).astype(np.float32)
+        mix /= np.float32(np.sqrt(narrow.shape[1]))
+        wide = narrow @ mix + rng.normal(size=(narrow.shape[0], width)).astype(np.float32) * 0.02
+        utils.export_pickle(wide.astype(np.float32), path)
     return path

@@ -21,6 +21,10 @@ default ``adj @ x`` (a gather and a sorted segment-sum, differentiated by
 JAX), so one product serves both of LightGCN's ``spmm_const`` values.
 ``adj.T @ x`` (``recboard_tpu``'s ``SparseAdj.T``, GTE's item update) is
 the same function with the two buffers swapped: no copy of the matrix.
+``SparseAdj.from_values`` makes one from a structure given on the host and
+values made on the device (CAGCN's trend-reweighted adjacency), reading
+nothing back; ``to_device`` moves the structure's arrays to a card without
+waiting for the copies.
 
 ``recboard_tpu`` computes this product in XLA, outside any Pallas kernel
 (``recboard_tpu/ops/spmm.py``), so here it is the library's CSR product:
@@ -55,7 +59,17 @@ import torch
 from torch import nn
 
 __all__ = ["AdjView", "ReweightedAdj", "SparseAdj", "SpMM", "TransposedAdj", "add_self_loops",
-           "bipartite_normalized_adj", "to_normalized"]
+           "bipartite_normalized_adj", "to_device", "to_normalized"]
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``: on the CPU the array's own
+    memory, to a card through pinned memory without waiting for the copy (no
+    host synchronisation)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, shape: Tuple[int, int],
@@ -107,12 +121,54 @@ class SparseAdj(nn.Module):
         order = np.argsort(np.asarray(rows), kind="stable")
         self.rows = np.asarray(rows, dtype=np.int64)[order]
         self.cols = np.asarray(cols, dtype=np.int64)[order]
-        self.vals = np.asarray(vals, dtype=np.float32)[order]
+        self._vals = np.asarray(vals, dtype=np.float32)[order]
         self.shape = (int(shape[0]), int(shape[1]))
-        self.register_buffer("csr", _csr(self.rows, self.cols, self.vals, self.shape, device),
+        self.register_buffer("csr", _csr(self.rows, self.cols, self._vals, self.shape, device),
                              persistent=False)
-        self.register_buffer("csr_t", _csr(self.cols, self.rows, self.vals, self.shape[::-1],
+        self.register_buffer("csr_t", _csr(self.cols, self.rows, self._vals, self.shape[::-1],
                                            device), persistent=False)
+
+    @classmethod
+    def from_values(cls, rows, cols, vals: torch.Tensor, shape: Tuple[int, int]
+                    ) -> "SparseAdj":
+        """The matrix whose entries are ``(rows[k], cols[k], vals[k])``:
+        ``rows`` and ``cols`` numpy, sorted by row, then column, no pair
+        twice (one value a CSR nonzero); ``vals`` (nnz,) a tensor on the
+        device the CSR buffers are to live on, made there. Both CSR tensors
+        are built around it there (the transpose's values permuted on that
+        device), unchecked: nothing is read back to the host."""
+        adj = cls.__new__(cls)
+        nn.Module.__init__(adj)
+        adj.rows = np.asarray(rows, dtype=np.int64)
+        adj.cols = np.asarray(cols, dtype=np.int64)
+        adj.shape = (int(shape[0]), int(shape[1]))
+        if not (np.diff(adj.rows * adj.shape[1] + adj.cols) > 0).all():
+            raise ValueError("SparseAdj.from_values needs entries sorted by row and column "
+                             "with no (row, column) pair twice")
+        adj._vals = None
+        device = vals.device
+
+        def indices(rows_, cols_, n_rows):
+            crow = np.zeros(n_rows + 1, dtype=np.int64)
+            np.cumsum(np.bincount(rows_, minlength=n_rows), out=crow[1:])
+            return to_device(crow.astype(np.int32), device), to_device(cols_.astype(np.int32),
+                                                                       device)
+
+        perm_t = np.lexsort((adj.rows, adj.cols))
+        adj.register_buffer("csr", _csr_tensor(*indices(adj.rows, adj.cols, adj.shape[0]),
+                                               vals, adj.shape), persistent=False)
+        adj.register_buffer("csr_t", _csr_tensor(
+            *indices(adj.cols[perm_t], adj.rows[perm_t], adj.shape[1]),
+            vals[to_device(perm_t, device)], adj.shape[::-1]), persistent=False)
+        return adj
+
+    @property
+    def vals(self) -> np.ndarray:
+        """The entries' values in ``rows``' order (numpy); those of a matrix
+        made on the device (``from_values``) read back from its CSR."""
+        if self._vals is None:
+            return self.csr.values().detach().cpu().numpy()
+        return self._vals
 
     @property
     def nnz(self) -> int:

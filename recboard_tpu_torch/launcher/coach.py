@@ -17,7 +17,8 @@ either, and a resume checkpoint of the port's own (``torch.save``: the
 model's and the optimizer's state, the Coach's generator, the epoch, the
 history and the early-stopping state), written in a background thread.
 Dropout masks are drawn from one ``torch.Generator`` on the model's
-device, seeded from ``cfg.seed``.
+device, seeded from ``utils.coach_seed(cfg.seed)``: a stream apart from the
+one the weights were initialised from.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ class Coach:
         self._early_stop_patience = int(cfg.get("early_stop_patience", 1e9) or 1e9)
 
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(cfg.get("seed", 0)))
+        self.generator.manual_seed(utils.coach_seed(cfg.get("seed", 0)))
         self._eval_cache: Dict[str, List[Tuple]] = {}
         self._ckpt_thread: Optional[threading.Thread] = None
         self._wanted = [metrics_lib.parse_monitor(n) for n in cfg.get("monitors", [])]
@@ -346,7 +347,7 @@ class Coach:
         else:
             utils.warnLogger("[Coach] >>> checkpoint generator state from another device "
                              "type; reseeding from cfg.seed")
-            self.generator.manual_seed(int(self.cfg.get("seed", 0)))
+            self.generator.manual_seed(utils.coach_seed(self.cfg.get("seed", 0)))
         self.history = payload["history"]
         self._best, self._best_epoch, self._stopping_steps = payload["best"]
         return int(payload["epoch"])

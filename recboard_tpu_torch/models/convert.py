@@ -35,7 +35,9 @@ k = 1..maxlen, ``BARE_FAMILIES``; GTE's ``dummy`` (1,)) keeps its name and
 its flax shape.
 ``blocks_0/q_proj/kernel`` becomes ``blocks_0.q_proj.weight``. A Dense
 layer without a bias (HSTU's ``uvqk_linear``, NARM's attention, SimpleX's
-``agg_linear``) has no bias leaf either way. Later slices add rules for the leaves their
+``agg_linear``) has no bias leaf either way. Buffers carry no leaf (a graph
+model's adjacency, AlphaRec's frozen features), so PairNorm's ``linear`` and
+AlphaRec's ``proj_0`` and ``proj_1`` convert as any Dense. Later slices add rules for the leaves their
 modules bring (BatchNorm stats).
 
 ``to_flax`` is the inverse: the port's Coach saves ``{"params":

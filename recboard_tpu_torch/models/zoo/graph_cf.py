@@ -1,7 +1,8 @@
 """What the graph collaborative-filtering models share (counterpart of
 ``recboard_tpu/models/zoo/graph_cf.py``'s ``_split_ui``, ``_l2norm``,
 ``_GraphRecBase`` and ``_bpr_and_reg``): LightGCN, GCN, NGCF, SimGCL, SGL,
-SimpleX, UltraGCN and GTE.
+SimpleX, UltraGCN, GTE, and ``graph_cf2.py``'s JGCF, PairNorm, CAGCN and
+AlphaRec.
 
 ``GraphRecBase.build_adj(dataset, device)`` is the propagation operator
 ``run.build_model`` hands a model that takes an ``adj`` (the train split's

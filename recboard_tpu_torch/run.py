@@ -10,7 +10,8 @@ device, resumes from the last epoch's checkpoint under ``--resume``,
 ranks the full catalog or (``--ranking pool``) each row's candidate pool,
 and leaves a run directory that ``recommend`` serves. The sequential
 models' pipes take ``--maxlen``; the general CF models' (``GenRecArch``:
-MF-BPR, NeuMF, LightGCN, GCN, NGCF, SimGCL, SGL, SimpleX, UltraGCN, GTE)
+MF-BPR, NeuMF, LightGCN, GCN, NGCF, SimGCL, SGL, SimpleX, UltraGCN, GTE, JGCF,
+PairNorm, CAGCN, AlphaRec)
 take none (``train_pipe``, ``eval_pipe``). Only ``--device`` on the command line (or in ``main``'s
 argv) chooses the device: a config file's ``device`` key is ignored, as
 ``recboard_tpu``'s runner ignores it.
@@ -90,7 +91,13 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
     with self loops).
     UltraGCN's side information (``build_side_info`` with ``cfg``'s
     ``num_neighbors``, 10 by default) is built on ``device`` when
-    ``training``: serving (``training=False``) does not read it. A model
+    ``training``: serving (``training=False``) does not read it. CAGCN's
+    trend-reweighted operator is its ``build_adj``, made on ``device`` with
+    its defaults (``recboard_tpu``'s runner passes none of the config's trend
+    keys). AlphaRec's frozen features come from the pickle ``cfg``'s
+    ``tfile`` (else ``vfile``, else ``sem_feat_file``) names, its user
+    features made on ``device`` by ``build_features``; without one the run
+    stops. A model
     over several datasets (UniSRec) runs single-corpus here, as
     ``recboard_tpu``'s runner runs it: ``datasets`` and ``tfeats`` become
     one-entry dicts of this dataset and its ``--tfile`` features."""
@@ -120,6 +127,21 @@ def build_model(name: str, dataset: RecDataSet, cfg: Dict[str, Any], device: tor
             dataset, num_neighbors=int(cfg.get("num_neighbors", 10) or 10), device=device)
         for key, value in zip(cls.SIDE_INFO, side_info):
             kwargs.setdefault(key, value)
+    if "item_features" in defaults and kwargs.get("item_features") is None:
+        # AlphaRec's frozen features, looked up as recboard_tpu's runner does
+        feats = None
+        for key in ("tfile", "vfile", "sem_feat_file"):
+            feats = load_feat(name, dataset, cfg, key)
+            if feats is not None:
+                break
+        if feats is None:
+            raise SystemExit(
+                f"model {name!r} needs frozen item features: pass --tfile (or --vfile, "
+                "--sem_feat_file) naming an (items, F) float32 pickle under "
+                f"{dataset.path}"
+            )
+        kwargs["item_features"], kwargs["user_features_arr"] = cls.build_features(
+            dataset, feats, device)
     if "datasets" in defaults and kwargs.get("datasets") is None:
         feats = load_feat(name, dataset, cfg, "tfile")
         if feats is None:
@@ -160,6 +182,12 @@ DEVICE_SAMPLERS = {
     "NGCF": DeviceGenSampler,
     "SimGCL": DeviceGenSampler,
     "SGL": DeviceGenSampler,
+    "JGCF": DeviceGenSampler,
+    "PairNorm": DeviceGenSampler,
+    "CAGCN": DeviceGenSampler,
+    # one negative, as recboard_tpu's runner builds it (its host pipe draws
+    # num_negs unseen ones)
+    "AlphaRec": DeviceGenSampler,
     "STOSA": DeviceSeqSampler,
     # the last maxlen items, one positive drawn from them and one negative
     "RUM": functools.partial(DeviceFullSeqSampler, sample_pos=True, num_negatives=1),
@@ -242,9 +270,10 @@ def build_pipes(model, cfg, device: torch.device):
 
 def zero_folded_decay(model, cfg) -> None:
     """Zero ``cfg.weight_decay`` for a model that takes a ``weight_decay`` of
-    its own and folds it into its loss (LightGCN, GCN, NGCF, SimGCL, SGL),
-    as ``recboard_tpu``'s runner does after building the model: the model
-    keeps the value it took, the optimizer decays nothing."""
+    its own and folds it into its loss (LightGCN, GCN, NGCF, SimGCL, SGL,
+    JGCF, CAGCN) or takes it and uses it nowhere (PairNorm), as
+    ``recboard_tpu``'s runner does after building the model: the model keeps
+    the value it took, the optimizer decays nothing."""
     if "weight_decay" in inspect.signature(type(model).__init__).parameters:
         cfg.weight_decay = 0.0
 

@@ -15,6 +15,7 @@ import torch
 
 __all__ = [
     "AverageMeter",
+    "coach_seed",
     "export_pickle",
     "import_pickle",
     "infoLogger",
@@ -119,6 +120,15 @@ def set_seed(seed: int) -> int:
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)
     return seed
+
+
+def coach_seed(seed: int) -> int:
+    """The seed of the Coach's generator (dropout masks, noise, keep masks):
+    a second stream drawn from ``seed`` by numpy's ``SeedSequence``, apart
+    from the stream ``run.build_model`` initialises the weights from
+    (``seed`` itself), as ``recboard_tpu`` splits one key for the init and
+    the Coach's draws."""
+    return int(np.random.SeedSequence(int(seed) % 2**64).generate_state(1, np.uint64)[0])
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:

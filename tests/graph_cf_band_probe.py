@@ -1,6 +1,7 @@
 """The toy store's protocol (``tools/seed_sweep.py``'s arguments: 30 epochs, lr
-0.005, batch 128, eval every 3, the model's defaults) for one graph CF model
-and a range of seeds, on the CPU, through ``recboard_tpu``'s runner (``jax``)
+0.005, batch 128, eval every 3, the model's defaults; AlphaRec ``--tfile``
+over the store's 24-wide SVD features) for one graph CF model and a range of
+seeds, on the CPU, through ``recboard_tpu``'s runner (``jax``)
 or the port's (``torch``, ``chip_smoke.store_runs`` in 4 processes): each
 seed's best NDCG@10, then their mean and sample std. A study of a band's
 anchor: how far the store's 5-seed mean lies from more seeds of the same
@@ -8,6 +9,7 @@ protocol in either package. Run from the repo root:
 
     python3 tests/graph_cf_band_probe.py jax SGL 5 15
     python3 tests/graph_cf_band_probe.py torch SGL 0 15
+    python3 tests/graph_cf_band_probe.py jax AlphaRec 0 15
 """
 
 import os
@@ -27,11 +29,14 @@ def jax_runs(model: str, seeds: range) -> list:
     jax.config.update("jax_platforms", "cpu")
     from recboard_tpu import run
     from recboard_tpu_torch.data import synthetic
+    from recboard_tpu_torch.data.datasets import NextItemRecDataSet
 
     data = dict(cs.STORE_DATASET)
     name = data.pop("name")
     data_root = os.path.join(cs.WORK, "band_probe", model, "data")  # one a model: runs in parallel
     synthetic.make_synthetic_dataset(data_root, name, **data)
+    synthetic.write_item_features(NextItemRecDataSet(data_root, name))  # AlphaRec's --tfile
+    extra = ["--tfile", cs.FEATURES["tfile"]] if model == "AlphaRec" else []
     out = []
     for seed in seeds:
         work = os.path.join(cs.WORK, "band_probe", f"{model}-s{seed}")
@@ -39,7 +44,7 @@ def jax_runs(model: str, seeds: range) -> list:
                          "--epochs", "30", "--lr", "0.005", "--batch-size", "128",
                          "--eval-freq", "3", "--seed", str(seed), "--description", model,
                          "--log2console", "false", "--log-path", os.path.join(work, "logs"),
-                         "--checkpoint-path", os.path.join(work, "infos")])
+                         "--checkpoint-path", os.path.join(work, "infos")] + extra)
         out.append(best["NDCG@10"])
     return out
 

@@ -23,6 +23,10 @@
   not symmetric against a dense float64 reference within 1e-6, the view's
   CSR tensors on the adjacency's own index buffers, no gradient to the
   values; a structure with a repeated pair is refused.
+* ``SparseAdj.from_values`` (CAGCN's operator): the matrix the constructor
+  makes from the same entries, both CSR tensors, the product and its
+  gradient, ``vals`` read back in entry order; unsorted or repeated entries
+  are refused.
 """
 
 import jax
@@ -233,3 +237,26 @@ def test_reweighted_adj_refuses_repeated_pairs():
     adj = graph.SparseAdj(rows, cols, np.ones(4, dtype=np.float32), (3, 3))
     with pytest.raises(ValueError, match="no .row, column. pair twice"):
         graph.ReweightedAdj(adj)
+
+
+def test_from_values_is_the_constructors_matrix():
+    rows, cols = np.array([0, 0, 1, 3, 3, 3]), np.array([1, 4, 0, 0, 2, 4])
+    vals = np.random.default_rng(9).normal(size=6).astype(np.float32)
+    want = graph.SparseAdj(rows, cols, vals, (4, 5))
+    got = graph.SparseAdj.from_values(rows, cols, torch.from_numpy(vals), (4, 5))
+    for name in ("csr", "csr_t"):
+        np.testing.assert_array_equal(getattr(got, name).to_dense().numpy(),
+                                      getattr(want, name).to_dense().numpy())
+    np.testing.assert_array_equal(got.vals, vals)
+    assert got.nnz == 6 and got.shape == (4, 5) and got.state_dict() == {}
+    x = torch.from_numpy(np.random.default_rng(10).normal(size=(5, 3))).float()
+    grads = []
+    for adj in (got, want):
+        xd = x.clone().requires_grad_()
+        (adj @ xd).square().sum().backward()
+        grads.append(xd.grad.numpy())
+    np.testing.assert_allclose((got @ x).numpy(), (want @ x).numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(*grads, atol=TOL, rtol=0)
+    for r, c in ((rows[::-1], cols[::-1]), (np.array([0, 0]), np.array([1, 1]))):
+        with pytest.raises(ValueError, match="sorted by row and column"):
+            graph.SparseAdj.from_values(r, c, torch.ones(len(r)), (4, 5))

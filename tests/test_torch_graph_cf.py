@@ -1,11 +1,15 @@
-"""recboard_tpu_torch's GCN, NGCF, SimGCL and SGL against recboard_tpu's, on a
-small dataset (200 users, 100 items, D 8, 2-3 layers), with flax params carried
-across by ``convert.from_flax`` and redrawn at O(0.3).
+"""recboard_tpu_torch's GCN, NGCF, SimGCL and SGL, and JGCF, PairNorm, CAGCN and
+AlphaRec (``CF2``, ``graph_cf2.py``'s; their own checks in
+``tests/test_torch_graph_cf2.py``), against recboard_tpu's, on a small dataset
+(200 users, 100 items, D 8, 2-3 layers; AlphaRec over the dataset's 24-wide
+SVD features, ``--tfile``), with flax params carried across by
+``convert.from_flax`` and redrawn at O(0.3).
 
 * Scores: ``recommend_from_full`` and ``recommend_from_pool`` on the valid and
   test pipes within 1e-5 of JAX's.
 * ``fit``: the loss and its parts within 1e-6 relative, every table and Dense
-  gradient within 1e-5 of its largest entry: GCN, NGCF at dropout 0, SimGCL
+  gradient within 1e-5 of its largest entry: GCN, NGCF and PairNorm at dropout
+  0, JGCF at alpha != beta, CAGCN, AlphaRec over 4 negatives, SimGCL
   with JAX's per-hop noise fed in, SGL for each of ``ed``, ``nd`` and ``rw``
   with JAX's keep masks fed in (JAX's ``make_rng("sampling")`` pinned to one
   key, from which the test draws as JAX's ``fit`` does).
@@ -13,9 +17,10 @@ across by ``convert.from_flax`` and redrawn at O(0.3).
   interactions (kept as separate entries, so left normalization counts them).
 * SGL's views against JAX's ``_dropped_adj`` for each ``aug_type``: the values
   (an ``ed`` view is not symmetric), the product and its gradient.
-* The runner: ``from_flax`` / ``to_flax`` round trips; each model takes its
-  ``weight_decay`` and the optimizer 0; ``DEVICE_SAMPLERS`` gives each JAX's
-  ``DeviceGenSampler``; a run of each trained by the port's CLI on the CPU
+* The runner: ``from_flax`` / ``to_flax`` round trips; each model that folds
+  its ``weight_decay`` into its loss (JGCF and CAGCN too) takes it and the
+  optimizer 0; ``DEVICE_SAMPLERS`` gives each JAX's ``DeviceGenSampler`` (one
+  negative, AlphaRec's too); a run of each trained by the port's CLI on the CPU
   (SGL also on batches drawn by the device sampler) and served alike by both
   packages' ``recommend``; without ``--device cpu`` a run asks for the card
   and raises where there is none.
@@ -45,28 +50,42 @@ LOSS_RTOL, GRAD_TOL = 1e-6, 1e-5
 VIEW_TOL = 1e-6
 BATCH = 16
 MODELS = ("GCN", "NGCF", "SimGCL", "SGL")
+CF2 = ("JGCF", "PairNorm", "CAGCN", "AlphaRec")
+FEATURES = "sweep_feats.pkl"  # data/synthetic.FEATURE_FILE, AlphaRec's --tfile
 KW = {"GCN": dict(embedding_dim=8, num_layers=2),
       "NGCF": dict(embedding_dim=8, num_layers=2, dropout_rate=0.0),
       "SimGCL": dict(embedding_dim=8, num_layers=3, eps=0.2),
-      "SGL": dict(embedding_dim=8, num_layers=2, ssl_drop_rate=0.3)}
+      "SGL": dict(embedding_dim=8, num_layers=2, ssl_drop_rate=0.3),
+      "JGCF": dict(embedding_dim=8, num_layers=3, alpha=1.5, beta=0.5, scaling_factor=5.0,
+                   weight4mid=0.1),
+      "PairNorm": dict(embedding_dim=8, num_layers=2, dropout_rate=0.0, norm_scale=1.0),
+      "CAGCN": dict(embedding_dim=8, num_layers=2),
+      "AlphaRec": dict(embedding_dim=8, num_layers=2, num_negs=4, tfile=FEATURES)}
 FLAGS = {"GCN": ["--embedding-dim", "8", "--num_layers", "2"],
          "NGCF": ["--embedding-dim", "8", "--num_layers", "2"],
          "SimGCL": ["--embedding-dim", "8", "--num_layers", "2"],
-         "SGL": ["--embedding-dim", "8", "--num_layers", "2"]}
+         "SGL": ["--embedding-dim", "8", "--num_layers", "2"],
+         "JGCF": ["--embedding-dim", "8", "--num_layers", "2", "--alpha", "1.5", "--beta", "0.5"],
+         "PairNorm": ["--embedding-dim", "8", "--num_layers", "2", "--norm_scale", "1"],
+         "CAGCN": ["--embedding-dim", "8", "--num_layers", "2"],
+         "AlphaRec": ["--embedding-dim", "8", "--num_layers", "2", "--num_negs", "16",
+                      "--tfile", FEATURES]}
 SAMPLING_KEY = jax.random.PRNGKey(11)
 
 
 @pytest.fixture(scope="module")
 def cf_dataset(tmp_path_factory):
     """200 users, 100 items, with MF-learnable group structure and repeated
-    interactions."""
+    interactions; the 24-wide SVD item features (AlphaRec's) beside them."""
     from recboard_tpu.data import synthetic
     from recboard_tpu.data.datasets import NextItemRecDataSet as NextItemJax
+    from recboard_tpu_torch.data import synthetic as synthetic_torch
 
     root = str(tmp_path_factory.mktemp("graph_cf_data"))
     synthetic.make_synthetic_dataset(root, "GCF_000_LOU", num_users=200, num_items=100,
                                      avg_len=10.0, seed=5, markov_strength=0.1,
                                      group_strength=0.8)
+    synthetic_torch.write_item_features(NextItemRecDataSet(root, "GCF_000_LOU"))
     return NextItemJax(root, "GCF_000_LOU")
 
 
@@ -149,7 +168,7 @@ def _feed_jax_draws(mj, mt, n):
 # ------------------------------------------------------------------ scores
 @pytest.mark.parametrize("split", ["valid", "test"])
 @pytest.mark.parametrize("ranking", ["full", "pool"])
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + CF2)
 def test_scores_match_jax(cf_dataset, name, ranking, split):
     mj, params, mt, _ = _pair(cf_dataset, name)
     mt.eval()
@@ -170,13 +189,17 @@ def test_scores_match_jax(cf_dataset, name, ranking, split):
     assert n > 1
     if name == "NGCF":  # the concatenation of the L + 1 layers
         assert buffers[0].shape == (200, 8 * (KW["NGCF"]["num_layers"] + 1))
+    if name == "JGCF":  # the low band and the mid band
+        assert buffers[0].shape == (200, 16)
 
 
 # ------------------------------------------------------------------- fit
 @pytest.mark.parametrize("name,overrides", [("GCN", {}), ("NGCF", {}), ("SimGCL", {}),
                                             ("SGL", dict(aug_type="ed")),
                                             ("SGL", dict(aug_type="nd")),
-                                            ("SGL", dict(aug_type="rw"))])
+                                            ("SGL", dict(aug_type="rw")),
+                                            ("JGCF", {}), ("PairNorm", {}), ("CAGCN", {}),
+                                            ("AlphaRec", {})])
 def test_fit_loss_and_grads_match_jax(cf_dataset, pinned_sampling, name, overrides):
     mj, params, mt, batch = _pair(cf_dataset, name, **overrides)
 
@@ -272,7 +295,7 @@ def test_sgl_view_matches_jax_dropped_adj(cf_dataset, aug_type):
 
 
 # ---------------------------------------------------------------- runner
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + CF2)
 def test_from_flax_to_flax_round_trip(cf_dataset, name):
     _, params, mt, _ = _pair(cf_dataset, name)
     flat = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, params))[0])
@@ -280,10 +303,11 @@ def test_from_flax_to_flax_round_trip(cf_dataset, name):
     assert set(got) == set(flat)
     for path, value in flat.items():
         np.testing.assert_array_equal(got[path], value)
-    assert set(mt.state_dict()) == set(from_flax(params))  # no adjacency, no view buffers
+    # no adjacency, no view buffers, no frozen features
+    assert set(mt.state_dict()) == set(from_flax(params))
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + ("JGCF", "CAGCN"))
 def test_folded_weight_decay_reaches_the_model_not_the_optimizer(cf_dataset, tmp_path, name,
                                                                  monkeypatch):
     seen = {}
@@ -304,12 +328,13 @@ def test_folded_weight_decay_reaches_the_model_not_the_optimizer(cf_dataset, tmp
     assert model_j.weight_decay == 0.01
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + CF2)
 def test_device_sampler_is_jax_runners(cf_dataset, name):
     """Users with replacement, one positive and one negative, as
-    recboard_tpu's runner gives every general CF model."""
+    recboard_tpu's runner gives every general CF model (AlphaRec too, whose
+    host pipe draws num_negs)."""
     cfg = _cfg(cf_dataset, batch_size=BATCH, maxlen=50, on_device_sampling=True,
-               ranking="full")
+               ranking="full", **({"tfile": FEATURES} if name == "AlphaRec" else {}))
     model = run.build_model(name, _port_dataset(cf_dataset), cfg, "cpu")
     sampler = run.device_sampler(model, 50, BATCH, "cpu")
     want = run_jax.build_pipes(run_jax.build_model(name, cf_dataset, cfg), cfg)[0]
@@ -319,19 +344,21 @@ def test_device_sampler_is_jax_runners(cf_dataset, name):
     assert sampler.steps_per_epoch == want.steps_per_epoch
     batch = sampler.sample(0)
     assert batch.keys() == {model.User, model.IPos, model.INeg}
+    assert batch[model.INeg].shape == (BATCH, 1)
     loss, _ = model.fit(batch, torch.Generator())
     assert torch.isfinite(loss)
 
 
 # -------------------------------------------------------- run and serve
 RUNS = [("GCN", "host"), ("NGCF", "host"), ("SimGCL", "host"), ("SGL", "host"),
-        ("SGL", "ods")]
+        ("SGL", "ods"), ("JGCF", "host"), ("PairNorm", "host"), ("CAGCN", "host"),
+        ("AlphaRec", "host"), ("AlphaRec", "ods")]
 
 
 @pytest.fixture(scope="module")
 def runs(cf_dataset, tmp_path_factory):
     """Each model trained by the port on the CPU for three epochs
-    (``RUNS``: SGL also device-sampled): {(name, pipe): run dir}."""
+    (``RUNS``: SGL and AlphaRec also device-sampled): {(name, pipe): run dir}."""
     from recboard_tpu_torch import cli
 
     out = {}
@@ -368,7 +395,7 @@ def test_run_trains_and_is_served_by_both_packages(runs, tmp_path, name, pipe):
     assert compare_topk(want, got) == []
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + CF2)
 def test_run_asks_for_the_card_unless_told_the_cpu(cf_dataset, tmp_path, name, monkeypatch):
     """Without ``--device`` the run asks for the card, and with no card it
     raises (one is hidden where the host has one)."""
@@ -376,4 +403,5 @@ def test_run_asks_for_the_card_unless_told_the_cpu(cf_dataset, tmp_path, name, m
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(["--model", name, "--root", cf_dataset.root, "--dataset", cf_dataset.dataset,
                   "--epochs", "1", "--log2console", "false", "--log-path",
-                  str(tmp_path / "logs"), "--checkpoint-path", str(tmp_path / "ck")])
+                  str(tmp_path / "logs"), "--checkpoint-path", str(tmp_path / "ck")]
+                 + (["--tfile", FEATURES] if name == "AlphaRec" else []))

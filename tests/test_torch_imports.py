@@ -39,7 +39,9 @@ def test_port_modules_import_without_jax():
                  "models.zoo.caser", "models.zoo.sevo", "models.zoo.lessr",
                  "models.zoo.graph_cf", "models.zoo.simplex", "models.zoo.ultragcn",
                  "models.zoo.gte", "models.zoo.gcn", "models.zoo.ngcf",
-                 "models.zoo.simgcl", "models.zoo.sgl", "optims", "graph",
+                 "models.zoo.simgcl", "models.zoo.sgl", "models.zoo.jgcf",
+                 "models.zoo.pairnorm", "models.zoo.cagcn", "models.zoo.alpharec",
+                 "optims", "graph",
                  "serve", "data.device", "data.synthetic"):
         assert f"recboard_tpu_torch.{name}" in modules
     code = (

@@ -5,6 +5,11 @@ branch of ``evaluate``).
 * A checkpoint loads back exactly: parameters, optimizer state, the
   Coach's generator state, the history and the early-stopping state; a
   missing one warns and starts afresh; orbax stays refused.
+* The Coach draws from a stream of its own (``utils.coach_seed``), apart
+  from the one the weights are initialised from, also where a resumed
+  checkpoint's generator state is from another device type: its first draw
+  is not the init's first draw, and SimGCL's first noise is not an affine
+  map of its initial tables (as JAX splits one key for the two).
 * Two epochs straight and one epoch plus ``--resume`` give bit-identical
   losses and parameters on the CPU, through the host pipe and through a
   device sampler, with dropout (and HSTU's negatives, BERT4Rec's masks)
@@ -113,6 +118,70 @@ def test_resume_without_checkpoint_warns_and_starts_afresh(port_dataset, tmp_pat
     assert coach.resume() == 0
     assert warned == ["[Coach] >>> no checkpoint found; fresh start"]
     assert _sasrec_coach(port_dataset, tmp_path, seed=0).resume() == 0
+
+
+def test_coach_stream_is_not_the_inits(port_dataset, tmp_path):
+    """At one seed the Coach's first draw is not the init's first draw; the
+    same seed gives the same Coach stream, from ``utils.coach_seed``."""
+    coach = _sasrec_coach(port_dataset, tmp_path, seed=5)  # cfg.seed 5, as the init's
+    init = torch.Generator().manual_seed(5)  # run.build_model's
+    drawn = torch.rand(64, generator=coach.generator)
+    assert not torch.equal(drawn, torch.rand(64, generator=init))
+    again = _sasrec_coach(port_dataset, tmp_path, seed=5)
+    assert torch.equal(torch.rand(64, generator=again.generator), drawn)
+    want = torch.Generator().manual_seed(utils.coach_seed(5))
+    assert torch.equal(torch.rand(64, generator=want), drawn)
+    assert utils.coach_seed(5) != 5 and utils.coach_seed(5) != utils.coach_seed(6)
+
+
+def test_resume_from_another_device_type_reseeds_the_coach_stream(port_dataset, tmp_path):
+    """A checkpoint whose generator state is of another device type (a CUDA
+    generator's 16 bytes) reseeds the Coach's generator from
+    ``utils.coach_seed(cfg.seed)``, as a fresh Coach seeds it."""
+    coach = _sasrec_coach(port_dataset, tmp_path, seed=0)
+    coach.save_checkpoint(0)
+    coach._join_checkpoint_writer()
+    file_ = coach._checkpoint_file()
+    payload = torch.load(file_, weights_only=True)
+    payload["generator"] = torch.zeros(16, dtype=torch.uint8)
+    torch.save(payload, file_)
+    fresh = _sasrec_coach(port_dataset, tmp_path, seed=1)
+    torch.rand(8, generator=fresh.generator)  # moved on, so the reseed shows
+    assert fresh.load_checkpoint() == 0
+    want = _sasrec_coach(port_dataset, tmp_path, seed=2).generator
+    assert torch.equal(fresh.generator.get_state(), want.get_state())
+    derived = torch.Generator().manual_seed(utils.coach_seed(5))  # cfg.seed 5
+    assert torch.equal(fresh.generator.get_state(), derived.get_state())
+
+
+def test_simgcl_first_noise_is_not_an_affine_map_of_its_init(port_dataset, tmp_path,
+                                                              monkeypatch):
+    """SimGCL's tables start xavier-uniform from the init's stream; its first
+    noise in a CPU run comes from the Coach's. Were the two one stream, the
+    noise's first U x D draws would be the user table's draws again (an
+    affine map of it, correlation 1)."""
+    argv = ["--model", "SimGCL", "--root", port_dataset.root, "--dataset",
+            port_dataset.dataset, "--seed", "3", "--batch-size", "16", "--embedding-dim", "8",
+            "--num_layers", "1", "--log2console", "false", "--log-path", str(tmp_path / "logs"),
+            "--checkpoint-path", str(tmp_path / "infos")]
+    cfg = run.build_parser().compile(argv + ["--description", "SimGCL"])
+    model = run.build_model("SimGCL", port_dataset, cfg, "cpu")
+    table = model.user_embeddings.weight.detach().clone()
+    coach = Coach(port_dataset, run.train_pipe(model, 50, 16), None, None, model, cfg, "cpu")
+    drawn, rand = [], torch.rand
+
+    def recorded(*args, **kwargs):
+        out = rand(*args, **kwargs)
+        drawn.append(out)
+        return out
+
+    monkeypatch.setattr(torch, "rand", recorded)
+    coach.trainpipe.set_seed(3)
+    coach.train_step(coach.to_device(next(iter(coach.trainpipe))))
+    monkeypatch.undo()
+    noise = drawn[0][:table.shape[0]].flatten().double()
+    corr = np.corrcoef(noise.numpy(), table.flatten().double().numpy())[0, 1]
+    assert abs(corr) < 0.2, corr
 
 
 def test_orbax_checkpoint_backend_is_refused(tiny_dataset, tmp_path):
